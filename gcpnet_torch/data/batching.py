@@ -1,0 +1,142 @@
+"""Padded shape buckets, collation and the receiver-sorted edge layout.
+
+Port of the edge-list parts of ``gcpnet_tpu/data/batching.py``.  Host-side
+numpy; the result goes to the card through ``GraphBatch.to``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+
+from gcpnet_torch.graph import GraphBatch, GraphData, batch_graphs
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    """One static padded shape: (nodes, edges, graphs) per batch."""
+
+    num_nodes: int
+    num_edges: int
+    num_graphs: int
+
+
+def sort_edges_by_receiver(batch: GraphBatch, tile: int = 128) -> GraphBatch:
+    """Reorder a batch's edges so real edges are sorted by receiver and
+    attach ``[N+1]`` row splits: node ``n`` owns edge rows
+    ``[splits[n], splits[n+1])``.
+
+    Each ``tile``-node group's edge segment is padded up to a ``tile``-edge
+    boundary (the TPU kernel's DMA alignment).  The alignment holes are
+    padding rows that fall inside the range of the last node of each group,
+    so every consumer must mask them.  ``tile=1`` gives plain CSR splits with
+    no holes.  Without enough spare edge slots for the alignment the edges
+    are still sorted but no splits are attached.
+    """
+    receivers = np.asarray(batch.receivers)
+    num_edges = receivers.shape[0]
+    num_nodes = batch.num_nodes
+    if num_nodes == num_edges:
+        # extras are reordered when their leading dim equals num_edges; with
+        # equal counts node-level extras would be scrambled
+        raise ValueError(
+            "sort_edges_by_receiver: bucket has num_nodes == num_edges "
+            f"({num_nodes}); extras reordering would be ambiguous — pad the "
+            "bucket so the counts differ"
+        )
+    pad = ~np.asarray(batch.edge_pad_mask)
+    order = np.lexsort(
+        (np.arange(num_edges), receivers + pad * (num_nodes + 1))
+    )
+    real = int((~pad).sum())
+    sorted_recv = receivers[order][:real]
+    counts = np.bincount(sorted_recv, minlength=num_nodes)
+
+    n_tiles = (num_nodes + tile - 1) // tile
+    tile_counts = np.add.reduceat(
+        np.pad(counts, (0, n_tiles * tile - num_nodes)),
+        np.arange(0, n_tiles * tile, tile),
+    )
+    aligned = ((tile_counts + tile - 1) // tile) * tile
+    total_aligned = int(aligned.sum())
+
+    if total_aligned > num_edges:
+        splits = None
+        final_order = order
+    else:
+        tile_starts = np.concatenate([[0], np.cumsum(aligned)[:-1]])
+        cum_real = np.concatenate([[0], np.cumsum(tile_counts)[:-1]])
+        recv_tile = sorted_recv // tile
+        within = np.arange(real) - cum_real[recv_tile]
+        dest = tile_starts[recv_tile] + within
+        final_order = np.full(num_edges, -1, dtype=np.int64)
+        final_order[dest] = order[:real]
+        # the remaining slots (holes and tail) take the padding edges;
+        # total_aligned <= num_edges guarantees there are enough
+        spare = order[real:]
+        holes = np.where(final_order < 0)[0]
+        final_order[holes[: spare.shape[0]]] = spare
+        splits_within = np.concatenate([[0], np.cumsum(counts)])
+        node_tile = np.arange(num_nodes) // tile
+        node_local_start = splits_within[:-1] - cum_real[node_tile]
+        starts = tile_starts[node_tile] + node_local_start
+        ends = starts + counts
+        splits = np.concatenate([starts, [ends[-1] if num_nodes else 0]])
+        splits = splits.astype(np.int32)
+
+    def reorder(arr):
+        return None if arr is None else np.asarray(arr)[final_order]
+
+    extras = {
+        k: (
+            np.asarray(v)[final_order]
+            if np.asarray(v).shape[:1] == receivers.shape
+            else v
+        )
+        for k, v in batch.extras.items()
+    }
+    return batch.replace(
+        e=reorder(batch.e),
+        xi=reorder(batch.xi),
+        senders=reorder(batch.senders),
+        receivers=reorder(batch.receivers),
+        edge_pad_mask=np.asarray(batch.edge_pad_mask)[final_order],
+        edge_row_splits=splits,
+        extras=extras,
+    )
+
+
+def collate_shards(
+    shard_graphs: Sequence[Sequence[GraphData]],
+    bucket: Bucket,
+    extra_graph_keys: Sequence[str] = (),
+    like: Optional[GraphData] = None,
+    sort_edges: bool = False,
+    sort_tile: int = 128,
+) -> GraphBatch:
+    """Pad one shard's graphs into ``bucket`` and optionally sort its edges
+    by receiver (``sort_tile`` is :func:`sort_edges_by_receiver`'s
+    ``tile``).
+
+    The JAX package concatenates several shard-local sub-batches for its
+    data-parallel mesh; the port runs on one card, so exactly one shard is
+    accepted until data parallelism is ported.
+    """
+    if len(shard_graphs) != 1:
+        raise ValueError(
+            f"collate_shards: the port takes one shard, got {len(shard_graphs)}"
+        )
+    graphs = shard_graphs[0]
+    batch = batch_graphs(
+        graphs,
+        num_nodes=bucket.num_nodes,
+        num_edges=bucket.num_edges,
+        num_graphs=bucket.num_graphs,
+        extra_graph_keys=extra_graph_keys,
+        like=like if like is not None else (graphs[0] if graphs else None),
+    )
+    if sort_edges:
+        batch = sort_edges_by_receiver(batch, tile=sort_tile)
+    return batch

@@ -1,0 +1,131 @@
+"""Shared model-building blocks: masks, centring + frames, the pooled
+invariant head and the encoder trunk.
+
+Port of ``gcpnet_tpu/models/common.py``.  The encoder is a plain loop over
+its interaction layers (the JAX package may scan them; the math is the
+same).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor, nn
+
+from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg
+from gcpnet_torch.graph import GraphBatch
+from gcpnet_torch.nn.embedding import GCPEmbedding
+from gcpnet_torch.nn.frames import centralize, localize, node_mean_frames
+from gcpnet_torch.nn.gcp import Dense, make_gcp
+from gcpnet_torch.nn.interactions import GCPInteractions
+from gcpnet_torch.nn.primitives import GCPLayerNorm, ScalarVector
+from gcpnet_torch.ops.segment import segment_mean
+
+
+def batch_masks(batch: GraphBatch) -> Tuple[Tensor, Tensor]:
+    """(edge_mask numerator, count_mask denominator): the denominator of the
+    masked frame means counts every real edge."""
+    return batch.valid_edge_mask(), batch.edge_pad_mask
+
+
+def centralize_and_frames(batch: GraphBatch, norm_x_diff: bool = True):
+    """Returns (centroid [G, 3], centred x [N, 3], frames [E, 9])."""
+    centroid, centered = centralize(
+        batch.x, batch.graph_id, batch.num_graphs, node_mask=batch.valid_node_mask()
+    )
+    edge_mask, _ = batch_masks(batch)
+    frames = localize(
+        centered, batch.senders, batch.receivers, norm_x_diff=norm_x_diff, edge_mask=edge_mask
+    )
+    return centroid, centered, frames
+
+
+class InvariantPooledHead(nn.Module):
+    """GCPLayerNorm -> invariant-projection GCP -> graph mean-pool -> dense
+    MLP head."""
+
+    def __init__(
+        self,
+        node_dims: Tuple[int, int],
+        cfg: ModuleCfg,
+        output_dim: int = 1,
+        output_scale_factor: int = 2,
+        *,
+        generator: torch.Generator,
+        device,
+    ):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.output_dim = output_dim
+        self.projection_norm = GCPLayerNorm(node_dims[0], device=device)
+        self.invariant_node_projection = make_gcp(
+            node_dims, (node_dims[0], 0), cfg,
+            nonlinearities=cfg.nonlinearities, bottleneck=1, vector_residual=False, **kw,
+        )
+        hidden = node_dims[0] * output_scale_factor
+        self.dense_0 = Dense(node_dims[0], hidden, **kw)
+        self.dense_1 = Dense(hidden, output_dim, **kw)
+
+    def forward(
+        self,
+        node_rep: ScalarVector,
+        batch: GraphBatch,
+        frames: Tensor,
+        edge_mask: Optional[Tensor],
+        count_mask: Optional[Tensor],
+    ) -> Tensor:
+        out = self.projection_norm(node_rep)
+        nf = node_mean_frames(frames, batch.senders, node_rep.scalar.shape[0], edge_mask, count_mask)
+        out = self.invariant_node_projection(out, nf)
+        pooled = segment_mean(out, batch.graph_id, batch.num_graphs, mask=batch.valid_node_mask())
+        # dense dropout is the identity at prediction
+        y = self.dense_1(torch.relu(self.dense_0(pooled)))
+        return y[..., 0] if self.output_dim == 1 else y
+
+
+class GCPNetEncoder(nn.Module):
+    """Embedding + a stack of interaction layers (the shared trunk)."""
+
+    def __init__(
+        self,
+        model_cfg: ModelCfg,
+        module_cfg: ModuleCfg,
+        layer_cfg: LayerCfg,
+        num_atom_types: int,
+        node_input_dims: Tuple[int, int],
+        *,
+        generator: torch.Generator,
+        device,
+    ):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        mc = model_cfg
+        node_dims = (mc.h_hidden_dim, mc.chi_hidden_dim)
+        edge_dims = (mc.e_hidden_dim, mc.xi_hidden_dim)
+        self.gcp_embedding = GCPEmbedding(
+            edge_input_dims=(mc.e_input_dim, mc.xi_input_dim),
+            node_input_dims=node_input_dims,
+            edge_hidden_dims=edge_dims,
+            node_hidden_dims=node_dims,
+            cfg=module_cfg,
+            num_atom_types=num_atom_types,
+            **kw,
+        )
+        self.num_layers = mc.num_encoder_layers
+        for i in range(self.num_layers):
+            self.add_module(
+                f"interaction_{i}",
+                GCPInteractions(node_dims, edge_dims, module_cfg, layer_cfg, dropout=mc.dropout, **kw),
+            )
+
+    def forward(self, batch: GraphBatch, frames: Tensor, deterministic: bool = True):
+        edge_mask, count_mask = batch_masks(batch)
+        node_rep, edge_rep = self.gcp_embedding(batch, frames, edge_mask, count_mask)
+        for i in range(self.num_layers):
+            node_rep = getattr(self, f"interaction_{i}")(
+                node_rep, edge_rep, batch.senders, batch.receivers, frames,
+                node_mask=batch.node_mask, edge_mask=edge_mask, count_mask=count_mask,
+                row_splits=batch.edge_row_splits, deterministic=deterministic,
+            )
+        return node_rep, edge_rep

@@ -1,0 +1,80 @@
+"""Input embedding for nodes and edges.
+
+Port of ``gcpnet_tpu/nn/embedding.py`` as LBA uses it: the atom-type
+embedding table, GCPLayerNorm of the inputs (pre-norm), then one edge GCP
+and one node GCP.  Inputs without vector channels, post-norm and the ligand
+flag are options of other task models and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor, nn
+
+from gcpnet_torch.config.schema import ModuleCfg
+from gcpnet_torch.graph import GraphBatch
+from gcpnet_torch.nn.frames import node_mean_frames
+from gcpnet_torch.nn.gcp import make_gcp
+from gcpnet_torch.nn.primitives import GCPLayerNorm, ScalarVector, pack_vector
+
+
+class Embed(nn.Module):
+    """Lookup table with parameter ``embedding`` ``[num, features]``
+    (flax ``nn.Embed``), initialised ``N(0, 1/features)``."""
+
+    def __init__(self, num_embeddings: int, features: int, *, generator: torch.Generator, device):
+        super().__init__()
+        w = torch.randn((num_embeddings, features), generator=generator) / math.sqrt(features)
+        self.embedding = nn.Parameter(w.to(device))
+
+    def forward(self, ids: Tensor) -> Tensor:
+        return self.embedding[ids]
+
+
+class GCPEmbedding(nn.Module):
+    def __init__(
+        self,
+        edge_input_dims: Tuple[int, int],
+        node_input_dims: Tuple[int, int],
+        edge_hidden_dims: Tuple[int, int],
+        node_hidden_dims: Tuple[int, int],
+        cfg: ModuleCfg,
+        num_atom_types: int,
+        *,
+        generator: torch.Generator,
+        device,
+    ):
+        super().__init__()
+        if cfg.concatenate_lig_flag:
+            raise NotImplementedError("GCPEmbedding: the ligand-flag embedding is not ported yet")
+        if num_atom_types <= 0 or edge_input_dims[1] <= 0 or node_input_dims[1] <= 0:
+            raise NotImplementedError(
+                "GCPEmbedding: only atom-type inputs with node and edge vectors are ported"
+            )
+        kw = dict(generator=generator, device=device)
+        self.atom_embedding = Embed(num_atom_types, num_atom_types, **kw)
+        self.edge_normalization = GCPLayerNorm(edge_input_dims[0], device=device)
+        self.node_normalization = GCPLayerNorm(node_input_dims[0], device=device)
+        # embedding GCPs: no nonlinearities, bottleneck 1, no vector residual
+        overrides = dict(nonlinearities=(None, None), bottleneck=1, vector_residual=False)
+        self.edge_embedding = make_gcp(edge_input_dims, edge_hidden_dims, cfg, **overrides, **kw)
+        self.node_embedding = make_gcp(node_input_dims, node_hidden_dims, cfg, **overrides, **kw)
+
+    def forward(
+        self,
+        batch: GraphBatch,
+        frames: Tensor,
+        edge_mask: Optional[Tensor] = None,
+        count_mask: Optional[Tensor] = None,
+    ) -> Tuple[ScalarVector, ScalarVector]:
+        node_rep = ScalarVector(self.atom_embedding(batch.h), pack_vector(batch.chi))
+        edge_rep = ScalarVector(batch.e, pack_vector(batch.xi))
+        edge_rep = self.edge_normalization(edge_rep)
+        node_rep = self.node_normalization(node_rep)
+        edge_out = self.edge_embedding(edge_rep, frames, edge_mask)
+        nf = node_mean_frames(frames, batch.senders, batch.h.shape[0], edge_mask, count_mask)
+        node_out = self.node_embedding(node_rep, nf)
+        return node_out, edge_out

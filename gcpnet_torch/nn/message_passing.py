@@ -1,0 +1,164 @@
+"""Geometry-complete message passing.
+
+Port of ``gcpnet_tpu/nn/message_passing.py`` in its receiver-keyed,
+non-attention form: every edge builds the message ``[src node ‖ edge ‖ dst
+node]``, a (Res)GCP2 stack maps it, and a masked mean reduces the messages
+into their receivers.  (The sum reduce of the autoregressive branch comes
+with the task models that use it.)
+
+When the batch carries receiver-sorted ``row_splits`` the stack runs as one
+fused edge map (``ops.edge_map``, kernel K2) and the reduction as the
+sorted segment sum (``ops.segment_sorted``, kernel K1), as the JAX
+package's ``"fused"`` configuration does; otherwise the stack runs module
+by module and the reduction is an ``index_add_``.  Both give the same math.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor, nn
+
+from gcpnet_torch.config.schema import LayerCfg, ModuleCfg
+from gcpnet_torch.nn.gcp import GCP2, GCPSettings, make_gcp
+from gcpnet_torch.nn.primitives import ScalarVector
+from gcpnet_torch.ops.edge_map import PackedStack, StackLayer, edge_map, pack_stack
+from gcpnet_torch.ops.segment import segment_mean
+
+
+def _fast_supported(settings: GCPSettings, input_dims, output_dims) -> bool:
+    """The settings the fused stack covers (the JAX ``_fast_supported``
+    set, restricted to GCP2, the only variant ported)."""
+    st = settings
+    if input_dims[1] <= 0 or output_dims[1] <= 0:
+        return False
+    return not (
+        st.frame_gate
+        or st.sigma_frame_gate
+        or st.enable_e3_equivariance
+        or st.ablate_frame_updates
+        or st.ablate_scalars
+        or st.ablate_vectors
+    )
+
+
+def _stack_layer(module: GCP2) -> StackLayer:
+    st = module.settings
+    gate = module.vector_out_scale if st.vector_gate else None
+    return StackLayer(
+        w_down=torch.cat([module.vector_down.kernel, module.vector_down_frames.kernel], dim=1).float(),
+        w_so=module.scalar_out.kernel.float(),
+        b_so=module.scalar_out.bias.float(),
+        w_up=module.vector_up.kernel.float(),
+        w_gate=None if gate is None else gate.kernel.float(),
+        b_gate=None if gate is None else gate.bias.float(),
+        act_s=st.scalar_nonlinearity,
+        act_v=st.vector_nonlinearity,
+        slope=st.nonlinearity_slope,
+        vector_residual=st.vector_residual,
+    )
+
+
+class GCPMessagePassing(nn.Module):
+    def __init__(
+        self,
+        input_dims: Tuple[int, int],
+        output_dims: Tuple[int, int],
+        edge_dims: Tuple[int, int],
+        cfg: ModuleCfg,
+        layer_cfg: LayerCfg,
+        *,
+        generator: torch.Generator,
+        device,
+    ):
+        super().__init__()
+        self.output_dims = tuple(output_dims)
+        self.residual = layer_cfg.mp_cfg.use_residual_message_gcp
+        s_in, v_in = input_dims
+        e_s, e_v = edge_dims
+        n_layers = layer_cfg.mp_cfg.num_message_layers
+        # first/last GCP: default bottleneck and default vector residual
+        soft = dict(bottleneck=cfg.default_bottleneck, vector_residual=cfg.default_vector_residual)
+        specs = [
+            dict(
+                input_dims=(2 * s_in + e_s, 2 * v_in + e_v),
+                nonlinearities=cfg.nonlinearities if n_layers > 1 else None,
+                **soft,
+            )
+        ]
+        specs += [dict(input_dims=self.output_dims) for _ in range(max(0, n_layers - 2))]
+        if n_layers > 1:
+            specs.append(dict(input_dims=self.output_dims, nonlinearities=(None, None), **soft))
+        for i, spec in enumerate(specs):
+            dims = spec.pop("input_dims")
+            self.add_module(
+                f"message_fusion_{i}",
+                make_gcp(dims, self.output_dims, cfg, generator=generator, device=device, **spec),
+            )
+        self.fast_supported = all(
+            _fast_supported(m.settings, m.input_dims, m.output_dims) for m in self.stack
+        )
+        self._packed: Optional[PackedStack] = None
+        self._packed_key = None
+
+    @property
+    def stack(self):
+        return list(self.children())
+
+    def packed_stack(self) -> PackedStack:
+        """The stack's weights in the edge-map kernel's layout, derived once
+        and re-derived only when a parameter changes (``load_state_dict``,
+        ``.to(...)``)."""
+        # inference tensors (made under torch.inference_mode) keep no version
+        key = tuple(
+            (p.data_ptr(), 0 if p.is_inference() else p._version, p.dtype, p.device)
+            for p in self.parameters()
+        )
+        if key != self._packed_key:
+            self._packed = pack_stack([_stack_layer(m) for m in self.stack], self.residual)
+            self._packed_key = key
+        return self._packed
+
+    def forward(
+        self,
+        node_rep: ScalarVector,
+        edge_rep: ScalarVector,
+        senders: Tensor,
+        receivers: Tensor,
+        frames: Tensor,
+        edge_mask: Optional[Tensor] = None,
+        count_mask: Optional[Tensor] = None,
+        row_splits: Optional[Tensor] = None,
+        frame_mask: Optional[Tensor] = None,
+    ) -> ScalarVector:
+        """``edge_mask`` gates the aggregation; ``frame_mask`` (default
+        ``edge_mask``) gates the scalarize numerators inside the stack;
+        ``count_mask`` gates the mean's denominator."""
+        num_nodes = node_rep.scalar.shape[0]
+        fm = frame_mask if frame_mask is not None else edge_mask
+        flat_nodes = node_rep.flatten()
+        v_dim = node_rep.dims[1]
+        src = ScalarVector.recover(flat_nodes[senders], v_dim)
+        dst = ScalarVector.recover(flat_nodes[receivers], v_dim)
+        message = src.concat((edge_rep, dst))
+
+        if row_splits is not None and self.fast_supported:
+            fr = frames if fm is None else frames * fm[:, None].to(frames.dtype)
+            flat = edge_map(message.flatten(), fr.contiguous(), self.packed_stack())
+        else:
+            stack = self.stack
+            if self.residual:
+                rep = stack[0](message, frames, fm)
+                for module in stack[1:]:
+                    rep = rep + module(rep, frames, fm)
+            else:
+                rep = message
+                for module in stack:
+                    rep = module(rep, frames, fm)
+            flat = rep.flatten()
+
+        agg = segment_mean(
+            flat, receivers, num_nodes, mask=edge_mask, count_mask=count_mask, row_splits=row_splits
+        )
+        return ScalarVector.recover(agg, self.output_dims[1])

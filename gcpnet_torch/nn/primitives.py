@@ -1,0 +1,166 @@
+"""Geometric feature primitives.
+
+Port of ``gcpnet_tpu/nn/primitives.py``.  Layout convention, kept from the
+JAX package so both compare like with like: a ``c``-channel 3-vector
+feature is PACKED as ``[..., 3*c]`` with axis-major blocks ``[x-block |
+y-block | z-block]`` (each block ``c`` wide).  ``pack_vector`` converts from
+the public ``[..., c, 3]`` layout of ``GraphBatch.chi`` / ``xi``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor, nn
+
+
+def pack_vector(v: Tensor) -> Tensor:
+    """``[..., c, 3] -> [..., 3c]`` with x/y/z axis-major blocks."""
+    return v.movedim(-1, -2).reshape(*v.shape[:-2], 3 * v.shape[-2])
+
+
+def vec_components(vp: Tensor):
+    """The three ``[..., c]`` axis blocks."""
+    c = vp.shape[-1] // 3
+    return vp[..., :c], vp[..., c : 2 * c], vp[..., 2 * c :]
+
+
+def vec_sq_norm(vp: Tensor) -> Tensor:
+    """Per-channel squared L2 over xyz: ``[..., 3c] -> [..., c]``."""
+    x, y, z = vec_components(vp)
+    return x * x + y * y + z * z
+
+
+class ScalarVector(NamedTuple):
+    """Paired invariant scalar ``[..., ds]`` and equivariant PACKED vector
+    ``[..., 3*dv]`` channels."""
+
+    scalar: Tensor
+    vector: Tensor
+
+    def __add__(self, other):  # type: ignore[override]
+        return ScalarVector(self.scalar + other[0], self.vector + other[1])
+
+    def concat(self, others) -> "ScalarVector":
+        """Channel concat; the packed vectors are concatenated per axis
+        block, so the result stays ``[x | y | z]``."""
+        items = (self, *others)
+        comps = [vec_components(it[1]) for it in items]
+        return ScalarVector(
+            torch.cat([it[0] for it in items], dim=-1),
+            torch.cat([c[a] for a in range(3) for c in comps], dim=-1),
+        )
+
+    def flatten(self) -> Tensor:
+        """``[..., ds] ++ [..., 3*dv] -> [..., ds + 3*dv]``."""
+        return torch.cat([self.scalar, self.vector], dim=-1)
+
+    @staticmethod
+    def recover(x: Tensor, vector_dim: int) -> "ScalarVector":
+        """Inverse of :meth:`flatten`."""
+        if vector_dim == 0:
+            return ScalarVector(x, x.new_zeros(x.shape[:-1] + (0,)))
+        return ScalarVector(x[..., : -3 * vector_dim], x[..., -3 * vector_dim :])
+
+    @property
+    def dims(self):
+        return self.scalar.shape[-1], self.vector.shape[-1] // 3
+
+
+def safe_norm(
+    x: Tensor, dim: int = -1, keepdim: bool = False, eps: float = 1e-8, sqrt: bool = True
+) -> Tensor:
+    """``sqrt(sum(x^2) + eps) + eps``."""
+    norm = (x * x).sum(dim=dim, keepdim=keepdim)
+    if sqrt:
+        norm = torch.sqrt(norm + eps)
+    return norm + eps
+
+
+def safe_vec_norm(vp: Tensor, eps: float = 1e-8) -> Tensor:
+    """Packed per-channel safe norm: ``[..., 3c] -> [..., c]``."""
+    return torch.sqrt(vec_sq_norm(vp) + eps) + eps
+
+
+def is_identity(name: Optional[str]) -> bool:
+    return name is None or name == "" or name == "none"
+
+
+def get_nonlinearity(name: Optional[str], slope: float = 0.01) -> Callable[[Tensor], Tensor]:
+    """Name -> activation function (the JAX package's table)."""
+    if is_identity(name):
+        return lambda x: x
+    table = {
+        "relu": F.relu,
+        "leakyrelu": lambda x: F.leaky_relu(x, negative_slope=slope),
+        "selu": F.selu,
+        "silu": F.silu,
+        "swish": F.silu,
+        # jax.nn.gelu defaults to the tanh approximation
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "sigmoid": torch.sigmoid,
+        "tanh": torch.tanh,
+    }
+    if name not in table:
+        raise NotImplementedError(f"nonlinearity '{name}' is not supported")
+    return table[name]
+
+
+def norm_vector_channels(vp: Tensor, eps: float = 1e-8) -> Tensor:
+    """Divide packed vectors by the RMS over channels of each channel's
+    clamped squared norm."""
+    sq = torch.clamp(vec_sq_norm(vp), min=eps)
+    return vp / torch.sqrt(sq.mean(dim=-1, keepdim=True))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: parameters ``scale`` and
+    ``bias``, epsilon 1e-6, statistics in float32."""
+
+    def __init__(self, dim: int, *, device: torch.device, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = F.layer_norm(
+            x.float(), (x.shape[-1],), self.scale.float(), self.bias.float(), self.eps
+        )
+        return y.to(x.dtype)
+
+
+class GCPLayerNorm(nn.Module):
+    """Scalar LayerNorm (learned affine) + nonparametric vector norm."""
+
+    def __init__(self, scalar_dim: int, *, device: torch.device, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+        self.scalar_norm = LayerNorm(scalar_dim, device=device)
+
+    def forward(self, x: Union[Tensor, ScalarVector]) -> Union[Tensor, ScalarVector]:
+        if isinstance(x, ScalarVector):
+            s = self.scalar_norm(x.scalar)
+            if x.vector.shape[-1] == 0:
+                return ScalarVector(s, x.vector)
+            return ScalarVector(s, norm_vector_channels(x.vector, eps=self.eps))
+        return self.scalar_norm(x)
+
+
+class GCPDropout(nn.Module):
+    """Paired scalar / vector-channel dropout.  The port serves predictions
+    only so far, where dropout is the identity; training-mode dropout comes
+    with the training step."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, deterministic: bool = True):
+        if self.rate == 0.0 or deterministic:
+            return x
+        raise NotImplementedError(
+            "GCPDropout: training-mode dropout is not ported yet"
+        )

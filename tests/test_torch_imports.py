@@ -1,0 +1,54 @@
+"""gcpnet_torch and chip_smoke.py import nothing of JAX, flax or gcpnet_tpu:
+every module of the package, the chip script, the card's tests
+(``test_torch_gpu.py``, which run where JAX is absent) and a CPU prediction
+run in a fresh interpreter whose import system refuses those packages."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+PROBE = r"""
+import importlib.abc, importlib.util, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "gcpnet_tpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in BLOCKED:
+        del sys.modules[mod]
+sys.meta_path.insert(0, Refuse())
+
+import gcpnet_torch
+
+names = [m.name for m in pkgutil.walk_packages(gcpnet_torch.__path__, "gcpnet_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name, path in (("chip_smoke", "chip_smoke.py"), ("test_torch_gpu", "tests/test_torch_gpu.py")):
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+
+from gcpnet_torch.predict import main
+
+main(["--graphs", "1", "--nodes", "8", "--edges-per-node", "4", "--device", "cpu"])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("modules", len(names))
+"""
+
+
+def test_port_imports_no_jax_flax_or_reference():
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n_modules = int(proc.stdout.split("modules")[-1])
+    assert n_modules >= 20

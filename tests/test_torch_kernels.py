@@ -1,0 +1,223 @@
+"""The two kernels of the port's forward path against the JAX package's
+Pallas kernels, on the CPU (Pallas in interpret mode, the port's wrappers on
+their plain versions).  The CUDA kernels are held against their plain
+versions on the card in ``test_torch_gpu.py``.
+
+K1 (segment_sum_sorted) at fp32: atol 1e-4, the float32 sums in another
+order.  K2 (edge_map) at fp32: atol 5e-6 on the Pallas kernel's own rows,
+the same float32 math in another order (a misplaced norm eps shows as
+~3e-5 on rows with zero vectors); 1e-4 through the whole message passing.
+"""
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import gcpnet_tpu.nn.message_passing as jmp
+import gcpnet_tpu.ops.pallas_fused as jpallas_fused
+from _torch_parity import load_jax_params, np_, random_graphs, t
+from gcpnet_tpu.config.schema import LayerCfg as JLayerCfg
+from gcpnet_tpu.config.schema import ModuleCfg as JModuleCfg
+from gcpnet_tpu.config.schema import MPCfg as JMPCfg
+from gcpnet_tpu.nn.primitives import ScalarVector as JScalarVector
+from gcpnet_tpu.ops.pallas_segment import segment_sum_sorted as jsegment_sum_sorted
+from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
+from gcpnet_torch.data.batching import sort_edges_by_receiver
+from gcpnet_torch.graph import GraphData, batch_graphs
+from gcpnet_torch.nn.message_passing import GCPMessagePassing
+from gcpnet_torch.nn.primitives import ScalarVector as ScalarVectorT
+from gcpnet_torch.ops.edge_map import edge_map
+from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
+
+
+def sorted_batch(rng, tile, nodes=70, graphs=2, edges=300, bucket_edges=900):
+    """A receiver-sorted batch: with ``tile=128`` the tile-aligned layout with
+    alignment holes, with ``tile=1`` plain CSR splits."""
+    gs = random_graphs(rng, num_graphs=graphs, nodes=nodes, edges=edges)
+    batch = batch_graphs(
+        [GraphData(**g) for g in gs], graphs * nodes + 3, bucket_edges, graphs + 1,
+        extra_graph_keys=("label",),
+    )
+    out = sort_edges_by_receiver(batch, tile=tile)
+    assert out.edge_row_splits is not None
+    return out
+
+
+@pytest.mark.parametrize("dim", [148, 9, 1])
+@pytest.mark.parametrize("tile", [128, 1])
+def test_k1_plain_matches_pallas(rng, tile, dim):
+    batch = sorted_batch(rng, tile)
+    splits = batch.edge_row_splits
+    n = batch.num_nodes
+    data = rng.normal(size=(batch.num_edges, dim)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jsegment_sum_sorted(data, splits, n))
+    got = segment_sum_sorted(t(data), torch.from_numpy(splits), n)
+    np.testing.assert_allclose(np_(got), want, atol=1e-4)
+    # rows outside [splits[0], splits[-1]) belong to no node
+    assert splits[-1] < batch.num_edges
+    # the sorted layout's holes: summed into the last node of each tile
+    if tile == 128:
+        assert int(np.diff(splits).sum()) > int(np.asarray(batch.edge_pad_mask).sum())
+
+
+def test_k1_plain_empty_and_bf16(rng):
+    splits = torch.tensor([0, 0, 3, 3, 5], dtype=torch.int32)
+    data = torch.from_numpy(rng.normal(size=(7, 4)).astype(np.float32))
+    out = segment_sum_sorted(data, splits, 4)
+    np.testing.assert_allclose(np_(out[0]), 0.0)
+    np.testing.assert_allclose(np_(out[1]), np_(data[:3].sum(0)), atol=1e-6)
+    np.testing.assert_allclose(np_(out[2]), 0.0)
+    np.testing.assert_allclose(np_(out[3]), np_(data[3:5].sum(0)), atol=1e-6)
+    # bf16: float32 accumulation, one rounding at the end
+    out16 = segment_sum_sorted(data.bfloat16(), splits, 4)
+    assert out16.dtype == torch.bfloat16
+    ref = segment_sum_sorted_plain(data.bfloat16().float(), splits, 4).bfloat16()
+    assert torch.equal(out16, ref)
+
+
+def test_k1_wrapper_rejects_bad_inputs():
+    data = torch.zeros(8, 4)
+    splits = torch.tensor([0, 4, 8], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        segment_sum_sorted(data, splits.long(), 2)
+    with pytest.raises(ValueError):
+        segment_sum_sorted(data, splits, 3)
+    with pytest.raises(TypeError):
+        segment_sum_sorted(data.double(), splits, 2)
+    with pytest.raises(ValueError):
+        segment_sum_sorted(torch.zeros(4, 8).t(), splits, 2)
+
+
+def _message_passing_pair(num_message_layers):
+    kw = dict(num_message_layers=num_message_layers)
+    jmod = jmp.GCPMessagePassing(
+        input_dims=(16, 4), output_dims=(16, 4), edge_dims=(8, 4), cfg=JModuleCfg(),
+        layer_cfg=JLayerCfg(mp_cfg=JMPCfg(**kw)),
+    )
+    port = GCPMessagePassing(
+        (16, 4), (16, 4), (8, 4), ModuleCfg(), LayerCfg(mp_cfg=MPCfg(**kw)),
+        generator=torch.Generator().manual_seed(0), device="cpu",
+    )
+    return jmod, port
+
+
+@pytest.mark.parametrize("num_message_layers", [1, 2, 4])
+@pytest.mark.parametrize("tile", [128, 1])
+def test_k2_plain_matches_pallas_edge_map(rng, monkeypatch, tile, num_message_layers):
+    """The JAX fused configuration's message stack (fast MM-form stack inside
+    the Pallas edge map, interpret mode) against the port's plain K2 on the
+    very rows the Pallas kernel was given; then the whole message passing
+    (K2 + K1 mean) against the JAX one, on both sorted layouts."""
+    import jax
+    import jax.numpy as jnp
+
+    batch = sorted_batch(rng, tile, nodes=30, edges=120, bucket_edges=400)
+    n, e = batch.num_nodes, batch.num_edges
+    node_s = rng.normal(size=(n, 16)).astype(np.float32)
+    node_v = rng.normal(size=(n, 12)).astype(np.float32)
+    edge_s = rng.normal(size=(e, 8)).astype(np.float32)
+    edge_v = rng.normal(size=(e, 12)).astype(np.float32)
+    frames = rng.normal(size=(e, 9)).astype(np.float32)
+    # all-zero vectors on some message rows, where the eps placement of the
+    # vector norm, sqrt(x + 1e-8) + 1e-8, sets the value
+    node_v[: n // 2] = 0.0
+    edge_v[: e // 2] = 0.0
+    mask = np.asarray(batch.edge_pad_mask)
+    jmod, port = _message_passing_pair(num_message_layers)
+    args = (
+        JScalarVector(jnp.asarray(node_s), jnp.asarray(node_v)),
+        JScalarVector(jnp.asarray(edge_s), jnp.asarray(edge_v)),
+        jnp.asarray(batch.senders), jnp.asarray(batch.receivers), jnp.asarray(frames),
+    )
+    kw = dict(edge_mask=jnp.asarray(mask), count_mask=jnp.asarray(mask),
+              row_splits=jnp.asarray(batch.edge_row_splits))
+    variables = jmod.init(jax.random.key(0), *args, **kw)
+    load_jax_params(port, variables)
+
+    seen = {}
+    real_edge_map = jpallas_fused.edge_map
+
+    def recording_edge_map(fn, params, edge_data, out_dim):
+        seen["in"] = np.asarray(edge_data)
+        out = real_edge_map(fn, params, edge_data, out_dim)
+        seen["out"] = np.asarray(out)
+        return out
+
+    monkeypatch.setattr(jmp, "USE_FAST_STACK", True)
+    monkeypatch.setattr(jpallas_fused, "USE_FUSED_MESSAGE", True)
+    monkeypatch.setattr(jpallas_fused, "edge_map", recording_edge_map)
+    with pltpu.force_tpu_interpret_mode():
+        want = jmod.apply(variables, *args, **kw)
+
+    stack = port.packed_stack()
+    base = stack.in_dim
+    # the Pallas kernel's input is [message ‖ frp2]; frp2[:, :9] are the
+    # masked frames
+    message = torch.from_numpy(seen["in"][:, :base].copy())
+    masked_frames = torch.from_numpy(seen["in"][:, base : base + 9].copy())
+    got = edge_map(message, masked_frames, stack)
+    np.testing.assert_allclose(np_(got), seen["out"], atol=5e-6)
+
+    tb = batch.to("cpu")
+    got = port(
+        ScalarVectorT(t(node_s), t(node_v)), ScalarVectorT(t(edge_s), t(edge_v)),
+        tb.senders, tb.receivers, t(frames),
+        edge_mask=tb.edge_pad_mask, count_mask=tb.edge_pad_mask, row_splits=tb.edge_row_splits,
+    )
+    np.testing.assert_allclose(np_(got.scalar), np.asarray(want.scalar), atol=1e-4)
+    np.testing.assert_allclose(np_(got.vector), np.asarray(want.vector), atol=1e-4)
+
+
+def test_k2_wrapper_rejects_bad_inputs():
+    _, port = _message_passing_pair(2)
+    stack = port.packed_stack()
+    msg = torch.zeros(10, stack.in_dim)
+    with pytest.raises(ValueError):
+        edge_map(msg[:, 1:], torch.zeros(10, 9), stack)
+    with pytest.raises(ValueError):
+        edge_map(msg, torch.zeros(10, 8), stack)
+    with pytest.raises(TypeError):
+        edge_map(msg, torch.zeros(10, 9, dtype=torch.bfloat16), stack)
+
+
+def test_k2_packed_stack_follows_weight_changes():
+    _, port = _message_passing_pair(2)
+    first = port.packed_stack()
+    assert port.packed_stack() is first
+    with torch.no_grad():
+        port.message_fusion_0.scalar_out.bias.add_(1.0)
+    second = port.packed_stack()
+    assert second is not first
+    assert not torch.equal(second.weights, first.weights)
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        ModuleCfg(vector_gate=False, vector_nonlinearity="relu", vector_residual=True),
+        ModuleCfg(scalar_nonlinearity="leakyrelu", vector_nonlinearity="sigmoid"),
+    ],
+    ids=["norm_gate_vector_residual", "other_activations"],
+)
+def test_k2_plain_matches_module_stack(rng, cfg):
+    """Stack settings besides the production ones: the sorted path (plain K2,
+    K1 mean) against the port's module-by-module stack and index_add_ mean,
+    at fp32 atol 1e-5 (the same float32 math in another order)."""
+    batch = sorted_batch(rng, 128, nodes=30, edges=120, bucket_edges=400).to("cpu")
+    n, e = batch.num_nodes, batch.num_edges
+    port = GCPMessagePassing(
+        (16, 4), (16, 4), (8, 4), cfg, LayerCfg(mp_cfg=MPCfg(num_message_layers=3)),
+        generator=torch.Generator().manual_seed(0), device="cpu",
+    )
+    args = (
+        ScalarVectorT(t(rng.normal(size=(n, 16))), t(rng.normal(size=(n, 12)))),
+        ScalarVectorT(t(rng.normal(size=(e, 8))), t(rng.normal(size=(e, 12)))),
+        batch.senders, batch.receivers, t(rng.normal(size=(e, 9))),
+    )
+    mask = dict(edge_mask=batch.edge_pad_mask, count_mask=batch.edge_pad_mask)
+    with torch.inference_mode():
+        got = port(*args, row_splits=batch.edge_row_splits, **mask)
+        want = port(*args, **mask)
+    np.testing.assert_allclose(np_(got.flatten()), np_(want.flatten()), atol=1e-5)
