@@ -5,19 +5,28 @@
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: both CUDA kernels from gcpnet_torch/csrc (one nvcc each, started
-     together; ptxas resource usage goes to <out-dir>/ptxas.txt);
+  2. build: the three CUDA kernels from gcpnet_torch/csrc (one nvcc each,
+     started together; ptxas resource usage goes to <out-dir>/ptxas.txt);
   3. K1 (sorted segment sum) against its plain PyTorch version at the main
      path's shape, fp32 and bf16, on the tile-aligned and the CSR layouts;
   4. K2 (fused message stack) against its plain version at the main path's
      shape, fp32 and bf16;
-  5. the LBA forward at the benchmark's full width (16 graphs x 448 atoms,
-     8 interaction layers x 8 message layers) through gcpnet_torch.predict,
-     fp32 and bf16: launch counts, finiteness, latency, peak memory; then the
-     fp32 predictions against the same weights and batch run on the CPU
-     through the plain versions;
-  6. profile: one warm bf16 forward under torch.profiler (device busy and
-     idle share, time by kernel).
+  5. K3 (the fused stack's backward) against its plain version (autograd
+     through K2's) at the main path's shape, fp32 and bf16;
+  6. forward: the LBA forward at the benchmark's full width (16 graphs x 448
+     atoms, 8 interaction layers x 8 message layers) through
+     gcpnet_torch.predict, fp32 and bf16: launch counts, finiteness,
+     latency, peak memory; then the fp32 predictions against the same
+     weights and batch run on the CPU through the plain versions;
+  7. train: the full-width LBA training step through gcpnet_torch.train
+     (bf16 over fp32 masters, dropout 0.1, Adam at lr 1e-4), 6 steps on one
+     batch: launches per step, finiteness, ms per step, graphs/s, peak
+     memory;
+  8. train-check: one fp32 training step on the card against the same step
+     on the CPU (2 interaction layers, 2 graphs, no dropout): loss, gradient
+     norm, gradients and updated parameters;
+  9. profile: one warm bf16 forward and one warm bf16 training step under
+     torch.profiler (device busy and idle share, time by kernel).
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and the
 final status line.  Any failed phase exits non-zero; without a CUDA device
 the script exits non-zero before printing any result.  Full measurements go
@@ -38,13 +47,22 @@ import torch
 
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.ops import build as kernel_build
-from gcpnet_torch.ops.edge_map import edge_map, edge_map_plain
+from gcpnet_torch.ops.edge_map import (
+    edge_map,
+    edge_map_backward,
+    edge_map_backward_plain,
+    edge_map_plain,
+)
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.predict import DTYPES, build_model, lba_configs, predict, synthetic_batches
+from gcpnet_torch.train.cli import build_lba_training
+from gcpnet_torch.train.step import train_step
 
 SEED = 0
 GRAPHS, NODES, EDGES_PER_NODE = 16, 448, 28
 FORWARD_BATCHES = 4  # the first is the cold one; latency is over the rest
+TRAIN_STEPS = 6  # the first is the cold one; ms per step is over the rest
+TRAIN_CHECK_GRAPHS, TRAIN_CHECK_LAYERS = 2, 2
 # The published H100 SXM peaks (NVIDIA data sheet, dense): device memory
 # rate, and the operation rate for each input type (bf16 on the tensor
 # cores, fp32 on the CUDA cores).
@@ -57,10 +75,34 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # K2 fp32: float32 throughout, summation order differs.
 # K2 bf16: the plain version rounds every matmul output to bf16 (as the JAX
 #   package's MM form does) while the kernel keeps float32 intermediates.
-TOL = {("K1", "fp32"): 1e-5, ("K1", "bf16"): 1e-2, ("K2", "fp32"): 1e-4, ("K2", "bf16"): 5e-2}
+# K3, in norm, ||kernel - plain|| <= rel * ||plain||, for d message and d
+#   weights: the derivative of relu jumps at 0, and at 208,896 rows x 8
+#   layers some pre-activations lie within float32 rounding of 0, where the
+#   kernel and the plain version take different sides; those few entries
+#   differ by O(1), so a max-abs bound says nothing.
+# K3 fp32: float32 throughout.
+# K3 bf16: against the float32 plain version on the same bf16 inputs (the
+#   kernel's own arithmetic; d message rounded once to bf16) at
+#   K3_UPCAST_TOL; and against the plain bf16 version, which rounds every
+#   product of the recompute and of the backward to bf16, at TOL.
+TOL = {
+    ("K1", "fp32"): 1e-5, ("K1", "bf16"): 1e-2,
+    ("K2", "fp32"): 1e-4, ("K2", "bf16"): 5e-2,
+    ("K3", "fp32"): 1e-3, ("K3", "bf16"): 0.15,
+}
+K3_UPCAST_TOL = {"d_message": 1e-2, "d_weights": 1e-3}
 # full-width fp32 forward, card vs CPU: summation order differs in every
 # reduction and matmul of 8 x 8 layers
 FORWARD_ATOL = 1e-3
+# one fp32 training step, card vs CPU (2 x 8 layers, 2 x 448 atoms): the
+# loss and the gradient norm in absolute terms; the gradients in norm
+# (relu kinks, as for K3); the updated parameters in absolute terms, and the
+# share of entries more than 1e-6 apart: Adam's first step moves each entry
+# by lr * g / (|g| + 1e-8), so where a gradient is within rounding of 0 the
+# two steps may differ by up to 2 lr (lr = 1e-4).
+TRAIN_CHECK_ATOL = {
+    "loss": 1e-4, "grad_norm": 1e-3, "grads_norm_rel": 1e-3, "params": 1e-4, "params_share_above_1e-6": 1e-3,
+}
 
 
 class PhaseError(RuntimeError):
@@ -91,6 +133,11 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
     err = (got.float() - ref.float()).abs().max().item()
     scale = max(1.0, ref.float().abs().max().item())
     return err, err / scale
+
+
+def norm_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    diff = torch.linalg.vector_norm(got.float() - ref.float())
+    return (diff / torch.linalg.vector_norm(ref.float())).item()
 
 
 def bound_ms(nbytes: float, ops: float, dtype: torch.dtype):
@@ -172,30 +219,42 @@ def stack_flops(stack) -> int:
     return total
 
 
-def phase_k2(batch) -> dict:
-    """K2 at the main path's shape: [E, 340] messages + [E, 9] frames ->
-    [E, 148], with the benchmark's stack (8 GCP2 layers, hidden 100/16)."""
+def bench_message_passing() -> GCPMessagePassing:
+    """One message passing layer of the benchmark's model (8 GCP2 layers,
+    hidden 100/16, edges 32/4), random weights from the seed."""
     model_cfg, module_cfg, layer_cfg = lba_configs()
     node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
     edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
-    mp = GCPMessagePassing(
+    return GCPMessagePassing(
         node_dims, node_dims, edge_dims, module_cfg, layer_cfg,
         generator=torch.Generator().manual_seed(SEED), device="cuda",
     )
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+
+def stack_inputs(batch, stack, dtype, gen):
+    """Random messages (an eighth of the rows with all-zero vectors, where
+    the norm's eps decides) and masked frames at the main path's shape."""
     e = batch.num_edges
     mask = torch.as_tensor(batch.edge_pad_mask).cuda()
+    message = torch.randn((e, stack.in_dim), generator=gen, device="cuda")
+    message[: e // 8, stack.layers[0].dims[0] :] = 0.0
+    frames = torch.rand((e, 9), generator=gen, device="cuda") * 2 - 1
+    return message.to(dtype), (frames * mask[:, None]).to(dtype)
+
+
+def phase_k2(batch) -> dict:
+    """K2 at the main path's shape: [E, 340] messages + [E, 9] frames ->
+    [E, 148], with the benchmark's stack (8 GCP2 layers, hidden 100/16)."""
+    mp = bench_message_passing()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    e = batch.num_edges
     results = {}
     for dname, dtype in DTYPES.items():
-        stack = mp.to(dtype).packed_stack()
-        message = torch.randn((e, stack.in_dim), generator=gen, device="cuda")
-        # an eighth of the rows with all-zero vectors: the norm's eps decides there
-        message[: e // 8, stack.layers[0].dims[0] :] = 0.0
-        message = message.to(dtype)
-        frames = torch.rand((e, 9), generator=gen, device="cuda") * 2 - 1
-        frames = (frames * mask[:, None]).to(dtype)
-        got = edge_map(message, frames, stack)
-        ref = edge_map_plain(message, frames, stack)
+        with torch.no_grad():
+            stack = mp.to(dtype).packed_stack()
+            message, frames = stack_inputs(batch, stack, dtype, gen)
+            got = edge_map(message, frames, stack)
+            ref = edge_map_plain(message, frames, stack)
         check(bool(torch.isfinite(got).all()), f"K2 {dname}: non-finite output")
         err, rel = rel_err(got, ref)
         check(rel <= TOL[("K2", dname)], f"K2 {dname}: rel err {rel:.3g}")
@@ -203,11 +262,14 @@ def phase_k2(batch) -> dict:
         nbytes = e * (stack.in_dim + 9 + stack.out_dim) * es + stack.weights.numel() * 4
         flops = e * stack_flops(stack)
         b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: edge_map(message, frames, stack), iters=10)
+            plain_ms = cuda_ms(lambda: edge_map_plain(message, frames, stack), iters=5)
         results[dname] = {
             "max_abs_err": err,
             "rel_err": rel,
-            "ms": cuda_ms(lambda: edge_map(message, frames, stack), iters=10),
-            "plain_ms": cuda_ms(lambda: edge_map_plain(message, frames, stack), iters=5),
+            "ms": ms,
+            "plain_ms": plain_ms,
             "library_ms": None,
             "bound_ms": b_ms,
             "bound_by": b_by,
@@ -219,6 +281,68 @@ def phase_k2(batch) -> dict:
     return results
 
 
+def phase_k3(batch) -> dict:
+    """K3 at the main path's shape: the backward of K2's stack for a random
+    cotangent [E, 148] -> d message [E, 340] and d weights (float32)."""
+    mp = bench_message_passing()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    e = batch.num_edges
+    results = {}
+    for dname, dtype in DTYPES.items():
+        with torch.no_grad():
+            stack = mp.to(dtype).packed_stack()
+        message, frames = stack_inputs(batch, stack, dtype, gen)
+        grad_out = torch.randn((e, stack.out_dim), generator=gen, device="cuda").to(dtype)
+        d_msg, d_w = edge_map_backward(message, frames, stack, grad_out)
+        ref_msg, ref_w = edge_map_backward_plain(message, frames, stack, grad_out)
+        torch.cuda.synchronize()
+        res = {"d_message": {}, "d_weights": {}}
+        for key, got, ref in (("d_message", d_msg, ref_msg), ("d_weights", d_w, ref_w)):
+            err, rel = rel_err(got, ref)
+            res[key] = {"max_abs_err": err, "rel_err": rel, "norm_rel_err": norm_rel_err(got, ref),
+                        "finite": bool(torch.isfinite(got).all())}
+        if dtype == torch.bfloat16:
+            up_msg, up_w = edge_map_backward_plain(
+                message.float(), frames.float(), stack, grad_out.float()
+            )
+            res["d_message"]["upcast_norm_rel_err"] = norm_rel_err(d_msg, up_msg)
+            res["d_weights"]["upcast_norm_rel_err"] = norm_rel_err(d_w, up_w)
+            del up_msg, up_w
+        del ref_msg, ref_w
+        print(f"phase K3 {dname}: " + json.dumps(res), flush=True)
+        es = message.element_size()
+        nbytes = e * (2 * stack.in_dim + 9 + stack.out_dim) * es + 2 * stack.weights.numel() * 4
+        flops = 3 * e * stack_flops(stack)
+        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        results[dname] = {
+            **res,
+            "max_abs_err": max(res["d_message"]["max_abs_err"], res["d_weights"]["max_abs_err"]),
+            "ms": cuda_ms(lambda: edge_map_backward(message, frames, stack, grad_out), iters=5, warmup=1),
+            "plain_ms": cuda_ms(
+                lambda: edge_map_backward_plain(message, frames, stack, grad_out), iters=3, warmup=1
+            ),
+            "library_ms": None,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+            "shape": [e, stack.in_dim, stack.out_dim, stack.weights.numel()],
+        }
+    print("phase K3: " + json.dumps({d: {k: v for k, v in r.items() if k not in ("d_message", "d_weights")}
+                                     for d, r in results.items()}), flush=True)
+    for dname, res in results.items():
+        for key in ("d_message", "d_weights"):
+            r = res[key]
+            check(r["finite"], f"K3 {dname}: non-finite {key}")
+            check(r["norm_rel_err"] <= TOL[("K3", dname)],
+                  f"K3 {dname} {key}: norm rel err {r['norm_rel_err']:.3g}")
+            if dname == "bf16":
+                check(r["upcast_norm_rel_err"] <= K3_UPCAST_TOL[key],
+                      f"K3 {dname} {key}: norm rel err vs float32 plain {r['upcast_norm_rel_err']:.3g}")
+    print("phase K3: ok")
+    return results
+
+
 def phase_forward(batches) -> dict:
     """The main path: full-width LBA prediction through gcpnet_torch.predict
     on the card, fp32 then bf16, with every kernel count set to 0 just
@@ -226,6 +350,7 @@ def phase_forward(batches) -> dict:
     results = {}
     segment_sum_sorted.launches = 0
     edge_map.launches = 0
+    edge_map_backward.launches = 0
     for dname, dtype in DTYPES.items():
         model = build_model(SEED, "cuda", dtype)
         torch.cuda.synchronize()
@@ -250,7 +375,10 @@ def phase_forward(batches) -> dict:
             "predictions_batch0": preds[0].tolist(),
         }
         del model
-    results["launches"] = {"K1": segment_sum_sorted.launches, "K2": edge_map.launches}
+    results["launches"] = {
+        "K1": segment_sum_sorted.launches, "K2": edge_map.launches, "K3": edge_map_backward.launches
+    }
+    check(edge_map_backward.launches == 0, "forward: the backward kernel ran during prediction")
     results["bf16_vs_fp32_max_abs"] = (
         torch.tensor(results["bf16"]["predictions_batch0"])
         - torch.tensor(results["fp32"]["predictions_batch0"])
@@ -267,19 +395,106 @@ def phase_forward(batches) -> dict:
     return results
 
 
-def phase_profile(batches) -> dict:
-    """Where the time goes: one warm bf16 full-width forward under
-    torch.profiler; device busy time is the sum of the CUDA kernels' times
-    (one stream, so they do not overlap)."""
+def launch_counts():
+    return (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+
+
+def phase_train(batch) -> dict:
+    """The training path: the full-width LBA training step through
+    gcpnet_torch.train (bf16 compute over float32 masters, dropout 0.1,
+    Adam at lr 1e-4) for TRAIN_STEPS steps on one batch, as the JAX
+    benchmark reuses its batch, with every kernel count set to 0 just before
+    and read just after."""
+    model, state = build_lba_training(SEED, "cuda", torch.bfloat16, lr=1e-4, dropout=0.1)
+    dev_batch = batch.to(torch.device("cuda"))
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    segment_sum_sorted.launches = edge_map.launches = edge_map_backward.launches = 0
+    times, losses, norms = [], [], []
+    for step in range(TRAIN_STEPS):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        result = train_step(model, state, dev_batch, generator)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launched = tuple(a - b for a, b in zip(launch_counts(), before))
+        check(launched == (8, 8, 8), f"train step {step}: launches (K1, K2, K3) = {launched}, want (8, 8, 8)")
+        losses.append(result.loss.item())
+        norms.append(result.grad_norm.item())
+        check(result.ok and np.isfinite(losses[-1]) and np.isfinite(norms[-1]),
+              f"train step {step}: loss {losses[-1]}, grad norm {norms[-1]}")
+    ms = float(np.median(times[1:]))
+    results = {
+        "launches": dict(zip(("K1", "K2", "K3"), launch_counts())),
+        "ms_per_step": ms,
+        "graphs_per_s": GRAPHS / ms * 1e3,
+        "first_ms": times[0],
+        "ms_all": times,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses,
+        "grad_norms": norms,
+        "steps": TRAIN_STEPS,
+    }
+    print("phase train: ok " + json.dumps(results))
+    return results
+
+
+def phase_train_check() -> dict:
+    """One float32 training step on the card against the same step on the
+    CPU (plain versions): same weights, same batch, no dropout; full width,
+    TRAIN_CHECK_LAYERS interaction layers of 8-layer stacks,
+    TRAIN_CHECK_GRAPHS graphs of 448 atoms."""
+    batch = synthetic_batches(1, TRAIN_CHECK_GRAPHS, NODES, EDGES_PER_NODE, SEED + 5)[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, state = build_lba_training(
+            SEED, dev, torch.float32, lr=1e-4, dropout=0.0, num_encoder_layers=TRAIN_CHECK_LAYERS
+        )
+        t0 = time.perf_counter()
+        result = train_step(model, state, batch.to(torch.device(dev)), deterministic=True)
+        out[dev] = {
+            "seconds": time.perf_counter() - t0,
+            "loss": result.loss.item(),
+            "grad_norm": result.grad_norm.item(),
+            "grads": torch.cat([p.grad.reshape(-1) for p in model.parameters()]).cpu(),
+            "params": torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu(),
+        }
+    card, cpu = out["cuda"], out["cpu"]
+    param_diff = (card["params"] - cpu["params"]).abs()
+    results = {
+        "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+        "loss_abs_diff": abs(card["loss"] - cpu["loss"]),
+        "grad_norm_card": card["grad_norm"], "grad_norm_cpu": cpu["grad_norm"],
+        "grad_norm_abs_diff": abs(card["grad_norm"] - cpu["grad_norm"]),
+        "grads_norm_rel_err": norm_rel_err(card["grads"], cpu["grads"]),
+        "params_max_abs_diff": param_diff.max().item(),
+        "params_share_above_1e-6": (param_diff > 1e-6).float().mean().item(),
+        "num_params": int(param_diff.numel()),
+        "card_seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
+    }
+    print("phase train-check: " + json.dumps(results), flush=True)
+    check(results["loss_abs_diff"] <= TRAIN_CHECK_ATOL["loss"], "train-check: loss differs")
+    check(results["grad_norm_abs_diff"] <= TRAIN_CHECK_ATOL["grad_norm"], "train-check: grad norm differs")
+    check(results["grads_norm_rel_err"] <= TRAIN_CHECK_ATOL["grads_norm_rel"], "train-check: gradients differ")
+    check(results["params_max_abs_diff"] <= TRAIN_CHECK_ATOL["params"], "train-check: parameters differ")
+    check(results["params_share_above_1e-6"] <= TRAIN_CHECK_ATOL["params_share_above_1e-6"],
+          "train-check: too many parameters differ")
+    print("phase train-check: ok")
+    return results
+
+
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under torch.profiler: wall time, device busy time
+    (the sum of the CUDA kernels' times; one stream, so they do not
+    overlap), idle share and time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model = build_model(SEED, "cuda", torch.bfloat16)
-    predict(model, batches[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predict(model, batches[1])
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -290,49 +505,67 @@ def phase_profile(batches) -> dict:
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    result = {
+    labels = (
+        ("K3 edge_map_backward", ("edge_map_bwd_kernel", "sum_partials")),
+        ("K2 edge_map", ("edge_map_kernel",)),
+        ("K1 segment_sum_sorted", ("seg_sum",)),
+    )
+    return {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3 if kernels else "not measured",
         "device_idle_share": 1 - busy_us / wall_us if kernels else "not measured",
         "kernel_launches": len(kernels),
         "share": {
-            label: sum(v for k, v in by_name.items() if key in k) / busy_us if kernels else "not measured"
-            for label, key in (("K2 edge_map", "edge_map_kernel"), ("K1 segment_sum_sorted", "seg_sum"))
+            label: sum(v for k, v in by_name.items() if any(key in k for key in keys)) / busy_us
+            if kernels else "not measured"
+            for label, keys in labels
         },
         "top_ms": [[k, v / 1e3] for k, v in top],
     }
+
+
+def phase_profile(batches) -> dict:
+    """Where the time goes: one warm bf16 full-width forward, and one warm
+    bf16 full-width training step, each under torch.profiler."""
+    model = build_model(SEED, "cuda", torch.bfloat16)
+    predict(model, batches[0])
+    result = {"forward": device_profile(lambda: predict(model, batches[1]))}
+    del model
+    model, state = build_lba_training(SEED, "cuda", torch.bfloat16, lr=1e-4, dropout=0.1)
+    dev_batch = batches[0].to(torch.device("cuda"))
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    train_step(model, state, dev_batch, generator)
+    result["train_step"] = device_profile(lambda: train_step(model, state, dev_batch, generator))
     print("phase profile: ok " + json.dumps(result))
     return result
 
 
-def kernel_line(k1, k2, forward) -> dict:
+def kernel_line(k1, k2, k3, forward, train) -> dict:
     """The contract line: main numbers at bf16 (the production precision)
-    on the tile-aligned layout the main path uses; fp32 beside them."""
-    k1m, k1f = k1["tile128_bf16"], k1["tile128_fp32"]
-    k2m, k2f = k2["bf16"], k2["fp32"]
+    on the tile-aligned layout the main path uses, fp32 beside them;
+    launches from the training run (the prediction run's beside them)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = (
+        ("segment_sum_sorted", "K1", "segment_sorted.cu", "gcpnet_tpu/ops/pallas_segment.py:160",
+         k1["tile128_bf16"], k1["tile128_fp32"]),
+        ("edge_map", "K2", "edge_map.cu", "gcpnet_tpu/ops/pallas_fused.py:117", k2["bf16"], k2["fp32"]),
+        ("edge_map_backward", "K3", "edge_map_bwd.cu", "gcpnet_tpu/ops/pallas_fused.py:175",
+         k3["bf16"], k3["fp32"]),
+    )
     return {
         "kernels": [
             {
-                "name": "segment_sum_sorted",
+                "name": name,
                 "route": "cuda",
-                "source": "gcpnet_torch/csrc/segment_sorted.cu",
-                "replaces": "gcpnet_tpu/ops/pallas_segment.py:160",
-                "launches": forward["launches"]["K1"],
-                **{k: k1m[k] for k in keys},
+                "source": f"gcpnet_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": train["launches"][label],
+                "forward_launches": forward["launches"][label],
+                **{k: main[k] for k in keys},
                 "dtype": "bf16",
-                **{f"fp32_{k}": k1f[k] for k in keys},
-            },
-            {
-                "name": "edge_map",
-                "route": "cuda",
-                "source": "gcpnet_torch/csrc/edge_map.cu",
-                "replaces": "gcpnet_tpu/ops/pallas_fused.py:117",
-                "launches": forward["launches"]["K2"],
-                **{k: k2m[k] for k in keys},
-                "dtype": "bf16",
-                **{f"fp32_{k}": k2f[k] for k in keys},
-            },
+                **{f"fp32_{k}": fp32[k] for k in keys},
+            }
+            for name, label, source, replaces, main, fp32 in rows
         ]
     }
 
@@ -356,7 +589,10 @@ def main() -> int:
         csr = synthetic_batches(1, GRAPHS, NODES, EDGES_PER_NODE, SEED, sort_tile=1)[0]
         report["K1"] = phase_k1({128: batches[0], 1: csr})
         report["K2"] = phase_k2(batches[0])
+        report["K3"] = phase_k3(batches[0])
         report["forward"] = phase_forward(batches)
+        report["train"] = phase_train(batches[0])
+        report["train_check"] = phase_train_check()
         report["profile"] = phase_profile(batches)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -364,7 +600,7 @@ def main() -> int:
     finally:
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps(kernel_line(report["K1"], report["K2"], report["forward"])))
+    print(json.dumps(kernel_line(report["K1"], report["K2"], report["K3"], report["forward"], report["train"])))
     print(report["device"]["nvidia_smi"])
     print(json.dumps({
         "ok": True,

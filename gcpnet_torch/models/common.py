@@ -19,7 +19,7 @@ from gcpnet_torch.nn.embedding import GCPEmbedding
 from gcpnet_torch.nn.frames import centralize, localize, node_mean_frames
 from gcpnet_torch.nn.gcp import Dense, make_gcp
 from gcpnet_torch.nn.interactions import GCPInteractions
-from gcpnet_torch.nn.primitives import GCPLayerNorm, ScalarVector
+from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector
 from gcpnet_torch.ops.segment import segment_mean
 
 
@@ -51,6 +51,7 @@ class InvariantPooledHead(nn.Module):
         cfg: ModuleCfg,
         output_dim: int = 1,
         output_scale_factor: int = 2,
+        dense_dropout: float = 0.1,
         *,
         generator: torch.Generator,
         device,
@@ -58,6 +59,7 @@ class InvariantPooledHead(nn.Module):
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.output_dim = output_dim
+        self.dense_dropout = GCPDropout(dense_dropout)
         self.projection_norm = GCPLayerNorm(node_dims[0], device=device)
         self.invariant_node_projection = make_gcp(
             node_dims, (node_dims[0], 0), cfg,
@@ -74,13 +76,16 @@ class InvariantPooledHead(nn.Module):
         frames: Tensor,
         edge_mask: Optional[Tensor],
         count_mask: Optional[Tensor],
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Tensor:
         out = self.projection_norm(node_rep)
         nf = node_mean_frames(frames, batch.senders, node_rep.scalar.shape[0], edge_mask, count_mask)
         out = self.invariant_node_projection(out, nf)
         pooled = segment_mean(out, batch.graph_id, batch.num_graphs, mask=batch.valid_node_mask())
-        # dense dropout is the identity at prediction
-        y = self.dense_1(torch.relu(self.dense_0(pooled)))
+        y = torch.relu(self.dense_0(pooled))
+        y = self.dense_dropout(y, deterministic, generator)
+        y = self.dense_1(y)
         return y[..., 0] if self.output_dim == 1 else y
 
 
@@ -119,7 +124,13 @@ class GCPNetEncoder(nn.Module):
                 GCPInteractions(node_dims, edge_dims, module_cfg, layer_cfg, dropout=mc.dropout, **kw),
             )
 
-    def forward(self, batch: GraphBatch, frames: Tensor, deterministic: bool = True):
+    def forward(
+        self,
+        batch: GraphBatch,
+        frames: Tensor,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
         edge_mask, count_mask = batch_masks(batch)
         node_rep, edge_rep = self.gcp_embedding(batch, frames, edge_mask, count_mask)
         for i in range(self.num_layers):
@@ -127,5 +138,6 @@ class GCPNetEncoder(nn.Module):
                 node_rep, edge_rep, batch.senders, batch.receivers, frames,
                 node_mask=batch.node_mask, edge_mask=edge_mask, count_mask=count_mask,
                 row_splits=batch.edge_row_splits, deterministic=deterministic,
+                generator=generator,
             )
         return node_rep, edge_rep

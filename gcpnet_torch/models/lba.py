@@ -1,10 +1,13 @@
 """LBA task model: ligand binding affinity graph regression.
 
 Port of ``gcpnet_tpu/models/lba.py``: centre + frames -> encoder ->
-invariant projection -> graph mean-pool -> 2-layer dense head.
+invariant projection -> graph mean-pool -> 2-layer dense head; the masked
+per-graph MSE loss.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -18,6 +21,7 @@ from gcpnet_torch.models.common import (
     batch_masks,
     centralize_and_frames,
 )
+from gcpnet_torch.ops.segment import masked_mean
 
 
 class GCPNetLBA(nn.Module):
@@ -47,12 +51,31 @@ class GCPNetLBA(nn.Module):
         )
         self.head = InvariantPooledHead(
             (mc.h_hidden_dim, mc.chi_hidden_dim), module_cfg,
-            output_dim=mc.output_dim, output_scale_factor=mc.output_scale_factor, **kw,
+            output_dim=mc.output_dim, output_scale_factor=mc.output_scale_factor,
+            dense_dropout=mc.dense_dropout, **kw,
         )
 
-    def forward(self, batch: GraphBatch, deterministic: bool = True) -> Tensor:
+    def forward(
+        self,
+        batch: GraphBatch,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tensor:
+        """``deterministic=False`` applies dropout, with masks drawn from
+        ``generator`` (on the batch's device)."""
         _, centered, frames = centralize_and_frames(batch, norm_x_diff=self.norm_x_diff)
         batch = batch.replace(x=centered)
-        node_rep, _ = self.encoder(batch, frames, deterministic=deterministic)
+        node_rep, _ = self.encoder(batch, frames, deterministic=deterministic, generator=generator)
         edge_mask, count_mask = batch_masks(batch)
-        return self.head(node_rep, batch, frames, edge_mask, count_mask)
+        return self.head(
+            node_rep, batch, frames, edge_mask, count_mask,
+            deterministic=deterministic, generator=generator,
+        )
+
+
+def graph_regression_loss(preds: Tensor, batch: GraphBatch) -> Tuple[Tensor, Tensor]:
+    """Masked per-graph MSE (JAX ``models/lba.py:72-77``): ``(loss,
+    labels)``, in the dtype of ``preds`` and the labels."""
+    labels = batch.extras["label"]
+    loss = masked_mean((preds - labels) ** 2, batch.graph_pad_mask)
+    return loss, labels

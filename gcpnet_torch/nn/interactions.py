@@ -80,6 +80,7 @@ class GCPInteractions(nn.Module):
         count_mask: Optional[Tensor] = None,
         row_splits: Optional[Tensor] = None,
         deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> ScalarVector:
         num_nodes = node_rep.scalar.shape[0]
         # node validity gates the scalarize numerators inside the message
@@ -99,7 +100,7 @@ class GCPInteractions(nn.Module):
             edge_mask=agg_mask, count_mask=count_mask,
             row_splits=row_splits, frame_mask=frame_mask,
         )
-        node_rep = node_rep + self.gcp_dropout_0(hidden, deterministic)
+        node_rep = node_rep + self.gcp_dropout_0(hidden, deterministic, generator)
         node_rep = self.gcp_norm_1(node_rep) if self.pre_norm else self.gcp_norm_0(node_rep)
 
         # with a node mask the feed-forward sees only the unmasked subgraph
@@ -111,7 +112,7 @@ class GCPInteractions(nn.Module):
         hidden = node_rep
         for i in range(self.num_ff):
             hidden = getattr(self, f"feedforward_{i}")(hidden, nf)
-        node_rep = node_rep + self.gcp_dropout_1(hidden, deterministic)
+        node_rep = node_rep + self.gcp_dropout_1(hidden, deterministic, generator)
 
         if not self.pre_norm:
             node_rep = self.gcp_norm_1(node_rep)

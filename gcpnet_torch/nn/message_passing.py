@@ -24,7 +24,7 @@ from gcpnet_torch.config.schema import LayerCfg, ModuleCfg
 from gcpnet_torch.nn.gcp import GCP2, GCPSettings, make_gcp
 from gcpnet_torch.nn.primitives import ScalarVector
 from gcpnet_torch.ops.edge_map import PackedStack, StackLayer, edge_map, pack_stack
-from gcpnet_torch.ops.segment import segment_mean
+from gcpnet_torch.ops.segment import gather_rows, segment_mean
 
 
 def _fast_supported(settings: GCPSettings, input_dims, output_dims) -> bool:
@@ -107,9 +107,15 @@ class GCPMessagePassing(nn.Module):
         return list(self.children())
 
     def packed_stack(self) -> PackedStack:
-        """The stack's weights in the edge-map kernel's layout, derived once
-        and re-derived only when a parameter changes (``load_state_dict``,
+        """The stack's weights in the edge-map kernels' layout.  Outside
+        ``torch.inference_mode`` it is packed anew on each call from the
+        tensors the modules hold now (under ``torch.func.functional_call``
+        those are the substituted ones), so that autograd carries the
+        gradient back to them.  Under inference mode it is derived once and
+        re-derived only when a parameter changes (``load_state_dict``,
         ``.to(...)``)."""
+        if not torch.is_inference_mode_enabled():
+            return pack_stack([_stack_layer(m) for m in self.stack], self.residual)
         # inference tensors (made under torch.inference_mode) keep no version
         key = tuple(
             (p.data_ptr(), 0 if p.is_inference() else p._version, p.dtype, p.device)
@@ -139,8 +145,8 @@ class GCPMessagePassing(nn.Module):
         fm = frame_mask if frame_mask is not None else edge_mask
         flat_nodes = node_rep.flatten()
         v_dim = node_rep.dims[1]
-        src = ScalarVector.recover(flat_nodes[senders], v_dim)
-        dst = ScalarVector.recover(flat_nodes[receivers], v_dim)
+        src = ScalarVector.recover(gather_rows(flat_nodes, senders), v_dim)
+        dst = ScalarVector.recover(gather_rows(flat_nodes, receivers), v_dim)
         message = src.concat((edge_rep, dst))
 
         if row_splits is not None and self.fast_supported:

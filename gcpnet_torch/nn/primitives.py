@@ -149,18 +149,34 @@ class GCPLayerNorm(nn.Module):
         return self.scalar_norm(x)
 
 
+def dropout(x: Tensor, rate: float, generator: torch.Generator) -> Tensor:
+    """Elementwise dropout: keep each value with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)`` (flax ``nn.Dropout``)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class GCPDropout(nn.Module):
-    """Paired scalar / vector-channel dropout.  The port serves predictions
-    only so far, where dropout is the identity; training-mode dropout comes
-    with the training step."""
+    """Paired scalar dropout and vector-channel dropout: whole 3-vectors are
+    dropped together, one mask per vector channel tiled over the x/y/z
+    blocks (JAX ``nn/primitives.py:208-232``).  The identity when
+    ``deterministic``; otherwise the masks are drawn from ``generator``."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, generator: Optional[torch.Generator] = None):
         if self.rate == 0.0 or deterministic:
             return x
-        raise NotImplementedError(
-            "GCPDropout: training-mode dropout is not ported yet"
-        )
+        if generator is None:
+            raise ValueError("GCPDropout: training-mode dropout needs a torch.Generator")
+        if not isinstance(x, ScalarVector):
+            return dropout(x, self.rate, generator)
+        keep = 1.0 - self.rate
+        v = x.vector
+        c = v.shape[-1] // 3
+        mask = torch.rand(v.shape[:-1] + (c,), generator=generator, device=v.device) < keep
+        mask = mask.to(v.dtype).repeat(*([1] * (v.dim() - 1)), 3)
+        return ScalarVector(dropout(x.scalar, self.rate, generator), v * mask / keep)

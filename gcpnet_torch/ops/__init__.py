@@ -1,2 +1,2 @@
-"""Segment reductions and the two CUDA kernels of the forward path:
-``segment_sorted`` (K1) and ``edge_map`` (K2)."""
+"""Segment reductions and the three CUDA kernels: ``segment_sorted`` (K1),
+``edge_map`` (K2, and its backward K3, behind autograd)."""

@@ -35,6 +35,9 @@ SIGNATURES = {
     "edge_map": {
         "gcp_edge_map": [_P, _P, _P, _P, _I, _P, _LL, _I, _P],
     },
+    "edge_map_bwd": {
+        "gcp_edge_map_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
+    },
 }
 
 

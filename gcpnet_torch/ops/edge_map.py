@@ -1,20 +1,26 @@
-"""K2: the GCP2 message stack, fused over edge rows.
+"""K2 and K3: the GCP2 message stack fused over edge rows, and its backward.
 
 ``edge_map(message, frames, stack)`` computes, for every edge row, the
 whole (Res)GCP2 message stack of ``GCPMessagePassing``: ``message`` is the
 flattened ``[src ‖ edge ‖ dst]`` input ``[E, s_in + 3 v_in]``, ``frames``
 the edge frames already multiplied by the frame mask ``[E, 9]``, and the
-result the flattened stack output ``[E, s_out + 3 v_out]``.  It replaces the
-forward kernel of ``gcpnet_tpu/ops/pallas_fused.py`` (``edge_map`` over
-``apply_stack``); on CUDA tensors the wrapper launches the hand-written
-kernel ``csrc/edge_map.cu``, on CPU tensors it runs
-:func:`edge_map_plain`.
+result the flattened stack output ``[E, s_out + 3 v_out]``.  It is a
+``torch.autograd.Function`` (:class:`EdgeMap`) with gradients for
+``message`` and the stack's weights; the frames get none (in LBA they
+depend on no parameter), and it raises if they require one.
 
-The stack's weights are packed once into the kernel's layout
-(:func:`pack_stack`): per layer ``[vector_down | vector_down_frames]``
-``[v_in, h + 3]``, ``scalar_out`` ``[s_in + h + 9, s_out]`` and its bias,
-``vector_up`` ``[h, v_out]``, and ``vector_out_scale`` ``[s_out, v_out]``
-with its bias, all float32 and back to back in one buffer.
+It replaces the two kernels of ``gcpnet_tpu/ops/pallas_fused.py``: the
+forward (``_map_impl``) on CUDA tensors launches ``csrc/edge_map.cu`` (K2),
+the backward (``_map_bwd``) launches ``csrc/edge_map_bwd.cu`` (K3), which
+recomputes the stack per tile of rows.  On CPU tensors the forward runs
+:func:`edge_map_plain` and the backward :func:`edge_map_backward_plain`.
+
+The stack's weights are packed into the kernels' layout (:func:`pack_stack`):
+per layer ``[vector_down | vector_down_frames]`` ``[v_in, h + 3]``,
+``scalar_out`` ``[s_in + h + 9, s_out]`` and its bias, ``vector_up``
+``[h, v_out]``, and ``vector_out_scale`` ``[s_out, v_out]`` with its bias,
+all float32 and back to back in one buffer, built from the live weight
+tensors, so that autograd carries the buffer's gradient back to each of them.
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ from gcpnet_torch.ops.build import library
 from gcpnet_torch.ops.segment_sorted import DTYPE_CODES
 
 EPS = 1e-8
-MAX_LAYERS = 16  # csrc/edge_map.cu kMaxLayers
+MAX_LAYERS = 16  # csrc/edge_stack.cuh kMaxLayers
+BWD_TILE = 48  # csrc/edge_map_bwd.cu kTile
 KERNEL_ACTIVATIONS = {None: 0, "relu": 1}
+WEIGHT_NAMES = ("w_down", "w_so", "b_so", "w_up", "w_gate", "b_gate")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +71,7 @@ class PackedStack:
     layers: Tuple[StackLayer, ...]
     residual: bool  # ResGCP: sum the layers' outputs
     weights: Tensor  # all layers' weights back to back, float32, on the device
-    meta: np.ndarray  # int32 layer table for the kernel (csrc/edge_map.cu)
+    meta: np.ndarray  # int32 layer table for the kernels (csrc/edge_stack.cuh)
 
     @property
     def in_dim(self) -> int:
@@ -75,13 +83,48 @@ class PackedStack:
         s_out, v_out = self.layers[-1].dims[3:]
         return s_out + 3 * v_out
 
+    def transposed(self) -> Tensor:
+        """``weights`` with each matrix transposed in place (K3 reads the
+        backward's products' weights this way)."""
+        weights = self.weights.detach()
+        out = weights.clone()
+        for src, dst in zip(self.layer_weights(weights), self.layer_weights(out)):
+            for name, w in src.items():
+                if w is not None and w.dim() == 2:
+                    dst[name].view(-1).copy_(w.t().reshape(-1))
+        return out
+
+    def layer_weights(self, weights: Tensor):
+        """Per layer, the dict of ``WEIGHT_NAMES`` -> views into the flat
+        ``weights`` buffer (``None`` for an absent gate)."""
+        out = []
+        for i, layer in enumerate(self.layers):
+            offs = self.meta[2 + 15 * i + 9 : 2 + 15 * i + 15]
+            views = {}  # in WEIGHT_NAMES order
+            for name, off in zip(WEIGHT_NAMES, offs):
+                w = getattr(layer, name)
+                views[name] = None if w is None else weights[off : off + w.numel()].view(w.shape)
+            out.append(views)
+        return out
+
 
 def _act_name(name: Optional[str]) -> Optional[str]:
     return None if is_identity(name) else name
 
 
+def _pad4(chunks: list, offset: int, device) -> int:
+    """Zeros up to the next multiple of 4 floats: every matrix starts
+    16-byte aligned, for the kernels' vector loads."""
+    pad = -offset % 4
+    if pad:
+        chunks.append(torch.zeros(pad, device=device))
+    return offset + pad
+
+
 def pack_stack(layers: Sequence[StackLayer], residual: bool) -> PackedStack:
-    """Check that consecutive layers chain and pack their weights once."""
+    """Check that consecutive layers chain and pack their weights, each at
+    an offset that is a multiple of 4.  The buffer is a ``torch.cat`` of the
+    given tensors: in grad mode it stays on the autograd graph."""
     if not layers:
         raise ValueError("pack_stack: empty stack")
     meta = [len(layers), int(residual)]
@@ -97,11 +140,13 @@ def pack_stack(layers: Sequence[StackLayer], residual: bool) -> PackedStack:
             raise ValueError("pack_stack: the vector residual needs v_in == v_out")
         prev = (s_out, v_out)
         offs = []
-        for w in (layer.w_down, layer.w_so, layer.b_so, layer.w_up, layer.w_gate, layer.b_gate):
+        for name in WEIGHT_NAMES:
+            w = getattr(layer, name)
             offs.append(offset)
             if w is not None:
-                chunks.append(w.detach().float().reshape(-1))
+                chunks.append(w.float().reshape(-1))
                 offset += w.numel()
+                offset = _pad4(chunks, offset, w.device)
         meta += [
             s_in, v_in, h, s_out, v_out,
             KERNEL_ACTIVATIONS.get(_act_name(layer.act_s), -1),
@@ -116,10 +161,10 @@ def pack_stack(layers: Sequence[StackLayer], residual: bool) -> PackedStack:
     )
 
 
-def _layer_plain(layer: StackLayer, s: Tensor, v: Tensor, frames: Tensor):
+def _layer_plain(layer: StackLayer, w: dict, s: Tensor, v: Tensor, frames: Tensor):
     """One GCP2 layer in the input dtype, each matmul rounded to it; square
     roots, sigmoids and activations in float32 (the JAX MM form's
-    numerics)."""
+    numerics).  ``w`` holds the layer's weights (``PackedStack.layer_weights``)."""
     s_in, v_in, h, s_out, v_out = layer.dims
     dt = s.dtype
     e = s.shape[0]
@@ -130,17 +175,17 @@ def _layer_plain(layer: StackLayer, s: Tensor, v: Tensor, frames: Tensor):
     act_s = get_nonlinearity(layer.act_s, layer.slope)
     act_v = get_nonlinearity(layer.act_v, layer.slope)
     vc = v.reshape(e, 3, v_in)
-    d = vc @ layer.w_down.to(dt)  # [E, 3, h + 3]
+    d = vc @ w["w_down"].to(dt)  # [E, 3, h + 3]
     vh, df = d[..., :h], d[..., h:]
     vnorm = f32(lambda x: torch.sqrt(x + EPS), (vh * vh).sum(dim=1)) + EPS
     # scal9[:, ch*3 + f] = sum_a df[:, a, ch] * frames[:, 3f + a]
     scal9 = torch.einsum("eac,efa->ecf", df, frames.reshape(e, 3, 3)).reshape(e, 9)
-    s_new = torch.cat([s, vnorm, scal9], dim=-1) @ layer.w_so.to(dt) + layer.b_so.to(dt)
-    vu = vh @ layer.w_up.to(dt)  # [E, 3, v_out]
+    s_new = torch.cat([s, vnorm, scal9], dim=-1) @ w["w_so"].to(dt) + w["b_so"].to(dt)
+    vu = vh @ w["w_up"].to(dt)  # [E, 3, v_out]
     if layer.vector_residual:
         vu = vu + vc
-    if layer.w_gate is not None:
-        gate = f32(act_v, s_new) @ layer.w_gate.to(dt) + layer.b_gate.to(dt)
+    if w["w_gate"] is not None:
+        gate = f32(act_v, s_new) @ w["w_gate"].to(dt) + w["b_gate"].to(dt)
         vu = vu * f32(torch.sigmoid, gate)[:, None, :]
     elif _act_name(layer.act_v) is not None:
         norm = f32(lambda x: torch.sqrt(x + EPS), (vu * vu).sum(dim=1)) + EPS
@@ -148,17 +193,35 @@ def _layer_plain(layer: StackLayer, s: Tensor, v: Tensor, frames: Tensor):
     return f32(act_s, s_new), vu.reshape(e, 3 * v_out)
 
 
-def edge_map_plain(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
+def edge_map_plain(
+    message: Tensor, frames: Tensor, stack: PackedStack, weights: Optional[Tensor] = None
+) -> Tensor:
     """Plain PyTorch version of K2 (the torch port of the JAX package's
-    ``apply_stack`` over ``_fast_gcp2_layer_mm``)."""
+    ``apply_stack`` over ``_fast_gcp2_layer_mm``), reading the weights from
+    the flat buffer ``weights`` (default ``stack.weights``)."""
+    weights = stack.weights if weights is None else weights
     s_in = stack.layers[0].dims[0]
     state = (message[:, :s_in], message[:, s_in:])
-    for i, layer in enumerate(stack.layers):
-        new = _layer_plain(layer, state[0], state[1], frames)
+    for i, (layer, w) in enumerate(zip(stack.layers, stack.layer_weights(weights))):
+        new = _layer_plain(layer, w, state[0], state[1], frames)
         if stack.residual and i > 0:
             new = (state[0] + new[0], state[1] + new[1])
         state = new
     return torch.cat(state, dim=-1)
+
+
+def edge_map_backward_plain(
+    message: Tensor, frames: Tensor, stack: PackedStack, grad_out: Tensor
+) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of K3: ``(d message, d weights)`` for the
+    cotangent ``grad_out``, by autograd through :func:`edge_map_plain`
+    recomputed from detached inputs."""
+    with torch.enable_grad():
+        m = message.detach().requires_grad_()
+        w = stack.weights.detach().requires_grad_()
+        out = edge_map_plain(m, frames.detach(), stack, w)
+        d_message, d_weights = torch.autograd.grad(out, (m, w), grad_out)
+    return d_message, d_weights
 
 
 def _check(message: Tensor, frames: Tensor, stack: PackedStack) -> None:
@@ -187,14 +250,17 @@ def _check_kernel_supported(stack: PackedStack) -> None:
             if _act_name(name) not in KERNEL_ACTIVATIONS:
                 raise NotImplementedError(
                     f"edge_map kernel: layer {i} uses activation {name!r}; the CUDA "
-                    "kernel implements the identity and relu only"
+                    "kernels implement the identity and relu only"
                 )
 
 
-def edge_map(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
+def _stream(t: Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _edge_map_forward(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
     """K2.  CPU tensors take the plain version; CUDA tensors launch the
     kernel (and count the launch in ``edge_map.launches``)."""
-    _check(message, frames, stack)
     if message.device.type == "cpu":
         return edge_map_plain(message, frames, stack)
     if message.device.type != "cuda":
@@ -206,8 +272,7 @@ def edge_map(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
     err = library("edge_map").gcp_edge_map(
         message.data_ptr(), frames.data_ptr(), stack.weights.data_ptr(),
         stack.meta.ctypes.data, stack.meta.size, out.data_ptr(),
-        message.shape[0], DTYPE_CODES[message.dtype],
-        torch.cuda.current_stream(message.device).cuda_stream,
+        message.shape[0], DTYPE_CODES[message.dtype], _stream(message),
     )
     if err != 0:
         raise RuntimeError(f"edge_map: CUDA launch failed with error {err}")
@@ -215,4 +280,103 @@ def edge_map(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
     return out
 
 
+def _slot_width(layer: StackLayer, has_state: bool) -> int:
+    """Floats a row that K3 keeps of one layer in its scratch: the input
+    state (layers after the first) and the intermediates
+    (``csrc/edge_map_bwd.cu`` ``slot_floats``)."""
+    s_in, v_in, h, s_out, v_out = layer.dims
+    state = s_in + 3 * v_in if has_state else 0
+    gate = v_out if layer.w_gate is not None else 0
+    return state + 3 * (h + 3) + h + 9 + s_out + 3 * v_out + gate
+
+
+def launch_backward(fn, message: Tensor, frames: Tensor, stack: PackedStack, grad_out: Tensor):
+    """Call a build of K3's C entry point ``fn`` on checked CUDA tensors:
+    ``(d message, d weights)``."""
+    dev = message.device
+    e = message.shape[0]
+    d_message = torch.empty_like(message)
+    if e == 0:
+        return d_message, torch.zeros_like(stack.weights)
+    d_weights = torch.empty(stack.weights.shape, dtype=torch.float32, device=dev)
+    # one persistent block per SM, each with its own weight-gradient partial
+    # and its own scratch for a tile's activations
+    grid = min(-(-e // BWD_TILE), torch.cuda.get_device_properties(dev).multi_processor_count)
+    w_len = stack.weights.numel()
+    stash_len = BWD_TILE * sum(_slot_width(layer, i > 0) for i, layer in enumerate(stack.layers))
+    partials = torch.empty(grid * w_len, dtype=torch.float32, device=dev)
+    scratch = torch.empty(grid * stash_len, dtype=torch.float32, device=dev)
+    weights_t = stack.transposed()
+    err = fn(
+        message.data_ptr(), frames.data_ptr(), grad_out.data_ptr(), stack.weights.data_ptr(),
+        weights_t.data_ptr(), stack.meta.ctypes.data, stack.meta.size, d_message.data_ptr(),
+        d_weights.data_ptr(), partials.data_ptr(), scratch.data_ptr(), w_len, stash_len, e, grid,
+        DTYPE_CODES[message.dtype], _stream(message),
+    )
+    if err != 0:
+        raise RuntimeError(f"edge_map_backward: CUDA launch failed with error {err}")
+    return d_message, d_weights
+
+
+def edge_map_backward(
+    message: Tensor, frames: Tensor, stack: PackedStack, grad_out: Tensor
+) -> Tuple[Tensor, Tensor]:
+    """K3: ``(d message, d weights)`` for the cotangent ``grad_out`` of
+    ``edge_map(message, frames, stack)``; ``d message`` in the input dtype,
+    ``d weights`` float32 in the flat layout.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (and count the launch in
+    ``edge_map_backward.launches``)."""
+    _check(message, frames, stack)
+    if grad_out.shape != (message.shape[0], stack.out_dim) or grad_out.dtype != message.dtype:
+        raise ValueError(
+            f"edge_map_backward: grad_out must be {message.dtype} "
+            f"[{message.shape[0]}, {stack.out_dim}], got {grad_out.dtype} {tuple(grad_out.shape)}"
+        )
+    if message.device.type == "cpu":
+        return edge_map_backward_plain(message, frames, stack, grad_out)
+    if message.device.type != "cuda":
+        raise ValueError(f"edge_map_backward: unsupported device {message.device}")
+    _check_kernel_supported(stack)
+    d_message, d_weights = launch_backward(
+        library("edge_map_bwd").gcp_edge_map_bwd, message, frames, stack, grad_out.contiguous()
+    )
+    edge_map_backward.launches += 1
+    return d_message, d_weights
+
+
+class EdgeMap(torch.autograd.Function):
+    """K2 forward, K3 backward.  Inputs ``(message, frames, weights,
+    stack)`` with ``weights is stack.weights``; gradients for ``message``
+    and ``weights``."""
+
+    @staticmethod
+    def forward(ctx, message: Tensor, frames: Tensor, weights: Tensor, stack: PackedStack):
+        if frames.requires_grad:
+            raise NotImplementedError(
+                "edge_map: no gradient for the frames (tasks that move positions need it)"
+            )
+        ctx.stack = stack
+        ctx.save_for_backward(message, frames)
+        return _edge_map_forward(message, frames, stack)
+
+    @staticmethod
+    def backward(ctx, grad_out: Tensor):
+        message, frames = ctx.saved_tensors
+        d_message, d_weights = edge_map_backward(message, frames, ctx.stack, grad_out.contiguous())
+        return (
+            d_message if ctx.needs_input_grad[0] else None,
+            None,
+            d_weights if ctx.needs_input_grad[2] else None,
+            None,
+        )
+
+
+def edge_map(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
+    """The fused stack over edge rows, differentiable in ``message`` and
+    the stack's weights (see :class:`EdgeMap`)."""
+    _check(message, frames, stack)
+    return EdgeMap.apply(message, frames, stack.weights, stack)
+
+
 edge_map.launches = 0
+edge_map_backward.launches = 0

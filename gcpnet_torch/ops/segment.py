@@ -24,6 +24,28 @@ from torch import Tensor
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data: Tensor, index: Tensor) -> Tensor:
+        ctx.save_for_backward(index)
+        ctx.num_rows = data.shape[0]
+        return data[index]
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        (index,) = ctx.saved_tensors
+        out = torch.zeros((ctx.num_rows,) + tuple(grad.shape[1:]), dtype=torch.float32, device=grad.device)
+        return out.index_add_(0, index, grad.float()).to(grad.dtype), None
+
+
+def gather_rows(data: Tensor, index: Tensor) -> Tensor:
+    """``data[index]`` for an int64 row index, whose gradient is an
+    ``index_add_`` accumulated in float32 and rounded once (the gradient of
+    plain indexing sorts the index on the card first, which costs more than
+    the rest of the message passing's glue)."""
+    return _GatherRows.apply(data, index)
+
+
 def _apply_mask(data: Tensor, mask: Optional[Tensor]) -> Tensor:
     if mask is None:
         return data

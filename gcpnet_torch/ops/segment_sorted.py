@@ -6,7 +6,9 @@ returned in the input dtype.  Rows outside ``[row_splits[0],
 row_splits[-1])`` belong to no node.  It replaces the TPU kernel
 ``gcpnet_tpu/ops/pallas_segment.py:_seg_sum_kernel``; on CUDA tensors the
 wrapper launches the hand-written kernel ``csrc/segment_sorted.cu``, on CPU
-tensors it runs :func:`segment_sum_sorted_plain`.
+tensors it runs :func:`segment_sum_sorted_plain`.  Its gradient is the
+gather of ``_seg_sum_bwd`` (``pallas_segment.py:175-183``), plain torch on
+both devices, as it is an XLA gather in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,10 +49,9 @@ def _check(data: Tensor, row_splits: Tensor, num_nodes: int) -> None:
         raise ValueError("segment_sum_sorted: data and row_splits must be contiguous")
 
 
-def segment_sum_sorted(data: Tensor, row_splits: Tensor, num_nodes: int) -> Tensor:
+def _segment_sum_sorted_forward(data: Tensor, row_splits: Tensor, num_nodes: int) -> Tensor:
     """K1.  CPU tensors take the plain version; CUDA tensors launch the
     kernel (and count the launch in ``segment_sum_sorted.launches``)."""
-    _check(data, row_splits, num_nodes)
     if data.device.type == "cpu":
         return segment_sum_sorted_plain(data, row_splits, num_nodes)
     if data.device.type != "cuda":
@@ -65,6 +66,37 @@ def segment_sum_sorted(data: Tensor, row_splits: Tensor, num_nodes: int) -> Tens
         raise RuntimeError(f"segment_sum_sorted: CUDA launch failed with error {err}")
     segment_sum_sorted.launches += 1
     return out
+
+
+def segment_sum_sorted_backward(grad: Tensor, row_splits: Tensor, num_rows: int) -> Tensor:
+    """``d data``: each row in ``[row_splits[0], row_splits[-1])`` takes the
+    gradient of its node, the other rows 0."""
+    rows = torch.arange(num_rows, device=grad.device)
+    splits = row_splits.to(torch.int64)
+    seg = torch.searchsorted(splits[1:], rows, right=True)
+    valid = (rows >= splits[0]) & (rows < splits[-1])
+    picked = grad[seg.clamp(max=max(grad.shape[0] - 1, 0))]
+    return torch.where(valid[:, None], picked, torch.zeros((), dtype=grad.dtype, device=grad.device))
+
+
+class SegmentSumSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data: Tensor, row_splits: Tensor, num_nodes: int) -> Tensor:
+        ctx.save_for_backward(row_splits)
+        ctx.num_rows = data.shape[0]
+        return _segment_sum_sorted_forward(data, row_splits, num_nodes)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        (row_splits,) = ctx.saved_tensors
+        return segment_sum_sorted_backward(grad, row_splits, ctx.num_rows), None, None
+
+
+def segment_sum_sorted(data: Tensor, row_splits: Tensor, num_nodes: int) -> Tensor:
+    """The sorted segment sum, differentiable in ``data`` (see
+    :class:`SegmentSumSorted`)."""
+    _check(data, row_splits, num_nodes)
+    return SegmentSumSorted.apply(data, row_splits, num_nodes)
 
 
 segment_sum_sorted.launches = 0

@@ -11,6 +11,10 @@ Layouts, identical on both sides (no transposes):
   ``bias``: ``[out]``;
 - ``LayerNorm``: ``scale`` and ``bias``, ``[features]``;
 - ``Embed``: ``embedding``, ``[num_embeddings, features]``.
+
+A gradient tree of the flax parameters (``jax.grad`` of a loss over the
+variables) has the same paths, so :func:`from_jax_params` also brings JAX
+gradients into the port's parameter names, as the parity tests do.
 """
 
 from __future__ import annotations

@@ -9,7 +9,18 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from gcpnet_torch.data.batching import sort_edges_by_receiver
+from gcpnet_torch.graph import GraphData, batch_graphs
 from gcpnet_torch.weights import from_jax_params
+
+# The small LBA configuration of the parity tests: 2 interaction layers of
+# 3-layer message stacks, hidden 16/4/8/4; bucket (nodes, edges, graphs).
+LBA_MODEL = dict(
+    chi_input_dim=2, e_input_dim=16, xi_input_dim=1, h_hidden_dim=16,
+    chi_hidden_dim=4, e_hidden_dim=8, xi_hidden_dim=4, num_encoder_layers=2,
+)
+LBA_MESSAGE_LAYERS = 3
+LBA_BUCKET = (48, 256, 3)
 
 
 def random_graphs(rng: np.random.Generator, num_graphs: int = 2, nodes: int = 20, edges: int = 70):
@@ -29,6 +40,19 @@ def random_graphs(rng: np.random.Generator, num_graphs: int = 2, nodes: int = 20
                 extras={"label": np.float32(rng.normal())},
             )
         )
+    return out
+
+
+def sorted_batch(rng, tile, nodes=70, graphs=2, edges=300, bucket_edges=900):
+    """A receiver-sorted port batch: with ``tile=128`` the tile-aligned
+    layout with alignment holes, with ``tile=1`` plain CSR splits."""
+    gs = random_graphs(rng, num_graphs=graphs, nodes=nodes, edges=edges)
+    batch = batch_graphs(
+        [GraphData(**g) for g in gs], graphs * nodes + 3, bucket_edges, graphs + 1,
+        extra_graph_keys=("label",),
+    )
+    out = sort_edges_by_receiver(batch, tile=tile)
+    assert out.edge_row_splits is not None
     return out
 
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and its prediction on the card (marked ``gpu``).
+"""The port's CUDA kernels, its prediction and its gradients on the card
+(marked ``gpu``).
 
 This file imports no JAX, so it also runs on a machine that has none; there
 it runs without the repository's ``conftest.py``, which sets JAX up:
@@ -14,8 +15,14 @@ import torch
 
 from gcpnet_torch import predict as port_predict
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
+from gcpnet_torch.models.lba import GCPNetLBA, graph_regression_loss
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
-from gcpnet_torch.ops.edge_map import edge_map, edge_map_plain
+from gcpnet_torch.ops.edge_map import (
+    edge_map,
+    edge_map_backward,
+    edge_map_backward_plain,
+    edge_map_plain,
+)
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
 
 pytestmark = pytest.mark.gpu
@@ -58,9 +65,12 @@ STACK_SETTINGS = {
 }
 
 
-def _message_passing(cfg: ModuleCfg, num_message_layers: int = 4) -> GCPMessagePassing:
+def _message_passing(
+    cfg: ModuleCfg, num_message_layers: int = 4, residual: bool = True
+) -> GCPMessagePassing:
+    mp_cfg = MPCfg(num_message_layers=num_message_layers, use_residual_message_gcp=residual)
     return GCPMessagePassing(
-        (16, 4), (16, 4), (8, 4), cfg, LayerCfg(mp_cfg=MPCfg(num_message_layers=num_message_layers)),
+        (16, 4), (16, 4), (8, 4), cfg, LayerCfg(mp_cfg=mp_cfg),
         generator=torch.Generator().manual_seed(0), device="cpu",
     )
 
@@ -84,6 +94,95 @@ def test_k2_cuda_matches_plain(rng, cuda, settings, dtype):
     # keeps float32 intermediates
     tol = 1e-4 if dtype == torch.float32 else 5e-2 * max(1.0, want.float().abs().max().item())
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=tol)
+
+
+def _max_rel_err(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max() / max(1.0, want.abs().max().item())).item()
+
+
+def _norm_rel_err(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("settings", sorted(STACK_SETTINGS))
+def test_k3_cuda_matches_plain(rng, cuda, settings, residual, dtype):
+    with torch.no_grad():
+        stack = _message_passing(STACK_SETTINGS[settings], residual=residual).to(cuda, dtype).packed_stack()
+    e = 1000  # not a multiple of the kernel's 32-row tile
+    msg = rng.normal(size=(e, stack.in_dim)).astype(np.float32)
+    msg[: e // 4, stack.layers[0].dims[0] :] = 0.0  # zero vectors: the norm's eps decides
+    msg = torch.from_numpy(msg).to(cuda, dtype)
+    frames = torch.from_numpy(rng.normal(size=(e, 9)).astype(np.float32)).to(cuda, dtype)
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    before = edge_map_backward.launches
+    d_msg, d_w = edge_map_backward(msg, frames, stack, grad_out)
+    torch.cuda.synchronize()
+    assert edge_map_backward.launches == before + 1
+    assert d_msg.dtype == dtype and d_w.dtype == torch.float32
+    want_msg, want_w = edge_map_backward_plain(msg, frames, stack, grad_out)
+    if dtype == torch.float32:
+        # float32 throughout; the summation order differs
+        assert _max_rel_err(d_msg, want_msg) <= 1e-4
+        assert _max_rel_err(d_w, want_w) <= 1e-4
+    else:
+        # the same bf16 inputs through the float32 plain version: the
+        # kernel's own arithmetic, with d message rounded once to bf16
+        up_msg, up_w = edge_map_backward_plain(msg.float(), frames.float(), stack, grad_out.float())
+        assert _norm_rel_err(d_msg, up_msg) <= 1e-2
+        assert _norm_rel_err(d_w, up_w) <= 1e-3
+        # the plain bf16 version rounds every product of the recompute and
+        # of the backward to bf16, the kernel keeps float32; in norm, since
+        # a few ill-conditioned entries (near-zero norms, relu kinks) differ
+        # by more
+        assert _norm_rel_err(d_msg, want_msg) <= 0.15
+        assert _norm_rel_err(d_w, want_w) <= 0.15
+
+
+def test_k3_is_deterministic(rng, cuda):
+    with torch.no_grad():
+        stack = _message_passing(ModuleCfg()).to(cuda).packed_stack()
+    e = 5000
+    args = [
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+        for shape in ((e, stack.in_dim), (e, 9), (e, stack.out_dim))
+    ]
+    first = edge_map_backward(args[0], args[1], stack, args[2])
+    again = edge_map_backward(args[0], args[1], stack, args[2])
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_lba_gradients_on_card_match_cpu(cuda):
+    """The fused path keeps the autograd graph on the card: a 2-layer LBA
+    loss gives every parameter the CPU's gradient (the message stacks' and
+    the embeddings' included), through K1, K2 and K3."""
+    model_cfg, module_cfg, layer_cfg = port_predict.lba_configs()
+    model_cfg = model_cfg.replace(num_encoder_layers=2)
+    batch = port_predict.synthetic_batches(1, 2, 40, 28, seed=1)[0]
+    grads, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = GCPNetLBA(
+            model_cfg, module_cfg, layer_cfg,
+            generator=torch.Generator().manual_seed(0), device=dev,
+        )
+        launches = edge_map_backward.launches
+        b = batch.to(torch.device(dev))
+        loss, _ = graph_regression_loss(model(b), b)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert edge_map_backward.launches == launches + 2
+        losses[dev] = loss.item()
+        grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
 
 
 def test_k2_cuda_rejects_unsupported_activation(cuda):

@@ -1,7 +1,8 @@
 """gcpnet_torch and chip_smoke.py import nothing of JAX, flax or gcpnet_tpu:
 every module of the package, the chip script, the card's tests
-(``test_torch_gpu.py``, which run where JAX is absent) and a CPU prediction
-run in a fresh interpreter whose import system refuses those packages."""
+(``test_torch_gpu.py``, which run where JAX is absent), a CPU prediction and
+a CPU training run (``python -m gcpnet_torch.train``) in a fresh interpreter
+whose import system refuses those packages."""
 
 import subprocess
 import sys
@@ -10,7 +11,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 PROBE = r"""
-import importlib.abc, importlib.util, pkgutil, sys
+import importlib.abc, importlib.util, pkgutil, runpy, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "gcpnet_tpu")
 
@@ -29,7 +30,11 @@ sys.meta_path.insert(0, Refuse())
 
 import gcpnet_torch
 
-names = [m.name for m in pkgutil.walk_packages(gcpnet_torch.__path__, "gcpnet_torch.")]
+# __main__ modules run their program when imported: run below instead
+names = [
+    m.name for m in pkgutil.walk_packages(gcpnet_torch.__path__, "gcpnet_torch.")
+    if not m.name.endswith(".__main__")
+]
 for name in names:
     importlib.import_module(name)
 for name, path in (("chip_smoke", "chip_smoke.py"), ("test_torch_gpu", "tests/test_torch_gpu.py")):
@@ -39,6 +44,9 @@ for name, path in (("chip_smoke", "chip_smoke.py"), ("test_torch_gpu", "tests/te
 from gcpnet_torch.predict import main
 
 main(["--graphs", "1", "--nodes", "8", "--edges-per-node", "4", "--device", "cpu"])
+sys.argv = ["gcpnet_torch.train", "--steps", "1", "--graphs", "1", "--nodes", "8",
+            "--edges-per-node", "4", "--device", "cpu"]
+runpy.run_module("gcpnet_torch.train", run_name="__main__")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names))

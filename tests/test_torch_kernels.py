@@ -16,32 +16,17 @@ from jax.experimental.pallas import tpu as pltpu
 
 import gcpnet_tpu.nn.message_passing as jmp
 import gcpnet_tpu.ops.pallas_fused as jpallas_fused
-from _torch_parity import load_jax_params, np_, random_graphs, t
+from _torch_parity import load_jax_params, np_, sorted_batch, t
 from gcpnet_tpu.config.schema import LayerCfg as JLayerCfg
 from gcpnet_tpu.config.schema import ModuleCfg as JModuleCfg
 from gcpnet_tpu.config.schema import MPCfg as JMPCfg
 from gcpnet_tpu.nn.primitives import ScalarVector as JScalarVector
 from gcpnet_tpu.ops.pallas_segment import segment_sum_sorted as jsegment_sum_sorted
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
-from gcpnet_torch.data.batching import sort_edges_by_receiver
-from gcpnet_torch.graph import GraphData, batch_graphs
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.nn.primitives import ScalarVector as ScalarVectorT
 from gcpnet_torch.ops.edge_map import edge_map
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
-
-
-def sorted_batch(rng, tile, nodes=70, graphs=2, edges=300, bucket_edges=900):
-    """A receiver-sorted batch: with ``tile=128`` the tile-aligned layout with
-    alignment holes, with ``tile=1`` plain CSR splits."""
-    gs = random_graphs(rng, num_graphs=graphs, nodes=nodes, edges=edges)
-    batch = batch_graphs(
-        [GraphData(**g) for g in gs], graphs * nodes + 3, bucket_edges, graphs + 1,
-        extra_graph_keys=("label",),
-    )
-    out = sort_edges_by_receiver(batch, tile=tile)
-    assert out.edge_row_splits is not None
-    return out
 
 
 @pytest.mark.parametrize("dim", [148, 9, 1])
@@ -183,14 +168,22 @@ def test_k2_wrapper_rejects_bad_inputs():
 
 
 def test_k2_packed_stack_follows_weight_changes():
+    """Under inference mode the pack is cached and follows weight changes;
+    outside it, each call packs the live weights on the autograd graph."""
     _, port = _message_passing_pair(2)
-    first = port.packed_stack()
-    assert port.packed_stack() is first
+    with torch.inference_mode():
+        first = port.packed_stack()
+        assert port.packed_stack() is first
     with torch.no_grad():
         port.message_fusion_0.scalar_out.bias.add_(1.0)
-    second = port.packed_stack()
+    with torch.inference_mode():
+        second = port.packed_stack()
     assert second is not first
     assert not torch.equal(second.weights, first.weights)
+    live = port.packed_stack()
+    assert live is not port.packed_stack()
+    assert live.weights.requires_grad and live.weights.grad_fn is not None
+    assert torch.equal(live.weights.detach(), second.weights)
 
 
 @pytest.mark.parametrize(

@@ -16,7 +16,15 @@ import gcpnet_tpu.nn.gcp as jgcp
 import gcpnet_tpu.nn.message_passing as jmp
 import gcpnet_tpu.ops.pallas_fused as jpallas_fused
 import gcpnet_tpu.ops.segment as jseg
-from _torch_parity import load_jax_params, np_, random_graphs, to_jax
+from _torch_parity import (
+    LBA_BUCKET as BUCKET,
+    LBA_MESSAGE_LAYERS as MESSAGE_LAYERS,
+    LBA_MODEL as MODEL,
+    load_jax_params,
+    np_,
+    random_graphs,
+    to_jax,
+)
 from gcpnet_tpu.config.schema import LayerCfg as JLayerCfg
 from gcpnet_tpu.config.schema import ModelCfg as JModelCfg
 from gcpnet_tpu.config.schema import ModuleCfg as JModuleCfg
@@ -34,13 +42,6 @@ from gcpnet_torch.models.lba import GCPNetLBA
 from gcpnet_torch.ops.edge_map import edge_map
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted
 from gcpnet_torch.weights import from_jax_params, save_npz, to_jax_params
-
-MODEL = dict(
-    chi_input_dim=2, e_input_dim=16, xi_input_dim=1, h_hidden_dim=16,
-    chi_hidden_dim=4, e_hidden_dim=8, xi_hidden_dim=4, num_encoder_layers=2,
-)
-MESSAGE_LAYERS = 3
-BUCKET = (48, 256, 3)
 
 
 def _graphs():
