@@ -1,5 +1,6 @@
-// K3: the backward of the fused GCP2 message stack (K2), recomputing the
-// stack's forward per tile of edge rows.
+// K3 in float32: the backward of the fused GCP2 message stack (K2),
+// recomputing the stack's forward per tile of edge rows.  bf16 runs
+// edge_map_bwd_tc.cu, on the tensor cores.
 //
 //   d_msg[e, :] = d_out[e, :] . d stack(msg[e, :], frames[e, :]) / d msg
 //   d_W         = sum over e of d_out[e, :] . d stack(msg[e, :], frames[e, :]) / d W
@@ -23,8 +24,8 @@
 //
 // Bound on the H100: operations.  Recompute plus backward is about three
 // times the forward's 245 kFLOP per edge row: ~153 GFLOP per call at the
-// main path's shape (208,896 rows, 8 layers, hidden 100/16) against ~350 MB
-// (bf16) of inputs and outputs.
+// main path's shape (208,896 rows, 8 layers, hidden 100/16) against ~700 MB
+// of float32 inputs and outputs.
 //
 // Design:
 // - Tile of 48 rows (K2 takes 64).  K2 keeps a 64-row tile's activations in
@@ -70,11 +71,8 @@ using gcp::kThreads;
 using gcp::Layer;
 using gcp::mm;
 using gcp::Stack;
-using gcp::to_f;
-using gcp::store_f;
 
 constexpr int kTile = 48;  // edge rows per tile
-constexpr int kReduceThreads = 256;
 
 // P[k * N + n] += sum_{r < R} act(A[r][k]) * G[r][n]  for k < K, n < N: one
 // tile's contribution to a weight gradient, added to the block's own float32
@@ -323,12 +321,11 @@ __device__ void load_state(const Smem& s, const Stack& st, const Layer& L, const
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-edge_map_bwd_kernel(const T* __restrict__ msg, const T* __restrict__ frames,
-                    const T* __restrict__ gout, const float* __restrict__ W,
+edge_map_bwd_kernel(const float* __restrict__ msg, const float* __restrict__ frames,
+                    const float* __restrict__ gout, const float* __restrict__ W,
                     const float* __restrict__ WT, const Stack st,
-                    T* __restrict__ dmsg, float* __restrict__ partials, float* __restrict__ scratch,
+                    float* __restrict__ dmsg, float* __restrict__ partials, float* __restrict__ scratch,
                     long long w_len, long long stash_len, long long num_edges) {
   extern __shared__ float4 smem4[];
   const Smem s = carve(reinterpret_cast<float*>(smem4), st);
@@ -351,7 +348,7 @@ edge_map_bwd_kernel(const T* __restrict__ msg, const T* __restrict__ frames,
     // the cotangent of the stack's output
     for (int i = tid; i < kTile * out_dim; i += kThreads) {
       const int r = i / out_dim, col = i - r * out_dim;
-      const float g = r < rows ? to_f(gout[e0 * out_dim + i]) : 0.f;
+      const float g = r < rows ? gout[e0 * out_dim + i] : 0.f;
       if (col < last.s_out) {
         s.dY[r * st.lds + col] = g;
       } else {
@@ -401,7 +398,7 @@ edge_map_bwd_kernel(const T* __restrict__ msg, const T* __restrict__ frames,
           }
         }
       } else {
-        T* dst = dmsg + e0 * in_dim;
+        float* dst = dmsg + e0 * in_dim;
         for (int i = tid; i < rows * in_dim; i += kThreads) {
           const int r = i / in_dim, col = i - r * in_dim;
           float v;
@@ -412,7 +409,7 @@ edge_map_bwd_kernel(const T* __restrict__ msg, const T* __restrict__ frames,
             const int rc = r * 3 + c;
             v = s.dV[rc * st.ldx + jj] + (L.vres ? s.dU[rc * st.ldv + jj] : 0.f);
           }
-          store_f(dst + i, v);
+          dst[i] = v;
         }
       }
       __syncthreads();
@@ -420,69 +417,47 @@ edge_map_bwd_kernel(const T* __restrict__ msg, const T* __restrict__ frames,
   }
 }
 
-// out[i] = sum over blocks b, in order, of partials[b * w_len + i]
-__global__ void sum_partials(const float* __restrict__ partials, int blocks, long long w_len,
-                             float* __restrict__ out) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < w_len;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float sum = 0.f;
-    for (int b = 0; b < blocks; ++b) sum += partials[b * w_len + i];
-    out[i] = sum;
-  }
-}
-
-template <typename T>
-int launch(const void* msg, const void* frames, const void* gout, const float* weights,
-           const float* weights_t, const Stack& st, void* dmsg, float* dweights, float* partials, float* scratch,
-           long long w_len, long long stash_len, long long num_edges, int grid,
+int launch(const float* msg, const float* frames, const float* gout, const float* weights,
+           const float* weights_t, const Stack& st, float* dmsg, float* dweights, float* partials,
+           float* scratch, long long w_len, long long stash_len, long long num_edges, int grid,
            cudaStream_t stream) {
   const size_t smem = smem_floats(st) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(edge_map_bwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(edge_map_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  edge_map_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(msg), static_cast<const T*>(frames), static_cast<const T*>(gout),
-      weights, weights_t, st, static_cast<T*>(dmsg), partials, scratch, w_len, stash_len, num_edges);
+  edge_map_bwd_kernel<<<grid, kThreads, smem, stream>>>(msg, frames, gout, weights, weights_t, st, dmsg,
+                                                        partials, scratch, w_len, stash_len, num_edges);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = std::min<long long>((w_len + kReduceThreads - 1) / kReduceThreads, 1024);
-  sum_partials<<<static_cast<unsigned>(blocks), kReduceThreads, 0, stream>>>(partials, grid, w_len,
-                                                                             dweights);
-  return static_cast<int>(cudaGetLastError());
+  return gcp::launch_sum_partials(partials, grid, w_len, dweights, stream);
 }
 
 }  // namespace
 
-// message [E, s_in + 3 v_in], frames [E, 9] (masked) and grad_out
-// [E, s_out + 3 v_out] in one dtype; d_msg [E, s_in + 3 v_in] out in that
-// dtype; weights and d_weights float32 [weights_len], and weights_t the same
-// buffer with each matrix transposed in place; meta is K2's HOST layer table
-// (edge_map.cu), every matrix at an offset that is a multiple of 4.
-// Workspace, float32 on the device: partials [grid * weights_len] and
-// scratch [grid * stash_len], stash_len at least 48 (kTile) * sum over
-// layers l of ((l > 0 ? s_in + 3 v_in : 0) + 3 (h + 3) + h + 9 + s_out
-// + 3 v_out + (vgate ? v_out : 0)).  grid is the number of persistent blocks
-// (one per SM).  Returns cudaGetLastError() after the two launches (0 on
-// success).
-extern "C" int gcp_edge_map_bwd(const void* msg, const void* frames, const void* grad_out,
+// message [E, s_in + 3 v_in], frames [E, 9] (masked), grad_out
+// [E, s_out + 3 v_out] and d_msg [E, s_in + 3 v_in] out, all float32 (bf16
+// runs edge_map_bwd_tc.cu); weights and d_weights float32 [weights_len], and
+// weights_t the same buffer with each matrix transposed in place; meta is
+// K2's HOST layer table (edge_map.cu), every matrix at an offset that is a
+// multiple of 4.  Workspace, float32 on the device: partials
+// [grid * weights_len] and scratch [grid * stash_len], stash_len at least 48
+// (kTile) * sum over layers l of ((l > 0 ? s_in + 3 v_in : 0) + 3 (h + 3)
+// + h + 9 + s_out + 3 v_out + (vgate ? v_out : 0)).  grid is the number of
+// persistent blocks (one per SM).  Returns cudaGetLastError() after the two
+// launches (0 on success).
+extern "C" int gcp_edge_map_bwd(const float* msg, const float* frames, const float* grad_out,
                                 const float* weights, const float* weights_t,
                                 const int* meta, int meta_len,
-                                void* d_msg, float* d_weights, float* partials, float* scratch,
+                                float* d_msg, float* d_weights, float* partials, float* scratch,
                                 long long weights_len, long long stash_len, long long num_edges,
-                                int grid, int dtype, void* stream) {
+                                int grid, void* stream) {
   Stack st;
   if (!gcp::parse_stack(meta, meta_len, st)) return static_cast<int>(cudaErrorInvalidValue);
   if (grid < 1 || weights_len < 1 || (weights_len & 3) != 0 ||
       stash_len < slot_offset(st, st.n_layers))
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_edges <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == gcp::kF32)
-    return launch<float>(msg, frames, grad_out, weights, weights_t, st, d_msg, d_weights, partials,
-                         scratch, weights_len, stash_len, num_edges, grid, s);
-  if (dtype == gcp::kBF16)
-    return launch<__nv_bfloat16>(msg, frames, grad_out, weights, weights_t, st, d_msg, d_weights,
-                                 partials, scratch, weights_len, stash_len, num_edges, grid, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(msg, frames, grad_out, weights, weights_t, st, d_msg, d_weights, partials, scratch,
+                weights_len, stash_len, num_edges, grid, static_cast<cudaStream_t>(stream));
 }

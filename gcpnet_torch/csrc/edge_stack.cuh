@@ -3,6 +3,7 @@
 // parse_stack() turns it into a Stack passed by value to the kernel, with
 // the shared-memory row strides both kernels use; layer_forward and
 // layer_output run one layer on a tile of rows in shared memory.
+// sum_partials adds K3's per-block weight-gradient partials (both K3s).
 #pragma once
 
 #include <algorithm>
@@ -71,6 +72,28 @@ inline bool parse_stack(const int* meta, int meta_len, Stack& st) {
 }
 
 constexpr int kThreads = 256;  // threads per block of K2 and K3
+
+// K3's weight gradients from its blocks' float32 partials: out[i] = sum over
+// blocks b, in order, of partials[b * w_len + i] (a fixed order, so the same
+// result from run to run).
+__global__ void sum_partials(const float* __restrict__ partials, int blocks, long long w_len,
+                             float* __restrict__ out) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < w_len;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float sum = 0.f;
+    for (int b = 0; b < blocks; ++b) sum += partials[b * w_len + i];
+    out[i] = sum;
+  }
+}
+
+// Launches sum_partials; returns cudaGetLastError() after it.
+inline int launch_sum_partials(const float* partials, int blocks, long long w_len, float* out,
+                               cudaStream_t stream) {
+  constexpr int kReduceThreads = 256;
+  const long long grid = std::min<long long>((w_len + kReduceThreads - 1) / kReduceThreads, 1024);
+  sum_partials<<<static_cast<unsigned>(grid), kReduceThreads, 0, stream>>>(partials, blocks, w_len, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // C[r][n] = (accumulate ? C[r][n] : 0) + bias[n] + sum_k act(A[r][k]) * B(k, n)
 // for r < R, n < N, with B(k, n) = B[k * sk + n * sn]: (sk, sn) = (N, 1) reads

@@ -25,8 +25,9 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-# C entry points: name -> (argtypes, restype); every one returns the
-# cudaGetLastError() code after its launch.
+# C entry points: library -> {function: argtypes}; every launching one
+# returns the cudaGetLastError() code after its launches (an int), the
+# others the type RESTYPES gives.
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
     "segment_sorted": {
@@ -36,9 +37,14 @@ SIGNATURES = {
         "gcp_edge_map": [_P, _P, _P, _P, _I, _P, _LL, _I, _P],
     },
     "edge_map_bwd": {
-        "gcp_edge_map_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
+        "gcp_edge_map_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
+    },
+    "edge_map_bwd_tc": {
+        "gcp_edge_map_bwd_tc": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
+        "gcp_edge_map_bwd_tc_image_bytes": [_P, _I],
     },
 }
+RESTYPES = {"gcp_edge_map_bwd_tc_image_bytes": _LL}
 
 
 def nvcc() -> str:
@@ -88,6 +94,15 @@ def build(names: Iterable[str] = tuple(SIGNATURES), ptxas_verbose: bool = False)
     return outputs
 
 
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set the argument and result types of kernel library ``name``'s entry
+    points on ``lib`` (a build of its source)."""
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = RESTYPES.get(fn, _I)
+    return lib
+
+
 class _Libraries:
     """Process-wide cache of loaded kernel libraries."""
 
@@ -101,9 +116,7 @@ class _Libraries:
                 if _stale(name):
                     build([name])
                 lib = ctypes.CDLL(str(library_path(name)))
-                for fn, argtypes in SIGNATURES[name].items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                bind(lib, name)
                 self._libs[name] = lib
             return self._libs[name]
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where K3's time goes: time the edge map's backward kernel
-(gcpnet_torch/csrc/edge_map_bwd.cu) with parts of its work removed.
+"""Where the bf16 K3's time goes: time the tensor-core backward kernel
+(gcpnet_torch/csrc/edge_map_bwd_tc.cu) with parts of its work removed.
 
     python3 k3_breakdown.py
 
-Needs the card.  Each variant is the kernel's source with one part cut out
-(so its results are wrong by design): the weight-gradient partials' loads
-and stores, the weight-gradient products, the scratch traffic of the
-activations, the forward sweep.  All are built with nvcc at once, then each
-is timed through the wrapper's launch (ops.edge_map.launch_backward) on the
-same bf16 inputs at the main path's shape (CUDA events).
-The differences to the whole kernel bound what each part costs.  Prints one
-JSON line with the card's name and the milliseconds of each variant.
+Needs the card.  Each variant is the kernel's source built with
+``-DK3_CUT=<n>``, one of the kernel's ``Cut`` values, which removes one part
+of the work (so its results are wrong by design): the weight-gradient
+partials' loads and stores, the weight-gradient products (and bias sums),
+the scratch traffic of the layers' input states, the forward sweep, the
+reverse sweep's recompute, the backward's data products.  All are built
+with nvcc at once, then each is timed through the wrapper's launch
+(ops.edge_map.launch_backward) on the same bf16 inputs at the main path's
+shape (CUDA events).  The differences to the whole kernel bound what each
+part costs.  Prints one JSON line with the card's name and the
+milliseconds of each variant.
 """
 
 from __future__ import annotations
@@ -29,58 +32,33 @@ from gcpnet_torch.ops import build
 from gcpnet_torch.ops.edge_map import launch_backward
 from gcpnet_torch.predict import synthetic_batches
 
-SOURCE = build.CSRC / "edge_map_bwd.cu"
+SOURCE = build.CSRC / "edge_map_bwd_tc.cu"
 OUT_DIR = os.path.join("logs", "k3_breakdown")
-
-FORWARD_SWEEP = """      gcp::layer_forward<kTile>(s, st, L, W);
-      if (l < nl - 1) {
-        copy_intermediates(s, st, L, l > 0, stash + slot_offset(st, l), true);"""
+# variant -> the kernel's Cut enumerator and its value
 CUTS = {
-    # the partial starts at zero and is never stored
-    "no_partials": [
-        ("      if (k0 + i >= K) {\n", "      if (true) {\n"),
-        ("      if (k0 + i >= K) break;", "      if (k0 + i >= K || !(acc[i][0] == -1.2345e30f)) break;"),
-    ],
-    "no_weight_grads": [
-        ("  const int kg = (K + 3) >> 2, ng = (N + 3) >> 2;",
-         "  if (K > 0) return;\n  const int kg = (K + 3) >> 2, ng = (N + 3) >> 2;"),
-    ],
-    "no_scratch": [
-        ("        copy_intermediates(s, st, L, l > 0, stash + slot_offset(st, l), true);", ""),
-        ("        copy_intermediates(s, st, L, l > 0, slot, false);", ""),
-    ],
-    "no_forward_sweep": [
-        (FORWARD_SWEEP, """      if (l == nl - 1) gcp::layer_forward<kTile>(s, st, L, W);
-      if (false) {"""),
-    ],
+    "whole": ("kWhole", 0),
+    "no_partials": ("kNoPartials", 1),
+    "no_weight_grads": ("kNoWeightGrads", 2),
+    "no_scratch": ("kNoScratch", 3),
+    "no_forward_sweep": ("kNoForwardSweep", 4),
+    "no_recompute": ("kNoRecompute", 5),
+    "no_backward_products": ("kNoBackwardProducts", 6),
 }
-
-
-def variant_sources():
-    src = SOURCE.read_text()
-    out = {"whole": src}
-    for name, cuts in CUTS.items():
-        text = src
-        for old, new in cuts:
-            if old not in text:
-                raise RuntimeError(f"{name}: the kernel no longer has {old.strip()[:60]!r}")
-            text = text.replace(old, new)
-        out[name] = text
-    return out
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("k3_breakdown: needs a CUDA device", file=sys.stderr)
         return 1
+    src = SOURCE.read_text()
+    for name, (enum, value) in CUTS.items():
+        if f"{enum} = {value}" not in src:
+            raise RuntimeError(f"{name}: the kernel no longer defines {enum} = {value}")
     os.makedirs(OUT_DIR, exist_ok=True)
     procs = {}
-    for name, text in variant_sources().items():
-        src = os.path.join(OUT_DIR, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(text)
-        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
-               os.path.join(OUT_DIR, f"lib{name}.so"), src]
+    for name, (_, value) in CUTS.items():
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, f"-DK3_CUT={value}", "-o", os.path.join(OUT_DIR, f"lib{name}.so"),
+               str(SOURCE)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     for name, proc in procs.items():
         _, err = proc.communicate()
@@ -96,11 +74,9 @@ def main() -> int:
     grad_out = torch.randn((e, stack.out_dim), generator=gen, device="cuda").to(torch.bfloat16)
     ms = {}
     for name in procs:
-        fn = ctypes.CDLL(os.path.join(OUT_DIR, f"lib{name}.so")).gcp_edge_map_bwd
-        fn.argtypes = build.SIGNATURES["edge_map_bwd"]["gcp_edge_map_bwd"]
-        fn.restype = ctypes.c_int
+        lib = build.bind(ctypes.CDLL(os.path.join(OUT_DIR, f"lib{name}.so")), "edge_map_bwd_tc")
         ms[name] = chip_smoke.cuda_ms(
-            lambda: launch_backward(fn, message, frames, stack, grad_out), iters=5, warmup=1
+            lambda: launch_backward(message, frames, stack, grad_out, lib=lib), iters=5, warmup=1
         )
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,5 +1,6 @@
 """gcpnet_torch and chip_smoke.py import nothing of JAX, flax or gcpnet_tpu:
-every module of the package, the chip script, the card's tests
+every module of the package, the chip scripts (``chip_smoke.py``,
+``k1_versions.py``, ``k3_breakdown.py``), the card's tests
 (``test_torch_gpu.py``, which run where JAX is absent), a CPU prediction and
 a CPU training run (``python -m gcpnet_torch.train``) in a fresh interpreter
 whose import system refuses those packages."""
@@ -37,7 +38,8 @@ names = [
 ]
 for name in names:
     importlib.import_module(name)
-for name, path in (("chip_smoke", "chip_smoke.py"), ("test_torch_gpu", "tests/test_torch_gpu.py")):
+for name, path in (("chip_smoke", "chip_smoke.py"), ("test_torch_gpu", "tests/test_torch_gpu.py"),
+                   ("k1_versions", "k1_versions.py"), ("k3_breakdown", "k3_breakdown.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 

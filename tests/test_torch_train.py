@@ -62,7 +62,7 @@ from gcpnet_torch.models.lba import GCPNetLBA, graph_regression_loss
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.nn.primitives import GCPDropout
 from gcpnet_torch.nn.primitives import ScalarVector as ScalarVectorT
-from gcpnet_torch.ops.edge_map import edge_map, edge_map_backward
+from gcpnet_torch.ops.edge_map import edge_map, edge_map_backward, edge_map_backward_plain
 from gcpnet_torch.ops.segment import gather_rows
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted
 from gcpnet_torch.train import cli as train_cli
@@ -159,6 +159,103 @@ def test_stack_gradients_match_pallas_kernel(rng, monkeypatch):
     _assert_grads_match(want[0], port, atol=ATOL)
     for x, w in zip(xs, want[1:]):
         np.testing.assert_allclose(np_(x.grad), np.asarray(w), atol=ATOL)
+
+
+# bf16 keeps 8 significant bits: one rounding is within 2^-8 relative.  The
+# two sides round at different places (the JAX MM form takes the norms and
+# the frame contraction as bf16 products fed to matmuls, the port as bf16
+# sums), and 3 layers of products, norms and relus carry those roundings on;
+# a relu whose input lies within one rounding of 0 takes different sides,
+# and its entry differs by O(1).  So the gradients are compared in norm, at
+# 4 roundings: ||port - jax|| <= 4 * 2^-8 * ||jax|| (measured: ~1.5
+# roundings for d message and for all weight gradients together).
+STACK_BF16_NORM_TOL = 4 * 2.0**-8
+
+
+def _norm_rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_stack_gradients_match_pallas_kernel_bf16(rng, monkeypatch):
+    """The numerics the bf16 K3 follows: the port's plain bf16 backward
+    (``edge_map_backward_plain`` on bf16 inputs) against ``jax.grad``
+    through the Pallas edge map in bf16 (interpret mode), on the very rows
+    the Pallas kernel was given: d message and every stack weight's
+    gradient.  The JAX kernel casts its float32 weights to bf16; the port's
+    weights are given the same bf16 values."""
+    batch = sorted_batch(rng, 128, nodes=30, edges=120, bucket_edges=400)
+    n, e = batch.num_nodes, batch.num_edges
+    inputs = [
+        rng.normal(size=shape).astype(np.float32)
+        for shape in ((n, 16), (n, 12), (e, 8), (e, 12))
+    ]
+    inputs[1][: n // 2] = 0.0  # zero vectors: the norm's eps decides
+    frames = rng.normal(size=(e, 9)).astype(np.float32)
+    mask = np.asarray(batch.edge_pad_mask)
+    mp_cfg = dict(num_message_layers=LBA_MESSAGE_LAYERS)
+    jmod = jmp.GCPMessagePassing(
+        input_dims=(16, 4), output_dims=(16, 4), edge_dims=(8, 4), cfg=JModuleCfg(),
+        layer_cfg=JLayerCfg(mp_cfg=JMPCfg(**mp_cfg)),
+    )
+    bf16 = [jnp.asarray(a, jnp.bfloat16) for a in inputs]
+    jargs = (jnp.asarray(batch.senders), jnp.asarray(batch.receivers), jnp.asarray(frames, jnp.bfloat16))
+    kw = dict(edge_mask=jnp.asarray(mask), count_mask=jnp.asarray(mask),
+              row_splits=jnp.asarray(batch.edge_row_splits))
+    variables = jmod.init(
+        jax.random.key(0), JScalarVector(*map(jnp.asarray, inputs[:2])),
+        JScalarVector(*map(jnp.asarray, inputs[2:])), *jargs[:2], jnp.asarray(frames), **kw,
+    )
+    # the cotangent of the stack's output, bf16 values
+    cot = jnp.asarray(rng.normal(size=(e, 16 + 3 * 4)), jnp.bfloat16)
+
+    seen = {}
+    real_edge_map = jpallas_fused.edge_map
+
+    def recording_edge_map(fn, params, edge_data, out_dim):
+        out = real_edge_map(fn, params, edge_data, out_dim)
+        seen.update(fn=fn, params=params, edge_data=edge_data, out_dim=out_dim, out=out)
+        return out
+
+    def apply(v):
+        jmod.apply(v, JScalarVector(*bf16[:2]), JScalarVector(*bf16[2:]), *jargs, **kw)
+        return seen["out"]
+
+    _fused_jax(monkeypatch)
+    monkeypatch.setattr(jpallas_fused, "edge_map", recording_edge_map)
+    with pltpu.force_tpu_interpret_mode():
+        apply(variables)
+        fn, params, edge_data, out_dim = (seen[k] for k in ("fn", "params", "edge_data", "out_dim"))
+        assert edge_data.dtype == jnp.bfloat16
+        # d edge data through the Pallas backward; d weights in the flax tree
+        _, vjp = jax.vjp(lambda d: real_edge_map(fn, params, d, out_dim), edge_data)
+        (want_data,) = vjp(cot)
+        want_w = jax.grad(lambda v: jnp.sum(apply(v).astype(jnp.float32) * cot.astype(jnp.float32)))(variables)
+
+    port = GCPMessagePassing(
+        (16, 4), (16, 4), (8, 4), ModuleCfg(), LayerCfg(mp_cfg=MPCfg(**mp_cfg)),
+        generator=torch.Generator().manual_seed(0), device="cpu",
+    )
+    load_jax_params(port, variables)
+    with torch.no_grad():
+        for p in port.parameters():
+            p.copy_(p.bfloat16().float())
+    stack = port.packed_stack()
+    base = stack.in_dim
+    data = t(edge_data.astype(jnp.float32), torch.bfloat16)
+    message, masked_frames = data[:, :base].contiguous(), data[:, base : base + 9].contiguous()
+    d_msg, d_w = edge_map_backward_plain(message, masked_frames, stack, t(cot.astype(jnp.float32), torch.bfloat16))
+    assert d_msg.dtype == torch.bfloat16 and d_w.dtype == torch.float32
+    stack.weights.backward(d_w)  # the packed buffer's gradient to each weight
+
+    assert _norm_rel(np_(d_msg), np_(want_data[:, :base])) <= STACK_BF16_NORM_TOL
+    want = from_jax_params(want_w)
+    got = {name: p.grad for name, p in port.named_parameters()}
+    assert got.keys() == want.keys()
+    names = sorted(got)
+    assert _norm_rel(
+        np.concatenate([np_(got[k]).reshape(-1) for k in names]),
+        np.concatenate([want[k].numpy().reshape(-1) for k in names]),
+    ) <= STACK_BF16_NORM_TOL
 
 
 def test_gather_rows_gradient_accumulates_in_float32(rng):
