@@ -11,8 +11,9 @@ Phases, one line each:
      path's shape, fp32 and bf16, on the tile-aligned and the CSR layouts,
      device time under torch.profiler in turns with torch.segment_reduce
      (library, kernel, kernel, library);
-  4. K2 (fused message stack) against its plain version at the main path's
-     shape, fp32 and bf16;
+  4. K2 (fused message stack, on the tensor cores: bf16, and float32 as
+     split TF32) against its plain version at the main path's shape, fp32
+     and bf16, with the launch's layout;
   5. K3 (the fused stack's backward) against its plain version (autograd
      through K2's) at the main path's shape, leaf by leaf (d message, each
      weight matrix and bias): bf16 on the tensor-core kernel, fp32 on the
@@ -43,6 +44,7 @@ to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -61,7 +63,7 @@ from gcpnet_torch.ops.edge_map import (
     edge_map_backward_plain,
     edge_map_plain,
 )
-from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
+from gcpnet_torch.ops.segment_sorted import DTYPE_CODES, segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.predict import DTYPES, build_model, lba_configs, predict, synthetic_batches
 from gcpnet_torch.train.cli import build_lba_training
 from gcpnet_torch.train.step import train_step
@@ -80,9 +82,13 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # K1 fp32: both sum in float32, only the order differs.
 # K1 bf16: both sum in float32 and round once; the order can flip that
 #   rounding by one bf16 step (2^-8 relative).
-# K2 fp32: float32 throughout, summation order differs.
-# K2 bf16: the plain version rounds every matmul output to bf16 (as the JAX
-#   package's MM form does) while the kernel keeps float32 intermediates.
+# K2 fp32: split TF32 keeps float32's precision in every product; the
+#   summation order differs.
+# K2 bf16: both take bf16 operands with float32 accumulators and round each
+#   product's output to bf16 (as the JAX package's MM form does); the plain
+#   version also rounds its elementwise work (squares, sums, bias additions)
+#   to bf16, where the kernel rounds once after it: a few bf16 steps (2^-8
+#   relative each) over 8 layers.  On the H100 the kernel reads 0.0106.
 # K3, leaf by leaf (d message, and each weight matrix and bias of each
 #   layer), in norm, ||kernel - plain|| <= rel * ||plain||: the derivative of
 #   relu jumps at 0, and at 208,896 rows x 8 layers some pre-activations lie
@@ -104,7 +110,7 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 K3_UPCAST_TOL = 16 * 2.0**-8
 TOL = {
     ("K1", "fp32"): 1e-5, ("K1", "bf16"): 1e-2,
-    ("K2", "fp32"): 1e-4, ("K2", "bf16"): 5e-2,
+    ("K2", "fp32"): 1e-4, ("K2", "bf16"): 2e-2,
     ("K3", "fp32"): 1e-3, ("K3", "bf16"): 32 * 2.0**-8,
 }
 # full-width fp32 forward, card vs CPU: summation order differs in every
@@ -149,7 +155,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, calls: int = 100, tries: int = 3) -> float:
+def device_ms(fn, calls: int = 100, tries: int = 5) -> float:
     """Device time of ``fn`` per call: the summed times of the CUDA kernels
     and copies of ``calls`` calls under torch.profiler, over ``calls``.  For
     calls as short as the host's launch of them, where CUDA events around a
@@ -172,7 +178,7 @@ def device_ms(fn, calls: int = 100, tries: int = 3) -> float:
         counts = Counter(e.name for e in events)
         if counts and all(c % calls == 0 for c in counts.values()):
             return sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
-    raise PhaseError(f"device_ms: the profiler lost device events in {tries} windows")
+    raise PhaseError(f"device_ms: the profiler lost device events in {tries} windows (last: {dict(counts)})")
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor):
@@ -302,6 +308,17 @@ def stack_inputs(batch, stack, dtype, gen):
     return message.to(dtype), (frames * mask[:, None]).to(dtype)
 
 
+def k2_layout(lib, stack, dtype) -> dict:
+    """The layout K2's build ``lib`` launches for ``stack`` in ``dtype``
+    (weight_buffers 0: too wide for its tile)."""
+    info = (ctypes.c_int * 8)()
+    check(lib.gcp_edge_map_tc_layout(stack.meta.ctypes.data, stack.meta.size, DTYPE_CODES[dtype], info) == 0,
+          "K2: layout query")
+    keys = ("rows", "threads", "blocks_per_sm", "weight_buffers", "smem_bytes", "layer_weight_bytes",
+            "layer_image_bytes", "wso_chunk_k")
+    return dict(zip(keys, info))
+
+
 def phase_k2(batch) -> dict:
     """K2 at the main path's shape: [E, 340] messages + [E, 9] frames ->
     [E, 148], with the benchmark's stack (8 GCP2 layers, hidden 100/16)."""
@@ -328,6 +345,7 @@ def phase_k2(batch) -> dict:
         results[dname] = {
             "max_abs_err": err,
             "rel_err": rel,
+            "layout": k2_layout(kernel_build.library("edge_map_tc"), stack, dtype),
             "ms": ms,
             "plain_ms": plain_ms,
             "library_ms": None,
@@ -573,11 +591,10 @@ def _grad_step(batch, dtype) -> dict:
 
 def phase_bf16_check() -> dict:
     """The bf16 training step's gradients against the fp32 step's, on the
-    card: through the kernels (K2's forward keeps float32 intermediates,
-    the tensor-core K3 recomputes with bf16 products) and through the plain
-    stack in bf16 (autograd through edge_map_plain, whose forward and
-    backward round alike).  Their distance from each other bounds what the
-    kernels' different rounding does to the step."""
+    card: through the kernels (K2's forward and the tensor-core K3's
+    recompute run the same bf16 layer body, so they round alike) and
+    through the plain stack in bf16 (autograd through edge_map_plain, whose
+    forward and backward also round alike)."""
     batch = synthetic_batches(1, TRAIN_CHECK_GRAPHS, NODES, EDGES_PER_NODE, SEED + 5)[0].to(torch.device("cuda"))
     ref = _grad_step(batch, torch.float32)
     edge_map_backward.launches = edge_map_backward.tc_launches = 0
@@ -634,8 +651,8 @@ def device_profile(fn) -> dict:
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     labels = (
-        ("K3 edge_map_backward", ("edge_map_bwd", "sum_partials", "build_images")),
-        ("K2 edge_map", ("edge_map_kernel",)),
+        ("K3 edge_map_backward", ("edge_map_bwd", "sum_partials")),
+        ("K2 edge_map", ("edge_map_tc",)),
         ("K1 segment_sum_sorted", ("seg_sum",)),
     )
     return {
@@ -692,7 +709,7 @@ def kernel_line(k1, k2, k3, forward, train, train_check) -> dict:
                 **{f"fp32_{k}": k1["tile128_fp32"][k] for k in keys},
                 **{f"csr_{k}": k1["tile1_bf16"][k] for k in keys},
                 **{f"csr_fp32_{k}": k1["tile1_fp32"][k] for k in keys}),
-            row("edge_map", "edge_map.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train["launches"]["K2"],
+            row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train["launches"]["K2"],
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
                 **{f"fp32_{k}": k2["fp32"][k] for k in keys}),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train["launches"]["K3"],

@@ -85,7 +85,7 @@ constexpr int R = kTile;
 __device__ __forceinline__ void wgrad(const bf16* A, int lda, int M, bool relu_a, const bf16* G,
                                       int ldg, int N, int rows_red, float* P) {
   if constexpr (kCut == kNoWeightGrads) return;
-  gemm<true, false>(
+  gemm<bf16, true, false>(
       A, lda, G, ldg, pad16(M), pad8(N), rows_red, relu_a,
       [&](int m, int n, float& v0, float& v1) {
         const bool ok = kCut != kNoPartials && m < M;
@@ -114,7 +114,7 @@ __device__ __forceinline__ void bias_grad(const bf16* G, int ldg, int N, float* 
 // cotangent of its input: into dY and dV (added to the output's, when
 // pass_through: ResGCP), or, for layer 0 (dmsg != nullptr), into d msg's
 // rows.
-__device__ void layer_backward(const Smem& s, const Geom& g, const Layer& L, float* P,
+__device__ void layer_backward(const Smem<bf16>& s, const Geom& g, const Layer& L, float* P,
                                bool pass_through, bf16* dmsg, int rows) {
   const int tid = threadIdx.x;
   const int h = L.h, hk = h + 9, K = L.s_in + hk;
@@ -162,7 +162,7 @@ __device__ void layer_backward(const Smem& s, const Geom& g, const Layer& L, flo
   if (L.vgate) {
     // dS = dY act_s'(S) + (dG Wg^T) act_v'(S);  dWg += act_v(S)^T dG;  dbg
     if constexpr (kCut != kNoBackwardProducts) {
-      gemm<false, true>(dG, g.ldv, s.wg, g.ld_wg, R, pad8(L.s_out), pad16(L.v_out), false, ZeroInit{},
+      gemm<bf16, false, true>(dG, g.ldv, s.wg, g.ld_wg, R, pad8(L.s_out), pad16(L.v_out), false, ZeroInit{},
                         [&](int m, int n, float v0, float v1) {
                           const float v[2] = {v0, v1};
 #pragma unroll
@@ -181,7 +181,7 @@ __device__ void layer_backward(const Smem& s, const Geom& g, const Layer& L, flo
   // dM = dS Wso^T: its first s_in columns into dY (or d msg), the rest
   // (vnorm's and scal9's) into dMs;  dWso += M^T dS;  dbso
   if constexpr (kCut != kNoBackwardProducts) {
-    gemm<false, true>(s.dS, g.lds, s.wso, g.ld_wso, R, pad8(K), pad16(L.s_out), false, ZeroInit{},
+    gemm<bf16, false, true>(s.dS, g.lds, s.wso, g.ld_wso, R, pad8(K), pad16(L.s_out), false, ZeroInit{},
                       [&](int m, int n, float v0, float v1) {
                         const float v[2] = {v0, v1};
 #pragma unroll
@@ -204,7 +204,7 @@ __device__ void layer_backward(const Smem& s, const Geom& g, const Layer& L, flo
   __syncthreads();
   // dD[:, :h] = dU Wup^T + the vnorm's part;  dD[:, h:] from scal9's;  dWup += vh^T dU
   if constexpr (kCut != kNoBackwardProducts) {
-    gemm<false, true>(dU, g.ldv, s.wup, g.ld_wup, 3 * R, pad8(h), pad16(L.v_out), false, ZeroInit{},
+    gemm<bf16, false, true>(dU, g.ldv, s.wup, g.ld_wup, 3 * R, pad8(h), pad16(L.v_out), false, ZeroInit{},
                       [&](int m, int n, float v0, float v1) {
                         const float v[2] = {v0, v1};
                         const int r = m / 3;
@@ -230,7 +230,7 @@ __device__ void layer_backward(const Smem& s, const Geom& g, const Layer& L, flo
   // dV (+)= [dvh | ddf] [Wd | Wdf]^T (+ dU with the vector residual), or d
   // msg's vectors;  d[Wd | Wdf] += X^T [dvh | ddf]
   if constexpr (kCut != kNoBackwardProducts) {
-    gemm<false, true>(s.dD, g.ldd, s.wd, g.ld_wd, 3 * R, pad8(L.v_in), pad16(h + 3), false, ZeroInit{},
+    gemm<bf16, false, true>(s.dD, g.ldd, s.wd, g.ld_wd, 3 * R, pad8(L.v_in), pad16(h + 3), false, ZeroInit{},
                       [&](int m, int n, float v0, float v1) {
                         const float v[2] = {v0, v1};
 #pragma unroll
@@ -253,7 +253,7 @@ __device__ void layer_backward(const Smem& s, const Geom& g, const Layer& L, flo
 }
 
 // Layer L's input state from the block's scratch slot into M and X.
-__device__ void load_state(const Smem& s, const Geom& g, const Layer& L, const bf16* slot) {
+__device__ void load_state(const Smem<bf16>& s, const Geom& g, const Layer& L, const bf16* slot) {
   const bf16* slot_v = slot + R * L.s_in;
   for (int i = threadIdx.x; i < R * L.s_in; i += kThreads) {
     const int r = i / L.s_in;
@@ -279,8 +279,8 @@ edge_map_bwd_tc_kernel(const bf16* __restrict__ msg, const bf16* __restrict__ fr
                        bf16* __restrict__ scratch, long long w_len, long long stash_len,
                        long long num_edges) {
   extern __shared__ float4 smem4[];
-  Smem s;
-  const size_t smem_bytes = carve(reinterpret_cast<char*>(smem4), g, &s);
+  Smem<bf16> s;
+  const size_t smem_bytes = carve(reinterpret_cast<char*>(smem4), g, &s, 1, true);
   const int tid = threadIdx.x;
   // every padding column starts (and stays) zero
   for (size_t i = tid; i < smem_bytes / sizeof(float4); i += kThreads) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -298,11 +298,7 @@ edge_map_bwd_tc_kernel(const bf16* __restrict__ msg, const bf16* __restrict__ fr
     const long long e0 = tile * R;
     const int rows = static_cast<int>(min(static_cast<long long>(R), num_edges - e0));
     __syncthreads();  // the smem and the block's partial are zeroed; the previous tile is done
-    load_input(s, g, first, msg + e0 * in_dim, rows);
-    for (int i = tid; i < R * 9; i += kThreads) {
-      const int r = i / 9;
-      s.F[r * kFrameLd + (i - r * 9)] = r < rows ? f(frames[e0 * 9 + i]) : 0.f;
-    }
+    load_input(s, g, first, msg + e0 * in_dim, frames + e0 * 9, rows);
     // the cotangent of the stack's output
     for (int i = tid; i < R * out_dim; i += kThreads) {
       const int r = i / out_dim, col = i - r * out_dim;
@@ -318,9 +314,10 @@ edge_map_bwd_tc_kernel(const bf16* __restrict__ msg, const bf16* __restrict__ fr
     // scratch; layer L-1's intermediates stay in shared memory
     for (int l = (kCut == kNoForwardSweep ? nl - 1 : 0); l < nl; ++l) {
       const Layer L = st.l[l];
-      load_weights(s, g, images + l * g.w_bytes);
+      const char* image = images + l * g.img_bytes;
+      load_weights(s, g, L, image);
       __syncthreads();
-      layer_forward(s, g, L);
+      layer_forward(s, g, L, image, NoHook{});
       if (l < nl - 1)
         layer_output(s, g, L, st.residual && l > 0,
                      kCut == kNoScratch ? nullptr : stash + slot_offset(st, l + 1));
@@ -330,26 +327,24 @@ edge_map_bwd_tc_kernel(const bf16* __restrict__ msg, const bf16* __restrict__ fr
       const Layer L = st.l[l];
       if (l < nl - 1) {
         if (l == 0) {
-          load_input(s, g, L, msg + e0 * in_dim, rows);
+          load_input<bf16>(s, g, L, msg + e0 * in_dim, nullptr, rows);
         } else if (kCut != kNoScratch) {
           load_state(s, g, L, stash + slot_offset(st, l));
         }
-        load_weights(s, g, images + l * g.w_bytes);
+        const char* image = images + l * g.img_bytes;
+        load_weights(s, g, L, image);
         __syncthreads();
-        if (kCut != kNoRecompute) layer_forward(s, g, L);
+        if (kCut != kNoRecompute) layer_forward(s, g, L, image, NoHook{});
       }
       layer_backward(s, g, L, P, st.residual && l > 0, l == 0 ? dmsg + e0 * in_dim : nullptr, rows);
     }
   }
 }
 
-// Layer blockIdx.x's weights W (float32) as the image load_weights copies
-// into shared memory: bf16, zero-padded, at images + layer * g.w_bytes.
+// Layer blockIdx.x's image (build_image) at images + layer * g.img_bytes.
 __global__ void __launch_bounds__(kThreads)
-build_images(const float* __restrict__ W, const Stack st, const Geom g, char* __restrict__ images) {
-  Smem w;
-  carve_weights(images + blockIdx.x * g.w_bytes, g, &w);
-  stage_weights(w, g, st.l[blockIdx.x], W);
+edge_map_bwd_tc_images(const float* __restrict__ W, const Stack st, const Geom g, char* __restrict__ images) {
+  build_image<bf16>(W, st.l[blockIdx.x], g, images + static_cast<size_t>(blockIdx.x) * g.img_bytes);
 }
 
 }  // namespace
@@ -359,7 +354,7 @@ build_images(const float* __restrict__ W, const Stack st, const Geom g, char* __
 extern "C" long long gcp_edge_map_bwd_tc_image_bytes(const int* meta, int meta_len) {
   Stack st;
   if (!gcp::parse_stack(meta, meta_len, st)) return -1;
-  return static_cast<long long>(st.n_layers) * geometry(st).w_bytes;
+  return static_cast<long long>(st.n_layers) * geometry<bf16>(st).img_bytes;
 }
 
 // message [E, s_in + 3 v_in], frames [E, 9] (masked) and grad_out
@@ -383,14 +378,14 @@ extern "C" int gcp_edge_map_bwd_tc(const void* msg, const void* frames, const vo
   if (!gcp::parse_stack(meta, meta_len, st)) return static_cast<int>(cudaErrorInvalidValue);
   if (grid < 1 || weights_len < 1 || stash_len < slot_offset(st, st.n_layers))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g = geometry(st);
-  Smem unused;
-  const size_t smem = carve(nullptr, g, &unused);
+  const Geom g = geometry<bf16>(st);
+  Smem<bf16> unused;
+  const size_t smem = carve(nullptr, g, &unused, 1, true);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (num_edges <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* img = static_cast<char*>(images);
-  build_images<<<st.n_layers, kThreads, 0, s>>>(weights, st, g, img);
+  edge_map_bwd_tc_images<<<st.n_layers, kThreads, 0, s>>>(weights, st, g, img);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(edge_map_bwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,7 +1,8 @@
-// The message stack's layer table and forward body, shared by K2
-// (edge_map.cu) and K3 (edge_map_bwd.cu): the host passes an int32 table,
-// parse_stack() turns it into a Stack passed by value to the kernel, with
-// the shared-memory row strides both kernels use; layer_forward and
+// The message stack's layer table, shared by every kernel of the stack
+// (K2 edge_map_tc.cu and both K3s): the host passes an int32 table,
+// parse_stack() turns it into a Stack passed by value to the kernel.  The
+// float32 K3 (edge_map_bwd.cu) also runs its forward on the CUDA-core body
+// here, with the shared-memory row strides of the Stack: layer_forward and
 // layer_output run one layer on a tile of rows in shared memory.
 // sum_partials adds K3's per-block weight-gradient partials (both K3s).
 #pragma once
@@ -71,7 +72,7 @@ inline bool parse_stack(const int* meta, int meta_len, Stack& st) {
   return true;
 }
 
-constexpr int kThreads = 256;  // threads per block of K2 and K3
+constexpr int kThreads = 256;  // threads per block of the float32 K3
 
 // K3's weight gradients from its blocks' float32 partials: out[i] = sum over
 // blocks b, in order, of partials[b * w_len + i] (a fixed order, so the same

@@ -33,8 +33,11 @@ SIGNATURES = {
     "segment_sorted": {
         "gcp_segment_sum_sorted": [_P, _P, _P, _LL, _I, _I, _I, _P],
     },
-    "edge_map": {
-        "gcp_edge_map": [_P, _P, _P, _P, _I, _P, _LL, _I, _P],
+    "edge_map_tc": {
+        "gcp_edge_map_tc": [_P, _P, _P, _P, _I, _P, _LL, _I, _P],
+        "gcp_edge_map_tc_images": [_P, _P, _I, _P, _I, _P],
+        "gcp_edge_map_tc_image_bytes": [_P, _I, _I],
+        "gcp_edge_map_tc_layout": [_P, _I, _I, _P],
     },
     "edge_map_bwd": {
         "gcp_edge_map_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
@@ -44,7 +47,7 @@ SIGNATURES = {
         "gcp_edge_map_bwd_tc_image_bytes": [_P, _I],
     },
 }
-RESTYPES = {"gcp_edge_map_bwd_tc_image_bytes": _LL}
+RESTYPES = {"gcp_edge_map_bwd_tc_image_bytes": _LL, "gcp_edge_map_tc_image_bytes": _LL}
 
 
 def nvcc() -> str:

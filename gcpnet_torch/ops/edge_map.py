@@ -10,13 +10,14 @@ result the flattened stack output ``[E, s_out + 3 v_out]``.  It is a
 depend on no parameter), and it raises if they require one.
 
 It replaces the two kernels of ``gcpnet_tpu/ops/pallas_fused.py``: the
-forward (``_map_impl``) on CUDA tensors launches ``csrc/edge_map.cu`` (K2),
-the backward (``_map_bwd``) launches K3, which recomputes the stack per tile
-of rows: ``csrc/edge_map_bwd_tc.cu`` for bf16 (every product on the tensor
-cores, bf16 operands and float32 accumulators, as the JAX kernel computes),
-``csrc/edge_map_bwd.cu`` for float32 (float32 on the CUDA cores).  On CPU
-tensors the forward runs :func:`edge_map_plain` and the backward
-:func:`edge_map_backward_plain`.
+forward (``_map_impl``) on CUDA tensors launches ``csrc/edge_map_tc.cu``
+(K2: every product on the tensor cores, bf16 operands with float32
+accumulators as the JAX kernel computes, or float32 as split TF32), the
+backward (``_map_bwd``) launches K3, which recomputes the stack per tile of
+rows: ``csrc/edge_map_bwd_tc.cu`` for bf16 (on the same tensor-core layer
+body as K2, so it rebuilds K2's state exactly), ``csrc/edge_map_bwd.cu``
+for float32 (float32 on the CUDA cores).  On CPU tensors the forward runs
+:func:`edge_map_plain` and the backward :func:`edge_map_backward_plain`.
 
 The stack's weights are packed into the kernels' layout (:func:`pack_stack`):
 per layer ``[vector_down | vector_down_frames]`` ``[v_in, h + 3]``,
@@ -77,6 +78,9 @@ class PackedStack:
     residual: bool  # ResGCP: sum the layers' outputs
     weights: Tensor  # all layers' weights back to back, float32, on the device
     meta: np.ndarray  # int32 layer table for the kernels (csrc/edge_stack.cuh)
+    # K2's weight images by activation dtype, built at the first launch: a
+    # stack cached under inference mode builds them once
+    images: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def in_dim(self) -> int:
@@ -263,6 +267,45 @@ def _stream(t: Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _k2_images(lib, stack: PackedStack, dtype: torch.dtype) -> Tensor:
+    """K2's per-layer weight images for activations of ``dtype`` (bf16, or
+    float32 transposed for split TF32), built by the kernel library ``lib``
+    on the first call and kept on the stack."""
+    if dtype not in stack.images:
+        code = DTYPE_CODES[dtype]
+        nbytes = lib.gcp_edge_map_tc_image_bytes(stack.meta.ctypes.data, stack.meta.size, code)
+        if nbytes < 0:
+            raise ValueError("edge_map: malformed layer table")
+        images = torch.empty(nbytes, dtype=torch.uint8, device=stack.weights.device)
+        err = lib.gcp_edge_map_tc_images(
+            stack.weights.data_ptr(), stack.meta.ctypes.data, stack.meta.size, images.data_ptr(), code,
+            _stream(stack.weights),
+        )
+        if err != 0:
+            raise RuntimeError(f"edge_map: building the weight images failed with error {err}")
+        stack.images[dtype] = images
+    return stack.images[dtype]
+
+
+def launch_forward(message: Tensor, frames: Tensor, stack: PackedStack, lib=None) -> Tensor:
+    """Launch K2 (``csrc/edge_map_tc.cu``, or the build ``lib`` of it) on
+    checked CUDA tensors."""
+    lib = lib or library("edge_map_tc")
+    images = _k2_images(lib, stack, message.dtype)
+    out = torch.empty((message.shape[0], stack.out_dim), dtype=message.dtype, device=message.device)
+    err = lib.gcp_edge_map_tc(
+        message.data_ptr(), frames.data_ptr(), images.data_ptr(), stack.meta.ctypes.data, stack.meta.size,
+        out.data_ptr(), message.shape[0], DTYPE_CODES[message.dtype], _stream(message),
+    )
+    if err == CUDA_ERROR_INVALID_CONFIGURATION:
+        raise NotImplementedError(
+            "edge_map: the stack's widths need more shared memory than the kernel's tile has"
+        )
+    if err != 0:
+        raise RuntimeError(f"edge_map: CUDA launch failed with error {err}")
+    return out
+
+
 def _edge_map_forward(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
     """K2.  CPU tensors take the plain version; CUDA tensors launch the
     kernel (and count the launch in ``edge_map.launches``)."""
@@ -271,16 +314,7 @@ def _edge_map_forward(message: Tensor, frames: Tensor, stack: PackedStack) -> Te
     if message.device.type != "cuda":
         raise ValueError(f"edge_map: unsupported device {message.device}")
     _check_kernel_supported(stack)
-    out = torch.empty(
-        (message.shape[0], stack.out_dim), dtype=message.dtype, device=message.device
-    )
-    err = library("edge_map").gcp_edge_map(
-        message.data_ptr(), frames.data_ptr(), stack.weights.data_ptr(),
-        stack.meta.ctypes.data, stack.meta.size, out.data_ptr(),
-        message.shape[0], DTYPE_CODES[message.dtype], _stream(message),
-    )
-    if err != 0:
-        raise RuntimeError(f"edge_map: CUDA launch failed with error {err}")
+    out = launch_forward(message, frames, stack)
     edge_map.launches += 1
     return out
 

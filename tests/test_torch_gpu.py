@@ -17,12 +17,14 @@ from gcpnet_torch import predict as port_predict
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
 from gcpnet_torch.models.lba import GCPNetLBA, graph_regression_loss
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
+from gcpnet_torch.ops.build import library
 from gcpnet_torch.ops.edge_map import (
     PackedStack,
     edge_map,
     edge_map_backward,
     edge_map_backward_plain,
     edge_map_plain,
+    pack_stack,
 )
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
 
@@ -102,13 +104,34 @@ STACK_SETTINGS = {
 
 
 def _message_passing(
-    cfg: ModuleCfg, num_message_layers: int = 4, residual: bool = True
+    cfg: ModuleCfg, num_message_layers: int = 4, residual: bool = True, node_dims=(16, 4)
 ) -> GCPMessagePassing:
     mp_cfg = MPCfg(num_message_layers=num_message_layers, use_residual_message_gcp=residual)
     return GCPMessagePassing(
-        (16, 4), (16, 4), (8, 4), cfg, LayerCfg(mp_cfg=mp_cfg),
+        node_dims, (16, 4), (8, 4), cfg, LayerCfg(mp_cfg=mp_cfg),
         generator=torch.Generator().manual_seed(0), device="cpu",
     )
+
+
+def _stack_inputs(rng, stack, e, dtype, device):
+    """Messages (a quarter of the rows with zero vectors, where the norm's
+    eps decides) and frames."""
+    msg = rng.normal(size=(e, stack.in_dim)).astype(np.float32)
+    msg[: e // 4, stack.layers[0].dims[0] :] = 0.0
+    frames = rng.normal(size=(e, 9)).astype(np.float32)
+    return (torch.from_numpy(msg).to(device, dtype), torch.from_numpy(frames).to(device, dtype))
+
+
+# K2 against its plain version.  float32, max |kernel - plain| <= 1e-4:
+# split TF32 keeps float32's precision in every product; the summation
+# order differs.  bf16, max |kernel - plain| <= 2e-2 * max(1, max |plain|):
+# both take bf16 operands, float32 accumulators and round each product's
+# output to bf16; the plain version also rounds its elementwise work
+# (squares, sums, bias additions) to bf16, where the kernel rounds once
+# after it, so the two part by a few bf16 roundings (2^-8 relative each) a
+# layer: chip_smoke.py's bound, where 8 layers read 0.0106 on the H100.
+K2_FP32_ATOL = 1e-4
+K2_BF16_TOL = 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -116,20 +139,99 @@ def _message_passing(
 def test_k2_cuda_matches_plain(rng, cuda, settings, dtype):
     stack = _message_passing(STACK_SETTINGS[settings]).to(cuda, dtype).packed_stack()
     e = 1000  # not a multiple of the kernel's 64-row tile
-    msg = rng.normal(size=(e, stack.in_dim)).astype(np.float32)
-    msg[: e // 4, stack.layers[0].dims[0] :] = 0.0  # zero vectors: the norm's eps decides
-    msg = torch.from_numpy(msg).to(cuda, dtype)
-    frames = torch.from_numpy(rng.normal(size=(e, 9)).astype(np.float32)).to(cuda, dtype)
+    msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
     before = edge_map.launches
     with torch.no_grad():
         got = edge_map(msg, frames, stack)
         torch.cuda.synchronize()
         want = edge_map_plain(msg, frames, stack)
     assert edge_map.launches == before + 1
-    # bf16: the plain version rounds every matmul output to bf16, the kernel
-    # keeps float32 intermediates
-    tol = 1e-4 if dtype == torch.float32 else 5e-2 * max(1.0, want.float().abs().max().item())
-    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=tol)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=K2_FP32_ATOL)
+    else:
+        assert _max_rel_err(got, want) <= K2_BF16_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_is_deterministic(rng, cuda, dtype):
+    with torch.no_grad():
+        stack = _message_passing(ModuleCfg()).to(cuda, dtype).packed_stack()
+        msg, frames = _stack_inputs(rng, stack, 5000, dtype, cuda)
+        first = edge_map(msg, frames, stack)
+        again = edge_map(msg, frames, pack_stack(stack.layers, stack.residual))  # images built anew
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_rejects_a_stack_too_wide_for_its_tile(rng, cuda, dtype):
+    """A first layer of 1,200 input scalars: its row of the tile alone
+    exceeds the block's shared memory."""
+    with torch.no_grad():
+        stack = _message_passing(ModuleCfg(), node_dims=(600, 4)).to(cuda, dtype).packed_stack()
+    msg, frames = _stack_inputs(rng, stack, 100, dtype, cuda)
+    before = edge_map.launches
+    with pytest.raises(NotImplementedError, match="shared memory"), torch.no_grad():
+        edge_map(msg, frames, stack)
+    assert edge_map.launches == before
+
+
+def test_k2_builds_images_once_per_cached_stack(rng, cuda):
+    """Under inference mode the packed stack is cached, and with it K2's
+    weight images: the second call builds none."""
+    mp = _message_passing(ModuleCfg()).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        stack = mp.packed_stack()
+        msg, frames = _stack_inputs(rng, stack, 300, torch.bfloat16, cuda)
+        first = edge_map(msg, frames, stack)
+        images = stack.images[torch.bfloat16]
+        assert mp.packed_stack() is stack
+        again = edge_map(msg, frames, mp.packed_stack())
+    assert stack.images[torch.bfloat16] is images and list(stack.images) == [torch.bfloat16]
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_k2_bf16_is_the_state_k3_recomputes(rng, cuda, residual):
+    """bf16 K2 and the bf16 K3's forward sweep run the same layer body: the
+    state K3 keeps in its scratch before each layer l >= 1 equals, bit for
+    bit, K2's output for the stack's first l layers.  K3 is launched with
+    one block per tile, so that each block's scratch holds its own tile."""
+    dtype = torch.bfloat16
+    with torch.no_grad():
+        stack = _message_passing(ModuleCfg(), residual=residual).to(cuda, dtype).packed_stack()
+    tiles, tile = 5, 64  # csrc/edge_stack_mma.cuh kTile
+    e = tiles * tile
+    msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    lib = library("edge_map_bwd_tc")
+    w_len = stack.weights.numel()
+    widths = [s_in + 3 * v_in for s_in, v_in, *_ in (layer.dims for layer in stack.layers[1:])]
+    stash_len = tile * sum(widths)
+    images = torch.empty(
+        lib.gcp_edge_map_bwd_tc_image_bytes(stack.meta.ctypes.data, stack.meta.size), dtype=torch.uint8, device=cuda
+    )
+    partials = torch.empty(tiles * w_len, device=cuda)
+    scratch = torch.empty(tiles * stash_len, dtype=dtype, device=cuda)
+    d_msg, d_w = torch.empty_like(msg), torch.empty_like(stack.weights)
+    err = lib.gcp_edge_map_bwd_tc(
+        msg.data_ptr(), frames.data_ptr(), grad_out.data_ptr(), stack.weights.data_ptr(), stack.meta.ctypes.data,
+        stack.meta.size, d_msg.data_ptr(), d_w.data_ptr(), images.data_ptr(), partials.data_ptr(),
+        scratch.data_ptr(), w_len, stash_len, e, tiles, torch.cuda.current_stream().cuda_stream,
+    )
+    assert err == 0
+    scratch = scratch.view(tiles, stash_len)
+    offset = 0
+    for l, width in enumerate(widths, start=1):
+        s_out, v_out = stack.layers[l - 1].dims[3:]
+        slot = scratch[:, offset : offset + tile * width]
+        offset += tile * width
+        scalars = slot[:, : tile * s_out].reshape(e, s_out)
+        # [tile][row * 3 + c][v_out] -> [E][c * v_out + o], K2's layout
+        vectors = slot[:, tile * s_out :].reshape(tiles, tile, 3 * v_out).reshape(e, 3 * v_out)
+        with torch.no_grad():
+            out = edge_map(msg, frames, pack_stack(stack.layers[:l], residual))
+        assert torch.equal(out[:, :s_out], scalars), l
+        assert torch.equal(out[:, s_out:], vectors), l
 
 
 def _max_rel_err(got, want):

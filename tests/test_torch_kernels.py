@@ -155,6 +155,74 @@ def test_k2_plain_matches_pallas_edge_map(rng, monkeypatch, tile, num_message_la
     np.testing.assert_allclose(np_(got.vector), np.asarray(want.vector), atol=1e-4)
 
 
+# bf16 K2 against the Pallas edge map in bf16, in norm: both take bf16
+# operands with float32 accumulators and round each product's output to
+# bf16, but the JAX kernel's MM form (block-diagonal and selector matrices)
+# rounds its elementwise work at other places than the plain version, each
+# rounding up to 2^-8 relative, and stacked layers add them up like a
+# random walk: 0.0013 for one layer and 0.0027 for eight on these rows.
+K2_BF16_NORM_TOL = 2 * 2.0**-8
+
+
+@pytest.mark.parametrize("num_message_layers", [1, 8])
+def test_k2_plain_bf16_matches_pallas_edge_map(rng, monkeypatch, num_message_layers):
+    """The numerics the bf16 K2 follows: the port's plain K2 on bf16 rows
+    against the Pallas edge map's bf16 output (interpret mode), on the very
+    rows the Pallas kernel was given.  The JAX kernel casts its float32
+    weights to bf16; the port's weights are given the same bf16 values."""
+    import jax
+    import jax.numpy as jnp
+
+    batch = sorted_batch(rng, 128, nodes=30, edges=120, bucket_edges=400)
+    n, e = batch.num_nodes, batch.num_edges
+    inputs = [
+        rng.normal(size=shape).astype(np.float32)
+        for shape in ((n, 16), (n, 12), (e, 8), (e, 12))
+    ]
+    inputs[1][: n // 2] = 0.0  # zero vectors: the norm's eps decides
+    frames = rng.normal(size=(e, 9)).astype(np.float32)
+    mask = np.asarray(batch.edge_pad_mask)
+    jmod, port = _message_passing_pair(num_message_layers)
+    kw = dict(edge_mask=jnp.asarray(mask), count_mask=jnp.asarray(mask),
+              row_splits=jnp.asarray(batch.edge_row_splits))
+    senders, receivers = jnp.asarray(batch.senders), jnp.asarray(batch.receivers)
+    variables = jmod.init(
+        jax.random.key(0), JScalarVector(*map(jnp.asarray, inputs[:2])),
+        JScalarVector(*map(jnp.asarray, inputs[2:])), senders, receivers, jnp.asarray(frames), **kw,
+    )
+    bf16 = [jnp.asarray(a, jnp.bfloat16) for a in inputs]
+
+    seen = {}
+    real_edge_map = jpallas_fused.edge_map
+
+    def recording_edge_map(fn, params, edge_data, out_dim):
+        out = real_edge_map(fn, params, edge_data, out_dim)
+        seen.update(edge_data=edge_data, out=out)
+        return out
+
+    monkeypatch.setattr(jmp, "USE_FAST_STACK", True)
+    monkeypatch.setattr(jpallas_fused, "USE_FUSED_MESSAGE", True)
+    monkeypatch.setattr(jpallas_fused, "edge_map", recording_edge_map)
+    with pltpu.force_tpu_interpret_mode():
+        jmod.apply(variables, JScalarVector(*bf16[:2]), JScalarVector(*bf16[2:]), senders, receivers,
+                   jnp.asarray(frames, jnp.bfloat16), **kw)
+    assert seen["edge_data"].dtype == jnp.bfloat16 and seen["out"].dtype == jnp.bfloat16
+
+    load_jax_params(port, variables)
+    with torch.no_grad():
+        for p in port.parameters():
+            p.copy_(p.bfloat16().float())
+    stack = port.packed_stack()
+    base = stack.in_dim
+    data = t(np.asarray(seen["edge_data"].astype(jnp.float32)), torch.bfloat16)
+    message, masked_frames = data[:, :base].contiguous(), data[:, base : base + 9].contiguous()
+    got = edge_map(message, masked_frames, stack)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(seen["out"].astype(jnp.float32))
+    got = np_(got.float())
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= K2_BF16_NORM_TOL
+
+
 def test_k2_wrapper_rejects_bad_inputs():
     _, port = _message_passing_pair(2)
     stack = port.packed_stack()
