@@ -13,7 +13,7 @@ Phases, one line each:
      (library, kernel, kernel, library);
   4. K2 (fused message stack, on the tensor cores: bf16, and float32 as
      split TF32) against its plain version at the main path's shape, fp32
-     and bf16, with the launch's layout;
+     and bf16;
   5. K3 (the fused stack's backward) against its plain version (autograd
      through K2's) at the main path's shape, leaf by leaf (d message, each
      weight matrix and bias): bf16 on the tensor-core kernel, fp32 on the
@@ -44,7 +44,6 @@ to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -63,7 +62,7 @@ from gcpnet_torch.ops.edge_map import (
     edge_map_backward_plain,
     edge_map_plain,
 )
-from gcpnet_torch.ops.segment_sorted import DTYPE_CODES, segment_sum_sorted, segment_sum_sorted_plain
+from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.predict import DTYPES, build_model, lba_configs, predict, synthetic_batches
 from gcpnet_torch.train.cli import build_lba_training
 from gcpnet_torch.train.step import train_step
@@ -75,9 +74,11 @@ TRAIN_STEPS = 6  # the first is the cold one; ms per step is over the rest
 TRAIN_CHECK_GRAPHS, TRAIN_CHECK_LAYERS = 2, 2
 # The published H100 SXM peaks (NVIDIA data sheet, dense): device memory
 # rate, and the operation rate for each input type (bf16 on the tensor
-# cores, fp32 on the CUDA cores).
+# cores, fp32 on the CUDA cores), and TF32 on the tensor cores, the route
+# of K2's float32 (split TF32: three products for each).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32_OPS_PER_S = 495e12
 # Tolerances, as max |kernel - plain| <= rel * max(1, max |plain|):
 # K1 fp32: both sum in float32, only the order differs.
 # K1 bf16: both sum in float32 and round once; the order can flip that
@@ -202,9 +203,11 @@ def k3_leaf_errs(d_msg, d_w, ref_msg, ref_w, stack) -> dict:
     return errs
 
 
-def bound_ms(nbytes: float, ops: float, dtype: torch.dtype):
+def bound_ms(nbytes: float, ops: float, dtype: torch.dtype, ops_per_s: float = 0.0):
+    """The larger of the bytes' time and the operations' time, in ms; the
+    operations at ``ops_per_s``, by default the peak of ``dtype``."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = ops / (ops_per_s or PEAK_OPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -308,17 +311,6 @@ def stack_inputs(batch, stack, dtype, gen):
     return message.to(dtype), (frames * mask[:, None]).to(dtype)
 
 
-def k2_layout(lib, stack, dtype) -> dict:
-    """The layout K2's build ``lib`` launches for ``stack`` in ``dtype``
-    (weight_buffers 0: too wide for its tile)."""
-    info = (ctypes.c_int * 8)()
-    check(lib.gcp_edge_map_tc_layout(stack.meta.ctypes.data, stack.meta.size, DTYPE_CODES[dtype], info) == 0,
-          "K2: layout query")
-    keys = ("rows", "threads", "blocks_per_sm", "weight_buffers", "smem_bytes", "layer_weight_bytes",
-            "layer_image_bytes", "wso_chunk_k")
-    return dict(zip(keys, info))
-
-
 def phase_k2(batch) -> dict:
     """K2 at the main path's shape: [E, 340] messages + [E, 9] frames ->
     [E, 148], with the benchmark's stack (8 GCP2 layers, hidden 100/16)."""
@@ -338,19 +330,25 @@ def phase_k2(batch) -> dict:
         es = message.element_size()
         nbytes = e * (stack.in_dim + 9 + stack.out_dim) * es + stack.weights.numel() * 4
         flops = e * stack_flops(stack)
-        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        if dtype == torch.float32:
+            # the kernel's route: split TF32, three tensor-core products for each
+            b_ms, b_by = bound_ms(nbytes, 3 * flops, dtype, PEAK_TF32_OPS_PER_S)
+            bound_rate = "3 x flops at the TF32 tensor-core peak"
+        else:
+            b_ms, b_by = bound_ms(nbytes, flops, dtype)
+            bound_rate = "flops at the bf16 tensor-core peak"
         with torch.no_grad():
             ms = cuda_ms(lambda: edge_map(message, frames, stack), iters=10)
             plain_ms = cuda_ms(lambda: edge_map_plain(message, frames, stack), iters=5)
         results[dname] = {
             "max_abs_err": err,
             "rel_err": rel,
-            "layout": k2_layout(kernel_build.library("edge_map_tc"), stack, dtype),
             "ms": ms,
             "plain_ms": plain_ms,
             "library_ms": None,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "bound_rate": bound_rate,
             "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6,
             "shape": [e, stack.in_dim, stack.out_dim],
@@ -711,7 +709,8 @@ def kernel_line(k1, k2, k3, forward, train, train_check) -> dict:
                 **{f"csr_fp32_{k}": k1["tile1_fp32"][k] for k in keys}),
             row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train["launches"]["K2"],
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
-                **{f"fp32_{k}": k2["fp32"][k] for k in keys}),
+                bound_rate=k2["bf16"]["bound_rate"],
+                **{f"fp32_{k}": k2["fp32"][k] for k in (*keys, "bound_rate")}),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train["launches"]["K3"],
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3"]),
             row("edge_map_backward", "edge_map_bwd.cu", replaces_k3, train_check["launches"]["K3_fp32"],

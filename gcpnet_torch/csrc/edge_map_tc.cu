@@ -22,7 +22,7 @@
 // other setting.
 //
 // Bound on the H100: operations.  About 245 kFLOP per edge row against
-// about 1 KB of traffic: ~51 GFLOP and ~146 MB (bf16) per call at the main
+// about 1 KB of traffic: ~51 GFLOP and ~208 MB (bf16) per call at the main
 // path's shape (208,896 edge rows, hidden 100/16, 8 layers), 0.052 ms at the
 // bf16 tensor-core peak; float32 on split TF32 does three products for
 // each, 0.31 ms at the TF32 peak.
@@ -49,22 +49,8 @@
 //   (two for layer 0), the next layer's first chunk is copied once this
 //   layer's Wso is read, and its smaller weights once the layer's output is
 //   written.
-//
-// K2_MIN_BLOCKS (blocks an SM holds, 1 unless a build defines it) and
-// edge_stack_mma.cuh's GCP_TC_ROWS and GCP_TC_THREADS select other layouts
-// for k2_layouts.py; a layout takes two weight buffers where they fit.
-// k2_layouts.py also builds this file with K2_CUT set to one of the Cut
-// values below, each removing one part of the work (the results are then
-// wrong), and times the variants.
 
 #include "edge_stack_mma.cuh"
-
-#ifndef K2_MIN_BLOCKS
-#define K2_MIN_BLOCKS 1
-#endif
-#ifndef K2_CUT
-#define K2_CUT 0
-#endif
 
 namespace {
 
@@ -72,22 +58,7 @@ using gcp::Layer;
 using gcp::Stack;
 using namespace gcp::tc;
 
-constexpr int kMinBlocks = K2_MIN_BLOCKS;
-
-enum Cut {
-  kWhole = 0,
-  kNoWeightCopies = 1,  // no weight image is copied into shared memory
-  kNoInput = 2,         // no input rows are read
-  kNoStore = 3,         // no output rows are written
-  kNoLayerOutput = 4,   // layer_output is skipped (the state stays the input)
-  kNoLayers = 5         // neither layer_forward nor layer_output runs
-};
-constexpr int kCut = K2_CUT;
-constexpr bool kCopy = kCut != kNoWeightCopies;
 constexpr int R = kTile;
-// shared memory a block may use when kMinBlocks share an SM's 228 KB (1 KB
-// of it reserved per block)
-constexpr int kSmemBudget = kMinBlocks == 1 ? kMaxSmem : 233472 / kMinBlocks - 1024;
 
 // The state's rows (M[:, :s_out] scalars, then X[:, :v_out] per component)
 // into the tile's rows r < rows of out, as 16-byte vectors where out is
@@ -123,14 +94,15 @@ __device__ inline void store_output(const Smem<T>& s, const Geom& g, const Layer
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, 1)
 edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, const char* __restrict__ images,
                    const Stack st, const Geom g, int nbuf, T* __restrict__ out, long long num_edges) {
   extern __shared__ float4 smem4[];
   Smem<T> s;
   const size_t smem_bytes = carve(reinterpret_cast<char*>(smem4), g, &s, nbuf, false);
   // every padding column starts (and stays) zero
-  for (size_t i = threadIdx.x; i < smem_bytes / sizeof(float4); i += kThreads) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (size_t i = threadIdx.x; i < smem_bytes / sizeof(float4); i += kThreads)
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
   const int nl = st.n_layers;
@@ -140,11 +112,11 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
   auto image = [&](int l) { return images + static_cast<long long>(l) * g.img_bytes; };
   char* buf = s.wbase;                  // this layer's weights
   char* other = s.wbase + g.w_bytes;    // the next layer's, with two buffers
-  if (kCopy) copy_async(buf, image(0), layer_bytes<T>(g, first));
+  copy_async(buf, image(0), layer_bytes<T>(g, first));
   for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const long long e0 = tile * R;
     const int rows = static_cast<int>(min(static_cast<long long>(R), num_edges - e0));
-    if (kCut != kNoInput) load_input(s, g, first, msg + e0 * in_dim, frames + e0 * 9, rows);
+    load_input(s, g, first, msg + e0 * in_dim, frames + e0 * 9, rows);
     for (int l = 0; l < nl; ++l) {
       const Layer L = st.l[l];
       // the next layer of this tile, or the first of the block's next tile
@@ -154,22 +126,20 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
       cp_async_wait();
       __syncthreads();  // this layer's weights are in; the previous layer is done with the other buffer
       carve_weights(buf, g, &s);
-      if (kCopy && nbuf == 2 && more) copy_async(other, image(ln), layer_bytes<T>(g, N));
-      if (kCut != kNoLayers)
-        layer_forward(s, g, L, image(l), [&] {
-          if (kCopy && nbuf == 1 && more)
-            copy_async(buf + g.w_off_wso, image(ln) + g.w_off_wso, wso_first_bytes<T>(g, N));
-        });
-      if (kCut != kNoLayers && kCut != kNoLayerOutput) layer_output<T>(s, g, L, st.residual && l > 0, nullptr);
+      if (nbuf == 2 && more) copy_async(other, image(ln), layer_bytes<T>(g, N));
+      layer_forward(s, g, L, image(l), [&] {
+        if (nbuf == 1 && more) copy_async(buf + g.w_off_wso, image(ln) + g.w_off_wso, wso_first_bytes<T>(g, N));
+      });
+      layer_output<T>(s, g, L, st.residual && l > 0, nullptr);
       if (nbuf == 2) {
         char* t = buf;
         buf = other;
         other = t;
-      } else if (kCopy && more) {
+      } else if (more) {
         copy_async(buf, image(ln), g.w_off_wso);
       }
     }
-    if (kCut != kNoStore) store_output(s, g, last, out + e0 * out_dim, rows);
+    store_output(s, g, last, out + e0 * out_dim, rows);
     __syncthreads();  // the state is stored before the next tile's input lands
   }
   cp_async_wait();
@@ -189,7 +159,7 @@ int layout(const Stack& st, const Geom& g, size_t* smem) {
   Smem<T> unused;
   for (int nbuf = 2; nbuf >= 1; --nbuf) {
     *smem = carve(nullptr, g, &unused, nbuf, false);
-    if (*smem <= static_cast<size_t>(kSmemBudget)) return nbuf;
+    if (*smem <= static_cast<size_t>(kMaxSmem)) return nbuf;
   }
   return 0;
 }
@@ -210,7 +180,7 @@ int launch(const void* msg, const void* frames, const void* images, const Stack&
                                static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (num_edges + R - 1) / R;
-  const unsigned grid = static_cast<unsigned>(std::min<long long>(tiles, static_cast<long long>(sms) * kMinBlocks));
+  const unsigned grid = static_cast<unsigned>(std::min<long long>(tiles, sms));
   edge_map_tc_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(msg), static_cast<const T*>(frames), static_cast<const char*>(images), st, g, nbuf,
       static_cast<T*>(out), num_edges);
@@ -247,23 +217,6 @@ extern "C" int gcp_edge_map_tc_images(const float* weights, const int* meta, int
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// The launch's layout, into info[0..7]: tile rows, threads a block, blocks
-// an SM, weight buffers (0: the stack is too wide), shared-memory bytes, one
-// layer's weights in shared memory, one layer's image, and the Wso chunk's
-// K columns.  Returns 0, or cudaErrorInvalidValue for a malformed table or
-// dtype.
-extern "C" int gcp_edge_map_tc_layout(const int* meta, int meta_len, int dtype, int* info) {
-  Stack st;
-  if (!gcp::parse_stack(meta, meta_len, st) || (dtype != gcp::kF32 && dtype != gcp::kBF16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g = dtype == gcp::kF32 ? geometry<float>(st) : geometry<bf16>(st);
-  size_t smem;
-  const int nbuf = dtype == gcp::kF32 ? layout<float>(st, g, &smem) : layout<bf16>(st, g, &smem);
-  const int values[8] = {kTile, kThreads, kMinBlocks, nbuf, static_cast<int>(smem), g.w_bytes, g.img_bytes, g.wso_k};
-  for (int i = 0; i < 8; ++i) info[i] = values[i];
-  return 0;
 }
 
 // message [E, s_in + 3 v_in] and frames [E, 9] (masked) in, out

@@ -14,8 +14,9 @@
 // hi = tf32(x) and lo = tf32(x - hi), and each product is
 // lo*hi + hi*lo + hi*hi on mma.sync m16n8k8 .tf32 with float32
 // accumulators, one for each of the three, added at the end; what it drops
-// (lo*lo, ~2^-22 relative) is below float32's own rounding of the sums.  The weights are staged transposed ([n][k]), as
-// ldmatrix moves 16-bit pairs and cannot transpose 32-bit values.
+// (lo*lo, ~2^-22 relative) is below float32's own rounding of the sums.
+// The weights are staged transposed ([n][k]), as ldmatrix moves 16-bit
+// pairs and cannot transpose 32-bit values.
 //
 // In both: norms, square roots, sigmoids, relu masks and the frame
 // contractions in float32 registers.  The layer table is edge_stack.cuh's;
@@ -27,39 +28,22 @@
 // array starts zeroed and is written only in its real columns, so the
 // padding of one operand meets zeros or finite values in the other and adds
 // nothing; results are stored for the real rows and columns only.
-//
-// GCP_TC_ROWS and GCP_TC_THREADS set the tile's rows and the block's
-// threads (64 and 512 unless a build defines them).  GCP_TC_CUT (0 unless
-// a build defines it; k2_layouts.py's cut builds of K2) removes one part of
-// layer_forward, and the results are then wrong: 1 the Wso product, 2 the
-// other products (X Wd, vh Wup, act(S) Wg), 3 vnorm and scal9.
 #pragma once
 
 #include <cstdint>
 
 #include "edge_stack.cuh"
 
-#ifndef GCP_TC_ROWS
-#define GCP_TC_ROWS 64
-#endif
-#ifndef GCP_TC_THREADS
-#define GCP_TC_THREADS 512
-#endif
-#ifndef GCP_TC_CUT
-#define GCP_TC_CUT 0
-#endif
-
 namespace gcp {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = GCP_TC_ROWS;  // edge rows per tile (a multiple of 16)
-constexpr int kThreads = GCP_TC_THREADS;  // threads a block
+constexpr int kTile = 64;     // edge rows per tile (a multiple of 16)
+constexpr int kThreads = 512;  // threads a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmem = 232448;  // bytes a block may use on the H100
 constexpr int kChunkK = 128;      // float32 Wso: K columns staged at a time
-constexpr int kLayerCut = GCP_TC_CUT;
 static_assert(kTile % 16 == 0 && kThreads % 32 == 0, "tile rows: a multiple of 16");
 
 // float32 weights are staged transposed
@@ -68,7 +52,6 @@ constexpr bool kWeightsT = sizeof(T) == 4;
 
 __host__ __device__ inline int pad8(int x) { return (x + 7) & ~7; }
 __host__ __device__ inline int pad16(int x) { return (x + 15) & ~15; }
-__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 // K rounded up to the mma's depth: 32 bytes of T
 template <typename T>
 __host__ __device__ inline int padk(int x) {
@@ -217,7 +200,7 @@ inline Geom geometry(const Stack& st) {
     g.wso_k = std::min(k_max, kChunkK);
     g.r_wso = n_so;
     g.ld_wso = ld_of<T>(g.wso_k);
-    g.wso_bytes = round16(g.r_wso * g.ld_wso * static_cast<int>(sizeof(T)));
+    g.wso_bytes = pad16(g.r_wso * g.ld_wso * static_cast<int>(sizeof(T)));
     g.r_wd = d_n;
     g.ld_wd = ld_of<T>(vin_max);
     g.r_wup = n_v;
@@ -232,7 +215,7 @@ inline Geom geometry(const Stack& st) {
     g.wso_k = k_max;
     g.r_wso = k_max;
     g.ld_wso = ld_of<T>(n_so);
-    g.wso_bytes = round16((g.r_wso * g.ld_wso + 8) * static_cast<int>(sizeof(T)));
+    g.wso_bytes = pad16((g.r_wso * g.ld_wso + 8) * static_cast<int>(sizeof(T)));
     g.r_wd = vin_max;
     g.ld_wd = ld_of<T>(d);
     g.r_wup = h_max;
@@ -258,7 +241,7 @@ __host__ __device__ inline int wso_chunks(const Geom& g, int k_pad) { return (k_
 template <typename T>
 __host__ __device__ inline int wso_first_bytes(const Geom& g, const Layer& L) {
   if (kWeightsT<T>) return g.wso_bytes;
-  return round16((padk<T>(L.s_in + L.h + 9) * g.ld_wso + 8) * static_cast<int>(sizeof(T)));
+  return pad16((padk<T>(L.s_in + L.h + 9) * g.ld_wso + 8) * static_cast<int>(sizeof(T)));
 }
 
 // Bytes of layer L's image that go to shared memory before its products:
@@ -599,12 +582,11 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   constexpr int R = kTile;
   const int h = L.h, hk = h + 9;
   // D = X @ [Wd | Wdf]
-  if (kLayerCut != 2)
-    gemm<T, false, kWT>(s.X, g.ldx, s.wd, g.ld_wd, 3 * R, pad8(h + 3), padk<T>(L.v_in), false, ZeroInit{},
-                        [&](int m, int n, float v0, float v1) { put2(s.D + m * g.ldd + n, n, h + 3, v0, v1); });
+  gemm<T, false, kWT>(s.X, g.ldx, s.wd, g.ld_wd, 3 * R, pad8(h + 3), padk<T>(L.v_in), false, ZeroInit{},
+                      [&](int m, int n, float v0, float v1) { put2(s.D + m * g.ldd + n, n, h + 3, v0, v1); });
   __syncthreads();
   // vnorm and scal9
-  for (int i = threadIdx.x; kLayerCut != 3 && i < R * hk; i += kThreads) {
+  for (int i = threadIdx.x; i < R * hk; i += kThreads) {
     const int r = i / hk, j = i - r * hk;
     const T* d = s.D + r * 3 * g.ldd;
     float val;
@@ -620,13 +602,12 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   }
   __syncthreads();
   // U = vh @ Wup
-  if (kLayerCut != 2)
-    gemm<T, false, kWT>(s.D, g.ldd, s.wup, g.ld_wup, 3 * R, pad8(L.v_out), padk<T>(h), false, ZeroInit{},
-                        [&](int m, int n, float v0, float v1) { put2(s.U + m * g.ldv + n, n, L.v_out, v0, v1); });
+  gemm<T, false, kWT>(s.D, g.ldd, s.wup, g.ld_wup, 3 * R, pad8(L.v_out), padk<T>(h), false, ZeroInit{},
+                      [&](int m, int n, float v0, float v1) { put2(s.U + m * g.ldv + n, n, L.v_out, v0, v1); });
   // S = [s | vnorm | scal9] @ Wso + bso, over Wso's chunks (a float32
   // partial sum is kept in S between them, exactly)
   const int kp = padk<T>(L.s_in + hk), chunks = wso_chunks(g, kp);
-  for (int c = 0; kLayerCut != 1 && c < chunks; ++c) {
+  for (int c = 0; c < chunks; ++c) {
     if (c > 0) {
       __syncthreads();
       copy_async(reinterpret_cast<char*>(s.wso), image + g.w_off_wso + c * g.wso_bytes, g.wso_bytes);
@@ -648,7 +629,7 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   }
   __syncthreads();
   wso_free();
-  if (L.vgate && kLayerCut != 2) {
+  if (L.vgate) {
     // G = act_v(S) @ Wg + bg
     gemm<T, false, kWT>(s.S, g.lds, s.wg, g.ld_wg, R, pad8(L.v_out), padk<T>(L.s_out), L.act_v == 1,
                         ZeroInit{}, [&](int m, int n, float v0, float v1) {

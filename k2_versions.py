@@ -1,24 +1,19 @@
 #!/usr/bin/env python3
-"""Time K2 (gcpnet_torch/csrc/edge_map_tc.cu) in other block layouts, with
-parts of its work cut out, and against other versions of its source, such
-as a parent commit's.
+"""Time K2 (gcpnet_torch/csrc/edge_map_tc.cu) against other versions of its
+source, such as a parent commit's.
 
     git archive <commit> gcpnet_torch/csrc | tar -x -C logs/parent
-    python3 k2_layouts.py logs/parent/gcpnet_torch/csrc/edge_map.cu
+    python3 k2_versions.py logs/parent/gcpnet_torch/csrc/edge_map_tc.cu
 
-Needs the card.  Builds this tree's source once per layout in LAYOUTS
-(rows a tile, threads a block, blocks an SM: the GCP_TC_ROWS,
-GCP_TC_THREADS and K2_MIN_BLOCKS build switches; the kernel takes two weight
-buffers where they fit), once per cut in CUTS (the first layout),
-and each given source (an edge_map_tc.cu, or the CUDA-core K2's edge_map.cu
-with its C entry point gcp_edge_map), all at once, then times each by CUDA
-events at the main path's shape ([E, 340] messages + [E, 9] frames ->
-[E, 148], the benchmark's 8-layer stack), fp32 and bf16, in turns: the
-versions, then the versions in reverse order.  Each result but the cuts'
-(wrong by design) is checked against the plain version (chip_smoke.TOL).
-Prints one JSON line of each build's spills (ptxas), one JSON line per
-dtype (each version's layout, mean of its two turns and the turns), then
-the card's name and power limit.
+Needs the card.  Builds this tree's source and each given one (an
+edge_map_tc.cu, or the CUDA-core K2's edge_map.cu with its C entry point
+gcp_edge_map, each with the headers beside it) with nvcc, all at once, then
+times each by CUDA events at the main path's shape ([E, 340] messages +
+[E, 9] frames -> [E, 148], the benchmark's 8-layer stack), fp32 and bf16, in
+turns: the versions, then the versions in reverse order.  Each result is
+checked against the plain version (chip_smoke.TOL).  Prints one JSON line of
+each build's spills (ptxas), one JSON line per dtype (each version's mean of
+its two turns, and the turns), then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -38,32 +33,24 @@ from gcpnet_torch.ops.edge_map import edge_map_plain, launch_forward
 from gcpnet_torch.ops.segment_sorted import DTYPE_CODES
 from gcpnet_torch.predict import DTYPES, synthetic_batches
 
-OUT_DIR = os.path.join("logs", "k2_layouts")
-# (rows, threads, blocks an SM); the first is the source's default
-LAYOUTS = [(64, 512, 1), (32, 256, 2), (32, 256, 1), (32, 512, 1)]
-# cut builds: edge_map_tc.cu's Cut values (K2_CUT), and edge_stack_mma.cuh's
-# cuts of layer_forward (GCP_TC_CUT)
-CUTS = {
-    "no_weight_copies": "-DK2_CUT=1", "no_input": "-DK2_CUT=2", "no_store": "-DK2_CUT=3",
-    "no_layer_output": "-DK2_CUT=4", "no_layers": "-DK2_CUT=5", "no_wso_product": "-DGCP_TC_CUT=1",
-    "no_other_products": "-DGCP_TC_CUT=2", "no_vnorm_scal9": "-DGCP_TC_CUT=3",
-}
+OUT_DIR = os.path.join("logs", "k2_versions")
 
 
 def build_all(sources: dict):
-    """name -> (source, extra nvcc flags): the loaded libraries, built at
-    once, and each build's ptxas lines that report spills."""
+    """name -> source path: the loaded libraries, built at once, and each
+    build's ptxas lines that report spills."""
     procs = {}
-    for name, (path, flags) in sources.items():
-        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", *flags, "-o",
-               os.path.join(OUT_DIR, f"lib{name}.so"), path]
+    for name, path in sources.items():
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(OUT_DIR, f"lib{name}.so"), path]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     spills = {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        spills[name] = sorted({ln.strip() for ln in out.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln})
+            raise RuntimeError(f"nvcc failed for {sources[name]}:\n{out}")
+        spills[name] = sorted(
+            {ln.strip() for ln in out.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln}
+        )
     return {name: ctypes.CDLL(os.path.join(OUT_DIR, f"lib{name}.so")) for name in sources}, spills
 
 
@@ -72,18 +59,12 @@ def main() -> int:
     parser.add_argument("sources", nargs="*", help="other versions of edge_map_tc.cu, or of edge_map.cu")
     args = parser.parse_args()
     if not torch.cuda.is_available():
-        print("k2_layouts: needs a CUDA device", file=sys.stderr)
+        print("k2_versions: needs a CUDA device", file=sys.stderr)
         return 1
     os.makedirs(OUT_DIR, exist_ok=True)
-    this = str(build.CSRC / "edge_map_tc.cu")
-    sources = {
-        f"rows{r}_threads{t}_blocks{b}": (this, [f"-DGCP_TC_ROWS={r}", f"-DGCP_TC_THREADS={t}", f"-DK2_MIN_BLOCKS={b}"])
-        for r, t, b in LAYOUTS
-    }
-    first = sources[next(iter(sources))][1]
-    sources.update({f"cut_{name}": (this, [*first, flag]) for name, flag in CUTS.items()})
+    sources = {"this": str(build.CSRC / "edge_map_tc.cu")}
     sources.update({
-        f"{'v' if os.path.basename(path) == 'edge_map_tc.cu' else 'old'}{i}": (path, [])
+        f"{'v' if os.path.basename(path) == 'edge_map_tc.cu' else 'old'}{i}": path
         for i, path in enumerate(args.sources, 1)
     })
     libs, spills = build_all(sources)
@@ -117,22 +98,14 @@ def main() -> int:
                     if err != 0:
                         raise RuntimeError(f"old K2: launch failed with error {err}")
                     return out
-                result[name] = {}
             else:
-                layout = chip_smoke.k2_layout(lib, stack, dtype)
-                result[name] = {"layout": layout}
-                if layout["weight_buffers"] == 0:
-                    continue  # too wide for this layout's shared memory
                 with torch.no_grad():
-                    own = mp.packed_stack()  # its own weight images
+                    own = mp.packed_stack()  # weight images of its own build
                 call = lambda lib=lib, own=own: launch_forward(message, frames, own, lib=lib)  # noqa: E731
-            if name.startswith("old") or name.startswith("v"):
-                result[name]["source"] = sources[name][0]
             got = call()
-            if not name.startswith("cut"):
-                err, rel = chip_smoke.rel_err(got, want)
-                chip_smoke.check(rel <= chip_smoke.TOL[("K2", dname)], f"{name} {dname}: rel err {rel:.3g}")
-                result[name].update(max_abs_err=err, rel_err=rel)
+            err, rel = chip_smoke.rel_err(got, want)
+            chip_smoke.check(rel <= chip_smoke.TOL[("K2", dname)], f"{name} {dname}: rel err {rel:.3g}")
+            result[name] = {"source": sources[name], "max_abs_err": err, "rel_err": rel}
             calls[name] = call
         order = list(calls) + list(reversed(calls))
         turns = {name: [] for name in calls}
