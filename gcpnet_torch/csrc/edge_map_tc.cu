@@ -27,7 +27,7 @@
 // bf16 tensor-core peak; float32 on split TF32 does three products for
 // each, 0.31 ms at the TF32 peak.
 //
-// Design (edge_stack_mma.cuh holds the layer body, shared with the bf16 K3):
+// Design (edge_stack_mma.cuh holds the layer body, shared with K3):
 // - A persistent grid (one block per SM, 512 threads) walks 64-row tiles.
 //   A tile's activations stay in shared memory through all the layers; each
 //   input row is read once (16-byte vectors) and each output row written
@@ -37,8 +37,9 @@
 //   per x/y/z component (~20% fewer operations).
 // - Every product is a warp-level mma.sync fed by ldmatrix: bf16 with
 //   float32 accumulators, each product's output rounded to bf16 (the JAX
-//   kernel's rounding, and that of the bf16 K3's recompute, which runs the
-//   same device functions); float32 as split TF32.
+//   kernel's rounding); float32 as split TF32.  K3's recompute runs the
+//   same device functions, so it rebuilds this kernel's state in either
+//   type.
 // - Weights: one image per layer in global memory, built once per packed
 //   stack (edge_map_tc_images, L2-resident, ~0.5 MB in bf16), copied into shared
 //   memory by cp.async, only as far as the layer reads it.  In bf16 two
@@ -99,7 +100,7 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
                    const Stack st, const Geom g, int nbuf, T* __restrict__ out, long long num_edges) {
   extern __shared__ float4 smem4[];
   Smem<T> s;
-  const size_t smem_bytes = carve(reinterpret_cast<char*>(smem4), g, &s, nbuf, false);
+  const size_t smem_bytes = carve<T, R>(reinterpret_cast<char*>(smem4), g, &s, nbuf, false);
   // every padding column starts (and stays) zero
   for (size_t i = threadIdx.x; i < smem_bytes / sizeof(float4); i += kThreads)
     smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -116,7 +117,7 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
   for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const long long e0 = tile * R;
     const int rows = static_cast<int>(min(static_cast<long long>(R), num_edges - e0));
-    load_input(s, g, first, msg + e0 * in_dim, frames + e0 * 9, rows);
+    load_input<T, R>(s, g, first, msg + e0 * in_dim, frames + e0 * 9, rows);
     for (int l = 0; l < nl; ++l) {
       const Layer L = st.l[l];
       // the next layer of this tile, or the first of the block's next tile
@@ -127,10 +128,10 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
       __syncthreads();  // this layer's weights are in; the previous layer is done with the other buffer
       carve_weights(buf, g, &s);
       if (nbuf == 2 && more) copy_async(other, image(ln), layer_bytes<T>(g, N));
-      layer_forward(s, g, L, image(l), [&] {
+      layer_forward<T, R>(s, g, L, image(l), [&] {
         if (nbuf == 1 && more) copy_async(buf + g.w_off_wso, image(ln) + g.w_off_wso, wso_first_bytes<T>(g, N));
       });
-      layer_output<T>(s, g, L, st.residual && l > 0, nullptr);
+      layer_output<T, R>(s, g, L, st.residual && l > 0, nullptr);
       if (nbuf == 2) {
         char* t = buf;
         buf = other;
@@ -158,7 +159,7 @@ template <typename T>
 int layout(const Stack& st, const Geom& g, size_t* smem) {
   Smem<T> unused;
   for (int nbuf = 2; nbuf >= 1; --nbuf) {
-    *smem = carve(nullptr, g, &unused, nbuf, false);
+    *smem = carve<T, R>(nullptr, g, &unused, nbuf, false);
     if (*smem <= static_cast<size_t>(kMaxSmem)) return nbuf;
   }
   return 0;

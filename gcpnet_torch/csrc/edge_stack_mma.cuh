@@ -1,14 +1,13 @@
 // The message stack's layer body on the tensor cores, in two operand types,
-// used by K2 (edge_map_tc.cu, bf16 and float32) and by the bf16 K3
-// (edge_map_bwd_tc.cu): a tile of edge rows in shared memory, each layer's
-// weights staged beside it, and every product a warp-level mma.sync fed by
-// ldmatrix.
+// used by K2 (edge_map_tc.cu) and by K3 (edge_map_bwd_tc.cu), both in bf16
+// and in float32: a tile of edge rows in shared memory, each layer's
+// weights staged beside it, and every product a warp-level mma.sync.
 //
 // bf16 (T = bf16): mma.sync m16n8k16, bf16 operands, float32 accumulators,
 // each product's output rounded to bf16 where it is stored: the JAX
 // kernel's numerics (gcpnet_tpu/ops/pallas_fused.py:87-89, 103-105 with
 // gcp._mm).  K2 and K3 run the same functions here, so K3's recompute
-// rebuilds exactly the state K2 computed.
+// rebuilds exactly the state K2 computed, in either type.
 //
 // float32 (T = float): split TF32 ("3xTF32"): each operand x becomes
 // hi = tf32(x) and lo = tf32(x - hi), and each product is
@@ -16,11 +15,17 @@
 // accumulators, one for each of the three, added at the end; what it drops
 // (lo*lo, ~2^-22 relative) is below float32's own rounding of the sums.
 // The weights are staged transposed ([n][k]), as ldmatrix moves 16-bit
-// pairs and cannot transpose 32-bit values.
+// pairs and cannot transpose 32-bit values; the operands ldmatrix cannot
+// deliver (the backward's weights, and the weight gradients' operands,
+// read across their rows) are read by each lane as its own 32-bit fragment
+// values (gemm).
 //
 // In both: norms, square roots, sigmoids, relu masks and the frame
-// contractions in float32 registers.  The layer table is edge_stack.cuh's;
-// the float32 K3 keeps that header's CUDA-core body.
+// contractions in float32 registers.  The layer table is edge_stack.cuh's.
+//
+// The tile height R (edge rows, a multiple of 16) is a template parameter
+// of the body: K2 and the bf16 K3 take kTile, the float32 K3 half as many
+// (its tile and cotangents take ~3.9 KB a row in float32, ~2.5 KB in bf16).
 //
 // Padding: a product runs on M, N and K rounded up to the mma shape (M to
 // 16, N to 8, K to 16 bf16 or 8 float32 values: 32 bytes).  The weights are
@@ -39,7 +44,7 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;     // edge rows per tile (a multiple of 16)
+constexpr int kTile = 64;     // edge rows per tile of K2 and the bf16 K3
 constexpr int kThreads = 512;  // threads a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmem = 232448;  // bytes a block may use on the H100
@@ -75,7 +80,7 @@ struct Geom {
   // float32; Wso in chunks of wso_k K columns (float32; bf16: one chunk)
   int ld_wso, r_wso, ld_wd, r_wd, ld_wup, r_wup, ld_wg, r_wg;
   int n_bso, n_bg;              // staged biases (float32)
-  int ldy, ldvf, ldms;          // float32 cotangents dY, dV, dM[:, s_in:] (bf16 K3)
+  int ldy, ldvf, ldms;          // float32 cotangents dY, dV, dM[:, s_in:] (K3)
   int wso_k, wso_bytes;         // K columns and bytes of one Wso chunk
   int w_off_wso;                // bytes before Wso in a layer's weights
   int w_bytes;                  // one layer's weights in shared memory (one Wso chunk)
@@ -90,10 +95,10 @@ struct Geom {
 //   S  [R][lds]  T    s_new;  G [R][ldv] T gate logits;  U [3R][ldv] vh @ Wup
 //   F  [R][12]   f32  frames
 //   wd, wup, wg, bso, bg, wso   the layer's weights, zero-padded (biases f32)
-// and for the backward (bf16 K3):
+// and for the backward (K3):
 //   dY [R][ldy] f32, dV [3R][ldvf] f32   cotangent of the state after the layer
 //   dMs [R][ldms] f32   cotangent of vnorm and scal9
-//   dS [R][lds] bf16, dD [3R][ldd] bf16;  dG over G, dU over U
+//   dS [R][lds] T, dD [3R][ldd] T;  dG over G, dU over U
 template <typename T>
 struct Smem {
   T *M, *X, *D, *S, *G, *U;
@@ -102,7 +107,7 @@ struct Smem {
   T *wd, *wup, *wg, *wso;
   float *bso, *bg;
   float *dY, *dV, *dMs;
-  bf16 *dS, *dD;
+  T *dS, *dD;
 };
 
 // A bump allocator over base (16-byte aligned); base == nullptr only
@@ -133,12 +138,12 @@ __host__ __device__ inline size_t carve_weights(char* base, const Geom& g, Smem<
   return c.off;
 }
 
-// Carves base into the arrays of s with nbuf weight buffers (s->wbase is
-// the first); without the backward's arrays G shares D's space (D is dead
-// once U is computed, G is written after).  Returns the bytes used.
-template <typename T>
+// Carves base into the arrays of s for a tile of R rows with nbuf weight
+// buffers (s->wbase is the first); without the backward's arrays G shares
+// D's space (D is dead once U is computed, G is written after).  Returns
+// the bytes used.
+template <typename T, int R>
 __host__ __device__ inline size_t carve(char* base, const Geom& g, Smem<T>* s, int nbuf, bool backward) {
-  constexpr size_t R = kTile;
   Carver c{base};
   s->M = c.take<T>(R * g.ldm);
   s->X = c.take<T>(3 * R * g.ldx);
@@ -157,8 +162,8 @@ __host__ __device__ inline size_t carve(char* base, const Geom& g, Smem<T>* s, i
     s->dY = c.take<float>(R * g.ldy);
     s->dV = c.take<float>(3 * R * g.ldvf);
     s->dMs = c.take<float>(R * g.ldms);
-    s->dS = c.take<bf16>(R * g.lds);
-    s->dD = c.take<bf16>(3 * R * g.ldd);
+    s->dS = c.take<T>(R * g.lds);
+    s->dD = c.take<T>(3 * R * g.ldd);
   }
   return c.off;
 }
@@ -304,17 +309,32 @@ __device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// relu of a bf16 pair; a NaN stays a NaN, as in relu()
 __device__ __forceinline__ uint32_t relu2(uint32_t x) {
   __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
-  v = __hmax2(v, __float2bfloat162_rn(0.f));
+  v = __hmax2_nan(v, __float2bfloat162_rn(0.f));
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// x (float32 bits) as hi = tf32(x) and lo = tf32(x - hi)
+// x (float32 bits) rounded to TF32 (10 mantissa bits, the low 13 bits
+// zero), to nearest with ties away from zero: cvt.rna.tf32.f32's result for
+// every x but a NaN, in two integer instructions where cvt compiles to four
+// or more; the splits, not the mma, take most of a float32 product's issue
+// slots.  A NaN's mantissa can carry into its exponent and sign here
+// (0x7fffffff becomes -0): split_tf32 keeps NaNs out.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t x) { return (x + 0x1000u) & 0xffffe000u; }
+
+// x (float32 bits) as hi = tf32(x) and lo = tf32(x - hi).  hi is
+// tf32_rna(x) + x * 0, one FFMA: that adds an exact zero of x's sign to a
+// finite x's rounding (the same bits), and makes hi the canonical NaN
+// 0x7fffffff (a NaN with or without its low 13 bits) for a NaN or infinite
+// x, so every product such an x enters is a NaN (for a NaN, as in float32;
+// for an infinity, as with cvt.rna, whose lo is a NaN).  A select on
+// x != x does the same in two instructions and made K3 fp32 4% slower.
 __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
   const float v = __uint_as_float(x);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+  hi = __float_as_uint(__fmaf_rn(v, 0.f, __uint_as_float(tf32_rna(x))));
+  lo = tf32_rna(__float_as_uint(v - __uint_as_float(hi)));
 }
 
 // One k step's A fragment as the mma takes it, and the mma with a B
@@ -344,7 +364,7 @@ struct AFrag<float> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float v = __uint_as_float(a[i]);
-      split_tf32(__float_as_uint(relu ? fmaxf(v, 0.f) : v), hi[i], lo[i]);
+      split_tf32(__float_as_uint(relu ? gcp::relu(v) : v), hi[i], lo[i]);
     }
   }
   __device__ __forceinline__ void mma(float (&c)[4], float (&c_lo)[4], float (&c_hi)[4], uint32_t b0,
@@ -367,24 +387,36 @@ struct AFrag<float> {
 // 16), n < Np (a multiple of 8), Kp a multiple of padk<T>'s step, on the
 // tensor cores; the warps take 16 x 16 blocks of C in turn.  A(m, k) =
 // A[m * lda + k], or A[k * lda + m] when kAT; B(k, n) = B[k * ldb + n], or
-// B[n * ldb + k] when kBT (a transposed operand is read with ldmatrix.trans
-// or without, whichever gives the mma its fragment; float32 takes A
-// row-major and B transposed only).  relu_a applies relu to A.  init(m, n,
-// v0, v1) gives the starting values of C(m, n) and C(m, n + 1); epi(m, n,
-// v0, v1) takes the results (n even, both pairs inside Np).  A warp calls
-// init for its next block before the products of the current one, so that
-// loads there (the weight-gradient partials, in global memory) overlap
-// them.  The lane addresses are the same in bytes for both types: a k step
-// is 32 bytes, an 8x8 ldmatrix tile 16 bytes a row.
+// B[n * ldb + k] when kBT.  bf16 operands are read with ldmatrix (.trans
+// or not, whichever gives the mma its fragment).  float32 operands are read
+// with ldmatrix where it gives the fragment (A row-major, B transposed);
+// otherwise each lane loads its own values, one 32-bit word each: an
+// m16n8k8 .tf32 fragment holds A(gid, k), A(gid + 8, k) and B(k, gid) at
+// the mma's k slots tig and tig + 4 (gid = lane / 4, tig = lane % 4).
+// When both are loaded so, a lane takes k = 2 tig and 2 tig + 1 into those
+// slots (any order of k both operands agree on gives the same sum): rows
+// 0, 2, 4, 6 (and 1, 3, 5, 7) of a stride that is an odd multiple of 4
+// words fall on distinct banks, so the weight gradients' reads, across the
+// tile's rows, are free of bank conflicts.  relu_a applies relu to A.
+// init(m, n, v0, v1) gives the starting values of C(m, n) and C(m, n + 1);
+// epi(m, n, v0, v1) takes the results (n even, both pairs inside Np).  A
+// warp calls init for its next block before the products of the current
+// one, so that loads there (the weight-gradient partials, in global memory)
+// overlap them.  The ldmatrix lane addresses are the same in bytes for both
+// types: a k step is 32 bytes, an 8x8 ldmatrix tile 16 bytes a row.
 template <typename T, bool kAT, bool kBT, typename Init, typename Epi>
 __device__ __forceinline__ void gemm(const T* A, int lda, const T* B, int ldb, int Mp, int Np, int Kp,
                                      bool relu_a, Init init, Epi epi) {
-  static_assert(sizeof(T) == 2 || (!kAT && kBT), "float32 products: A row-major, B transposed");
+  constexpr bool kWordA = sizeof(T) == 4 && kAT;   // A loaded a word a lane
+  constexpr bool kWordB = sizeof(T) == 4 && !kBT;  // B loaded a word a lane
+  constexpr bool kPairK = kWordA && kWordB;        // k = 2 tig, 2 tig + 1
   constexpr int kU = 16 / sizeof(T);  // elements in 16 bytes
   constexpr int kK = 2 * kU;          // k of one mma step
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int li = lane >> 3, lr = lane & 7;  // the 8x8 matrix and the row this lane addresses
+  // the k of this lane's first fragment value, and how far the second lies
+  const int k_lane = kPairK ? 2 * tig : tig, k_gap = kPairK ? 1 : 4;
   const int nb = (Np + 15) >> 4;
   const int tasks = (Mp >> 4) * nb;
   // C's starting values for block t
@@ -412,25 +444,49 @@ __device__ __forceinline__ void gemm(const T* A, int lda, const T* B, int ldb, i
 #pragma unroll
       for (int i = 0; i < 4; ++i) c[j][i] = next[j][i];
     if (t + kWarps < tasks) start(t + kWarps, next);
-    // this lane's row address in A's and in B's 8x8 matrices, at k = 0
-    const T* pa = kAT ? A + (((li >> 1) << 3) + lr) * lda + m0 + ((li & 1) << 3)
-                      : A + (m0 + (lane & 15)) * lda + (lane >> 4) * kU;
-    const T* pb = kBT ? B + (n0 + ((li >> 1) << 3) + lr) * ldb + (li & 1) * kU
-                      : B + (((li & 1) << 3) + lr) * ldb + n0 + ((li >> 1) << 3);
+    // this lane's address in A and in B at k = 0: its row of an 8x8
+    // ldmatrix tile, or its first fragment value
+    const T* pa = kWordA ? A + k_lane * lda + m0 + gid
+                  : kAT  ? A + (((li >> 1) << 3) + lr) * lda + m0 + ((li & 1) << 3)
+                         : A + (m0 + (lane & 15)) * lda + (lane >> 4) * kU;
+    const T* pb = kWordB ? B + k_lane * ldb + n0 + gid
+                  : kBT  ? B + (n0 + ((li >> 1) << 3) + lr) * ldb + (li & 1) * kU
+                         : B + (((li & 1) << 3) + lr) * ldb + n0 + ((li >> 1) << 3);
     const int a_step = kAT ? kK * lda : kK, b_step = kBT ? kK : kK * ldb;
     float c_lo[2][4] = {}, c_hi[2][4] = {};  // float32's small products
     for (int k0 = 0; k0 < Kp; k0 += kK, pa += a_step, pb += b_step) {
       uint32_t a[4];
-      ldsm_x4<kAT>(a, pa);
+      if constexpr (kWordA) {
+        const int gap = k_gap * lda;
+        a[0] = __float_as_uint(pa[0]);
+        a[1] = __float_as_uint(pa[8]);
+        a[2] = __float_as_uint(pa[gap]);
+        a[3] = __float_as_uint(pa[gap + 8]);
+      } else {
+        ldsm_x4<kAT>(a, pa);
+      }
       const AFrag<T> af(a, relu_a);
       if (two) {
         uint32_t b[4];
-        ldsm_x4<!kBT>(b, pb);
+        if constexpr (kWordB) {
+          const int gap = k_gap * ldb;
+          b[0] = __float_as_uint(pb[0]);
+          b[1] = __float_as_uint(pb[gap]);
+          b[2] = __float_as_uint(pb[8]);
+          b[3] = __float_as_uint(pb[gap + 8]);
+        } else {
+          ldsm_x4<!kBT>(b, pb);
+        }
         af.mma(c[0], c_lo[0], c_hi[0], b[0], b[1]);
         af.mma(c[1], c_lo[1], c_hi[1], b[2], b[3]);
       } else {
         uint32_t b[2];
-        ldsm_x2<!kBT>(b, pb);
+        if constexpr (kWordB) {
+          b[0] = __float_as_uint(pb[0]);
+          b[1] = __float_as_uint(pb[k_gap * ldb]);
+        } else {
+          ldsm_x2<!kBT>(b, pb);
+        }
         af.mma(c[0], c_lo[0], c_hi[0], b[0], b[1]);
       }
     }
@@ -527,14 +583,14 @@ __device__ inline void load_weights(const Smem<T>& s, const Geom& g, const Layer
   cp_async_wait();
 }
 
-// put(r, col, x) for every element x of the tile's rows r < kTile of a
+// put(r, col, x) for every element x of the tile's rows r < R of a
 // row-major [*, width] array whose row 0 is src (x = 0 for r >= rows), read
-// as 16-byte vectors where src is 16-byte aligned (kTile * width elements
-// are a whole number of them).
-template <typename T, typename Put>
+// as 16-byte vectors where src is 16-byte aligned (R * width elements are a
+// whole number of them).
+template <int R, typename T, typename Put>
 __device__ inline void load_rows(const T* __restrict__ src, int width, int rows, Put put) {
   constexpr int u = 16 / sizeof(T);
-  const int n = rows * width, total = kTile * width;
+  const int n = rows * width, total = R * width;
   const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
   for (int i = threadIdx.x; i * u < total; i += kThreads) {
     const int e = i * u;
@@ -556,10 +612,10 @@ __device__ inline void load_rows(const T* __restrict__ src, int width, int rows,
 
 // The stack's input rows into M and X and their frames into F; rows past
 // the end are zeros.
-template <typename T>
+template <typename T, int R>
 __device__ inline void load_input(const Smem<T>& s, const Geom& g, const Layer& L, const T* __restrict__ msg,
                                   const T* __restrict__ frames, int rows) {
-  load_rows(msg, L.s_in + 3 * L.v_in, rows, [&](int r, int col, T x) {
+  load_rows<R>(msg, L.s_in + 3 * L.v_in, rows, [&](int r, int col, T x) {
     if (col < L.s_in) {
       s.M[r * g.ldm + col] = x;
     } else {
@@ -567,19 +623,19 @@ __device__ inline void load_input(const Smem<T>& s, const Geom& g, const Layer& 
       s.X[(r * 3 + c) * g.ldx + (j - c * L.v_in)] = x;
     }
   });
-  if (frames) load_rows(frames, 9, rows, [&](int r, int col, T x) { s.F[r * kFrameLd + col] = f(x); });
+  if (frames) load_rows<R>(frames, 9, rows, [&](int r, int col, T x) { s.F[r * kFrameLd + col] = f(x); });
 }
 
-// Layer L's intermediates D, M[:, s_in:], S, U and G from its input state
-// in M[:, :s_in] and X, with its weights in s.wd ... s.wso (the first Wso
-// chunk; the further ones, for float32 layers with K > kChunkK, are copied
-// here from the layer's image).  wso_free() runs once Wso's buffer is no
-// longer read (it may start copying the next layer's Wso there).
-template <typename T, typename Hook>
+// Layer L's intermediates D, M[:, s_in:], S, U and G for a tile of R rows
+// from its input state in M[:, :s_in] and X, with its weights in s.wd ...
+// s.wso (the first Wso chunk; the further ones, for float32 layers with
+// K > kChunkK, are copied here from the layer's image, and the last stays
+// in s.wso).  wso_free() runs once Wso's buffer is no longer read (it may
+// start copying the next layer's Wso there).
+template <typename T, int R, typename Hook>
 __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Layer& L, const char* image,
                                      Hook wso_free) {
   constexpr bool kWT = kWeightsT<T>;
-  constexpr int R = kTile;
   const int h = L.h, hk = h + 9;
   // D = X @ [Wd | Wdf]
   gemm<T, false, kWT>(s.X, g.ldx, s.wd, g.ld_wd, 3 * R, pad8(h + 3), padk<T>(L.v_in), false, ZeroInit{},
@@ -647,9 +703,8 @@ struct NoHook {
 // Layer L's output written over (ResGCP: added to) the state in M and X
 // (rounded to T), and, unless slot is null, copied to slot ([R][s_out]
 // scalars, then [3R][v_out] vectors).
-template <typename T>
+template <typename T, int R>
 __device__ inline void layer_output(const Smem<T>& s, const Geom& g, const Layer& L, bool add, T* slot) {
-  constexpr int R = kTile;
   T* slot_v = slot ? slot + R * L.s_out : nullptr;
   for (int i = threadIdx.x; i < R * L.v_out; i += kThreads) {
     const int r = i / L.v_out, o = i - r * L.v_out;

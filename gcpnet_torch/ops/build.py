@@ -38,12 +38,10 @@ SIGNATURES = {
         "gcp_edge_map_tc_images": [_P, _P, _I, _P, _I, _P],
         "gcp_edge_map_tc_image_bytes": [_P, _I, _I],
     },
-    "edge_map_bwd": {
-        "gcp_edge_map_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
-    },
     "edge_map_bwd_tc": {
-        "gcp_edge_map_bwd_tc": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
-        "gcp_edge_map_bwd_tc_image_bytes": [_P, _I],
+        "gcp_edge_map_bwd_tc": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
+        "gcp_edge_map_bwd_tc_image_bytes": [_P, _I, _I],
+        "gcp_edge_map_bwd_tc_tile": [_I],
     },
 }
 RESTYPES = {"gcp_edge_map_bwd_tc_image_bytes": _LL, "gcp_edge_map_tc_image_bytes": _LL}

@@ -13,11 +13,11 @@ It replaces the two kernels of ``gcpnet_tpu/ops/pallas_fused.py``: the
 forward (``_map_impl``) on CUDA tensors launches ``csrc/edge_map_tc.cu``
 (K2: every product on the tensor cores, bf16 operands with float32
 accumulators as the JAX kernel computes, or float32 as split TF32), the
-backward (``_map_bwd``) launches K3, which recomputes the stack per tile of
-rows: ``csrc/edge_map_bwd_tc.cu`` for bf16 (on the same tensor-core layer
-body as K2, so it rebuilds K2's state exactly), ``csrc/edge_map_bwd.cu``
-for float32 (float32 on the CUDA cores).  On CPU tensors the forward runs
-:func:`edge_map_plain` and the backward :func:`edge_map_backward_plain`.
+backward (``_map_bwd``) launches ``csrc/edge_map_bwd_tc.cu`` (K3, both
+dtypes), which recomputes the stack per tile of rows on the same
+tensor-core layer body as K2, so it rebuilds K2's state exactly.  On CPU
+tensors the forward runs :func:`edge_map_plain` and the backward
+:func:`edge_map_backward_plain`.
 
 The stack's weights are packed into the kernels' layout (:func:`pack_stack`):
 per layer ``[vector_down | vector_down_frames]`` ``[v_in, h + 3]``,
@@ -42,8 +42,6 @@ from gcpnet_torch.ops.segment_sorted import DTYPE_CODES
 
 EPS = 1e-8
 MAX_LAYERS = 16  # csrc/edge_stack.cuh kMaxLayers
-BWD_TILE = 48  # csrc/edge_map_bwd.cu kTile
-BWD_TC_TILE = 64  # csrc/edge_stack_mma.cuh gcp::tc::kTile
 CUDA_ERROR_INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
 KERNEL_ACTIVATIONS = {None: 0, "relu": 1}
 WEIGHT_NAMES = ("w_down", "w_so", "b_so", "w_up", "w_gate", "b_gate")
@@ -91,17 +89,6 @@ class PackedStack:
     def out_dim(self) -> int:
         s_out, v_out = self.layers[-1].dims[3:]
         return s_out + 3 * v_out
-
-    def transposed(self) -> Tensor:
-        """``weights`` with each matrix transposed in place (the float32 K3
-        reads the backward's products' weights this way)."""
-        weights = self.weights.detach()
-        out = weights.clone()
-        for src, dst in zip(self.layer_weights(weights), self.layer_weights(out)):
-            for name, w in src.items():
-                if w is not None and w.dim() == 2:
-                    dst[name].view(-1).copy_(w.t().reshape(-1))
-        return out
 
     def layer_weights(self, weights: Tensor):
         """Per layer, the dict of ``WEIGHT_NAMES`` -> views into the flat
@@ -319,83 +306,45 @@ def _edge_map_forward(message: Tensor, frames: Tensor, stack: PackedStack) -> Te
     return out
 
 
-def _slot_width(layer: StackLayer, has_state: bool) -> int:
-    """Floats a row that K3 keeps of one layer in its scratch: the input
-    state (layers after the first) and the intermediates
-    (``csrc/edge_map_bwd.cu`` ``slot_floats``)."""
-    s_in, v_in, h, s_out, v_out = layer.dims
-    state = s_in + 3 * v_in if has_state else 0
-    gate = v_out if layer.w_gate is not None else 0
-    return state + 3 * (h + 3) + h + 9 + s_out + 3 * v_out + gate
-
-
 def _persistent_grid(rows: int, tile: int, dev) -> int:
     """One persistent block per SM (fewer for a short input)."""
     return min(-(-rows // tile), torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
-def _launch_fp32(fn, message: Tensor, frames: Tensor, stack: PackedStack, grad_out: Tensor, d_message, d_weights):
-    """``csrc/edge_map_bwd.cu``: each block has its own weight-gradient
-    partial and its own scratch for a tile's activations, and reads the
-    backward's weights from a transposed copy."""
-    e = message.shape[0]
-    grid = _persistent_grid(e, BWD_TILE, message.device)
-    w_len = stack.weights.numel()
-    stash_len = BWD_TILE * sum(_slot_width(layer, i > 0) for i, layer in enumerate(stack.layers))
-    partials = torch.empty(grid * w_len, dtype=torch.float32, device=message.device)
-    scratch = torch.empty(grid * stash_len, dtype=torch.float32, device=message.device)
-    weights_t = stack.transposed()
-    return fn(
-        message.data_ptr(), frames.data_ptr(), grad_out.data_ptr(), stack.weights.data_ptr(),
-        weights_t.data_ptr(), stack.meta.ctypes.data, stack.meta.size, d_message.data_ptr(),
-        d_weights.data_ptr(), partials.data_ptr(), scratch.data_ptr(), w_len, stash_len, e, grid,
-        _stream(message),
-    )
-
-
-def _launch_tc(lib, message: Tensor, frames: Tensor, stack: PackedStack, grad_out: Tensor, d_message, d_weights):
-    """``csrc/edge_map_bwd_tc.cu``: each block has its own weight-gradient
-    partial and a bf16 scratch for each layer's input state; the weights go
-    to the kernel once per call as per-layer bf16 images."""
+def launch_backward(message: Tensor, frames: Tensor, stack: PackedStack, grad_out: Tensor, lib=None):
+    """Launch K3 (``csrc/edge_map_bwd_tc.cu``, or the build ``lib`` of it)
+    on checked CUDA tensors: ``(d message, d weights)``.  Each persistent
+    block has its own float32 weight-gradient partial and a scratch, in the
+    input dtype, for each layer's input state; the weights go to the kernel
+    once per call as per-layer images (bf16, or float32 transposed)."""
     e = message.shape[0]
     dev = message.device
-    grid = _persistent_grid(e, BWD_TC_TILE, dev)
+    d_message = torch.empty_like(message)
+    if e == 0:
+        return d_message, torch.zeros_like(stack.weights)
+    lib = lib or library("edge_map_bwd_tc")
+    d_weights = torch.empty(stack.weights.shape, dtype=torch.float32, device=dev)
+    code = DTYPE_CODES[message.dtype]
+    tile = lib.gcp_edge_map_bwd_tc_tile(code)
+    grid = _persistent_grid(e, tile, dev)
     w_len = stack.weights.numel()
-    stash_len = BWD_TC_TILE * sum(s_in + 3 * v_in for s_in, v_in, *_ in (layer.dims for layer in stack.layers[1:]))
-    image_bytes = lib.gcp_edge_map_bwd_tc_image_bytes(stack.meta.ctypes.data, stack.meta.size)
+    stash_len = tile * sum(s_in + 3 * v_in for s_in, v_in, *_ in (layer.dims for layer in stack.layers[1:]))
+    image_bytes = lib.gcp_edge_map_bwd_tc_image_bytes(stack.meta.ctypes.data, stack.meta.size, code)
     if image_bytes < 0:
         raise ValueError("edge_map_backward: malformed layer table")
     images = torch.empty(image_bytes, dtype=torch.uint8, device=dev)
     partials = torch.empty(grid * w_len, dtype=torch.float32, device=dev)
-    scratch = torch.empty(max(grid * stash_len, 1), dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(max(grid * stash_len, 1), dtype=message.dtype, device=dev)
     err = lib.gcp_edge_map_bwd_tc(
         message.data_ptr(), frames.data_ptr(), grad_out.data_ptr(), stack.weights.data_ptr(),
         stack.meta.ctypes.data, stack.meta.size, d_message.data_ptr(), d_weights.data_ptr(),
-        images.data_ptr(), partials.data_ptr(), scratch.data_ptr(), w_len, stash_len, e, grid,
+        images.data_ptr(), partials.data_ptr(), scratch.data_ptr(), w_len, stash_len, e, grid, code,
         _stream(message),
     )
     if err == CUDA_ERROR_INVALID_CONFIGURATION:
         raise NotImplementedError(
-            "edge_map_backward: the stack's widths need more shared memory than the bf16 kernel's "
-            "tile has"
+            "edge_map_backward: the stack's widths need more shared memory than the kernel's tile has"
         )
-    return err
-
-
-def launch_backward(message: Tensor, frames: Tensor, stack: PackedStack, grad_out: Tensor, lib=None):
-    """Launch K3 on checked CUDA tensors: ``(d message, d weights)``.  bf16
-    goes to the tensor-core kernel (``csrc/edge_map_bwd_tc.cu``, or the
-    build ``lib`` of it), float32 to ``csrc/edge_map_bwd.cu``."""
-    e = message.shape[0]
-    d_message = torch.empty_like(message)
-    if e == 0:
-        return d_message, torch.zeros_like(stack.weights)
-    d_weights = torch.empty(stack.weights.shape, dtype=torch.float32, device=message.device)
-    if message.dtype == torch.bfloat16:
-        err = _launch_tc(lib or library("edge_map_bwd_tc"), message, frames, stack, grad_out, d_message, d_weights)
-    else:
-        err = _launch_fp32(library("edge_map_bwd").gcp_edge_map_bwd, message, frames, stack, grad_out,
-                           d_message, d_weights)
     if err != 0:
         raise RuntimeError(f"edge_map_backward: CUDA launch failed with error {err}")
     return d_message, d_weights
@@ -408,8 +357,7 @@ def edge_map_backward(
     ``edge_map(message, frames, stack)``; ``d message`` in the input dtype,
     ``d weights`` float32 in the flat layout.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (and count the launch in
-    ``edge_map_backward.launches``, and a bf16 one, on the tensor-core
-    kernel, also in ``edge_map_backward.tc_launches``)."""
+    ``edge_map_backward.launches``)."""
     _check(message, frames, stack)
     if grad_out.shape != (message.shape[0], stack.out_dim) or grad_out.dtype != message.dtype:
         raise ValueError(
@@ -423,8 +371,6 @@ def edge_map_backward(
     _check_kernel_supported(stack)
     d_message, d_weights = launch_backward(message, frames, stack, grad_out.contiguous())
     edge_map_backward.launches += 1
-    if message.dtype == torch.bfloat16:
-        edge_map_backward.tc_launches += 1
     return d_message, d_weights
 
 
@@ -464,4 +410,3 @@ def edge_map(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
 
 edge_map.launches = 0
 edge_map_backward.launches = 0
-edge_map_backward.tc_launches = 0

@@ -11,7 +11,8 @@ gcp_edge_map, each with the headers beside it) with nvcc, all at once, then
 times each by CUDA events at the main path's shape ([E, 340] messages +
 [E, 9] frames -> [E, 148], the benchmark's 8-layer stack), fp32 and bf16, in
 turns: the versions, then the versions in reverse order.  Each result is
-checked against the plain version (chip_smoke.TOL).  Prints one JSON line of
+checked against the plain version (chip_smoke.TOL) and compared bit for bit
+with this tree's.  Prints one JSON line of
 each build's spills (ptxas), one JSON line per dtype (each version's mean of
 its two turns, and the turns), then the card's name and power limit.
 """
@@ -102,10 +103,11 @@ def main() -> int:
                 with torch.no_grad():
                     own = mp.packed_stack()  # weight images of its own build
                 call = lambda lib=lib, own=own: launch_forward(message, frames, own, lib=lib)  # noqa: E731
-            got = call()
+            got = call().clone()
             err, rel = chip_smoke.rel_err(got, want)
             chip_smoke.check(rel <= chip_smoke.TOL[("K2", dname)], f"{name} {dname}: rel err {rel:.3g}")
-            result[name] = {"source": sources[name], "max_abs_err": err, "rel_err": rel}
+            result[name] = {"source": sources[name], "max_abs_err": err, "rel_err": rel,
+                            "equal_to_this": torch.equal(got, result["this"]["out"]) if result else True, "out": got}
             calls[name] = call
         order = list(calls) + list(reversed(calls))
         turns = {name: [] for name in calls}
@@ -114,6 +116,7 @@ def main() -> int:
                 turns[name].append(chip_smoke.cuda_ms(calls[name], iters=10))
         for name, t in turns.items():
             result[name].update(ms=sum(t) / len(t), ms_turns=t)
+            del result[name]["out"]
         print(json.dumps({"dtype": dname, "shape": [e, stack.in_dim, stack.out_dim], "versions": result}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())

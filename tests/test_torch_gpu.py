@@ -12,6 +12,7 @@ Without a CUDA device every test skips.
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gcpnet_torch import predict as port_predict
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
@@ -19,14 +20,13 @@ from gcpnet_torch.models.lba import GCPNetLBA, graph_regression_loss
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.ops.build import library
 from gcpnet_torch.ops.edge_map import (
-    PackedStack,
     edge_map,
     edge_map_backward,
     edge_map_backward_plain,
     edge_map_plain,
     pack_stack,
 )
-from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
+from gcpnet_torch.ops.segment_sorted import DTYPE_CODES, segment_sum_sorted, segment_sum_sorted_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -190,25 +190,29 @@ def test_k2_builds_images_once_per_cached_stack(rng, cuda):
     assert torch.equal(first, again)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("residual", [True, False])
-def test_k2_bf16_is_the_state_k3_recomputes(rng, cuda, residual):
-    """bf16 K2 and the bf16 K3's forward sweep run the same layer body: the
-    state K3 keeps in its scratch before each layer l >= 1 equals, bit for
-    bit, K2's output for the stack's first l layers.  K3 is launched with
-    one block per tile, so that each block's scratch holds its own tile."""
-    dtype = torch.bfloat16
+def test_k2_bf16_is_the_state_k3_recomputes(rng, cuda, residual, dtype):
+    """K2 and K3's forward sweep run the same layer body, in bf16 and in
+    float32 (split TF32): the state K3 keeps in its scratch before each
+    layer l >= 1 equals, bit for bit, K2's output for the stack's first l
+    layers.  K3 is launched with one block per tile, so that each block's
+    scratch holds its own tile."""
     with torch.no_grad():
         stack = _message_passing(ModuleCfg(), residual=residual).to(cuda, dtype).packed_stack()
-    tiles, tile = 5, 64  # csrc/edge_stack_mma.cuh kTile
+    lib = library("edge_map_bwd_tc")
+    code = DTYPE_CODES[dtype]
+    tiles, tile = 5, lib.gcp_edge_map_bwd_tc_tile(code)
+    assert tile == (64 if dtype == torch.bfloat16 else 32)
     e = tiles * tile
     msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
     grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
-    lib = library("edge_map_bwd_tc")
     w_len = stack.weights.numel()
     widths = [s_in + 3 * v_in for s_in, v_in, *_ in (layer.dims for layer in stack.layers[1:])]
     stash_len = tile * sum(widths)
     images = torch.empty(
-        lib.gcp_edge_map_bwd_tc_image_bytes(stack.meta.ctypes.data, stack.meta.size), dtype=torch.uint8, device=cuda
+        lib.gcp_edge_map_bwd_tc_image_bytes(stack.meta.ctypes.data, stack.meta.size, code),
+        dtype=torch.uint8, device=cuda,
     )
     partials = torch.empty(tiles * w_len, device=cuda)
     scratch = torch.empty(tiles * stash_len, dtype=dtype, device=cuda)
@@ -216,7 +220,7 @@ def test_k2_bf16_is_the_state_k3_recomputes(rng, cuda, residual):
     err = lib.gcp_edge_map_bwd_tc(
         msg.data_ptr(), frames.data_ptr(), grad_out.data_ptr(), stack.weights.data_ptr(), stack.meta.ctypes.data,
         stack.meta.size, d_msg.data_ptr(), d_w.data_ptr(), images.data_ptr(), partials.data_ptr(),
-        scratch.data_ptr(), w_len, stash_len, e, tiles, torch.cuda.current_stream().cuda_stream,
+        scratch.data_ptr(), w_len, stash_len, e, tiles, code, torch.cuda.current_stream().cuda_stream,
     )
     assert err == 0
     scratch = scratch.view(tiles, stash_len)
@@ -254,7 +258,7 @@ def _k3_leaf_errs(d_msg, d_w, want_msg, want_w, stack):
 
 
 # K3's bounds, leaf by leaf, in norm (relu kinks, as in chip_smoke.py).
-# float32: float32 throughout, the summation order differs.
+# float32: float32-grade products (split TF32), the summation order differs.
 K3_FP32_LEAF_TOL = 1e-4
 # bf16: the kernel computes as the JAX kernel does (bf16 operands, float32
 # accumulators, each product's output rounded to bf16), as does the plain
@@ -275,23 +279,20 @@ K3_BF16_LEAF_TOL = 2.0**-3
 def test_k3_cuda_matches_plain(rng, cuda, settings, residual, dtype):
     with torch.no_grad():
         stack = _message_passing(STACK_SETTINGS[settings], residual=residual).to(cuda, dtype).packed_stack()
-    e = 1000  # not a multiple of the kernels' tiles (48 rows in float32, 64 in bf16)
+    e = 1000  # not a multiple of the kernel's tiles (32 rows in float32, 64 in bf16)
     msg = rng.normal(size=(e, stack.in_dim)).astype(np.float32)
     msg[: e // 4, stack.layers[0].dims[0] :] = 0.0  # zero vectors: the norm's eps decides
     msg = torch.from_numpy(msg).to(cuda, dtype)
     frames = torch.from_numpy(rng.normal(size=(e, 9)).astype(np.float32)).to(cuda, dtype)
     grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
-    before = edge_map_backward.launches, edge_map_backward.tc_launches
+    before = edge_map_backward.launches
     d_msg, d_w = edge_map_backward(msg, frames, stack, grad_out)
     torch.cuda.synchronize()
-    # bf16 runs on the tensor-core kernel
-    assert (edge_map_backward.launches, edge_map_backward.tc_launches) == (
-        before[0] + 1, before[1] + (dtype == torch.bfloat16)
-    )
+    assert edge_map_backward.launches == before + 1
     assert d_msg.dtype == dtype and d_w.dtype == torch.float32
     want_msg, want_w = edge_map_backward_plain(msg, frames, stack, grad_out)
     if dtype == torch.float32:
-        # float32 throughout; the summation order differs
+        # float32-grade products (split TF32); the summation order differs
         assert _max_rel_err(d_msg, want_msg) <= 1e-4
         assert _max_rel_err(d_w, want_w) <= 1e-4
         leaves = _k3_leaf_errs(d_msg, d_w, want_msg, want_w, stack)
@@ -318,24 +319,87 @@ def test_k3_is_deterministic(rng, cuda, dtype):
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
-def test_k3_bf16_makes_no_transposed_copy(rng, cuda, monkeypatch):
-    """The tensor-core K3 reads the staged weights transposed through
-    ldmatrix: no transposed copy of the weights is made."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["message", "weight"])
+def test_k2_k3_keep_nans(rng, cuda, where, dtype):
+    """A NaN of the card's own form (every mantissa bit set) in one message
+    row or in one weight: K2's output is a NaN exactly where the plain
+    version's is, and K3's results wherever the plain backward's are (K3
+    takes relu's derivative at a NaN as 0, as JAX does, where torch passes
+    the cotangent on, so its NaNs may spread further)."""
     with torch.no_grad():
-        stack = _message_passing(ModuleCfg()).to(cuda, torch.bfloat16).packed_stack()
+        stack = _message_passing(ModuleCfg()).to(cuda, dtype).packed_stack()
+        e = 300
+        msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
+        if where == "message":  # the last vector column of row 5
+            if dtype == torch.float32:
+                msg.view(torch.int32)[5, -1] = 0x7FFFFFFF
+            else:
+                msg.view(torch.int16)[5, -1] = 0x7FFF
+        else:  # the last layer's vector_up, before K2 builds its images
+            stack.layer_weights(stack.weights)[-1]["w_up"].view(torch.int32)[0, 0] = 0x7FFFFFFF
+        got = edge_map(msg, frames, stack)
+        want = edge_map_plain(msg, frames, stack)
+    assert bool(want.isnan().any()) and not bool(want.isnan().all())
+    assert torch.equal(got.isnan(), want.isnan())
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    got = edge_map_backward(msg, frames, stack, grad_out)
+    want = edge_map_backward_plain(msg, frames, stack, grad_out)
+    for g, w in zip(got, want):
+        assert bool(w.isnan().any())
+        assert bool(g.isnan()[w.isnan()].all())
 
-    def refuse(self):
-        raise AssertionError("the bf16 backward made a transposed copy")
 
-    monkeypatch.setattr(PackedStack, "transposed", refuse)
+class _OpsOn(TorchDispatchMode):
+    """Records every aten op that takes a tensor sharing ``tensor``'s
+    storage."""
+
+    def __init__(self, tensor):
+        super().__init__()
+        self.storage = tensor.untyped_storage().data_ptr()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        leaves = [*args, *kwargs.values()]
+        leaves += [x for a in leaves if isinstance(a, (list, tuple)) for x in a]
+        if any(isinstance(a, torch.Tensor) and a.untyped_storage().data_ptr() == self.storage for a in leaves):
+            self.ops.append(str(func))
+        return func(*args, **kwargs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_bf16_makes_no_transposed_copy(rng, cuda, dtype):
+    """K3 reads the staged weights both ways inside the kernel (bf16 through
+    ldmatrix, float32 a word a lane): no op on the card touches the weight
+    buffer, so no transposed copy of the weights is made."""
+    with torch.no_grad():
+        stack = _message_passing(ModuleCfg()).to(cuda, dtype).packed_stack()
     e = 200
     args = [
-        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, torch.bfloat16)
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
         for shape in ((e, stack.in_dim), (e, 9), (e, stack.out_dim))
     ]
-    d_msg, d_w = edge_map_backward(*args[:2], stack, args[2])
+    with _OpsOn(stack.weights) as ops:
+        d_msg, d_w = edge_map_backward(*args[:2], stack, args[2])
     torch.cuda.synchronize()
+    assert ops.ops == []
     assert bool(torch.isfinite(d_msg).all()) and bool(torch.isfinite(d_w).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_rejects_a_stack_too_wide_for_its_tile(rng, cuda, dtype):
+    """A first layer of 2,408 input scalars: its rows of the tile alone
+    exceed the block's shared memory, for float32's 32-row tile as for
+    bf16's 64 (1,208 fit float32's)."""
+    with torch.no_grad():
+        stack = _message_passing(ModuleCfg(), node_dims=(1200, 4)).to(cuda, dtype).packed_stack()
+    msg, frames = _stack_inputs(rng, stack, 100, dtype, cuda)
+    grad_out = torch.zeros((100, stack.out_dim), dtype=dtype, device=cuda)
+    before = edge_map_backward.launches
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        edge_map_backward(msg, frames, stack, grad_out)
+    assert edge_map_backward.launches == before
 
 
 def test_lba_gradients_on_card_match_cpu(cuda):

@@ -4,7 +4,8 @@
   segment sum (K1) against ``jax.grad`` through the Pallas kernels in
   interpret mode; the LBA loss and every parameter's gradient against
   ``jax.value_and_grad`` of the JAX model in its ``"fused"`` configuration:
-  fp32, atol 1e-4 (the same float32 math in another order).
+  fp32, atol 1e-4 (the same float32 math in another order); the plain fp32
+  stack backward also at the main path's widths.
 - Three fp32 Adam steps with the adaptive clip against the JAX ``Trainer``'s
   own step (plain-XLA fast stack: the fused path's math): losses and
   parameters at atol 1e-4.
@@ -256,6 +257,77 @@ def test_stack_gradients_match_pallas_kernel_bf16(rng, monkeypatch):
         np.concatenate([np_(got[k]).reshape(-1) for k in names]),
         np.concatenate([want[k].numpy().reshape(-1) for k in names]),
     ) <= STACK_BF16_NORM_TOL
+
+
+def test_stack_gradients_match_pallas_kernel_main_widths(rng, monkeypatch):
+    """The yardstick the card holds the fp32 K3 to at full width: the port's
+    plain fp32 backward (``edge_map_backward_plain``) at the main path's
+    widths (8 GCP2 layers, 232/36 -> 100/16 with hidden 9 then 4) against
+    ``jax.vjp`` through the Pallas edge map and its recompute backward in
+    float32 (interpret mode), on the very rows the Pallas kernel was given
+    (64 edge rows): d message and every stack weight's gradient, at fp32
+    atol 1e-4."""
+    batch = sorted_batch(rng, 1, nodes=8, graphs=2, edges=30, bucket_edges=64)
+    n, e = batch.num_nodes, batch.num_edges
+    assert e == 64
+    inputs = [
+        rng.normal(size=shape).astype(np.float32)
+        for shape in ((n, 100), (n, 3 * 16), (e, 32), (e, 3 * 4))
+    ]
+    inputs[1][: n // 2] = 0.0  # zero vectors: the norm's eps decides
+    frames = rng.normal(size=(e, 9)).astype(np.float32)
+    mask = np.asarray(batch.edge_pad_mask)
+    mp_cfg = dict(num_message_layers=8)
+    jmod = jmp.GCPMessagePassing(
+        input_dims=(100, 16), output_dims=(100, 16), edge_dims=(32, 4), cfg=JModuleCfg(),
+        layer_cfg=JLayerCfg(mp_cfg=JMPCfg(**mp_cfg)),
+    )
+    xs = [jnp.asarray(a) for a in inputs]
+    jargs = (jnp.asarray(batch.senders), jnp.asarray(batch.receivers), jnp.asarray(frames))
+    kw = dict(edge_mask=jnp.asarray(mask), count_mask=jnp.asarray(mask),
+              row_splits=jnp.asarray(batch.edge_row_splits))
+    variables = jax.jit(jmod.init)(jax.random.key(0), JScalarVector(*xs[:2]), JScalarVector(*xs[2:]), *jargs, **kw)
+    real_edge_map = jpallas_fused.edge_map
+    seen = {}
+
+    def probed_edge_map(fn, params, edge_data, out_dim):
+        # a zero probe added to the edge data: its gradient is d edge data
+        seen.update(edge_data=edge_data, out=real_edge_map(fn, params, edge_data + seen["probe"], out_dim))
+        return seen["out"]
+
+    def loss(v, probe):
+        seen["probe"] = probe
+        jmod.apply(v, JScalarVector(*xs[:2]), JScalarVector(*xs[2:]), *jargs, **kw)
+        return jnp.sum(seen["out"] * cot), seen["edge_data"]
+
+    _fused_jax(monkeypatch)
+    monkeypatch.setattr(jpallas_fused, "edge_map", probed_edge_map)
+    out_dim = 100 + 3 * 16
+    cot = jnp.asarray(rng.normal(size=(e, out_dim)).astype(np.float32))
+    width = jax.eval_shape(loss, variables, jnp.zeros((e, 1)))[1].shape[1]
+    with pltpu.force_tpu_interpret_mode():
+        # d weights in the flax tree and d edge data, through the Pallas
+        # forward and its recompute backward
+        (want_w, want_data), edge_data = jax.jit(jax.grad(loss, argnums=(0, 1), has_aux=True))(
+            variables, jnp.zeros((e, width), jnp.float32)
+        )
+    assert edge_data.dtype == jnp.float32
+
+    port = GCPMessagePassing(
+        (100, 16), (100, 16), (32, 4), ModuleCfg(), LayerCfg(mp_cfg=MPCfg(**mp_cfg)),
+        generator=torch.Generator().manual_seed(0), device="cpu",
+    )
+    load_jax_params(port, variables)
+    stack = port.packed_stack()
+    assert [layer.dims for layer in stack.layers] == [(232, 36, 9, 100, 16)] + [(100, 16, 4, 100, 16)] * 7
+    base = stack.in_dim
+    data = t(edge_data)
+    message, masked_frames = data[:, :base].contiguous(), data[:, base : base + 9].contiguous()
+    d_msg, d_w = edge_map_backward_plain(message, masked_frames, stack, t(cot))
+    stack.weights.backward(d_w)  # the packed buffer's gradient to each weight
+
+    np.testing.assert_allclose(np_(d_msg), np.asarray(want_data[:, :base]), atol=ATOL)
+    _assert_grads_match(want_w, port, atol=ATOL)
 
 
 def test_gather_rows_gradient_accumulates_in_float32(rng):
