@@ -97,11 +97,14 @@ class GraphBatch:
         return dataclasses.replace(self, **kwargs)
 
     def to(
-        self, device: torch.device, dtype: torch.dtype = torch.float32
+        self, device: torch.device, dtype: torch.dtype = torch.float32, non_blocking: bool = False
     ) -> "GraphBatch":
         """Torch tensors on ``device``: float features in ``dtype``, index
         arrays as int64, ``edge_row_splits`` as int32 (the kernels' index
-        type), masks as bool."""
+        type), masks as bool.  With ``non_blocking`` a copy to the card goes
+        from pinned host memory and returns before it completes (it runs on
+        the current stream, ahead of the work queued after it)."""
+        pin = non_blocking and torch.device(device).type == "cuda"
 
         def conv(name, a):
             if a is None:
@@ -113,6 +116,8 @@ class GraphBatch:
                 t = t.to(dtype)
             elif t.dtype != torch.bool:
                 t = t.to(torch.int64)
+            if pin:
+                return t.pin_memory().to(device, non_blocking=True)
             return t.to(device)
 
         fields = {

@@ -1,3 +1,4 @@
 from gcpnet_torch.models.lba import GCPNetLBA
+from gcpnet_torch.models.nms import GCPNetNMS
 
-__all__ = ["GCPNetLBA"]
+__all__ = ["GCPNetLBA", "GCPNetNMS"]

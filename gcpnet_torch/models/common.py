@@ -90,7 +90,9 @@ class InvariantPooledHead(nn.Module):
 
 
 class GCPNetEncoder(nn.Module):
-    """Embedding + a stack of interaction layers (the shared trunk)."""
+    """Embedding + a stack of interaction layers (the shared trunk).  With
+    ``updating_node_positions`` every layer also moves the node positions
+    it is given, and the encoder returns them."""
 
     def __init__(
         self,
@@ -99,6 +101,7 @@ class GCPNetEncoder(nn.Module):
         layer_cfg: LayerCfg,
         num_atom_types: int,
         node_input_dims: Tuple[int, int],
+        updating_node_positions: bool = False,
         *,
         generator: torch.Generator,
         device,
@@ -118,10 +121,14 @@ class GCPNetEncoder(nn.Module):
             **kw,
         )
         self.num_layers = mc.num_encoder_layers
+        self.updating_node_positions = updating_node_positions
         for i in range(self.num_layers):
             self.add_module(
                 f"interaction_{i}",
-                GCPInteractions(node_dims, edge_dims, module_cfg, layer_cfg, dropout=mc.dropout, **kw),
+                GCPInteractions(
+                    node_dims, edge_dims, module_cfg, layer_cfg, dropout=mc.dropout,
+                    updating_node_positions=updating_node_positions, **kw,
+                ),
             )
 
     def forward(
@@ -130,14 +137,23 @@ class GCPNetEncoder(nn.Module):
         frames: Tensor,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
+        node_pos: Optional[Tensor] = None,
     ):
+        """``(node_rep, edge_rep)``; with ``updating_node_positions``,
+        ``(node_rep, edge_rep, node_pos)`` after every layer's update."""
         edge_mask, count_mask = batch_masks(batch)
         node_rep, edge_rep = self.gcp_embedding(batch, frames, edge_mask, count_mask)
         for i in range(self.num_layers):
-            node_rep = getattr(self, f"interaction_{i}")(
+            out = getattr(self, f"interaction_{i}")(
                 node_rep, edge_rep, batch.senders, batch.receivers, frames,
                 node_mask=batch.node_mask, edge_mask=edge_mask, count_mask=count_mask,
                 row_splits=batch.edge_row_splits, deterministic=deterministic,
-                generator=generator,
+                generator=generator, node_pos=node_pos,
             )
+            if self.updating_node_positions:
+                node_rep, node_pos = out
+            else:
+                node_rep = out
+        if self.updating_node_positions:
+            return node_rep, edge_rep, node_pos
         return node_rep, edge_rep

@@ -1,9 +1,11 @@
 """Input embedding for nodes and edges.
 
-Port of ``gcpnet_tpu/nn/embedding.py`` as LBA uses it: the atom-type
-embedding table, GCPLayerNorm of the inputs (pre-norm), then one edge GCP
-and one node GCP.  Inputs without vector channels, post-norm and the ligand
-flag are options of other task models and are not ported yet.
+Port of ``gcpnet_tpu/nn/embedding.py`` as LBA and NMS use it: the node
+scalars are atom types through an embedding table (``num_atom_types > 0``)
+or float features taken as they are (``num_atom_types == 0``); GCPLayerNorm
+of the inputs (pre-norm), then one edge GCP and one node GCP.  Inputs
+without vector channels, post-norm and the ligand flag are options of other
+task models and are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,12 +52,10 @@ class GCPEmbedding(nn.Module):
         super().__init__()
         if cfg.concatenate_lig_flag:
             raise NotImplementedError("GCPEmbedding: the ligand-flag embedding is not ported yet")
-        if num_atom_types <= 0 or edge_input_dims[1] <= 0 or node_input_dims[1] <= 0:
-            raise NotImplementedError(
-                "GCPEmbedding: only atom-type inputs with node and edge vectors are ported"
-            )
+        if edge_input_dims[1] <= 0 or node_input_dims[1] <= 0:
+            raise NotImplementedError("GCPEmbedding: only inputs with node and edge vectors are ported")
         kw = dict(generator=generator, device=device)
-        self.atom_embedding = Embed(num_atom_types, num_atom_types, **kw)
+        self.atom_embedding = Embed(num_atom_types, num_atom_types, **kw) if num_atom_types > 0 else None
         self.edge_normalization = GCPLayerNorm(edge_input_dims[0], device=device)
         self.node_normalization = GCPLayerNorm(node_input_dims[0], device=device)
         # embedding GCPs: no nonlinearities, bottleneck 1, no vector residual
@@ -70,7 +70,8 @@ class GCPEmbedding(nn.Module):
         edge_mask: Optional[Tensor] = None,
         count_mask: Optional[Tensor] = None,
     ) -> Tuple[ScalarVector, ScalarVector]:
-        node_rep = ScalarVector(self.atom_embedding(batch.h), pack_vector(batch.chi))
+        h = batch.h if self.atom_embedding is None else self.atom_embedding(batch.h)
+        node_rep = ScalarVector(h, pack_vector(batch.chi))
         edge_rep = ScalarVector(batch.e, pack_vector(batch.xi))
         edge_rep = self.edge_normalization(edge_rep)
         node_rep = self.node_normalization(node_rep)

@@ -36,6 +36,22 @@ def centralize(
     return centroid, centered
 
 
+def decentralize(
+    x: Tensor, graph_id: Tensor, centroid: Tensor, node_mask: Optional[Tensor] = None
+) -> Tensor:
+    """Add each graph's centroid back (the inverse of :func:`centralize`);
+    masked rows are zero."""
+    out = x + centroid[graph_id]
+    if node_mask is not None:
+        out = out * node_mask[:, None].to(x.dtype)
+    return out
+
+
+def frame_rows(frames: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The three frame vectors of PACKED frames, each ``[E, 3]``."""
+    return frames[:, 0:3], frames[:, 3:6], frames[:, 6:9]
+
+
 def localize(
     x: Tensor,
     senders: Tensor,

@@ -1,23 +1,27 @@
 """The GCP interaction layer of LBA/PSR/CPD/NMS/RS.
 
 Port of ``gcpnet_tpu/nn/interactions.py:GCPInteractions`` without the
-autoregressive branch and without the position update: message passing,
-dropout + residual + norm, a feed-forward GCP stack, dropout + residual +
-norm.
+autoregressive branch: message passing, dropout + residual + norm, a
+feed-forward GCP stack, dropout + residual + norm, and with
+``updating_node_positions`` the equivariant position update of NMS
+(``_derive_x_update``, ``interactions.py:260-365``).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import math
+
 import torch
 from torch import Tensor, nn
 
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg
-from gcpnet_torch.nn.frames import node_mean_frames
-from gcpnet_torch.nn.gcp import make_gcp
+from gcpnet_torch.nn.frames import frame_rows, node_mean_frames
+from gcpnet_torch.nn.gcp import Dense, make_gcp, uniform_param
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
-from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector
+from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector, get_nonlinearity, vec_at
+from gcpnet_torch.ops.segment import gather_rows, segment_mean
 
 
 def _ff_hidden_dims(node_dims: Tuple[int, int], num_ff: int) -> Tuple[int, int]:
@@ -34,12 +38,16 @@ class GCPInteractions(nn.Module):
         cfg: ModuleCfg,
         layer_cfg: LayerCfg,
         dropout: float = 0.1,
+        updating_node_positions: bool = False,
         *,
         generator: torch.Generator,
         device,
     ):
         super().__init__()
         kw = dict(generator=generator, device=device)
+        self.cfg = cfg
+        self.nonlinearity_slope = layer_cfg.nonlinearity_slope
+        self.updating_node_positions = updating_node_positions
         self.pre_norm = layer_cfg.pre_norm
         self.interaction = GCPMessagePassing(node_dims, node_dims, edge_dims, cfg, layer_cfg, **kw)
         self.gcp_norm_0 = GCPLayerNorm(node_dims[0], device=device)
@@ -68,6 +76,18 @@ class GCPInteractions(nn.Module):
             self.add_module(f"feedforward_{i}", module)
         self.num_ff = num_ff
 
+        if updating_node_positions:
+            s_dim = node_dims[0]
+            self.node_position_update_0 = make_gcp(
+                node_dims, (s_dim, 1), cfg, nonlinearities=cfg.nonlinearities, vector_residual=False, **kw
+            )
+            if not cfg.ablate_x_force_update:
+                self.phi_force_i = Dense(s_dim, s_dim, **kw)
+                self.phi_force_j = Dense(s_dim, s_dim, **kw)
+                # Xavier-uniform scaled by 1e-3: the force term starts near 0
+                bound = 0.001 * math.sqrt(6.0 / (s_dim + 3))
+                self.phi_force_ij_kernel = uniform_param((s_dim, 3), bound, generator, device)
+
     def forward(
         self,
         node_rep: ScalarVector,
@@ -81,7 +101,10 @@ class GCPInteractions(nn.Module):
         row_splits: Optional[Tensor] = None,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
-    ) -> ScalarVector:
+        node_pos: Optional[Tensor] = None,
+    ):
+        """The new node representation; with ``updating_node_positions``,
+        ``(node_rep, node_pos + x_update)`` for positions ``node_pos [N, 3]``."""
         num_nodes = node_rep.scalar.shape[0]
         # node validity gates the scalarize numerators inside the message
         # GCPs, but the aggregation runs over every real edge: only the
@@ -122,4 +145,42 @@ class GCPInteractions(nn.Module):
                 torch.where(m, node_rep.scalar, node_rep_in.scalar),
                 torch.where(m, node_rep.vector, node_rep_in.vector),
             )
-        return node_rep
+        if not self.updating_node_positions:
+            return node_rep
+
+        if node_mask is None:
+            nf_pos = nf  # the feed-forward's mask pair is the position head's
+        else:
+            # the position head keeps the all-real-edges denominator
+            nf_pos = node_mean_frames(frames, senders, num_nodes, frame_mask, count_mask)
+        x_update = self._derive_x_update(node_rep, senders, receivers, frames, agg_mask, nf_pos)
+        return node_rep, node_pos + x_update
+
+    def _derive_x_update(
+        self,
+        node_rep: ScalarVector,
+        senders: Tensor,
+        receivers: Tensor,
+        frames: Tensor,
+        force_mask: Optional[Tensor],
+        node_frames: Tensor,
+    ) -> Tensor:
+        """The equivariant position update ``[N, 3]``: the position GCP's one
+        vector channel, plus (unless ``ablate_x_force_update``) a force term,
+        a mean over each node's in-edges of the edge frames weighted by
+        ``act(phi_i(h_sender) + phi_j(h_receiver)) @ kernel``, gated by the
+        padding-level ``force_mask``; scaled by ``node_positions_weight`` and
+        clipped to ±100."""
+        h_v, chi_v = self.node_position_update_0(node_rep, node_frames)
+        x_update = vec_at(chi_v, 0)
+        if not self.cfg.ablate_x_force_update:
+            act = get_nonlinearity(self.cfg.scalar_nonlinearity, self.nonlinearity_slope)
+            h_i = self.phi_force_i(gather_rows(h_v, senders))
+            h_j = self.phi_force_j(gather_rows(h_v, receivers))
+            coef = act(h_i + h_j) @ self.phi_force_ij_kernel  # [E, 3]
+            f0, f1, f2 = frame_rows(frames)
+            force_e = coef[:, 0:1] * f0 + coef[:, 1:2] * f1 + coef[:, 2:3] * f2
+            x_update = x_update + segment_mean(
+                force_e, receivers, h_v.shape[0], mask=force_mask, count_mask=force_mask
+            )
+        return torch.clamp(x_update * self.cfg.node_positions_weight, -100.0, 100.0)

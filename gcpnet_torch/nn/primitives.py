@@ -27,6 +27,12 @@ def vec_components(vp: Tensor):
     return vp[..., :c], vp[..., c : 2 * c], vp[..., 2 * c :]
 
 
+def vec_at(vp: Tensor, channel: int) -> Tensor:
+    """One channel's 3-vector ``[..., 3]`` (for position heads)."""
+    c = vp.shape[-1] // 3
+    return torch.stack([vp[..., channel], vp[..., c + channel], vp[..., 2 * c + channel]], dim=-1)
+
+
 def vec_sq_norm(vp: Tensor) -> Tensor:
     """Per-channel squared L2 over xyz: ``[..., 3c] -> [..., c]``."""
     x, y, z = vec_components(vp)

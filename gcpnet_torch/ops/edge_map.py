@@ -30,6 +30,7 @@ tensors, so that autograd carries the buffer's gradient back to each of them.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -157,10 +158,14 @@ def pack_stack(layers: Sequence[StackLayer], residual: bool) -> PackedStack:
     )
 
 
-def _layer_plain(layer: StackLayer, w: dict, s: Tensor, v: Tensor, frames: Tensor):
+def _layer_plain(
+    layer: StackLayer, w: dict, s: Tensor, v: Tensor, frames: Tensor, margins: Optional[list] = None
+):
     """One GCP2 layer in the input dtype, each matmul rounded to it; square
     roots, sigmoids and activations in float32 (the JAX MM form's
-    numerics).  ``w`` holds the layer's weights (``PackedStack.layer_weights``)."""
+    numerics).  ``w`` holds the layer's weights (``PackedStack.layer_weights``).
+    Where the layer's scalar pre-activation goes through relu, a list
+    ``margins`` gets each row's relu margin (see :func:`relu_margins`)."""
     s_in, v_in, h, s_out, v_out = layer.dims
     dt = s.dtype
     e = s.shape[0]
@@ -176,7 +181,12 @@ def _layer_plain(layer: StackLayer, w: dict, s: Tensor, v: Tensor, frames: Tenso
     vnorm = f32(lambda x: torch.sqrt(x + EPS), (vh * vh).sum(dim=1)) + EPS
     # scal9[:, ch*3 + f] = sum_a df[:, a, ch] * frames[:, 3f + a]
     scal9 = torch.einsum("eac,efa->ecf", df, frames.reshape(e, 3, 3)).reshape(e, 9)
-    s_new = torch.cat([s, vnorm, scal9], dim=-1) @ w["w_so"].to(dt) + w["b_so"].to(dt)
+    merged = torch.cat([s, vnorm, scal9], dim=-1)
+    s_new = merged @ w["w_so"].to(dt) + w["b_so"].to(dt)
+    gated_relu = w["w_gate"] is not None and _act_name(layer.act_v) == "relu"
+    if margins is not None and (_act_name(layer.act_s) == "relu" or gated_relu):
+        terms = merged.abs() @ w["w_so"].to(dt).abs() + w["b_so"].to(dt).abs()
+        margins.append((s_new.abs() / terms.clamp_min(torch.finfo(dt).tiny)).amin(dim=1))
     vu = vh @ w["w_up"].to(dt)  # [E, 3, v_out]
     if layer.vector_residual:
         vu = vu + vc
@@ -190,16 +200,21 @@ def _layer_plain(layer: StackLayer, w: dict, s: Tensor, v: Tensor, frames: Tenso
 
 
 def edge_map_plain(
-    message: Tensor, frames: Tensor, stack: PackedStack, weights: Optional[Tensor] = None
+    message: Tensor,
+    frames: Tensor,
+    stack: PackedStack,
+    weights: Optional[Tensor] = None,
+    margins: Optional[list] = None,
 ) -> Tensor:
     """Plain PyTorch version of K2 (the torch port of the JAX package's
     ``apply_stack`` over ``_fast_gcp2_layer_mm``), reading the weights from
-    the flat buffer ``weights`` (default ``stack.weights``)."""
+    the flat buffer ``weights`` (default ``stack.weights``); ``margins`` as
+    in :func:`_layer_plain`."""
     weights = stack.weights if weights is None else weights
     s_in = stack.layers[0].dims[0]
     state = (message[:, :s_in], message[:, s_in:])
     for i, (layer, w) in enumerate(zip(stack.layers, stack.layer_weights(weights))):
-        new = _layer_plain(layer, w, state[0], state[1], frames)
+        new = _layer_plain(layer, w, state[0], state[1], frames, margins)
         if stack.residual and i > 0:
             new = (state[0] + new[0], state[1] + new[1])
         state = new
@@ -218,6 +233,40 @@ def edge_map_backward_plain(
         out = edge_map_plain(m, frames.detach(), stack, w)
         d_message, d_weights = torch.autograd.grad(out, (m, w), grad_out)
     return d_message, d_weights
+
+
+# Relu kinks.  K3 in float32 and its plain version compute each
+# pre-activation in a different order (split TF32 against float32 FMAs), so
+# one within their rounding of 0 can fall on different sides of relu in the
+# two, and the row's gradient then differs by O(1).  Their rounding leaves
+# the other rows ~1e-6 of scale apart, so a pre-activation whose relu margin
+# exceeds KINK_MARGIN (1.5e-5, 128 float32 ulps of its terms' magnitude)
+# does not flip, and a row that parts from the plain version with no margin
+# under it is a fault.  (Of random rows at the LBA and NMS stacks' widths,
+# 3-6% have a margin under KINK_MARGIN, ~500 pre-activations each.)  On the
+# H100 2 rows of 38,000 flipped at the NMS shape; at most MAX_KINK_ROW_SHARE
+# of the rows (rounded up), ~20 times that rate, may.
+KINK_MARGIN = 2.0**-16
+MAX_KINK_ROW_SHARE = 2.0**-10
+
+
+def max_kink_rows(rows: int) -> int:
+    """The most rows of ``rows`` that may flip at a relu kink."""
+    return math.ceil(rows * MAX_KINK_ROW_SHARE)
+
+
+def relu_margins(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
+    """Each row's relu margin ``[E]``: the least, over every relu of the
+    stack, of ``|pre-activation| / (the sum of its terms' magnitudes)``,
+    from the plain version recomputed in float64 (its activations, square
+    roots and sigmoids in float32).  How near the row lies to a kink
+    (``inf`` where the stack has no relu)."""
+    found: list = []
+    with torch.no_grad():
+        edge_map_plain(message.double(), frames.double(), stack, margins=found)
+    if not found:
+        return torch.full((message.shape[0],), float("inf"), dtype=torch.float64, device=message.device)
+    return torch.stack(found).amin(dim=0)
 
 
 def _check(message: Tensor, frames: Tensor, stack: PackedStack) -> None:
@@ -357,7 +406,8 @@ def edge_map_backward(
     ``edge_map(message, frames, stack)``; ``d message`` in the input dtype,
     ``d weights`` float32 in the flat layout.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (and count the launch in
-    ``edge_map_backward.launches``)."""
+    ``edge_map_backward.launches`` and, by dtype, in
+    ``edge_map_backward.dtype_launches``)."""
     _check(message, frames, stack)
     if grad_out.shape != (message.shape[0], stack.out_dim) or grad_out.dtype != message.dtype:
         raise ValueError(
@@ -371,6 +421,7 @@ def edge_map_backward(
     _check_kernel_supported(stack)
     d_message, d_weights = launch_backward(message, frames, stack, grad_out.contiguous())
     edge_map_backward.launches += 1
+    edge_map_backward.dtype_launches[message.dtype] += 1
     return d_message, d_weights
 
 
@@ -410,3 +461,4 @@ def edge_map(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
 
 edge_map.launches = 0
 edge_map_backward.launches = 0
+edge_map_backward.dtype_launches = {torch.bfloat16: 0, torch.float32: 0}

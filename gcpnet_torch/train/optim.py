@@ -15,7 +15,8 @@ import torch
 class GradientAccumulation:
     """``optax.MultiSteps``: every call adds the gradients to a running sum;
     every ``every_k``-th call the wrapped optimizer steps once on their mean
-    and the sum starts again."""
+    and the sum starts again.  :meth:`step` returns whether it applied an
+    update, so that an LR schedule counts updates, not mini-steps."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, every_k: int):
         self.optimizer = optimizer
@@ -34,7 +35,7 @@ class GradientAccumulation:
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self) -> bool:
         params = self._params()
         if self._sums is None:
             self._sums = [torch.zeros_like(p) for p in params]
@@ -43,12 +44,28 @@ class GradientAccumulation:
                 total.add_(p.grad)
         self.mini_step += 1
         if self.mini_step < self.every_k:
-            return
+            return False
         for total, p in zip(self._sums, params):
             p.grad = total / self.every_k
             total.zero_()
         self.optimizer.step()
         self.mini_step = 0
+        return True
+
+    def state_dict(self) -> dict:
+        return {
+            "optimizer": self.optimizer.state_dict(),
+            "mini_step": self.mini_step,
+            "sums": None if self._sums is None else [s.clone() for s in self._sums],
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.mini_step = state["mini_step"]
+        sums = state["sums"]
+        self._sums = None if sums is None else [
+            s.to(p.device) for s, p in zip(sums, self._params())
+        ]
 
 
 def build_optimizer(params: Iterable[torch.Tensor], cfg: Dict[str, Any]):
@@ -89,8 +106,10 @@ def build_schedule(
     optimizer: torch.optim.Optimizer, scheduler_cfg: Optional[Dict[str, Any]]
 ) -> Optional[torch.optim.lr_scheduler.StepLR]:
     """StepLR, stepped once per optimizer update (the optax schedule counts
-    updates); ``None`` without a schedule or for ReduceLROnPlateau, which
-    runs on the host (:class:`PlateauController`)."""
+    updates; under :class:`GradientAccumulation` the train step steps it
+    only when the accumulated update was applied); ``None`` without a
+    schedule or for ReduceLROnPlateau, which runs on the host
+    (:class:`PlateauController`)."""
     if not scheduler_cfg:
         return None
     name = str(scheduler_cfg.get("_target_", "")).rsplit(".", 1)[-1].lower()

@@ -1,7 +1,9 @@
-"""One training step: loss, gradients, adaptive clip, optimizer update.
+"""One training step (loss, gradients, adaptive clip, optimizer update) and
+one evaluation step.
 
-Port of ``Trainer._build_train_step`` (``gcpnet_tpu/train/trainer.py:260-330``)
-for one device:
+Port of ``Trainer._build_train_step`` and ``_build_eval_step``
+(``gcpnet_tpu/train/trainer.py:260-330, 369-386``) for one device, for any
+task: the loss is the task's ``loss_fn(preds, batch) -> (loss, labels)``.
 
 - the float32 parameters of ``model`` are the masters; with a bfloat16
   ``compute_dtype`` the forward and backward run on bf16 copies of them and
@@ -13,7 +15,10 @@ for one device:
 - the global gradient norm, then the optional adaptive clip from the
   ``GradNormRing``, then the update with the learning rate times ``lr_scale``;
 - a non-finite loss or norm leaves the parameters, the optimizer's moments
-  and the schedule as they were, while the step counter advances.
+  and the schedule as they were, while the step counter advances;
+- the LR schedule counts real updates: under gradient accumulation it steps
+  only when the accumulated gradients were applied (``optax.MultiSteps``
+  wraps the whole chain, schedule included).
 
 One deliberate difference from the JAX package: the ring takes a norm only
 from a finite step.  The JAX step pushes ``min(gnorm, thr)`` before its
@@ -24,14 +29,15 @@ scale with it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import Tensor
 
 from gcpnet_torch.graph import GraphBatch
-from gcpnet_torch.models.lba import graph_regression_loss
 from gcpnet_torch.train.state import TrainState
+
+LossFn = Callable[[Tensor, GraphBatch], Tuple[Tensor, Tensor]]
 
 
 @dataclasses.dataclass
@@ -52,13 +58,15 @@ def train_step(
     model: torch.nn.Module,
     state: TrainState,
     batch: GraphBatch,
+    loss_fn: LossFn,
     generator: Optional[torch.Generator] = None,
     lr_scale: float = 1.0,
     deterministic: bool = False,
 ) -> StepResult:
-    """One update of ``model``'s float32 parameters for the LBA loss on
-    ``batch`` (a float32 batch on the model's device).  Dropout masks come
-    from ``generator`` (on the same device) unless ``deterministic``."""
+    """One update of ``model``'s float32 parameters for the task loss
+    ``loss_fn`` on ``batch`` (a float32 batch on the model's device).
+    Dropout masks come from ``generator`` (on the same device) unless
+    ``deterministic``."""
     params = dict(model.named_parameters())
     state.optimizer.zero_grad(set_to_none=True)
     kwargs = dict(deterministic=deterministic, generator=generator)
@@ -68,7 +76,7 @@ def train_step(
         apply_params = {name: p.to(state.compute_dtype) for name, p in params.items()}
         apply_batch = batch.to(batch.x.device, state.compute_dtype)
         preds = torch.func.functional_call(model, apply_params, (apply_batch,), kwargs)
-    loss, _ = graph_regression_loss(preds.float(), batch)
+    loss, _ = loss_fn(preds.float(), batch)
     loss.backward()
 
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params.values()]
@@ -87,10 +95,21 @@ def train_step(
         lrs = [group["lr"] for group in state.optimizer.param_groups]
         for group in state.optimizer.param_groups:
             group["lr"] = group["lr"] * lr_scale
-        state.optimizer.step()
+        applied = state.optimizer.step()
         for group, lr in zip(state.optimizer.param_groups, lrs):
             group["lr"] = lr
-        if state.scheduler is not None:
+        # GradientAccumulation.step says whether it applied the update; a
+        # torch optimizer's step returns None and always applies it
+        if state.scheduler is not None and applied is not False:
             state.scheduler.step()
     state.step += 1
     return StepResult(loss.detach(), gnorm.detach(), ok)
+
+
+@torch.no_grad()
+def eval_step(model: torch.nn.Module, batch: GraphBatch, loss_fn: LossFn) -> Tuple[Tensor, Tensor]:
+    """``(loss, preds)`` of ``model`` in its deterministic mode on ``batch``,
+    both on the device (``trainer.py:369-386``)."""
+    preds = model(batch, deterministic=True)
+    loss, _ = loss_fn(preds.float(), batch)
+    return loss, preds

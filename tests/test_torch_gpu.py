@@ -16,17 +16,23 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from gcpnet_torch import predict as port_predict
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
+from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.models.lba import GCPNetLBA, graph_regression_loss
+from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.ops.build import library
 from gcpnet_torch.ops.edge_map import (
+    KINK_MARGIN,
     edge_map,
     edge_map_backward,
     edge_map_backward_plain,
     edge_map_plain,
+    max_kink_rows,
     pack_stack,
+    relu_margins,
 )
 from gcpnet_torch.ops.segment_sorted import DTYPE_CODES, segment_sum_sorted, segment_sum_sorted_plain
+from gcpnet_torch.train import cli as train_cli
 
 pytestmark = pytest.mark.gpu
 
@@ -104,11 +110,12 @@ STACK_SETTINGS = {
 
 
 def _message_passing(
-    cfg: ModuleCfg, num_message_layers: int = 4, residual: bool = True, node_dims=(16, 4)
+    cfg: ModuleCfg, num_message_layers: int = 4, residual: bool = True, node_dims=(16, 4),
+    output_dims=(16, 4), edge_dims=(8, 4),
 ) -> GCPMessagePassing:
     mp_cfg = MPCfg(num_message_layers=num_message_layers, use_residual_message_gcp=residual)
     return GCPMessagePassing(
-        node_dims, (16, 4), (8, 4), cfg, LayerCfg(mp_cfg=mp_cfg),
+        node_dims, output_dims, edge_dims, cfg, LayerCfg(mp_cfg=mp_cfg),
         generator=torch.Generator().manual_seed(0), device="cpu",
     )
 
@@ -286,9 +293,11 @@ def test_k3_cuda_matches_plain(rng, cuda, settings, residual, dtype):
     frames = torch.from_numpy(rng.normal(size=(e, 9)).astype(np.float32)).to(cuda, dtype)
     grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
     before = edge_map_backward.launches
+    by_dtype = dict(edge_map_backward.dtype_launches)
     d_msg, d_w = edge_map_backward(msg, frames, stack, grad_out)
     torch.cuda.synchronize()
     assert edge_map_backward.launches == before + 1
+    assert edge_map_backward.dtype_launches == {d: n + (d == dtype) for d, n in by_dtype.items()}
     assert d_msg.dtype == dtype and d_w.dtype == torch.float32
     want_msg, want_w = edge_map_backward_plain(msg, frames, stack, grad_out)
     if dtype == torch.float32:
@@ -302,6 +311,68 @@ def test_k3_cuda_matches_plain(rng, cuda, settings, residual, dtype):
         leaves = _k3_leaf_errs(d_msg, d_w, up_msg, up_w, stack)
         assert max(leaves.values()) <= K3_BF16_LEAF_TOL, leaves
         leaves = _k3_leaf_errs(d_msg, d_w, want_msg, want_w, stack)
+        assert max(leaves.values()) <= K3_BF16_LEAF_TOL, leaves
+
+
+def _nms_message_passing() -> GCPMessagePassing:
+    """One message passing layer of the NMS model at its full width (hidden
+    64/16, edges 32/4, 8 ResGCP2 layers): the stack takes [E, 160 + 3 * 36]
+    messages to [E, 64 + 3 * 16], hidden vectors 9 then 4."""
+    mp = _message_passing(
+        ModuleCfg(), num_message_layers=8, node_dims=(64, 16), output_dims=(64, 16), edge_dims=(32, 4)
+    )
+    dims = [m.input_dims + m.output_dims for m in mp.stack]
+    assert dims == [(160, 36, 64, 16)] + [(64, 16, 64, 16)] * 7
+    return mp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_match_plain_at_nms_widths(rng, cuda, dtype):
+    """K2 and K3 at the NMS model's stack widths (268 -> 112 a row, a
+    narrower scalar state than LBA's 340 -> 148), on 1,900 rows (the
+    tiles' ragged edge included), against their plain versions at the
+    bounds of test_k2_cuda_matches_plain and test_k3_cuda_matches_plain."""
+    with torch.no_grad():
+        stack = _nms_message_passing().to(cuda, dtype).packed_stack()
+    assert [layer.dims for layer in stack.layers] == [(160, 36, 9, 64, 16)] + [(64, 16, 4, 64, 16)] * 7
+    e = 1900
+    msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
+    with torch.no_grad():
+        got = edge_map(msg, frames, stack)
+        want = edge_map_plain(msg, frames, stack)
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=K2_FP32_ATOL)
+    else:
+        assert _max_rel_err(got, want) <= K2_BF16_TOL
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    d_msg, d_w = edge_map_backward(msg, frames, stack, grad_out)
+    want_msg, want_w = edge_map_backward_plain(msg, frames, stack, grad_out)
+    if dtype == torch.float32:
+        # At the NMS widths' 8 layers a row may hold a pre-activation within
+        # float32 rounding of 0, where the kernel and the plain version take
+        # different sides of relu and the row's d message differs by O(1).
+        # Each row that parts from the plain version must be such a kink (a
+        # relu margin under KINK_MARGIN in float64), and no more than
+        # max_kink_rows of them (ops/edge_map.py gives the reasons, as in
+        # chip_smoke.py's phase nms-K3); with their cotangents set to 0 every
+        # result is held to 1e-4.
+        scale = max(1.0, want_msg.abs().max().item())
+        kinks = ((d_msg - want_msg).abs().amax(dim=1) > 1e-4 * scale).nonzero().flatten()
+        assert kinks.numel() <= max_kink_rows(e), kinks.tolist()
+        margins = relu_margins(msg, frames, stack)[kinks]
+        assert bool((margins <= KINK_MARGIN).all()), (kinks.tolist(), margins.tolist())
+        grad_out[kinks] = 0.0
+        d_msg, d_w = edge_map_backward(msg, frames, stack, grad_out)
+        want_msg, want_w = edge_map_backward_plain(msg, frames, stack, grad_out)
+        assert _max_rel_err(d_msg, want_msg) <= 1e-4 and _max_rel_err(d_w, want_w) <= 1e-4
+        leaves = _k3_leaf_errs(d_msg, d_w, want_msg, want_w, stack)
+        assert max(leaves.values()) <= K3_FP32_LEAF_TOL, leaves
+    else:
+        leaves = _k3_leaf_errs(d_msg, d_w, want_msg, want_w, stack)
+        assert max(leaves.values()) <= K3_BF16_LEAF_TOL, leaves
+        up_msg, up_w = edge_map_backward_plain(msg.float(), frames.float(), stack, grad_out.float())
+        leaves = _k3_leaf_errs(d_msg, d_w, up_msg, up_w, stack)
         assert max(leaves.values()) <= K3_BF16_LEAF_TOL, leaves
 
 
@@ -422,6 +493,42 @@ def test_lba_gradients_on_card_match_cpu(cuda):
         if dev == "cuda":
             torch.cuda.synchronize()
             assert edge_map_backward.launches == launches + 2
+        losses[dev] = loss.item()
+        grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+def test_nms_gradients_on_card_match_cpu(cuda, tmp_path):
+    """The NMS model at full width (2 of its 4 interaction layers) on 10
+    simulated 20-body graphs: the loss and every parameter's gradient on the
+    card against the CPU, through K1, K2 and the fp32 K3, with the position
+    updates carried from layer to layer."""
+    dm = NMSDataModule(
+        data_root=str(tmp_path), data_mode="small_20body", batch_size=10, num_train=10, num_valid=10,
+        num_test=10, sim_device="cpu",
+    )
+    dm.prepare_data()
+    dm.setup()
+    batch = next(dm.val_batches())
+    grads, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = GCPNetNMS(
+            *train_cli.nms_configs(num_encoder_layers=2, dropout=0.0),
+            generator=torch.Generator().manual_seed(0), device=dev,
+        )
+        launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+        b = batch.to(torch.device(dev))
+        loss, _ = nms_loss(model(b), b)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+            assert tuple(a - b for a, b in zip(now, launches)) == (2, 2, 2)
         losses[dev] = loss.item()
         grads[dev] = {n: p.grad for n, p in model.named_parameters()}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4

@@ -1,9 +1,10 @@
 """gcpnet_torch and chip_smoke.py import nothing of JAX, flax or gcpnet_tpu:
 every module of the package, the chip scripts (``chip_smoke.py``,
 ``k1_versions.py``, ``k3_breakdown.py``), the card's tests
-(``test_torch_gpu.py``, which run where JAX is absent), a CPU prediction and
-a CPU training run (``python -m gcpnet_torch.train``) in a fresh interpreter
-whose import system refuses those packages."""
+(``test_torch_gpu.py``, which run where JAX is absent), a CPU prediction, a
+CPU LBA training run and a CPU NMS fit with its simulated data
+(``python -m gcpnet_torch.train [--task nms]``) in a fresh interpreter whose
+import system refuses those packages."""
 
 import subprocess
 import sys
@@ -49,6 +50,14 @@ main(["--graphs", "1", "--nodes", "8", "--edges-per-node", "4", "--device", "cpu
 sys.argv = ["gcpnet_torch.train", "--steps", "1", "--graphs", "1", "--nodes", "8",
             "--edges-per-node", "4", "--device", "cpu"]
 runpy.run_module("gcpnet_torch.train", run_name="__main__")
+import tempfile
+
+with tempfile.TemporaryDirectory() as root:
+    sys.argv = ["gcpnet_torch.train", "--task", "nms", "--device", "cpu", "--data-mode", "small",
+                "--num-train", "4", "--num-valid", "2", "--num-test", "2", "--batch-size", "2",
+                "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0",
+                "--data-root", root + "/data", "--checkpoint-dir", root + "/ckpt"]
+    runpy.run_module("gcpnet_torch.train", run_name="__main__")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names))

@@ -463,7 +463,7 @@ def test_adam_steps_match_jax_trainer(monkeypatch):
     tstate = TrainState(build_optimizer(model.parameters(), optimizer_cfg), ring=GradNormRing())
     got = []
     for gs in graphs:
-        res = train_step(model, tstate, _port_batch(gs).to("cpu"))
+        res = train_step(model, tstate, _port_batch(gs).to("cpu"), graph_regression_loss)
         assert res.ok
         got.append((res.loss.item(), res.grad_norm.item(), tstate.ring.clip_threshold().item()))
     assert tstate.step == 3 and int(tstate.ring.count) == 3
@@ -485,7 +485,7 @@ def test_bf16_step_tracks_fp32_step():
     for dtype in (torch.float32, torch.bfloat16):
         model = _port_lba(dropout=0.0, dense_dropout=0.0)
         state = TrainState(build_optimizer(model.parameters(), {"lr": 1e-4}), compute_dtype=dtype)
-        res = train_step(model, state, batch)
+        res = train_step(model, state, batch, graph_regression_loss)
         assert res.ok and res.loss.dtype == torch.float32
         assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32 for p in model.parameters())
         out[dtype] = (res, torch.cat([p.grad.reshape(-1) for p in model.parameters()]))
@@ -554,13 +554,13 @@ def test_nan_step_keeps_state_and_ring_finite():
     graphs = _lba_graphs()
     model = _port_lba(dropout=0.0, dense_dropout=0.0)
     state = TrainState(build_optimizer(model.parameters(), {"lr": 1e-3}), ring=GradNormRing())
-    assert train_step(model, state, _port_batch(graphs).to("cpu")).ok
+    assert train_step(model, state, _port_batch(graphs).to("cpu"), graph_regression_loss).ok
     params = {n: p.detach().clone() for n, p in model.named_parameters()}
     moments = {k: v.clone() for s in state.optimizer.state.values() for k, v in s.items()}
     count = int(state.ring.count)
     for g in graphs:
         g["extras"]["label"] = np.float32("nan")
-    res = train_step(model, state, _port_batch(graphs).to("cpu"))
+    res = train_step(model, state, _port_batch(graphs).to("cpu"), graph_regression_loss)
     assert not res.ok and not np.isfinite(res.loss.item())
     assert state.step == 2 and int(state.ring.count) == count
     assert np.isfinite(state.ring.clip_threshold().item())
@@ -615,6 +615,79 @@ def test_schedules_match_jax():
     plateau, jplateau = PlateauController(patience=1), JPlateauController(patience=1)
     for value in (1.0, 0.9, 0.95, 0.96, 0.97, 0.5, 0.6, 0.7):
         assert plateau.update(value) == jplateau.update(value)
+
+
+class _Weights(torch.nn.Module):
+    """A "model" whose prediction is its weight matrix: with the loss
+    ``sum(w * g)`` a batch ``g`` is the gradient."""
+
+    def __init__(self, w0):
+        super().__init__()
+        self.w = torch.nn.Parameter(t(w0))
+
+    def forward(self, batch, deterministic=True, generator=None):
+        return self.w
+
+
+def test_steplr_counts_updates_under_accumulation(rng):
+    """Adam with accumulation 2 and StepLR (step size 2, gamma 0.5) through
+    ``train_step``, against the JAX chain (``optax.MultiSteps`` around the
+    scheduled Adam) on the same 8 gradients: the learning rate of every
+    applied update and the weights after every mini-step, fp32 atol 1e-4.
+    The schedule counts updates, not mini-steps, and torch does not warn
+    that it stepped before the optimizer."""
+    import warnings
+
+    cfg = {"_target_": "Adam", "lr": 1e-2, "accumulate_grad_batches": 2}
+    sched_cfg = {"_target_": "StepLR", "step_size": 2, "gamma": 0.5}
+    w0 = rng.normal(size=(5, 3)).astype(np.float32)
+    grads = [rng.normal(size=(5, 3)).astype(np.float32) for _ in range(8)]
+    jsched = jbuild_schedule(sched_cfg, base_lr=cfg["lr"])
+    tx = jbuild_optimizer({**cfg, "_schedule_": jsched})
+    params = {"w": jnp.asarray(w0)}
+    opt_state = tx.init(params)
+
+    model = _Weights(w0)
+    optimizer = build_optimizer(model.parameters(), cfg)
+    state = TrainState(optimizer, scheduler=build_schedule(optimizer, sched_cfg))
+    loss_fn = lambda preds, g: ((preds * g).sum(), g)  # noqa: E731
+    lrs = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # torch's warning on the order of the steps
+        for i, g in enumerate(grads):
+            updates, opt_state = tx.update({"w": jnp.asarray(g)}, opt_state, params)
+            params = optax.apply_updates(params, updates)
+            lr = optimizer.param_groups[0]["lr"]
+            assert train_step(model, state, t(g), loss_fn, deterministic=True).ok
+            if i % 2 == 1:  # the second mini-step applies the update
+                lrs.append(lr)
+            np.testing.assert_allclose(np_(model.w), np.asarray(params["w"]), atol=1e-4, err_msg=f"mini-step {i}")
+    np.testing.assert_allclose(lrs, [float(jsched(k)) for k in range(4)], rtol=1e-6)
+    assert lrs == [1e-2, 1e-2, 5e-3, 5e-3]
+    assert state.step == 8 and optimizer.mini_step == 0
+
+
+def test_accumulation_state_round_trip(rng):
+    """A checkpoint taken between the mini-steps of an accumulated update
+    (its pending sum and count) goes on exactly as the run it came from."""
+    cfg = {"_target_": "Adam", "lr": 1e-2, "accumulate_grad_batches": 2}
+    w0 = rng.normal(size=(5, 3)).astype(np.float32)
+    grads = [t(rng.normal(size=(5, 3))) for _ in range(5)]
+    runs = []
+    for restore_at in (None, 3):
+        w = torch.nn.Parameter(t(w0))
+        opt = build_optimizer([w], cfg)
+        for i, g in enumerate(grads):
+            if i == restore_at:
+                saved = {"w": w.detach().clone(), "opt": opt.state_dict()}
+                w = torch.nn.Parameter(saved["w"])
+                opt = build_optimizer([w], cfg)
+                opt.load_state_dict(saved["opt"])
+                assert opt.mini_step == 1
+            w.grad = g
+            opt.step()
+        runs.append(w.detach())
+    assert torch.equal(runs[0], runs[1])
 
 
 def test_train_cpu_entry_point(capsys):
