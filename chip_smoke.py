@@ -51,9 +51,23 @@ Phases, one line each:
      new Trainer resumes to epoch 4 and tests the best checkpoint: every
      step's launches (4 of each kernel), per-epoch seconds, train graphs/s,
      val/loss and val/RMSE, peak memory, and one warm step under
-     torch.profiler.
+     torch.profiler;
+ 16. rs-data: the RS splits, synthetic enantiomer pairs at the JAX module's
+     sizes (4,096 / 512 / 512 graphs), and a paired training batch (64
+     anchors and their enantiomers: 128 graphs, a bucket of 8,192 nodes and
+     16,384 CSR edge rows, about 1,400 and 2,600 of them real);
+ 17. rs-kernels: K1, K2 and K3 at the RS step's shape against their plain
+     versions, fp32 and bf16, the stack's leaky relu included, with their
+     times, bounds and shares of them;
+ 18. rs-check: one fp32 RS training step on the card against the CPU (2
+     interaction layers, a paired batch, no dropout);
+ 19. rs-fit: the RS path, the full-width RS model fitted by the Trainer
+     (fp32, the experiment's defaults) for 3 epochs with checkpoints, then
+     the best checkpoint's test: every step's launches, per-epoch seconds,
+     train graphs/s, val/loss, val/Accuracy and val/F1, peak memory;
+ 20. rs-profile: one warm RS training step under torch.profiler.
 Then the total time, one JSON line with every kernel's numbers (at the NMS
-shape too), the nvidia-smi line, and the final status line.  Any failed phase exits non-zero; without a CUDA device
+and RS shapes too), the nvidia-smi line, and the final status line.  Any failed phase exits non-zero; without a CUDA device
 the script exits non-zero before printing any result.  Full measurements go
 to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
 """
@@ -61,10 +75,12 @@ to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import math
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -75,8 +91,10 @@ import numpy as np
 import torch
 
 from gcpnet_torch.data.nms import NMSDataModule
+from gcpnet_torch.data.rs import RSDataModule
 from gcpnet_torch.models.lba import graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
+from gcpnet_torch.models.rs import GCPNetRS, rs_loss
 from gcpnet_torch.nn import message_passing
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.ops import build as kernel_build
@@ -87,12 +105,12 @@ from gcpnet_torch.ops.edge_map import (
     edge_map_backward_plain,
     edge_map_plain,
     max_kink_rows,
-    relu_margins,
+    kink_margins,
 )
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.predict import DTYPES, build_model, lba_configs, predict, synthetic_batches
 from gcpnet_torch.train import trainer as trainer_module
-from gcpnet_torch.train.cli import build_lba_training, build_nms_trainer, nms_configs
+from gcpnet_torch.train.cli import build_lba_training, build_nms_trainer, build_rs_trainer, nms_configs, rs_configs
 from gcpnet_torch.train.optim import build_optimizer
 from gcpnet_torch.train.state import TrainState
 from gcpnet_torch.train.step import train_step
@@ -109,6 +127,13 @@ NMS_SPLITS = {"num_train": 2000, "num_valid": 500, "num_test": 500}
 NMS_BATCH = 100
 NMS_EPOCHS, NMS_RESUME_EPOCHS = 3, 4
 NMS_CHECK_GRAPHS, NMS_CHECK_LAYERS = 10, 2
+# The RS path: the experiment gcpnet_rs at its published widths and batch
+# (64 anchors, each with its opposite enantiomer: 128 graphs in a bucket of
+# 8,192 nodes and 16,384 edge rows), on the synthetic splits at the JAX
+# module's sizes (4,096 / 512 / 512 graphs), fitted for 3 of its up to
+# 1,000 epochs; rs-check cuts to 2 interaction layers for the CPU.
+RS_EPOCHS = 3
+RS_CHECK_LAYERS = 2
 # the best checkpoint's val/loss evaluated again against the value logged
 # for it: the same weights and batches through the same kernels, but the
 # node-frame means sum with index_add_, whose atomics on the card add in
@@ -158,16 +183,26 @@ PEAK_TF32_OPS_PER_S = 495e12
 #   least 0.16 on every leaf that part feeds.  The bounds sit between:
 #   K3_UPCAST_TOL = 16 * 2^-8 against float32, 32 * 2^-8 against plain bf16.
 K3_UPCAST_TOL = 16 * 2.0**-8
-# K3 fp32 at the NMS stack's shape: a few of 38,000 rows hold a
+# At the RS shape a leaf sums 16,384 rows, not 208,896, and bf16's
+# roundings average out less: on the H100 the plain bf16 version's own
+# leaves read up to 0.071 from float32 there, and the kernel's 0.069 (the
+# same leaf as the plain version's to 2e-6; measured on one H100).
+# There the kernel is held to the card tests' 32 * 2^-8 against float32
+# too, as against the plain bf16 version; a build that misses a part of
+# the work reads at least 0.16 at the main path's shape.
+K3_UPCAST_TOL_RS = 32 * 2.0**-8
+# K3 fp32, the kink rule, at every path's shape: a few rows hold a
 # pre-activation within float32 rounding of 0, where the kernel and the
-# plain version take different sides of relu and the row's d message differs
-# by O(1) while every other row agrees to ~1e-6, and a single such row can
-# move a weight leaf past TOL.  Rows that part from the plain version by more
-# than 1e-4 of scale must each hold a relu margin under KINK_MARGIN in the
-# float64 recompute, and be no more than max_kink_rows allows (the card
-# tests' limit; gcpnet_torch/ops/edge_map.py gives the reasons); with their
-# cotangents set to 0 every leaf is held to K3_KINK_FREE_TOL (the card
-# tests' bound).
+# plain version take different sides of relu (or leaky relu, whose
+# derivative steps by 1 - slope there) and the row's d message differs by
+# O(1) while every other row agrees to ~1e-6; at the NMS shape a single
+# such row of 38,000 moved a weight leaf past TOL.  Rows that part from the
+# plain version by more than 1e-4 of scale must each hold a kink margin
+# under KINK_MARGIN in the float64 recompute, and be no more than
+# max_kink_rows allows (the card tests' limit; gcpnet_torch/ops/edge_map.py
+# gives the reasons); with their cotangents set to 0 every leaf is held to
+# K3_KINK_FREE_TOL (the card tests' bound).  At the main path's shape TOL
+# holds as well, beside the rule; at the NMS and RS shapes the rule alone.
 K3_KINK_FREE_TOL = 1e-4
 TOL = {
     ("K1", "fp32"): 1e-5, ("K1", "bf16"): 1e-2,
@@ -186,6 +221,17 @@ FORWARD_ATOL = 1e-3
 TRAIN_CHECK_ATOL = {
     "loss": 1e-4, "grad_norm": 1e-3, "grads_norm_rel": 1e-3, "params": 1e-4, "params_share_above_1e-6": 1e-3,
 }
+# The RS step at initialization: its loss sits at ln 2 and each enantiomer
+# pair's gradients nearly cancel (gradient norm 0.016, against 5.9 for the
+# LBA train-check's), so float32 rounding alone moves the gradient by ~1e-3
+# in norm: on the CPU, the step with its weights multiplied by 1 + 3e-8 z
+# parts from itself by 1.03e-3 (kink rows flipping), where the LBA and NMS
+# steps part card from CPU by 1e-5 and 5e-7.  rs-check holds the loss and
+# the gradient norm to TRAIN_CHECK_ATOL, and the gradients and updated
+# parameters to TRAIN_CHECK_ATOL or to this factor times the CPU step's own
+# spread under a float32 rounding's worth of weight noise, the larger.
+ROUNDING_SPREAD_FACTOR = 2.0
+RS_ROUNDING_DRAWS = 3
 # one bf16 training step against the fp32 step, both on the card (the
 # train-check's size): tests/test_torch_train.py's bounds for the same
 # comparison on the CPU (bf16 keeps 8 bits).
@@ -222,8 +268,9 @@ def device_ms(fn, calls: int = 100, tries: int = 5) -> float:
     the number of times a call runs it.  For calls as short as the host's
     launch of them, where CUDA events around a loop of calls time the host.
     The profiler can lose a device event now and then (at the NMS shape, 1
-    of 100 of some of torch.segment_reduce's kernels); a window in which
-    some kernel's count is more than 5% off a multiple of ``calls`` is
+    of 100 of some of torch.segment_reduce's kernels; at the RS shape 2 of
+    40 of a kernel the plain version runs twice a call); a window in which
+    some kernel's count is more than 5% off its multiple of ``calls`` is
     measured again."""
     from collections import defaultdict
 
@@ -242,7 +289,8 @@ def device_ms(fn, calls: int = 100, tries: int = 5) -> float:
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
                 times[e.name].append(e.time_range.elapsed_us())
         per_call = {name: max(1, round(len(t) / calls)) for name, t in times.items()}
-        if times and all(abs(len(t) - per_call[n] * calls) <= 0.05 * calls for n, t in times.items()):
+        expected = {name: per_call[name] * calls for name in times}
+        if times and all(abs(len(t) - expected[n]) <= 0.05 * expected[n] for n, t in times.items()):
             return sum(np.mean(t) * per_call[n] for n, t in times.items()) / 1e3
     counts = {name: len(t) for name, t in times.items()}
     raise PhaseError(f"device_ms: the profiler lost device events in {tries} windows (last: {counts})")
@@ -391,6 +439,19 @@ def bench_message_passing() -> GCPMessagePassing:
     )
 
 
+def stack_for_source(stack, source):
+    """``stack`` with the layer table that a K2 or K3 built from ``source``
+    reads: a source whose ``edge_stack.cuh`` (beside it) predates the
+    layers' slopes (it has no kSlopesPerLayer) takes the table without them
+    (the layers' words are the same).  For k2_versions.py and
+    k3_breakdown.py, which time a parent commit's sources."""
+    header = pathlib.Path(source).with_name("edge_stack.cuh").read_text()
+    if "kSlopesPerLayer" in header:
+        return stack
+    words = 2 + 15 * len(stack.layers)
+    return dataclasses.replace(stack, meta=stack.meta[:words].copy(), images={})
+
+
 def stack_inputs(batch, stack, dtype, gen):
     """Random messages (an eighth of the rows with all-zero vectors, where
     the norm's eps decides) and masked frames at the main path's shape."""
@@ -444,13 +505,14 @@ def phase_k2(batch, mp: GCPMessagePassing, name: str = "K2") -> dict:
 
 def kink_rows(name, message, frames, stack, grad_out):
     """The rows where float32 K3's d message differs from the plain
-    version's by more than 1e-4 of scale, checked to be relu kinks: each
-    with a relu margin under KINK_MARGIN in the float64 recompute, and no
-    more than max_kink_rows of them.  Recorded beside them: their margins,
-    the share of all rows with such a margin (the chance that a row a fault
-    hit would pass as a kink), the largest difference on the flagged rows
-    and on all others, and the plain version's and the kernel's distance
-    from float64 (d message, in norm)."""
+    version's by more than 1e-4 of scale, checked to be kinks (relu or
+    leaky relu): each with a kink margin under KINK_MARGIN in the float64
+    recompute, and no more than max_kink_rows of them.  Recorded beside
+    them: their margins, the share of all rows with such a margin (the
+    chance that a row a fault hit would pass as a kink), the largest
+    difference on the flagged rows and on all others, and the plain
+    version's and the kernel's distance from float64 (d message, in
+    norm)."""
     d_msg, _ = edge_map_backward(message, frames, stack, grad_out)
     ref_msg, _ = edge_map_backward_plain(message, frames, stack, grad_out)
     f64_msg, _ = edge_map_backward_plain(message.double(), frames.double(), stack, grad_out.double())
@@ -459,7 +521,7 @@ def kink_rows(name, message, frames, stack, grad_out):
     kinks = (row_err > 1e-4 * scale).nonzero().flatten()
     others = torch.ones_like(row_err, dtype=torch.bool)
     others[kinks] = False
-    margins = relu_margins(message, frames, stack)
+    margins = kink_margins(message, frames, stack)
     info = {
         "kink_rows": kinks.tolist(),
         "kink_row_margins": margins[kinks].tolist(),
@@ -475,17 +537,43 @@ def kink_rows(name, message, frames, stack, grad_out):
     check(kinks.numel() <= info["max_kink_rows"],
           f"{name}: {kinks.numel()} rows part from plain, at most {info['max_kink_rows']} may")
     check(all(m <= KINK_MARGIN for m in info["kink_row_margins"]),
-          f"{name}: rows {info['kink_rows']} part from plain with relu margins {info['kink_row_margins']}")
+          f"{name}: rows {info['kink_rows']} part from plain with kink margins {info['kink_row_margins']}")
     return kinks, info
 
 
-def phase_k3(batch, mp: GCPMessagePassing, name: str = "K3", kinks_apart: bool = False) -> dict:
+def k3_leaves(message, frames, stack, grad_out, upcast: bool) -> dict:
+    """K3 against its plain version on one cotangent: d message and d
+    weights (max abs, norm, finite) and each leaf's norm-relative error,
+    and with ``upcast`` (bf16) each leaf against the plain version in
+    float32 on the same inputs, and the plain bf16 version's against it."""
+    d_msg, d_w = edge_map_backward(message, frames, stack, grad_out)
+    ref_msg, ref_w = edge_map_backward_plain(message, frames, stack, grad_out)
+    torch.cuda.synchronize()
+    res = {}
+    for key, got, ref in (("d_message", d_msg, ref_msg), ("d_weights", d_w, ref_w)):
+        err, rel = rel_err(got, ref)
+        res[key] = {"max_abs_err": err, "rel_err": rel, "norm_rel_err": norm_rel_err(got, ref),
+                    "finite": bool(torch.isfinite(got).all())}
+    res["leaves"] = {leaf: {"vs_plain": err} for leaf, err in k3_leaf_errs(d_msg, d_w, ref_msg, ref_w, stack).items()}
+    if upcast:
+        up_msg, up_w = edge_map_backward_plain(message.float(), frames.float(), stack, grad_out.float())
+        for leaf, err in k3_leaf_errs(d_msg, d_w, up_msg, up_w, stack).items():
+            res["leaves"][leaf]["vs_upcast"] = err
+        for leaf, err in k3_leaf_errs(ref_msg, ref_w, up_msg, up_w, stack).items():
+            res["leaves"][leaf]["plain_vs_upcast"] = err
+    return res
+
+
+def phase_k3(batch, mp: GCPMessagePassing, name: str = "K3", full_bound: bool = True,
+             upcast_tol: float = K3_UPCAST_TOL) -> dict:
     """K3 at a path's shape with its message stack ``mp``: the backward of
     K2's stack for a random cotangent -> d message and d weights (float32);
-    the main path's: [E, 148] -> [E, 340].  With ``kinks_apart`` the float32
-    kernel may part from the plain version on relu-kink rows (kink_rows),
-    whose cotangents are then set to 0, and every leaf is held to
-    K3_KINK_FREE_TOL."""
+    the main path's: [E, 148] -> [E, 340].  Each leaf is held to TOL (in
+    float32 only with ``full_bound``); the float32 kernel may part from the
+    plain version on kink rows (kink_rows), and with their cotangents set
+    to 0 every leaf is held to K3_KINK_FREE_TOL.  The bf16 kernel's leaves
+    are also held to ``upcast_tol`` against the plain float32 version on
+    the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     e = batch.num_edges
     results = {}
@@ -494,40 +582,25 @@ def phase_k3(batch, mp: GCPMessagePassing, name: str = "K3", kinks_apart: bool =
             stack = mp.to(dtype).packed_stack()
         message, frames = stack_inputs(batch, stack, dtype, gen)
         grad_out = torch.randn((e, stack.out_dim), generator=gen, device="cuda").to(dtype)
-        res = {"d_message": {}, "d_weights": {}}
-        tol = TOL[("K3", dname)]
-        if kinks_apart and dtype == torch.float32:
+        full = full_bound or dtype == torch.bfloat16
+        res = k3_leaves(message, frames, stack, grad_out, upcast=dtype == torch.bfloat16) if full else {}
+        res["leaf_tol"] = TOL[("K3", dname)]
+        if dtype == torch.float32:
             kinks, res["kinks"] = kink_rows(f"{name} {dname}", message, frames, stack, grad_out)
-            grad_out[kinks] = 0.0
-            tol = K3_KINK_FREE_TOL
-        d_msg, d_w = edge_map_backward(message, frames, stack, grad_out)
-        ref_msg, ref_w = edge_map_backward_plain(message, frames, stack, grad_out)
-        torch.cuda.synchronize()
-        res["leaf_tol"] = tol
-        for key, got, ref in (("d_message", d_msg, ref_msg), ("d_weights", d_w, ref_w)):
-            err, rel = rel_err(got, ref)
-            res[key] = {"max_abs_err": err, "rel_err": rel, "norm_rel_err": norm_rel_err(got, ref),
-                        "finite": bool(torch.isfinite(got).all())}
-        leaf_errs = k3_leaf_errs(d_msg, d_w, ref_msg, ref_w, stack)
-        res["leaves"] = {leaf: {"vs_plain": err} for leaf, err in leaf_errs.items()}
-        if dtype == torch.bfloat16:
-            up_msg, up_w = edge_map_backward_plain(
-                message.float(), frames.float(), stack, grad_out.float()
-            )
-            for leaf, err in k3_leaf_errs(d_msg, d_w, up_msg, up_w, stack).items():
-                res["leaves"][leaf]["vs_upcast"] = err
-            for leaf, err in k3_leaf_errs(ref_msg, ref_w, up_msg, up_w, stack).items():
-                res["leaves"][leaf]["plain_vs_upcast"] = err
-            del up_msg, up_w
-        del ref_msg, ref_w
+            kink_free = grad_out.clone()
+            kink_free[kinks] = 0.0
+            res["kink_free"] = k3_leaves(message, frames, stack, kink_free, upcast=False)
+            res["kink_free"]["leaf_tol"] = K3_KINK_FREE_TOL
+            del kink_free
         print(f"phase {name} {dname}: " + json.dumps(res), flush=True)
         es = message.element_size()
         nbytes = e * (2 * stack.in_dim + 9 + stack.out_dim) * es + 2 * stack.weights.numel() * 4
         flops = 3 * e * stack_flops(stack)
         b_ms, b_by, bound_rate = route_bound_ms(nbytes, flops, dtype)
+        checked = res if full else res["kink_free"]
         results[dname] = {
             **res,
-            "max_abs_err": max(res["d_message"]["max_abs_err"], res["d_weights"]["max_abs_err"]),
+            "max_abs_err": max(checked["d_message"]["max_abs_err"], checked["d_weights"]["max_abs_err"]),
             "ms": cuda_ms(lambda: edge_map_backward(message, frames, stack, grad_out), iters=5, warmup=1),
             "plain_ms": cuda_ms(
                 lambda: edge_map_backward_plain(message, frames, stack, grad_out), iters=3, warmup=1
@@ -543,17 +616,21 @@ def phase_k3(batch, mp: GCPMessagePassing, name: str = "K3", kinks_apart: bool =
             "shape": [e, stack.in_dim, stack.out_dim, stack.weights.numel()],
         }
     print(f"phase {name}: " + json.dumps({
-        d: {k: v for k, v in r.items() if k not in ("d_message", "d_weights", "leaves")} for d, r in results.items()
+        d: {k: v for k, v in r.items() if k not in ("d_message", "d_weights", "leaves", "kink_free")}
+        for d, r in results.items()
     }), flush=True)
     for dname, res in results.items():
-        for key in ("d_message", "d_weights"):
-            check(res[key]["finite"], f"{name} {dname}: non-finite {key}")
-        for leaf, r in res["leaves"].items():
-            check(r["vs_plain"] <= res["leaf_tol"],
-                  f"{name} {dname} {leaf}: norm rel err {r['vs_plain']:.3g} vs plain {dname}")
-            if "vs_upcast" in r:
-                check(r["vs_upcast"] <= K3_UPCAST_TOL,
-                      f"{name} {dname} {leaf}: norm rel err {r['vs_upcast']:.3g} vs float32 plain")
+        for label, r in (("", res if "leaves" in res else None), (" kink-free", res.get("kink_free"))):
+            if r is None:
+                continue
+            for key in ("d_message", "d_weights"):
+                check(r[key]["finite"], f"{name} {dname}{label}: non-finite {key}")
+            for leaf, errs in r["leaves"].items():
+                check(errs["vs_plain"] <= r["leaf_tol"],
+                      f"{name} {dname}{label} {leaf}: norm rel err {errs['vs_plain']:.3g} vs plain {dname}")
+                if "vs_upcast" in errs:
+                    check(errs["vs_upcast"] <= upcast_tol,
+                          f"{name} {dname} {leaf}: norm rel err {errs['vs_upcast']:.3g} vs float32 plain")
     print(f"phase {name}: ok")
     return results
 
@@ -669,28 +746,54 @@ def phase_train(batch, dtype: torch.dtype = torch.bfloat16) -> dict:
     return results
 
 
-def card_vs_cpu_step(name: str, build, batch, loss_fn, layers: int) -> dict:
+def _step_outcome(build, dev: str, batch, loss_fn, noise_seed=None) -> dict:
+    """One float32 training step (no dropout) of ``build(dev)`` on ``batch``:
+    seconds, loss, gradient norm, gradients and updated parameters.  With
+    ``noise_seed`` every weight is first multiplied by 1 + 2^-24 z (z
+    standard normal from that seed): a float32 rounding's worth of noise."""
+    model, state = build(dev)
+    if noise_seed is not None:
+        gen = torch.Generator().manual_seed(noise_seed)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + 2.0**-24 * torch.randn(p.shape, generator=gen).to(p.device))
+    t0 = time.perf_counter()
+    result = train_step(model, state, batch.to(torch.device(dev)), loss_fn, deterministic=True)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {
+        "seconds": time.perf_counter() - t0,
+        "loss": result.loss.item(),
+        "grad_norm": result.grad_norm.item(),
+        "grads": torch.cat([p.grad.reshape(-1) for p in model.parameters()]).cpu(),
+        "params": torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu(),
+    }
+
+
+def _step_diffs(a: dict, b: dict) -> dict:
+    """How far two step outcomes part, in TRAIN_CHECK_ATOL's terms."""
+    param_diff = (a["params"] - b["params"]).abs()
+    return {
+        "grads_norm_rel": norm_rel_err(a["grads"], b["grads"]),
+        "params": param_diff.max().item(),
+        "params_share_above_1e-6": (param_diff > 1e-6).float().mean().item(),
+    }
+
+
+def card_vs_cpu_step(name: str, build, batch, loss_fn, layers: int, rounding_draws: int = 0) -> dict:
     """One float32 training step on the card against the same step on the
     CPU (plain versions): ``build(device) -> (model, state)`` gives both the
     same weights; the same host ``batch``, no dropout.  Held to
-    TRAIN_CHECK_ATOL; the card's step launches the fp32 K3 once a layer."""
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model, state = build(dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        result = train_step(model, state, batch.to(torch.device(dev)), loss_fn, deterministic=True)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            fp32_k3 = launch_counts()[3]
-        out[dev] = {
-            "seconds": time.perf_counter() - t0,
-            "loss": result.loss.item(),
-            "grad_norm": result.grad_norm.item(),
-            "grads": torch.cat([p.grad.reshape(-1) for p in model.parameters()]).cpu(),
-            "params": torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu(),
-        }
-    card, cpu = out["cuda"], out["cpu"]
+    TRAIN_CHECK_ATOL; the card's step launches the fp32 K3 once a layer.
+    With ``rounding_draws``, the gradients and updated parameters may also
+    part as far as ROUNDING_SPREAD_FACTOR times the CPU step parts from
+    itself under a float32 rounding's worth of weight noise (the largest of
+    that many draws): for a step whose gradient float32 rounding alone
+    moves by more than TRAIN_CHECK_ATOL."""
+    reset_counts()
+    card = _step_outcome(build, "cuda", batch, loss_fn)
+    fp32_k3 = launch_counts()[3]
+    cpu = _step_outcome(build, "cpu", batch, loss_fn)
     param_diff = (card["params"] - cpu["params"]).abs()
     results = {
         "loss_card": card["loss"], "loss_cpu": cpu["loss"],
@@ -704,13 +807,21 @@ def card_vs_cpu_step(name: str, build, batch, loss_fn, layers: int) -> dict:
         "card_seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
         "launches": {"K3_fp32": fp32_k3},
     }
+    bound = {k: TRAIN_CHECK_ATOL[k] for k in ("grads_norm_rel", "params", "params_share_above_1e-6")}
+    if rounding_draws:
+        draws = [_step_diffs(cpu, _step_outcome(build, "cpu", batch, loss_fn, noise_seed=i))
+                 for i in range(rounding_draws)]
+        spread = {k: max(d[k] for d in draws) for k in bound}
+        results["cpu_rounding_spread"] = spread
+        bound = {k: max(v, ROUNDING_SPREAD_FACTOR * spread[k]) for k, v in bound.items()}
+        results["bound"] = bound
     print(f"phase {name}: " + json.dumps(results), flush=True)
     check(fp32_k3 == layers, f"{name}: fp32 K3 launches {fp32_k3}, want {layers}")
     check(results["loss_abs_diff"] <= TRAIN_CHECK_ATOL["loss"], f"{name}: loss differs")
     check(results["grad_norm_abs_diff"] <= TRAIN_CHECK_ATOL["grad_norm"], f"{name}: grad norm differs")
-    check(results["grads_norm_rel_err"] <= TRAIN_CHECK_ATOL["grads_norm_rel"], f"{name}: gradients differ")
-    check(results["params_max_abs_diff"] <= TRAIN_CHECK_ATOL["params"], f"{name}: parameters differ")
-    check(results["params_share_above_1e-6"] <= TRAIN_CHECK_ATOL["params_share_above_1e-6"],
+    check(results["grads_norm_rel_err"] <= bound["grads_norm_rel"], f"{name}: gradients differ")
+    check(results["params_max_abs_diff"] <= bound["params"], f"{name}: parameters differ")
+    check(results["params_share_above_1e-6"] <= bound["params_share_above_1e-6"],
           f"{name}: too many parameters differ")
     print(f"phase {name}: ok")
     return results
@@ -886,7 +997,7 @@ def phase_nms_kernels(dm) -> dict:
     results = {
         "K1": phase_k1({1: batch}, d_out=width, name="nms-K1"),
         "K2": phase_k2(batch, nms_message_passing(), name="nms-K2"),
-        "K3": phase_k3(batch, nms_message_passing(), name="nms-K3", kinks_apart=True),
+        "K3": phase_k3(batch, nms_message_passing(), name="nms-K3", full_bound=False),
     }
     for kernel, res in results.items():
         for key, r in res.items():
@@ -1018,6 +1129,154 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
     return results
 
 
+def rs_message_passing() -> GCPMessagePassing:
+    """One message passing layer of the RS model (8 GCP2 layers with leaky
+    relu, hidden 100/16, edges 32/4: LBA's widths), random weights from the
+    seed."""
+    model_cfg, module_cfg, layer_cfg = rs_configs()
+    node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
+    edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
+    return GCPMessagePassing(
+        node_dims, node_dims, edge_dims, module_cfg, layer_cfg,
+        generator=torch.Generator().manual_seed(SEED), device="cuda",
+    )
+
+
+def phase_rs_data():
+    """The synthetic RS splits at the JAX module's sizes, and the shape of
+    a paired training batch: the bucket's rows (what K2 and K3 see) and the
+    real ones (what K1 sums)."""
+    t0 = time.perf_counter()
+    dm = RSDataModule(seed=42)
+    dm.setup()
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = next(dm.train_batches(seed=0))
+    batch_seconds = time.perf_counter() - t0
+    shape = {
+        "nodes": batch.num_nodes, "edges": batch.num_edges, "graphs": batch.num_graphs,
+        "real_nodes": int(batch.node_pad_mask.sum()), "real_edges": int(batch.edge_pad_mask.sum()),
+        "real_graphs": int(batch.graph_pad_mask.sum()),
+    }
+    results = {
+        "setup_seconds": seconds, "first_batch_seconds": batch_seconds,
+        "graphs": {split: len(g) for split, g in dm.graphs.items()}, "batch": shape,
+        "train_batches_per_epoch": len(dm.sampler("train")),
+    }
+    check(results["graphs"] == {"train": 4096, "valid": 512, "test": 512}, f"rs-data: splits {results['graphs']}")
+    check(shape["graphs"] == shape["real_graphs"] == 128 and (shape["nodes"], shape["edges"]) == (8192, 16384),
+          f"rs-data: batch shape {shape}")
+    print("phase rs-data: ok " + json.dumps(results))
+    return dm, results
+
+
+def phase_rs_kernels(dm) -> dict:
+    """K1, K2 and K3 at the RS training step's shape (a paired batch: the
+    bucket's 16,384 edge rows into 8,192 nodes; K1 sums the real rows of
+    its CSR splits), fp32 and bf16, the stack's leaky relu included."""
+    batch = next(dm.train_batches(seed=0))
+    results = {
+        "K1": phase_k1({1: batch}, name="rs-K1"),
+        "K2": phase_k2(batch, rs_message_passing(), name="rs-K2"),
+        "K3": phase_k3(batch, rs_message_passing(), name="rs-K3", full_bound=False, upcast_tol=K3_UPCAST_TOL_RS),
+    }
+    for kernel, res in results.items():
+        for key, r in res.items():
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print("phase rs-kernels: ok " + json.dumps({
+        k: {d: {key: r[key] for key in ("ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms", "library_ms")}
+            for d, r in res.items()}
+        for k, res in results.items()
+    }))
+    return results
+
+
+def phase_rs_check(dm) -> dict:
+    """One RS training step on the card against the CPU: full width,
+    RS_CHECK_LAYERS interaction layers, a paired training batch."""
+
+    def build(dev):
+        model = GCPNetRS(
+            *rs_configs(RS_CHECK_LAYERS, dropout=0.0), generator=torch.Generator().manual_seed(SEED), device=dev
+        )
+        return model, TrainState(build_optimizer(model.parameters(), {"_target_": "Adam", "lr": 1e-4}))
+
+    return card_vs_cpu_step("rs-check", build, next(dm.train_batches(seed=0)), rs_loss, RS_CHECK_LAYERS,
+                            rounding_draws=RS_ROUNDING_DRAWS)
+
+
+def phase_rs_fit(dm, ckpt_dir: str):
+    """The RS path: the full-width RS model with the experiment's defaults
+    (fp32, dropout 0.1, Adam at 1e-4, seed 42) fitted by the Trainer for
+    RS_EPOCHS epochs with checkpoints, then the best checkpoint's test.
+    Every kernel count is set to 0 just before the fit and read just after;
+    each training step's launches are read around it."""
+    per_step = []
+    real_step = trainer_module.train_step
+
+    def counted_step(*args, **kw):
+        before = launch_counts()
+        result = real_step(*args, **kw)
+        per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
+        return result
+
+    clock = EpochClock()
+    trainer = build_rs_trainer(42, "cuda", max_epochs=RS_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock])
+    trainer_module.train_step = counted_step
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        clock.last = time.perf_counter()
+        trainer.fit(dm)
+        torch.cuda.synchronize()
+        launches = dict(zip(KERNEL_COUNTS, launch_counts()))
+    finally:
+        trainer_module.train_step = real_step
+    steps = trainer.state.step
+    best = trainer.restore_best()
+    test = trainer.test(dm)
+    graphs = dm.bucket().num_graphs
+    results = {
+        "launches": launches,
+        "launches_per_step": sorted(set(per_step)),
+        "steps": steps,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "epochs": [
+            {k: line[k] for k in ("epoch", "seconds", "train/loss", "val/loss", "val/Accuracy", "val/F1")}
+            | {"train_graphs_per_s": line["train/steps_per_sec"] * graphs}
+            for line in clock.lines[:RS_EPOCHS]
+        ],
+        "best_step": best,
+        "test": test,
+    }
+    print("phase rs-fit: " + json.dumps(results), flush=True)
+    wanted = ("train/loss", "val/loss", "val/Accuracy", "val/F1")
+    check([line["epoch"] for line in results["epochs"]] == list(range(RS_EPOCHS)), "rs-fit: epochs run")
+    for line in clock.lines[:RS_EPOCHS]:
+        check(all(k in line and math.isfinite(line[k]) for k in wanted), f"rs-fit: epoch line {line}")
+    check(all(k in test and math.isfinite(test[k]) for k in ("test/loss", "test/Accuracy", "test/F1")),
+          f"rs-fit: test metrics {test}")
+    layers = rs_configs()[0].num_encoder_layers
+    want = (layers, layers, 0, layers)
+    check(results["launches_per_step"] == [want],
+          f"rs-fit: launches {KERNEL_COUNTS} per step {results['launches_per_step']}, want {want}")
+    check(results["steps"] == RS_EPOCHS * len(dm.sampler("train")), f"rs-fit: {results['steps']} steps")
+    check(launches["K3_fp32"] == layers * results["steps"], f"rs-fit: K3 launches {launches}")
+    print("phase rs-fit: ok")
+    return trainer, results
+
+
+def phase_rs_profile(trainer, dm) -> dict:
+    """One warm RS training step of the fitted model under torch.profiler."""
+    batch = next(dm.train_batches(seed=0)).to(torch.device("cuda"))
+    warm = lambda: train_step(trainer.model, trainer.state, batch, rs_loss, trainer.generator)  # noqa: E731
+    warm()
+    results = device_profile(warm)
+    print("phase rs-profile: ok " + json.dumps(results))
+    return results
+
+
 def kernel_line(report) -> dict:
     """The contract line: K1 and K2 at bf16 (the production precision) on
     the tile-aligned layout the main path uses, fp32 and K1's CSR layout
@@ -1026,10 +1285,12 @@ def kernel_line(report) -> dict:
     training run) and fp32 (split TF32, launched by the fp32 training
     run).  Under "nms", each kernel at the NMS step's shape and its
     launches a step of the NMS fit, read by dtype (the fit is fp32, so the
-    bf16 K3's count is 0)."""
+    bf16 K3's count is 0); under "rs" the same at the RS step's shape and
+    the RS fit."""
     k1, k2, k3 = report["K1"], report["K2"], report["K3"]
     forward, train, train_fp32 = report["forward"], report["train"], report["train_fp32"]
     nk, nms_steps = report["nms_kernels"], report["nms_fit"]["launches_per_step"][0]
+    rk, rs_steps = report["rs_kernels"], report["rs_fit"]["launches_per_step"][0]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     replaces_k3 = "gcpnet_tpu/ops/pallas_fused.py:175"
 
@@ -1053,19 +1314,23 @@ def kernel_line(report) -> dict:
                 **{f"fp32_{k}": k1["tile128_fp32"][k] for k in keys},
                 **{f"csr_{k}": k1["tile1_bf16"][k] for k in keys},
                 **{f"csr_fp32_{k}": k1["tile1_fp32"][k] for k in keys},
-                nms=nms(nk["K1"], nms_steps[0], fp32="tile1_fp32", bf16="tile1_bf16")),
+                nms=nms(nk["K1"], nms_steps[0], fp32="tile1_fp32", bf16="tile1_bf16"),
+                rs=nms(rk["K1"], rs_steps[0], fp32="tile1_fp32", bf16="tile1_bf16")),
             row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train["launches"]["K2"],
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
                 bound_rate=k2["bf16"]["bound_rate"],
                 **{f"fp32_{k}": k2["fp32"][k] for k in (*keys, "bound_rate")},
-                nms=nms(nk["K2"], nms_steps[1], fp32="fp32", bf16="bf16")),
+                nms=nms(nk["K2"], nms_steps[1], fp32="fp32", bf16="bf16"),
+                rs=nms(rk["K2"], rs_steps[1], fp32="fp32", bf16="bf16")),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train["launches"]["K3_bf16"],
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3_bf16"],
-                bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps[2], bf16="bf16")),
+                bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps[2], bf16="bf16"),
+                rs=nms(rk["K3"], rs_steps[2], bf16="bf16")),
             row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32["launches"]["K3_fp32"],
                 k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"],
                 bound_ms_cuda_cores=k3["fp32"]["bound_ms_cuda_cores"],
-                nms=nms(nk["K3"], nms_steps[3], fp32="fp32")),
+                nms=nms(nk["K3"], nms_steps[3], fp32="fp32"),
+                rs=nms(rk["K3"], rs_steps[3], fp32="fp32")),
         ]
     }
 
@@ -1085,7 +1350,9 @@ def main() -> int:
     # the simulated NMS splits (~70 MB) and checkpoints are removed at the end
     work = tempfile.mkdtemp(prefix="chip_smoke_nms_")
     data_root, ckpt_dir = os.path.join(work, "data"), os.path.join(args.out_dir, "nms_checkpoints")
+    rs_ckpt_dir = os.path.join(args.out_dir, "rs_checkpoints")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shutil.rmtree(rs_ckpt_dir, ignore_errors=True)
     report = {}
     try:
         report["device"] = phase_device()
@@ -1105,12 +1372,19 @@ def main() -> int:
         report["nms_kernels"] = phase_nms_kernels(dm)
         report["nms_check"] = phase_nms_check(data_root)
         report["nms_fit"] = phase_nms_fit(dm, ckpt_dir)
+        del dm
+        rs_dm, report["rs_data"] = phase_rs_data()
+        report["rs_kernels"] = phase_rs_kernels(rs_dm)
+        report["rs_check"] = phase_rs_check(rs_dm)
+        rs_trainer, report["rs_fit"] = phase_rs_fit(rs_dm, rs_ckpt_dir)
+        report["rs_profile"] = phase_rs_profile(rs_trainer, rs_dm)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(rs_ckpt_dir, ignore_errors=True)
         report["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1)

@@ -15,6 +15,7 @@
 //
 // Per layer (K2's math, edge_map_tc.cu), with cotangents dY of the scalars
 // and dV of the vectors after it:
+// (act_s, act_v: the identity, relu or leaky relu, act' their derivatives)
 //   vector gate: dG = sigmoid'(G) (dV . vu) (G the gate logits), dvu = dV g
 //   norm gate:   dvu = dV g + act_v'(n) (dV . vu) vu / sqrt(|vu|^2 + eps)
 //   dS = dY act_s'(S) (+ (dG Wg^T) act_v'(S)),  dWg = act_v(S)^T dG
@@ -75,7 +76,7 @@
 namespace {
 
 using gcp::act;
-using gcp::act_grad;
+using gcp::ActGrad;
 using gcp::kEps;
 using gcp::kFrameLd;
 using gcp::Layer;
@@ -101,13 +102,14 @@ constexpr int kRows = sizeof(T) == 2 ? kTile : kTile / 2;
 // P[m * N + n] += sum over rows r < rows_red of A(r, m) G(r, n), for m < M,
 // n < N: one tile's contribution to a weight gradient, added to the block's
 // float32 partial (no other block writes it).  A [rows_red][lda] and
-// G [rows_red][ldg] are tile arrays; relu_a applies relu to A.
-template <typename T>
-__device__ __forceinline__ void wgrad(const T* A, int lda, int M, bool relu_a, const T* G, int ldg, int N,
+// G [rows_red][ldg] are tile arrays; with kActA, A goes through the
+// activation act_a (gemm's).
+template <bool kActA = false, typename T>
+__device__ __forceinline__ void wgrad(const T* A, int lda, int M, Act act_a, const T* G, int ldg, int N,
                                       int rows_red, float* P) {
   if constexpr (kCut == kNoWeightGrads) return;
-  gemm<T, true, false>(
-      A, lda, G, ldg, pad16(M), pad8(N), rows_red, relu_a,
+  gemm<T, true, false, kActA>(
+      A, lda, G, ldg, pad16(M), pad8(N), rows_red, act_a,
       [&](int m, int n, float& v0, float& v1) {
         const bool ok = kCut != kNoPartials && m < M;
         v0 = ok && n < N ? P[m * N + n] : 0.f;
@@ -163,8 +165,8 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
     } else if (L.act_v) {
       const float rt = sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps);
       const float n = rt + kEps;
-      const float gt = act(n, L.act_v);
-      const float dn = dg * act_grad(n, L.act_v) / rt;
+      const float gt = act(n, L.act_v, L.slope);
+      const float dn = dg * ActGrad(L.act_v, L.slope)(n) / rt;
 #pragma unroll
       for (int c = 0; c < 3; ++c) du[c] = dv[c] * gt + dn * u[c];
     } else {
@@ -174,10 +176,11 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
 #pragma unroll
     for (int c = 0; c < 3; ++c) store_f(s.U + (r * 3 + c) * g.ldv + o, du[c]);
   }
+  const ActGrad act_s_grad(L.act_s, L.slope);
   if (!L.vgate) {
     for (int i = tid; i < R * L.s_out; i += kThreads) {
       const int r = i / L.s_out, o = i - r * L.s_out;
-      store_f(s.dS + r * g.lds + o, s.dY[r * g.ldy + o] * act_grad(f(s.S[r * g.lds + o]), L.act_s));
+      store_f(s.dS + r * g.lds + o, s.dY[r * g.ldy + o] * act_s_grad(f(s.S[r * g.lds + o])));
     }
   }
   __syncthreads();
@@ -186,19 +189,24 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
   if (L.vgate) {
     // dS = dY act_s'(S) + (dG Wg^T) act_v'(S);  dWg += act_v(S)^T dG;  dbg
     if constexpr (kCut != kNoBackwardProducts) {
-      gemm<T, false, !kWT>(dG, g.ldv, s.wg, g.ld_wg, R, pad8(L.s_out), padk<T>(L.v_out), false,
+      const ActGrad act_v_grad(L.act_v, L.slope);
+      gemm<T, false, !kWT>(dG, g.ldv, s.wg, g.ld_wg, R, pad8(L.s_out), padk<T>(L.v_out), Act{},
                            ZeroInit{}, [&](int m, int n, float v0, float v1) {
                              const float v[2] = {v0, v1};
 #pragma unroll
                              for (int j = 0; j < 2; ++j) {
                                if (n + j >= L.s_out) break;
                                const float sv = f(s.S[m * g.lds + n + j]);
-                               store_f(s.dS + m * g.lds + n + j, s.dY[m * g.ldy + n + j] * act_grad(sv, L.act_s) +
-                                                                     v[j] * act_grad(sv, L.act_v));
+                               store_f(s.dS + m * g.lds + n + j,
+                                       s.dY[m * g.ldy + n + j] * act_s_grad(sv) + v[j] * act_v_grad(sv));
                              }
                            });
     }
-    wgrad(s.S, g.lds, L.s_out, L.act_v == 1, dG, g.ldv, L.v_out, R, P + L.off_wg);
+    if (L.act_v) {
+      wgrad<true>(s.S, g.lds, L.s_out, Act{L.act_v, L.slope}, dG, g.ldv, L.v_out, R, P + L.off_wg);
+    } else {
+      wgrad(s.S, g.lds, L.s_out, Act{}, dG, g.ldv, L.v_out, R, P + L.off_wg);
+    }
     bias_grad<R>(dG, g.ldv, L.v_out, P + L.off_bg);
     __syncthreads();
   }
@@ -207,7 +215,7 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
   if constexpr (kCut != kNoBackwardProducts) {
     // columns k0 .. k0 + np of dM from the Wso chunk in s.wso
     auto dm = [&](int k0, int np) {
-      gemm<T, false, !kWT>(s.dS, g.lds, s.wso, g.ld_wso, R, np, padk<T>(L.s_out), false, ZeroInit{},
+      gemm<T, false, !kWT>(s.dS, g.lds, s.wso, g.ld_wso, R, np, padk<T>(L.s_out), Act{}, ZeroInit{},
                            [&](int m, int n, float v0, float v1) {
                              const float v[2] = {v0, v1};
 #pragma unroll
@@ -241,12 +249,12 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
       dm(0, pad8(K));
     }
   }
-  wgrad(s.M, g.ldm, K, false, s.dS, g.lds, L.s_out, R, P + L.off_wso);
+  wgrad(s.M, g.ldm, K, Act{}, s.dS, g.lds, L.s_out, R, P + L.off_wso);
   bias_grad<R>(s.dS, g.lds, L.s_out, P + L.off_bso);
   __syncthreads();
   // dD[:, :h] = dU Wup^T + the vnorm's part;  dD[:, h:] from scal9's;  dWup += vh^T dU
   if constexpr (kCut != kNoBackwardProducts) {
-    gemm<T, false, !kWT>(dU, g.ldv, s.wup, g.ld_wup, 3 * R, pad8(h), padk<T>(L.v_out), false, ZeroInit{},
+    gemm<T, false, !kWT>(dU, g.ldv, s.wup, g.ld_wup, 3 * R, pad8(h), padk<T>(L.v_out), Act{}, ZeroInit{},
                          [&](int m, int n, float v0, float v1) {
                            const float v[2] = {v0, v1};
                            const int r = m / 3;
@@ -267,12 +275,12 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
     const float* fr = s.F + r * kFrameLd + a;
     store_f(s.dD + (r * 3 + a) * g.ldd + h + ch, dm[0] * fr[0] + dm[1] * fr[3] + dm[2] * fr[6]);
   }
-  wgrad(s.D, g.ldd, h, false, dU, g.ldv, L.v_out, 3 * R, P + L.off_wup);
+  wgrad(s.D, g.ldd, h, Act{}, dU, g.ldv, L.v_out, 3 * R, P + L.off_wup);
   __syncthreads();
   // dV (+)= [dvh | ddf] [Wd | Wdf]^T (+ dU with the vector residual), or d
   // msg's vectors;  d[Wd | Wdf] += X^T [dvh | ddf]
   if constexpr (kCut != kNoBackwardProducts) {
-    gemm<T, false, !kWT>(s.dD, g.ldd, s.wd, g.ld_wd, 3 * R, pad8(L.v_in), padk<T>(h + 3), false,
+    gemm<T, false, !kWT>(s.dD, g.ldd, s.wd, g.ld_wd, 3 * R, pad8(L.v_in), padk<T>(h + 3), Act{},
                          ZeroInit{}, [&](int m, int n, float v0, float v1) {
                            const float v[2] = {v0, v1};
 #pragma unroll
@@ -290,7 +298,7 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
                            }
                          });
   }
-  wgrad(s.X, g.ldx, L.v_in, false, s.dD, g.ldd, h + 3, 3 * R, P + L.off_wd);
+  wgrad(s.X, g.ldx, L.v_in, Act{}, s.dD, g.ldd, h + 3, 3 * R, P + L.off_wd);
   __syncthreads();
 }
 

@@ -18,8 +18,8 @@
 //   vu_c *= sigmoid(act_v(s_new) @ Wg + bg)              (vector gate), or
 //   vu_c *= act_v(sqrt(sum_c vu_c^2 + 1e-8) + 1e-8)      (norm gate)
 //   (s, v) = (act_s(s_new), vu), summed over layers for ResGCP.
-// act_s and act_v are the identity or relu here; the wrapper raises for any
-// other setting.
+// act_s and act_v are the identity, relu or leaky relu (x >= 0 ? x : slope x,
+// the slope per layer) here; the wrapper raises for any other setting.
 //
 // Bound on the H100: operations.  About 245 kFLOP per edge row against
 // about 1 KB of traffic: ~51 GFLOP and ~208 MB (bf16) per call at the main

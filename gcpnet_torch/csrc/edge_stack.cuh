@@ -6,6 +6,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
 
@@ -14,13 +15,15 @@ namespace gcp {
 constexpr int kMaxLayers = 16;
 constexpr int kMetaHeader = 2;   // n_layers, residual
 constexpr int kMetaPerLayer = 15;
+constexpr int kSlopesPerLayer = 1;  // after every layer's words: its leaky slope, float32 bits
 constexpr int kFrameLd = 12;     // 9 frame values per row, padded
 constexpr float kEps = 1e-8f;
 
 struct Layer {
   int s_in, v_in, h, s_out, v_out;
-  int act_s, act_v, vres, vgate;       // act: 0 identity, 1 relu
+  int act_s, act_v, vres, vgate;       // act: 0 identity, 1 relu, 2 leaky relu
   int off_wd, off_wso, off_bso, off_wup, off_wg, off_bg;  // float offsets
+  float slope;                         // leaky relu's slope below 0
 };
 
 struct Stack {
@@ -35,29 +38,54 @@ __device__ __forceinline__ float relu(float x) {
   asm("max.NaN.f32 %0, %1, 0f00000000;\n" : "=f"(y) : "f"(x));
   return y;
 }
-__device__ __forceinline__ float act(float x, int code) { return code == 1 ? relu(x) : x; }
-// derivative of act at x
-__device__ __forceinline__ float act_grad(float x, int code) {
-  return code == 1 ? (x > 0.f ? 1.f : 0.f) : 1.f;
+// x where x >= 0, else slope x: jax.nn.leaky_relu's where(x >= 0, ...), so
+// a NaN gives slope * NaN, a NaN
+__device__ __forceinline__ float leaky_relu(float x, float slope) { return x >= 0.f ? x : slope * x; }
+// the activation of code kAct (0 identity, 1 relu, 2 leaky relu) for a
+// code known at compile time (the hot loops take one copy per code)
+template <int kAct>
+__device__ __forceinline__ float act(float x, float slope) {
+  if constexpr (kAct == 1) return relu(x);
+  if constexpr (kAct == 2) return leaky_relu(x, slope);
+  return x;
+}
+__device__ __forceinline__ float act(float x, int code, float slope) {
+  return code == 1 ? act<1>(x, slope) : code == 2 ? act<2>(x, slope) : x;
 }
 
-// meta: {n_layers, residual} then per layer {s_in, v_in, h, s_out, v_out,
+// The derivative of an activation as its values below 0 and at 0 (above 0
+// it is 1): relu 0 and 0, leaky relu the slope and 1 (x >= 0, as jax.grad
+// gives it), the identity 1 and 1.  Made once a layer, so that the loops
+// that apply it test no code; a NaN takes the value below 0, as JAX's
+// where(x > 0, ...) and where(x >= 0, ...) do.
+struct ActGrad {
+  float below, at;
+  __device__ __forceinline__ ActGrad(int code, float slope)
+      : below(code == 1 ? 0.f : code == 2 ? slope : 1.f), at(code == 1 ? 0.f : 1.f) {}
+  __device__ __forceinline__ float operator()(float x) const { return x > 0.f ? 1.f : x >= 0.f ? at : below; }
+};
+
+// meta: {n_layers, residual}, then per layer {s_in, v_in, h, s_out, v_out,
 // act_s, act_v, vres, vgate, off_wd, off_wso, off_bso, off_wup, off_wg,
-// off_bg}.  Returns false on a malformed table.
+// off_bg}, then per layer its slope (float32 bits).  Returns false on a
+// malformed table.
 inline bool parse_stack(const int* meta, int meta_len, Stack& st) {
   if (meta_len < kMetaHeader) return false;
   st = Stack{};
   st.n_layers = meta[0];
   st.residual = meta[1];
   if (st.n_layers < 1 || st.n_layers > kMaxLayers ||
-      meta_len != kMetaHeader + st.n_layers * kMetaPerLayer)
+      meta_len != kMetaHeader + st.n_layers * (kMetaPerLayer + kSlopesPerLayer))
     return false;
+  const int* slopes = meta + kMetaHeader + st.n_layers * kMetaPerLayer;
   for (int l = 0; l < st.n_layers; ++l) {
     const int* m = meta + kMetaHeader + l * kMetaPerLayer;
     Layer& L = st.l[l];
     L = Layer{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8],
-              m[9], m[10], m[11], m[12], m[13], m[14]};
+              m[9], m[10], m[11], m[12], m[13], m[14], 0.f};
+    std::memcpy(&L.slope, slopes + l, sizeof(float));
     if (L.v_in <= 0 || L.v_out <= 0 || L.s_out <= 0 || L.h <= 0) return false;
+    if (L.act_s < 0 || L.act_s > 2 || L.act_v < 0 || L.act_v > 2) return false;
   }
   return true;
 }

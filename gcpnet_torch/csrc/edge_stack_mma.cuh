@@ -20,7 +20,7 @@
 // read across their rows) are read by each lane as its own 32-bit fragment
 // values (gemm).
 //
-// In both: norms, square roots, sigmoids, relu masks and the frame
+// In both: norms, square roots, sigmoids, activations and the frame
 // contractions in float32 registers.  The layer table is edge_stack.cuh's.
 //
 // The tile height R (edge rows, a multiple of 16) is a template parameter
@@ -309,11 +309,33 @@ __device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// relu of a bf16 pair; a NaN stays a NaN, as in relu()
-__device__ __forceinline__ uint32_t relu2(uint32_t x) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
-  v = __hmax2_nan(v, __float2bfloat162_rn(0.f));
-  return *reinterpret_cast<uint32_t*>(&v);
+// An activation a product applies to its A operand (gemm's kActA): a layer
+// table code (1 relu, 2 leaky relu) and leaky relu's slope.
+struct Act {
+  int code;
+  float slope;
+};
+
+// The activation a of one A-operand word: a bf16 pair, or a float32 value
+// (its bits).  A NaN stays a NaN.  relu of a bf16 pair is exact in bf16;
+// leaky relu's product slope x is taken in float32 and rounded to bf16, as
+// the plain version computes it (a bf16 multiply by a bf16 slope would
+// round twice differently).
+template <typename T>
+__device__ __forceinline__ uint32_t act_word(uint32_t x, Act a) {
+  if constexpr (sizeof(T) == 4) {
+    const float v = __uint_as_float(x);
+    return __float_as_uint(a.code == 1 ? relu(v) : leaky_relu(v, a.slope));
+  } else {
+    __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
+    if (a.code == 1) {
+      v = __hmax2_nan(v, __float2bfloat162_rn(0.f));
+    } else {
+      const float2 p = __bfloat1622float2(v);
+      v = __floats2bfloat162_rn(leaky_relu(p.x, a.slope), leaky_relu(p.y, a.slope));
+    }
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // x (float32 bits) rounded to TF32 (10 mantissa bits, the low 13 bits
@@ -347,9 +369,9 @@ struct AFrag;
 template <>
 struct AFrag<bf16> {
   uint32_t r[4];
-  __device__ __forceinline__ AFrag(const uint32_t (&a)[4], bool relu) {
+  __device__ __forceinline__ explicit AFrag(const uint32_t (&a)[4]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) r[i] = relu ? relu2(a[i]) : a[i];
+    for (int i = 0; i < 4; ++i) r[i] = a[i];
   }
   __device__ __forceinline__ void mma(float (&c)[4], float (&)[4], float (&)[4], uint32_t b0, uint32_t b1) const {
     mma16816(c, r, b0, b1);
@@ -360,12 +382,9 @@ struct AFrag<bf16> {
 template <>
 struct AFrag<float> {
   uint32_t hi[4], lo[4];
-  __device__ __forceinline__ AFrag(const uint32_t (&a)[4], bool relu) {
+  __device__ __forceinline__ explicit AFrag(const uint32_t (&a)[4]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float v = __uint_as_float(a[i]);
-      split_tf32(__float_as_uint(relu ? gcp::relu(v) : v), hi[i], lo[i]);
-    }
+    for (int i = 0; i < 4; ++i) split_tf32(a[i], hi[i], lo[i]);
   }
   __device__ __forceinline__ void mma(float (&c)[4], float (&c_lo)[4], float (&c_hi)[4], uint32_t b0,
                                       uint32_t b1) const {
@@ -397,16 +416,18 @@ struct AFrag<float> {
 // slots (any order of k both operands agree on gives the same sum): rows
 // 0, 2, 4, 6 (and 1, 3, 5, 7) of a stride that is an odd multiple of 4
 // words fall on distinct banks, so the weight gradients' reads, across the
-// tile's rows, are free of bank conflicts.  relu_a applies relu to A.
+// tile's rows, are free of bank conflicts.  With kActA, A goes through the
+// activation act_a before the product (and before float32's split); the
+// products without it are compiled apart, so they pay nothing for it.
 // init(m, n, v0, v1) gives the starting values of C(m, n) and C(m, n + 1);
 // epi(m, n, v0, v1) takes the results (n even, both pairs inside Np).  A
 // warp calls init for its next block before the products of the current
 // one, so that loads there (the weight-gradient partials, in global memory)
 // overlap them.  The ldmatrix lane addresses are the same in bytes for both
 // types: a k step is 32 bytes, an 8x8 ldmatrix tile 16 bytes a row.
-template <typename T, bool kAT, bool kBT, typename Init, typename Epi>
+template <typename T, bool kAT, bool kBT, bool kActA = false, typename Init, typename Epi>
 __device__ __forceinline__ void gemm(const T* A, int lda, const T* B, int ldb, int Mp, int Np, int Kp,
-                                     bool relu_a, Init init, Epi epi) {
+                                     Act act_a, Init init, Epi epi) {
   constexpr bool kWordA = sizeof(T) == 4 && kAT;   // A loaded a word a lane
   constexpr bool kWordB = sizeof(T) == 4 && !kBT;  // B loaded a word a lane
   constexpr bool kPairK = kWordA && kWordB;        // k = 2 tig, 2 tig + 1
@@ -465,7 +486,11 @@ __device__ __forceinline__ void gemm(const T* A, int lda, const T* B, int ldb, i
       } else {
         ldsm_x4<kAT>(a, pa);
       }
-      const AFrag<T> af(a, relu_a);
+      if constexpr (kActA) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = act_word<T>(a[i], act_a);
+      }
+      const AFrag<T> af(a);
       if (two) {
         uint32_t b[4];
         if constexpr (kWordB) {
@@ -626,6 +651,16 @@ __device__ inline void load_input(const Smem<T>& s, const Geom& g, const Layer& 
   if (frames) load_rows<R>(frames, 9, rows, [&](int r, int col, T x) { s.F[r * kFrameLd + col] = f(x); });
 }
 
+// G = act_v(S) @ Wg + bg for layer L's vector gate (kActA: act_v is not
+// the identity).
+template <bool kActA, typename T, int R>
+__device__ __forceinline__ void gate_logits(const Smem<T>& s, const Geom& g, const Layer& L) {
+  gemm<T, false, kWeightsT<T>, kActA>(s.S, g.lds, s.wg, g.ld_wg, R, pad8(L.v_out), padk<T>(L.s_out),
+                                      Act{L.act_v, L.slope}, ZeroInit{}, [&](int m, int n, float v0, float v1) {
+                                        put2(s.G + m * g.ldv + n, n, L.v_out, v0 + s.bg[n], v1 + s.bg[n + 1]);
+                                      });
+}
+
 // Layer L's intermediates D, M[:, s_in:], S, U and G for a tile of R rows
 // from its input state in M[:, :s_in] and X, with its weights in s.wd ...
 // s.wso (the first Wso chunk; the further ones, for float32 layers with
@@ -638,7 +673,7 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   constexpr bool kWT = kWeightsT<T>;
   const int h = L.h, hk = h + 9;
   // D = X @ [Wd | Wdf]
-  gemm<T, false, kWT>(s.X, g.ldx, s.wd, g.ld_wd, 3 * R, pad8(h + 3), padk<T>(L.v_in), false, ZeroInit{},
+  gemm<T, false, kWT>(s.X, g.ldx, s.wd, g.ld_wd, 3 * R, pad8(h + 3), padk<T>(L.v_in), Act{}, ZeroInit{},
                       [&](int m, int n, float v0, float v1) { put2(s.D + m * g.ldd + n, n, h + 3, v0, v1); });
   __syncthreads();
   // vnorm and scal9
@@ -658,7 +693,7 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   }
   __syncthreads();
   // U = vh @ Wup
-  gemm<T, false, kWT>(s.D, g.ldd, s.wup, g.ld_wup, 3 * R, pad8(L.v_out), padk<T>(h), false, ZeroInit{},
+  gemm<T, false, kWT>(s.D, g.ldd, s.wup, g.ld_wup, 3 * R, pad8(L.v_out), padk<T>(h), Act{}, ZeroInit{},
                       [&](int m, int n, float v0, float v1) { put2(s.U + m * g.ldv + n, n, L.v_out, v0, v1); });
   // S = [s | vnorm | scal9] @ Wso + bso, over Wso's chunks (a float32
   // partial sum is kept in S between them, exactly)
@@ -673,7 +708,7 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
     const int k0 = c * g.wso_k;
     const bool last = c == chunks - 1;
     gemm<T, false, kWT>(
-        s.M + k0, g.ldm, s.wso, g.ld_wso, R, pad8(L.s_out), min(g.wso_k, kp - k0), false,
+        s.M + k0, g.ldm, s.wso, g.ld_wso, R, pad8(L.s_out), min(g.wso_k, kp - k0), Act{},
         [&](int m, int n, float& v0, float& v1) {
           v0 = c > 0 ? f(s.S[m * g.lds + n]) : 0.f;
           v1 = c > 0 ? f(s.S[m * g.lds + n + 1]) : 0.f;
@@ -687,10 +722,11 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   wso_free();
   if (L.vgate) {
     // G = act_v(S) @ Wg + bg
-    gemm<T, false, kWT>(s.S, g.lds, s.wg, g.ld_wg, R, pad8(L.v_out), padk<T>(L.s_out), L.act_v == 1,
-                        ZeroInit{}, [&](int m, int n, float v0, float v1) {
-                          put2(s.G + m * g.ldv + n, n, L.v_out, v0 + s.bg[n], v1 + s.bg[n + 1]);
-                        });
+    if (L.act_v) {
+      gate_logits<true, T, R>(s, g, L);
+    } else {
+      gate_logits<false, T, R>(s, g, L);
+    }
     __syncthreads();
   }
 }
@@ -699,6 +735,18 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
 struct NoHook {
   __device__ __forceinline__ void operator()() const {}
 };
+
+// layer_output's scalars: act_s(S) (act_s = kAct) written over (added to)
+// M, and copied to slot.
+template <int kAct, typename T, int R>
+__device__ __forceinline__ void scalar_output(const Smem<T>& s, const Geom& g, const Layer& L, bool add, T* slot) {
+  for (int i = threadIdx.x; i < R * L.s_out; i += kThreads) {
+    const int r = i / L.s_out, o = i - r * L.s_out;
+    T* m = s.M + r * g.ldm + o;
+    store_f(m, (add ? f(*m) : 0.f) + act<kAct>(f(s.S[r * g.lds + o]), L.slope));
+    if (slot) slot[r * L.s_out + o] = *m;
+  }
+}
 
 // Layer L's output written over (ResGCP: added to) the state in M and X
 // (rounded to T), and, unless slot is null, copied to slot ([R][s_out]
@@ -716,7 +764,7 @@ __device__ inline void layer_output(const Smem<T>& s, const Geom& g, const Layer
     if (L.vgate) {
       gt = 1.f / (1.f + expf(-f(s.G[r * g.ldv + o])));
     } else if (L.act_v) {
-      gt = act(sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps) + kEps, L.act_v);
+      gt = act(sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps) + kEps, L.act_v, L.slope);
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -725,11 +773,12 @@ __device__ inline void layer_output(const Smem<T>& s, const Geom& g, const Layer
       if (slot) slot_v[(r * 3 + c) * L.v_out + o] = *x;
     }
   }
-  for (int i = threadIdx.x; i < R * L.s_out; i += kThreads) {
-    const int r = i / L.s_out, o = i - r * L.s_out;
-    T* m = s.M + r * g.ldm + o;
-    store_f(m, (add ? f(*m) : 0.f) + act(f(s.S[r * g.lds + o]), L.act_s));
-    if (slot) slot[r * L.s_out + o] = *m;
+  if (L.act_s == 1) {
+    scalar_output<1, T, R>(s, g, L, add, slot);
+  } else if (L.act_s == 2) {
+    scalar_output<2, T, R>(s, g, L, add, slot);
+  } else {
+    scalar_output<0, T, R>(s, g, L, add, slot);
   }
   __syncthreads();
 }

@@ -1,4 +1,5 @@
-"""Padded shape buckets, collation and the receiver-sorted edge layout.
+"""Padded shape buckets, collation, the receiver-sorted edge layout, and
+packing a dataset into batches.
 
 Port of the edge-list parts of ``gcpnet_tpu/data/batching.py``.  Host-side
 numpy; the result goes to the card through ``GraphBatch.to``.
@@ -7,7 +8,7 @@ numpy; the result goes to the card through ``GraphBatch.to``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -140,3 +141,43 @@ def collate_shards(
     if sort_edges:
         batch = sort_edges_by_receiver(batch, tile=sort_tile)
     return batch
+
+
+def batches_from_dataset(
+    graphs: Iterable[GraphData],
+    bucket: Bucket,
+    extra_graph_keys: Sequence[str] = (),
+) -> Iterator[GraphBatch]:
+    """Pack host graphs into padded batches of ``bucket``, in order, each
+    batch receiver-sorted with plain CSR row splits (``tile=1``), so that on the
+    card K1 sums every batch.
+
+    Port of ``gcpnet_tpu/data/batching.py:407-475`` for one shard: graphs
+    are added to the batch until one more would overflow the bucket's
+    nodes, edges or graphs, then the batch is emitted; a graph larger than
+    the bucket is skipped.  The last batch is emitted however full it is:
+    the JAX function's ``drop_last`` drops an incomplete set of *shards*,
+    and one shard is always complete, so with one shard it keeps the last
+    batch too and the port has no such flag.
+    """
+    shard: List[GraphData] = []
+    n_used = e_used = 0
+
+    def emit():
+        return collate_shards([shard], bucket, extra_graph_keys, sort_edges=True, sort_tile=1)
+
+    for g in graphs:
+        if g.num_nodes > bucket.num_nodes or g.num_edges > bucket.num_edges:
+            continue
+        if (
+            n_used + g.num_nodes > bucket.num_nodes
+            or e_used + g.num_edges > bucket.num_edges
+            or len(shard) >= bucket.num_graphs
+        ):
+            yield emit()
+            shard, n_used, e_used = [], 0, 0
+        shard.append(g)
+        n_used += g.num_nodes
+        e_used += g.num_edges
+    if shard:
+        yield emit()

@@ -19,7 +19,7 @@ from gcpnet_torch.nn.embedding import GCPEmbedding
 from gcpnet_torch.nn.frames import centralize, localize, node_mean_frames
 from gcpnet_torch.nn.gcp import Dense, make_gcp
 from gcpnet_torch.nn.interactions import GCPInteractions
-from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector
+from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector, get_nonlinearity
 from gcpnet_torch.ops.segment import segment_mean
 
 
@@ -52,13 +52,17 @@ class InvariantPooledHead(nn.Module):
         output_dim: int = 1,
         output_scale_factor: int = 2,
         dense_dropout: float = 0.1,
+        dense_activation: str = "relu",
         *,
         generator: torch.Generator,
         device,
     ):
+        """``dense_activation`` between the two dense layers: relu (LBA),
+        leaky relu at slope 0.01 (RS)."""
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.output_dim = output_dim
+        self.dense_activation = get_nonlinearity(dense_activation)
         self.dense_dropout = GCPDropout(dense_dropout)
         self.projection_norm = GCPLayerNorm(node_dims[0], device=device)
         self.invariant_node_projection = make_gcp(
@@ -83,7 +87,7 @@ class InvariantPooledHead(nn.Module):
         nf = node_mean_frames(frames, batch.senders, node_rep.scalar.shape[0], edge_mask, count_mask)
         out = self.invariant_node_projection(out, nf)
         pooled = segment_mean(out, batch.graph_id, batch.num_graphs, mask=batch.valid_node_mask())
-        y = torch.relu(self.dense_0(pooled))
+        y = self.dense_activation(self.dense_0(pooled))
         y = self.dense_dropout(y, deterministic, generator)
         y = self.dense_1(y)
         return y[..., 0] if self.output_dim == 1 else y

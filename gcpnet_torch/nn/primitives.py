@@ -94,13 +94,20 @@ def is_identity(name: Optional[str]) -> bool:
     return name is None or name == "" or name == "none"
 
 
+def leaky_relu(x: Tensor, slope: float = 0.01) -> Tensor:
+    """``jax.nn.leaky_relu``: ``x`` where ``x >= 0``, else ``slope * x``, so
+    the gradient at exactly 0 is 1 (``F.leaky_relu``'s is ``slope``); a
+    NaN stays a NaN."""
+    return torch.where(x >= 0, x, slope * x)
+
+
 def get_nonlinearity(name: Optional[str], slope: float = 0.01) -> Callable[[Tensor], Tensor]:
     """Name -> activation function (the JAX package's table)."""
     if is_identity(name):
         return lambda x: x
     table = {
         "relu": F.relu,
-        "leakyrelu": lambda x: F.leaky_relu(x, negative_slope=slope),
+        "leakyrelu": lambda x: leaky_relu(x, slope),
         "selu": F.selu,
         "silu": F.silu,
         "swish": F.silu,

@@ -44,7 +44,8 @@ from gcpnet_torch.ops.segment_sorted import DTYPE_CODES
 EPS = 1e-8
 MAX_LAYERS = 16  # csrc/edge_stack.cuh kMaxLayers
 CUDA_ERROR_INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
-KERNEL_ACTIVATIONS = {None: 0, "relu": 1}
+KERNEL_ACTIVATIONS = {None: 0, "relu": 1, "leakyrelu": 2}  # csrc/edge_stack.cuh act codes
+KINKED_ACTIVATIONS = ("relu", "leakyrelu")  # a kink at 0: the gradient steps there
 WEIGHT_NAMES = ("w_down", "w_so", "b_so", "w_up", "w_gate", "b_gate")
 
 
@@ -76,7 +77,7 @@ class PackedStack:
     layers: Tuple[StackLayer, ...]
     residual: bool  # ResGCP: sum the layers' outputs
     weights: Tensor  # all layers' weights back to back, float32, on the device
-    meta: np.ndarray  # int32 layer table for the kernels (csrc/edge_stack.cuh)
+    meta: np.ndarray  # int32 layer table for the kernels (csrc/edge_stack.cuh parse_stack)
     # K2's weight images by activation dtype, built at the first launch: a
     # stack cached under inference mode builds them once
     images: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
@@ -121,7 +122,9 @@ def _pad4(chunks: list, offset: int, device) -> int:
 def pack_stack(layers: Sequence[StackLayer], residual: bool) -> PackedStack:
     """Check that consecutive layers chain and pack their weights, each at
     an offset that is a multiple of 4.  The buffer is a ``torch.cat`` of the
-    given tensors: in grad mode it stays on the autograd graph."""
+    given tensors: in grad mode it stays on the autograd graph.  The layer
+    table is ``{n_layers, residual}``, 15 words a layer, then each layer's
+    leaky slope as float32 bits."""
     if not layers:
         raise ValueError("pack_stack: empty stack")
     meta = [len(layers), int(residual)]
@@ -150,11 +153,12 @@ def pack_stack(layers: Sequence[StackLayer], residual: bool) -> PackedStack:
             KERNEL_ACTIVATIONS.get(_act_name(layer.act_v), -1),
             int(layer.vector_residual), int(layer.w_gate is not None), *offs,
         ]
+    slopes = np.asarray([layer.slope for layer in layers], np.float32).view(np.int32)
     return PackedStack(
         layers=tuple(layers),
         residual=residual,
         weights=torch.cat(chunks).contiguous(),
-        meta=np.asarray(meta, np.int32),
+        meta=np.concatenate([np.asarray(meta, np.int32), slopes]),
     )
 
 
@@ -164,8 +168,9 @@ def _layer_plain(
     """One GCP2 layer in the input dtype, each matmul rounded to it; square
     roots, sigmoids and activations in float32 (the JAX MM form's
     numerics).  ``w`` holds the layer's weights (``PackedStack.layer_weights``).
-    Where the layer's scalar pre-activation goes through relu, a list
-    ``margins`` gets each row's relu margin (see :func:`relu_margins`)."""
+    Where the layer's scalar pre-activation goes through a kinked
+    activation, a list ``margins`` gets each row's margin to the kink (see
+    :func:`kink_margins`)."""
     s_in, v_in, h, s_out, v_out = layer.dims
     dt = s.dtype
     e = s.shape[0]
@@ -183,8 +188,8 @@ def _layer_plain(
     scal9 = torch.einsum("eac,efa->ecf", df, frames.reshape(e, 3, 3)).reshape(e, 9)
     merged = torch.cat([s, vnorm, scal9], dim=-1)
     s_new = merged @ w["w_so"].to(dt) + w["b_so"].to(dt)
-    gated_relu = w["w_gate"] is not None and _act_name(layer.act_v) == "relu"
-    if margins is not None and (_act_name(layer.act_s) == "relu" or gated_relu):
+    gated_kink = w["w_gate"] is not None and _act_name(layer.act_v) in KINKED_ACTIVATIONS
+    if margins is not None and (_act_name(layer.act_s) in KINKED_ACTIVATIONS or gated_kink):
         terms = merged.abs() @ w["w_so"].to(dt).abs() + w["b_so"].to(dt).abs()
         margins.append((s_new.abs() / terms.clamp_min(torch.finfo(dt).tiny)).amin(dim=1))
     vu = vh @ w["w_up"].to(dt)  # [E, 3, v_out]
@@ -235,11 +240,12 @@ def edge_map_backward_plain(
     return d_message, d_weights
 
 
-# Relu kinks.  K3 in float32 and its plain version compute each
-# pre-activation in a different order (split TF32 against float32 FMAs), so
-# one within their rounding of 0 can fall on different sides of relu in the
-# two, and the row's gradient then differs by O(1).  Their rounding leaves
-# the other rows ~1e-6 of scale apart, so a pre-activation whose relu margin
+# Kinks at 0 (relu, and leaky relu, whose gradient steps by 1 - slope
+# there).  K3 in float32 and its plain version compute each pre-activation
+# in a different order (split TF32 against float32 FMAs), so one within
+# their rounding of 0 can fall on different sides of the kink in the two,
+# and the row's gradient then differs by O(1).  Their rounding leaves
+# the other rows ~1e-6 of scale apart, so a pre-activation whose kink margin
 # exceeds KINK_MARGIN (1.5e-5, 128 float32 ulps of its terms' magnitude)
 # does not flip, and a row that parts from the plain version with no margin
 # under it is a fault.  (Of random rows at the LBA and NMS stacks' widths,
@@ -251,16 +257,16 @@ MAX_KINK_ROW_SHARE = 2.0**-10
 
 
 def max_kink_rows(rows: int) -> int:
-    """The most rows of ``rows`` that may flip at a relu kink."""
+    """The most rows of ``rows`` that may flip at a kink."""
     return math.ceil(rows * MAX_KINK_ROW_SHARE)
 
 
-def relu_margins(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
-    """Each row's relu margin ``[E]``: the least, over every relu of the
-    stack, of ``|pre-activation| / (the sum of its terms' magnitudes)``,
-    from the plain version recomputed in float64 (its activations, square
-    roots and sigmoids in float32).  How near the row lies to a kink
-    (``inf`` where the stack has no relu)."""
+def kink_margins(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
+    """Each row's kink margin ``[E]``: the least, over every relu or leaky
+    relu of the stack, of ``|pre-activation| / (the sum of its terms'
+    magnitudes)``, from the plain version recomputed in float64 (its
+    activations, square roots and sigmoids in float32).  How near the row
+    lies to a kink (``inf`` where the stack has no kinked activation)."""
     found: list = []
     with torch.no_grad():
         edge_map_plain(message.double(), frames.double(), stack, margins=found)
@@ -295,7 +301,7 @@ def _check_kernel_supported(stack: PackedStack) -> None:
             if _act_name(name) not in KERNEL_ACTIVATIONS:
                 raise NotImplementedError(
                     f"edge_map kernel: layer {i} uses activation {name!r}; the CUDA "
-                    "kernels implement the identity and relu only"
+                    "kernels implement the identity, relu and leaky relu only"
                 )
 
 

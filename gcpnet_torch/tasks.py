@@ -1,7 +1,8 @@
 """Task wiring: the metric collection of each task model.
 
 The port's copy of the collect and metric functions of
-``gcpnet_tpu/tasks.py`` for the task models ported so far (LBA and NMS).
+``gcpnet_tpu/tasks.py`` for the task models ported so far (LBA, NMS and
+RS).
 A collect function adds one batch's host predictions and labels to a
 :class:`~gcpnet_torch.train.metrics.Collector`; the metric functions run on
 what it collected at the end of an evaluation epoch.
@@ -16,7 +17,7 @@ import numpy as np
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.train import metrics as M
 
-TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetNMS": "nms"}
+TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetNMS": "nms", "GCPNetRS": "rs"}
 
 
 def _task(model_name: str) -> str:
@@ -41,10 +42,12 @@ def _cosine3(p: np.ndarray, l: np.ndarray) -> float:
 
 
 def build_collect(model_name: str) -> Callable:
-    return {"lba": _graph_collect, "nms": _node_pos_collect}[_task(model_name)]
+    return {"lba": _graph_collect, "nms": _node_pos_collect, "rs": _graph_collect}[_task(model_name)]
 
 
 def build_metric_fns(model_name: str) -> Dict[str, Callable]:
-    if _task(model_name) == "lba":
-        return {"RMSE": M.rmse, "PearsonCorrCoef": M.pearson, "SpearmanCorrCoef": M.spearman}
-    return {"RMSE": M.rmse, "CosineSimilarity": _cosine3}
+    return {
+        "lba": {"RMSE": M.rmse, "PearsonCorrCoef": M.pearson, "SpearmanCorrCoef": M.spearman},
+        "nms": {"RMSE": M.rmse, "CosineSimilarity": _cosine3},
+        "rs": {"Accuracy": M.accuracy, "F1": M.f1},
+    }[_task(model_name)]

@@ -7,13 +7,15 @@ source, such as a parent commit's.
 
 Needs the card.  Builds this tree's source and each given one (an
 edge_map_tc.cu, or the CUDA-core K2's edge_map.cu with its C entry point
-gcp_edge_map, each with the headers beside it) with nvcc, all at once, then
+gcp_edge_map, each with the headers beside it; a source from before the layers' leaky
+slopes gets the layer table without them, chip_smoke.stack_for_source)
+with nvcc, all at once, then
 times each by CUDA events at the main path's shape ([E, 340] messages +
 [E, 9] frames -> [E, 148], the benchmark's 8-layer stack), fp32 and bf16, in
 turns: the versions, then the versions in reverse order.  Each result is
 checked against the plain version (chip_smoke.TOL) and compared bit for bit
 with this tree's.  Prints one JSON line of
-each build's spills (ptxas), one JSON line per dtype (each version's mean of
+each build's registers and spills (ptxas), one JSON line per dtype (each version's mean of
 its two turns, and the turns), then the card's name and power limit.
 """
 
@@ -39,7 +41,7 @@ OUT_DIR = os.path.join("logs", "k2_versions")
 
 def build_all(sources: dict):
     """name -> source path: the loaded libraries, built at once, and each
-    build's ptxas lines that report spills."""
+    build's ptxas lines that report registers and spills."""
     procs = {}
     for name, path in sources.items():
         cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(OUT_DIR, f"lib{name}.so"), path]
@@ -50,7 +52,8 @@ def build_all(sources: dict):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {sources[name]}:\n{out}")
         spills[name] = sorted(
-            {ln.strip() for ln in out.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln}
+            {ln.strip() for ln in out.splitlines()
+             if "registers" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln)}
         )
     return {name: ctypes.CDLL(os.path.join(OUT_DIR, f"lib{name}.so")) for name in sources}, spills
 
@@ -92,16 +95,19 @@ def main() -> int:
         calls, result = {}, {}
         for name, lib in libs.items():
             if name.startswith("old"):
-                def call(lib=lib):
-                    err = lib.gcp_edge_map(message.data_ptr(), frames.data_ptr(), stack.weights.data_ptr(),
-                                           stack.meta.ctypes.data, stack.meta.size, out.data_ptr(), e,
+                old = chip_smoke.stack_for_source(stack, sources[name])
+
+                def call(lib=lib, old=old):
+                    err = lib.gcp_edge_map(message.data_ptr(), frames.data_ptr(), old.weights.data_ptr(),
+                                           old.meta.ctypes.data, old.meta.size, out.data_ptr(), e,
                                            DTYPE_CODES[dtype], stream)
                     if err != 0:
                         raise RuntimeError(f"old K2: launch failed with error {err}")
                     return out
             else:
                 with torch.no_grad():
-                    own = mp.packed_stack()  # weight images of its own build
+                    # weight images of its own build, and its own layer table
+                    own = chip_smoke.stack_for_source(mp.packed_stack(), sources[name])
                 call = lambda lib=lib, own=own: launch_forward(message, frames, own, lib=lib)  # noqa: E731
             got = call().clone()
             err, rel = chip_smoke.rel_err(got, want)

@@ -14,7 +14,9 @@ partials' loads and stores, the weight-gradient products (and bias sums),
 the scratch traffic of the layers' input states, the forward sweep, the
 reverse sweep's recompute, the backward's data products.  The other
 versions given are ``edge_map_bwd_tc.cu`` files with this tree's C
-interface, each with the headers beside it.  All are built with nvcc at
+interface, each with the headers beside it (a source from before the
+layers' leaky slopes gets the layer table without them,
+chip_smoke.stack_for_source).  All are built with nvcc at
 once, then each is timed by CUDA events on the same inputs at the main
 path's shape, both dtypes: the cuts once each, the whole kernel and the
 other versions in turns (the whole, the versions, the versions in reverse
@@ -127,6 +129,7 @@ def main() -> int:
     for dname, dtype in DTYPES.items():
         with torch.no_grad():
             stack = mp.to(dtype).packed_stack()
+        stack_of = {name: chip_smoke.stack_for_source(stack, sources[name][0]) for name in kernels}
         gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 2)
         message, frames = chip_smoke.stack_inputs(batch, stack, dtype, gen)
         e = message.shape[0]
@@ -134,8 +137,8 @@ def main() -> int:
         versions = ["whole", *(name for name in kernels if name not in CUTS)]
         turns = {name: [] for name in kernels}
         for name in [*(n for n in kernels if n not in versions), *versions, *reversed(versions)]:
-            turns[name].append(chip_smoke.cuda_ms(lambda: kernels[name](message, frames, stack, grad_out), iters=5,
-                                                  warmup=1))
+            turns[name].append(chip_smoke.cuda_ms(lambda: kernels[name](message, frames, stack_of[name], grad_out),
+                                                  iters=5, warmup=1))
         # each whole kernel's leaves against the plain version (and in
         # float32 against the plain version in float64)
         refs = {"plain": edge_map_backward_plain(message, frames, stack, grad_out)}
@@ -151,7 +154,7 @@ def main() -> int:
         leaves, same = {}, {}
         first = kernels["whole"](message, frames, stack, grad_out)
         for name in versions:
-            got = kernels[name](message, frames, stack, grad_out)
+            got = kernels[name](message, frames, stack_of[name], grad_out)
             same[name] = all(torch.equal(a, b) for a, b in zip(got, first))
             for ref_name, ref in refs.items():
                 leaves[f"{name}_vs_{ref_name}"] = worst_leaf(got, ref, stack)

@@ -19,6 +19,8 @@ from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.models.lba import GCPNetLBA, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
+from gcpnet_torch.models.rs import GCPNetRS, rs_loss
+from gcpnet_torch.data.rs import RSDataModule
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.ops.build import library
 from gcpnet_torch.ops.edge_map import (
@@ -29,7 +31,7 @@ from gcpnet_torch.ops.edge_map import (
     edge_map_plain,
     max_kink_rows,
     pack_stack,
-    relu_margins,
+    kink_margins,
 )
 from gcpnet_torch.ops.segment_sorted import DTYPE_CODES, segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.train import cli as train_cli
@@ -107,6 +109,14 @@ STACK_SETTINGS = {
         vector_gate=False, vector_nonlinearity="relu", vector_residual=True
     ),
 }
+# the activations of the kernels' layer table: relu (LBA), leaky relu on the
+# scalars (RS), and leaky relu in the vector gate's act_v(s) @ Wg as well
+# (no shipped model: the vector slot takes every code the scalar slot does)
+ACTIVATION_SETTINGS = {
+    "production": ModuleCfg(),
+    "leaky": ModuleCfg(scalar_nonlinearity="leakyrelu"),
+    "leaky_gate": ModuleCfg(scalar_nonlinearity="leakyrelu", vector_nonlinearity="leakyrelu"),
+}
 
 
 def _message_passing(
@@ -142,9 +152,10 @@ K2_BF16_TOL = 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("settings", sorted(STACK_SETTINGS))
+@pytest.mark.parametrize("settings", sorted(STACK_SETTINGS) + ["leaky_gate"])
 def test_k2_cuda_matches_plain(rng, cuda, settings, dtype):
-    stack = _message_passing(STACK_SETTINGS[settings]).to(cuda, dtype).packed_stack()
+    cfg = {**STACK_SETTINGS, **ACTIVATION_SETTINGS}[settings]
+    stack = _message_passing(cfg).to(cuda, dtype).packed_stack()
     e = 1000  # not a multiple of the kernel's 64-row tile
     msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
     before = edge_map.launches
@@ -199,14 +210,15 @@ def test_k2_builds_images_once_per_cached_stack(rng, cuda):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("residual", [True, False])
-def test_k2_bf16_is_the_state_k3_recomputes(rng, cuda, residual, dtype):
+@pytest.mark.parametrize("settings", ["production", "leaky_gate"])
+def test_k2_bf16_is_the_state_k3_recomputes(rng, cuda, settings, residual, dtype):
     """K2 and K3's forward sweep run the same layer body, in bf16 and in
     float32 (split TF32): the state K3 keeps in its scratch before each
     layer l >= 1 equals, bit for bit, K2's output for the stack's first l
     layers.  K3 is launched with one block per tile, so that each block's
     scratch holds its own tile."""
     with torch.no_grad():
-        stack = _message_passing(ModuleCfg(), residual=residual).to(cuda, dtype).packed_stack()
+        stack = _message_passing(ACTIVATION_SETTINGS[settings], residual=residual).to(cuda, dtype).packed_stack()
     lib = library("edge_map_bwd_tc")
     code = DTYPE_CODES[dtype]
     tiles, tile = 5, lib.gcp_edge_map_bwd_tc_tile(code)
@@ -346,22 +358,30 @@ def test_k2_k3_match_plain_at_nms_widths(rng, cuda, dtype):
     else:
         assert _max_rel_err(got, want) <= K2_BF16_TOL
     grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    _k3_check_with_kink_rule(msg, frames, stack, grad_out)
+
+
+def _k3_check_with_kink_rule(msg, frames, stack, grad_out):
+    """K3 against its plain version.  float32: at 8 layers a row may hold a
+    pre-activation within float32 rounding of 0, where the kernel and the
+    plain version take different sides of a kink (relu, or leaky relu,
+    whose derivative steps by 1 - slope) and the row's d message differs
+    by O(1).  Each row that parts from the plain version must be such a
+    kink (a kink margin under KINK_MARGIN in float64), and no more than
+    max_kink_rows of them (ops/edge_map.py gives the reasons, as in
+    chip_smoke.py's phase K3); with their cotangents set to 0 every result
+    is held to 1e-4.  bf16: every leaf against the plain bf16 version and
+    the float32 one, in norm (K3_BF16_LEAF_TOL)."""
+    e = msg.shape[0]
     d_msg, d_w = edge_map_backward(msg, frames, stack, grad_out)
     want_msg, want_w = edge_map_backward_plain(msg, frames, stack, grad_out)
-    if dtype == torch.float32:
-        # At the NMS widths' 8 layers a row may hold a pre-activation within
-        # float32 rounding of 0, where the kernel and the plain version take
-        # different sides of relu and the row's d message differs by O(1).
-        # Each row that parts from the plain version must be such a kink (a
-        # relu margin under KINK_MARGIN in float64), and no more than
-        # max_kink_rows of them (ops/edge_map.py gives the reasons, as in
-        # chip_smoke.py's phase nms-K3); with their cotangents set to 0 every
-        # result is held to 1e-4.
+    if msg.dtype == torch.float32:
         scale = max(1.0, want_msg.abs().max().item())
         kinks = ((d_msg - want_msg).abs().amax(dim=1) > 1e-4 * scale).nonzero().flatten()
         assert kinks.numel() <= max_kink_rows(e), kinks.tolist()
-        margins = relu_margins(msg, frames, stack)[kinks]
+        margins = kink_margins(msg, frames, stack)[kinks]
         assert bool((margins <= KINK_MARGIN).all()), (kinks.tolist(), margins.tolist())
+        grad_out = grad_out.clone()
         grad_out[kinks] = 0.0
         d_msg, d_w = edge_map_backward(msg, frames, stack, grad_out)
         want_msg, want_w = edge_map_backward_plain(msg, frames, stack, grad_out)
@@ -376,10 +396,51 @@ def test_k2_k3_match_plain_at_nms_widths(rng, cuda, dtype):
         assert max(leaves.values()) <= K3_BF16_LEAF_TOL, leaves
 
 
+def _lba_width_message_passing(cfg: ModuleCfg) -> GCPMessagePassing:
+    """One message passing layer at LBA's (and RS's) full width: hidden
+    100/16, edges 32/4, 8 ResGCP2 layers, [E, 340] -> [E, 148]."""
+    return _message_passing(
+        cfg, num_message_layers=8, node_dims=(100, 16), output_dims=(100, 16), edge_dims=(32, 4)
+    )
+
+
+# the RS training batch's row count: its bucket's edge rows (64 anchors and
+# their enantiomers, 64 nodes a graph, twice as many edges)
+RS_BATCH_ROWS = 16384
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k3_is_deterministic(rng, cuda, dtype):
+@pytest.mark.parametrize("settings", sorted(ACTIVATION_SETTINGS))
+def test_k2_k3_match_plain_at_lba_widths(rng, cuda, settings, dtype):
+    """K2 and K3 at LBA's widths on the RS batch's 16,384 rows, with relu,
+    leaky relu on the scalars (RS's stack) and leaky relu in the vector gate
+    too: K2 at the bounds of test_k2_cuda_matches_plain (fp32 relative to
+    max(1, max |plain|), as chip_smoke.py holds it), K3 under the kink rule
+    (_k3_check_with_kink_rule)."""
     with torch.no_grad():
-        stack = _message_passing(ModuleCfg()).to(cuda, dtype).packed_stack()
+        stack = _lba_width_message_passing(ACTIVATION_SETTINGS[settings]).to(cuda, dtype).packed_stack()
+    assert stack.in_dim == 340 and stack.out_dim == 148
+    codes = {(layer.act_s, layer.act_v) for layer in stack.layers}
+    assert codes == {("relu" if settings == "production" else "leakyrelu",
+                      "leakyrelu" if settings == "leaky_gate" else None), (None, None)}
+    e = RS_BATCH_ROWS
+    msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
+    before = (edge_map.launches, edge_map_backward.launches)
+    with torch.no_grad():
+        got = edge_map(msg, frames, stack)
+        want = edge_map_plain(msg, frames, stack)
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel_err(got, want) <= (1e-4 if dtype == torch.float32 else K2_BF16_TOL)
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    _k3_check_with_kink_rule(msg, frames, stack, grad_out)
+    assert edge_map.launches == before[0] + 1 and edge_map_backward.launches > before[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("settings", ["production", "leaky_gate"])
+def test_k3_is_deterministic(rng, cuda, settings, dtype):
+    with torch.no_grad():
+        stack = _message_passing(ACTIVATION_SETTINGS[settings]).to(cuda, dtype).packed_stack()
     e = 5000
     args = [
         torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
@@ -392,14 +453,16 @@ def test_k3_is_deterministic(rng, cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("where", ["message", "weight"])
-def test_k2_k3_keep_nans(rng, cuda, where, dtype):
+@pytest.mark.parametrize("settings", ["production", "leaky_gate"])
+def test_k2_k3_keep_nans(rng, cuda, settings, where, dtype):
     """A NaN of the card's own form (every mantissa bit set) in one message
     row or in one weight: K2's output is a NaN exactly where the plain
     version's is, and K3's results wherever the plain backward's are (K3
     takes relu's derivative at a NaN as 0, as JAX does, where torch passes
-    the cotangent on, so its NaNs may spread further)."""
+    the cotangent on, so its NaNs may spread further; leaky relu's is the
+    slope in both)."""
     with torch.no_grad():
-        stack = _message_passing(ModuleCfg()).to(cuda, dtype).packed_stack()
+        stack = _message_passing(ACTIVATION_SETTINGS[settings]).to(cuda, dtype).packed_stack()
         e = 300
         msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
         if where == "message":  # the last vector column of row 5
@@ -524,6 +587,38 @@ def test_nms_gradients_on_card_match_cpu(cuda, tmp_path):
         launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
         b = batch.to(torch.device(dev))
         loss, _ = nms_loss(model(b), b)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+            assert tuple(a - b for a, b in zip(now, launches)) == (2, 2, 2)
+        losses[dev] = loss.item()
+        grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+def test_rs_gradients_on_card_match_cpu(cuda):
+    """The RS model at full width (2 of its 8 interaction layers, leaky relu
+    in every message stack) on a paired batch of 8 anchors and their
+    enantiomers: the loss and every parameter's gradient on the card against
+    the CPU, through K1, K2 and the fp32 K3."""
+    dm = RSDataModule(batch_size=8, synthetic_sizes={"train": 32, "valid": 16, "test": 16})
+    dm.setup()
+    batch = next(dm.train_batches(seed=0))
+    grads, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = GCPNetRS(
+            *train_cli.rs_configs(num_encoder_layers=2, dropout=0.0),
+            generator=torch.Generator().manual_seed(0), device=dev,
+        )
+        launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+        b = batch.to(torch.device(dev))
+        loss, _ = rs_loss(model(b), b)
         loss.backward()
         if dev == "cuda":
             torch.cuda.synchronize()

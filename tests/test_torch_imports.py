@@ -1,10 +1,11 @@
 """gcpnet_torch and chip_smoke.py import nothing of JAX, flax or gcpnet_tpu:
 every module of the package, the chip scripts (``chip_smoke.py``,
-``k1_versions.py``, ``k3_breakdown.py``), the card's tests
-(``test_torch_gpu.py``, which run where JAX is absent), a CPU prediction, a
-CPU LBA training run and a CPU NMS fit with its simulated data
-(``python -m gcpnet_torch.train [--task nms]``) in a fresh interpreter whose
-import system refuses those packages."""
+``k1_versions.py``, ``k2_versions.py``, ``k3_breakdown.py``), the card's
+tests (``test_torch_gpu.py``, which run where JAX is absent), a CPU
+prediction, a CPU LBA training run, a CPU NMS fit with its simulated data
+and a CPU RS fit on synthetic enantiomers (``python -m gcpnet_torch.train
+[--task nms|rs]``) in a fresh interpreter whose import system refuses those
+packages."""
 
 import subprocess
 import sys
@@ -40,7 +41,8 @@ names = [
 for name in names:
     importlib.import_module(name)
 for name, path in (("chip_smoke", "chip_smoke.py"), ("test_torch_gpu", "tests/test_torch_gpu.py"),
-                   ("k1_versions", "k1_versions.py"), ("k3_breakdown", "k3_breakdown.py")):
+                   ("k1_versions", "k1_versions.py"), ("k2_versions", "k2_versions.py"),
+                   ("k3_breakdown", "k3_breakdown.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
@@ -58,6 +60,10 @@ with tempfile.TemporaryDirectory() as root:
                 "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0",
                 "--data-root", root + "/data", "--checkpoint-dir", root + "/ckpt"]
     runpy.run_module("gcpnet_torch.train", run_name="__main__")
+sys.argv = ["gcpnet_torch.train", "--task", "rs", "--device", "cpu", "--num-train", "8", "--num-valid", "4",
+            "--num-test", "4", "--batch-size", "2", "--num-encoder-layers", "1", "--max-epochs", "1",
+            "--min-epochs", "0"]
+runpy.run_module("gcpnet_torch.train", run_name="__main__")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names))

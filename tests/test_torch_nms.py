@@ -46,7 +46,7 @@ from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.nn.frames import decentralize
 from gcpnet_torch.nn.interactions import GCPInteractions
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
-from gcpnet_torch.ops.edge_map import KINK_MARGIN, relu_margins
+from gcpnet_torch.ops.edge_map import KINK_MARGIN, kink_margins
 from gcpnet_torch.nn.primitives import ScalarVector, pack_vector
 from gcpnet_torch.weights import from_jax_params
 
@@ -243,13 +243,13 @@ def test_decentralize_and_scalar_embedding():
     assert model.encoder.gcp_embedding.atom_embedding is None  # float node scalars, no table
 
 
-@pytest.mark.parametrize("scalar_nonlinearity", ["relu", None])
+@pytest.mark.parametrize("scalar_nonlinearity", ["relu", None, "leakyrelu"])
 def test_relu_margins_find_a_kink(scalar_nonlinearity):
-    """relu_margins, which tells a relu kink from a kernel fault where K3
-    parts from its plain version: row 0 (all-zero message) is put on the
-    kink of layer 0's first scalar by its bias, so its margin is within
-    float32 rounding of 0, while most other rows lie well off every kink;
-    a stack without relu has no kink."""
+    """kink_margins, which tells a relu (or leaky relu) kink from a kernel
+    fault where K3 parts from its plain version: row 0 (all-zero message) is
+    put on the kink of layer 0's first scalar by its bias, so its margin is
+    within float32 rounding of 0, while most other rows lie well off every
+    kink; a stack without a kinked activation has no kink."""
     mp = GCPMessagePassing(
         (16, 4), (16, 4), (8, 4), ModuleCfg(scalar_nonlinearity=scalar_nonlinearity),
         LayerCfg(mp_cfg=MPCfg(num_message_layers=4)), generator=torch.Generator().manual_seed(0), device="cpu",
@@ -264,7 +264,7 @@ def test_relu_margins_find_a_kink(scalar_nonlinearity):
     message = torch.from_numpy(rng.normal(size=(512, stack.in_dim)).astype(np.float32))
     message[0] = 0.0
     frames = torch.from_numpy(rng.normal(size=(512, 9)).astype(np.float32))
-    margins = relu_margins(message, frames, stack)
+    margins = kink_margins(message, frames, stack)
     assert margins.shape == (512,) and margins.dtype == torch.float64
     if scalar_nonlinearity is None:
         assert bool(torch.isinf(margins).all())
