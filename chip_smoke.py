@@ -18,54 +18,72 @@ Phases, one line each:
      as split TF32) against its plain version (autograd through K2's) at
      the main path's shape, fp32 and bf16, leaf by leaf (d message, each
      weight matrix and bias);
-  6. forward: the LBA forward at the benchmark's full width (16 graphs x 448
-     atoms, 8 interaction layers x 8 message layers) through
-     gcpnet_torch.predict, fp32 and bf16: launch counts, finiteness,
-     latency, peak memory; then the fp32 predictions against the same
-     weights and batch run on the CPU through the plain versions;
-  7. train: the full-width LBA training step through gcpnet_torch.train
-     (bf16 over fp32 masters, dropout 0.1, Adam at lr 1e-4), 6 steps on one
-     batch: launches per step, finiteness, ms per step, graphs/s, peak
-     memory;
-  8. train-fp32: the same full-width training step in float32 (the JAX
-     Trainer's default precision), 6 steps on one batch: the same checks
-     (every K3 launch is one of the tensor-core kernel, K3's only one) and
-     numbers, and one warm step under torch.profiler;
-  9. train-check: one fp32 training step on the card against the same step
-     on the CPU (2 interaction layers, 2 graphs, no dropout): loss, gradient
-     norm, gradients and updated parameters; its launches of the fp32 K3;
- 10. bf16-check: the bf16 training step's gradients against the fp32
-     step's on the card (the train-check's size), through the kernels and
-     through the plain stack in bf16;
- 11. profile: one warm bf16 forward and one warm bf16 training step under
-     torch.profiler (device busy and idle share, time by kernel);
- 12. nms-data: the NMS small_20body splits (2,000 / 500 / 500 trajectories)
+  6. nms-data: the NMS small_20body splits (2,000 / 500 / 500 trajectories)
      simulated on the card by gcpnet_torch.data.nms_sim's "torch" integrator,
      as batches of 100 20-body graphs (2,000 nodes, 38,000 CSR edge rows);
- 13. nms-kernels: K1, K2 and K3 at the NMS step's shape against their plain
+  7. nms-kernels: K1, K2 and K3 at the NMS step's shape against their plain
      versions, fp32 and bf16, with their times, bounds and shares of them;
- 14. nms-check: one fp32 NMS training step on the card against the CPU (2
-     interaction layers, 10 graphs, no dropout);
- 15. nms-fit: the NMS path, the full-width NMS model fitted by the Trainer
-     (fp32, the experiment's defaults) for 3 epochs with checkpoints, then a
-     new Trainer resumes to epoch 4 and tests the best checkpoint: every
-     step's launches (4 of each kernel), per-epoch seconds, train graphs/s,
-     val/loss and val/RMSE, peak memory, and one warm step under
-     torch.profiler;
- 16. rs-data: the RS splits, synthetic enantiomer pairs at the JAX module's
+  8. rs-data: the RS splits, synthetic enantiomer pairs at the JAX module's
      sizes (4,096 / 512 / 512 graphs), and a paired training batch (64
      anchors and their enantiomers: 128 graphs, a bucket of 8,192 nodes and
      16,384 CSR edge rows, about 1,400 and 2,600 of them real);
- 17. rs-kernels: K1, K2 and K3 at the RS step's shape against their plain
+  9. rs-kernels: K1, K2 and K3 at the RS step's shape against their plain
      versions, fp32 and bf16, the stack's leaky relu included, with their
      times, bounds and shares of them;
+ 10. forward: the LBA forward at the benchmark's full width (16 graphs x 448
+     atoms, 8 interaction layers x 8 message layers) through
+     gcpnet_torch.predict, fp32 and bf16, eager and served (Predictor: a
+     CUDA graph captured at the first batch, replayed for the rest): launch
+     counts, finiteness, latency, peak memory, the served predictions
+     against the eager ones; then the fp32 predictions against the same
+     weights and batch run on the CPU through the plain versions;
+ 11. train: the full-width LBA training step through gcpnet_torch.train
+     (bf16 over fp32 masters, dropout 0.1, Adam at lr 1e-4, the adaptive
+     clip, a StepLR schedule), 6 steps on one batch, twice eagerly and once
+     captured (the first step runs eagerly and captures, 5 replays, each
+     under torch.cuda.set_sync_debug_mode("error")): the wrappers' launches
+     per step (a replay runs none), finiteness, ms per step, graphs/s, peak
+     memory; the captured run's parameters, moments and losses against the
+     eager run's; a batch with a NaN label replayed through the graph
+     leaves the state as it was; one warm eager step and one replay under
+     torch.profiler (device busy and idle share, kernels by name and count
+     read from the trace, the host's CUDA API calls);
+ 12. train-fp32: the same in float32 (the JAX Trainer's default precision;
+     every K3 launch is one of the tensor-core kernel, K3's only one);
+ 13. train-check: one fp32 training step on the card against the same step
+     on the CPU (2 interaction layers, 2 graphs, no dropout): loss, gradient
+     norm, gradients and updated parameters; its launches of the fp32 K3;
+ 14. bf16-check: the bf16 training step's gradients against the fp32
+     step's on the card (the train-check's size), through the kernels and
+     through the plain stack in bf16;
+ 15. profile: one warm bf16 forward, eager and replayed, under
+     torch.profiler (device busy and idle share, time by kernel, the
+     host's CUDA API calls);
+ 16. nms-check: one fp32 NMS training step on the card against the CPU (2
+     interaction layers, 10 graphs, no dropout);
+ 17. nms-fit: the NMS path, the full-width NMS model fitted by the Trainer
+     (fp32, the experiment's defaults) with scan_chunk_size 4 (4 batches a
+     replay of a CUDA graph) for 3 epochs with checkpoints, then a new
+     Trainer resumes to epoch 4 and tests the best checkpoint: the
+     wrappers' launches (only the graphs' first calls run them),
+     per-epoch seconds, train graphs/s, val/loss and val/RMSE, peak memory;
+     the first epoch run eagerly step by step beside it (its losses held
+     to the captured epoch's, the parameters' distance printed); 16 steps
+     and the validation batches run captured and eagerly under
+     torch.use_deterministic_algorithms, equal bit for bit; one warm eager
+     step and one
+     replay of a train and an eval chunk under torch.profiler, the kernels
+     a step read from the trace (4 of each);
  18. rs-check: one fp32 RS training step on the card against the CPU (2
      interaction layers, a paired batch, no dropout);
  19. rs-fit: the RS path, the full-width RS model fitted by the Trainer
-     (fp32, the experiment's defaults) for 3 epochs with checkpoints, then
-     the best checkpoint's test: every step's launches, per-epoch seconds,
-     train graphs/s, val/loss, val/Accuracy and val/F1, peak memory;
- 20. rs-profile: one warm RS training step under torch.profiler.
+     (fp32, the experiment's defaults) with scan_chunk_size 4 for 3 epochs
+     with checkpoints, then the best checkpoint's test: the wrappers'
+     launches, per-epoch seconds, train graphs/s, val/loss, val/Accuracy
+     and val/F1, peak memory; the first epoch run eagerly beside it, and
+     the deterministic parity run, as nms-fit;
+ 20. rs-profile: one warm eager RS training step and one replay of a train
+     and an eval chunk under torch.profiler; the rs-fit's checks.
 Then the total time, one JSON line with every kernel's numbers (at the NMS
 and RS shapes too), the nvidia-smi line, and the final status line.  Any failed phase exits non-zero; without a CUDA device
 the script exits non-zero before printing any result.  Full measurements go
@@ -76,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -108,17 +127,32 @@ from gcpnet_torch.ops.edge_map import (
     kink_margins,
 )
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
-from gcpnet_torch.predict import DTYPES, build_model, lba_configs, predict, synthetic_batches
-from gcpnet_torch.train import trainer as trainer_module
+from gcpnet_torch.predict import DTYPES, Predictor, build_model, lba_configs, predict, synthetic_batches
 from gcpnet_torch.train.cli import build_lba_training, build_nms_trainer, build_rs_trainer, nms_configs, rs_configs
-from gcpnet_torch.train.optim import build_optimizer
+from gcpnet_torch.train.graphs import TrainSteps
+from gcpnet_torch.train.optim import build_optimizer, build_schedule
 from gcpnet_torch.train.state import TrainState
-from gcpnet_torch.train.step import train_step
+from gcpnet_torch.train.step import eval_step, train_step
+from gcpnet_torch.train.trainer import prefetched
 
 SEED = 0
 GRAPHS, NODES, EDGES_PER_NODE = 16, 448, 28
 FORWARD_BATCHES = 4  # the first is the cold one; latency is over the rest
 TRAIN_STEPS = 6  # the first is the cold one; ms per step is over the rest
+# the train phases' schedule (beside the adaptive clip): a NaN replay must
+# leave its count and rate as they were
+TRAIN_SCHEDULE = {"_target_": "StepLR", "step_size": 2, "gamma": 0.9}
+TRAIN_LR = 1e-4
+# the fits' scan_chunk_size: 4 training or validation batches a replay
+FIT_CHUNK = 4
+FIT_LR = 1e-4  # the NMS and RS experiments' Adam rate
+# kernel names in a profiler trace, by the kernel they belong to
+KERNEL_NAMES = {"K1": "seg_sum", "K2": "edge_map_tc_kernel", "K3": "edge_map_bwd_tc_kernel"}
+# the same in KERNEL_COUNTS' order, K3 by its instantiation
+TRACE_NAMES = {
+    "K1": "seg_sum", "K2": "edge_map_tc_kernel", "K3_bf16": "edge_map_bwd_tc_kernel<__nv_bfloat16>",
+    "K3_fp32": "edge_map_bwd_tc_kernel<float>",
+}
 TRAIN_CHECK_GRAPHS, TRAIN_CHECK_LAYERS = 2, 2
 # The NMS path: small_20body at the published widths and batch (100 graphs
 # of 20 bodies: 2,000 nodes, 38,000 edge rows), its splits cut from the
@@ -232,6 +266,45 @@ TRAIN_CHECK_ATOL = {
 # spread under a float32 rounding's worth of weight noise, the larger.
 ROUNDING_SPREAD_FACTOR = 2.0
 RS_ROUNDING_DRAWS = 3
+# The captured training steps against the eager ones, TRAIN_STEPS steps
+# from the same weights and generator seed (the same dropout masks): the
+# glue's index_add_ adds with atomics in another order on every run, so
+# two eager runs part as well.  The parameters: Adam moves an entry by up
+# to about lr a step whatever its gradient's size, so an entry whose
+# gradient lies within rounding of 0 may go the other way in the other
+# run, but few do; at most REPLAY_PARAM_SHARE of the entries may part by
+# more than REPLAY_PARAM_ATOL_LR * lr, and none by more than 2 lr a step.
+# A replay that skipped its update or read stale weights parts by about
+# lr in nearly every entry: the share of entries the eager run moved that
+# far from its start is printed beside the check (param_gap).  Adam's
+# moments in norm-relative terms, each step's loss and gradient norm
+# relative: the captured run may part from the first eager run by
+# REPLAY_SPREAD_FACTOR times what the second eager run does, or by
+# REPLAY_TOL where that is less.  On the H100 the bf16 runs agree bit for
+# bit; in fp32 two eager runs part by 1.0e-4 and 2.6e-4 in the parameters
+# (max abs), 3.6e-4 and 9.7e-4 in the first moment, 9e-7 and 3.2e-6 in
+# the losses (two calls), and the captured run as far (up to 2.2 times the
+# eager pair's distance); the floors are ten times the largest distance
+# measured.
+REPLAY_PARAM_ATOL_LR, REPLAY_PARAM_SHARE = 0.1, 0.01
+REPLAY_TOL = {"exp_avg": 1e-2, "exp_avg_sq": 1e-3, "losses": 1e-4, "grad_norms": 1e-3}
+REPLAY_SPREAD_FACTOR = 4.0
+# A fit's first epoch, captured, against the same epoch run eagerly step by
+# step (train_step, eval_step): the same weights, batches and dropout
+# masks, the atomics' order apart.  The losses relative: NMS 1e-4 (on the
+# H100 the two part by 4e-9); RS 1e-3, as its gradients at initialization
+# are residuals of enantiomer pairs that nearly cancel, which float32
+# rounding alone moves by ~1e-3 relative (rs-check's CPU spread).  The
+# parameters after the epoch are printed (param_gap), not held: RS
+# amplifies the atomics' order, so that on the H100 the captured and the
+# eager RS epoch part by more than lr/10 in 97% of the entries, about as
+# many as the epoch moves that far.  What holds the replays is
+# FIT_PARITY_STEPS steps and the validation batches run both ways under
+# torch.use_deterministic_algorithms, where the glue sums in a fixed
+# order: the parameters, losses and generator must then be equal bit for
+# bit (fit_parity).
+FIT_EAGER_RTOL = {"nms-fit": 1e-4, "rs-fit": 1e-3}
+FIT_PARITY_STEPS = 4 * FIT_CHUNK  # the first chunk runs eagerly and captures, 3 replay
 # one bf16 training step against the fp32 step, both on the card (the
 # train-check's size): tests/test_torch_train.py's bounds for the same
 # comparison on the CPU (bf16 keeps 8 bits).
@@ -636,35 +709,58 @@ def phase_k3(batch, mp: GCPMessagePassing, name: str = "K3", full_bound: bool = 
 
 
 def phase_forward(batches) -> dict:
-    """The main path: full-width LBA prediction through gcpnet_torch.predict
-    on the card, fp32 then bf16, with every kernel count set to 0 just
-    before and read just after."""
+    """The main path: full-width LBA prediction on the card, fp32 then
+    bf16, eager (gcpnet_torch.predict.predict) and served
+    (gcpnet_torch.predict.Predictor: a CUDA graph captured at the first
+    batch and replayed for the rest), with every kernel count set to 0 just
+    before and read just after (the wrappers count the eager launches and
+    the capture's; phase_profile reads a replay's kernels from its trace);
+    the served predictions against the eager ones; then the eager fp32
+    predictions against the same weights and batch run on the CPU through
+    the plain versions."""
     results = {}
     reset_counts()
     for dname, dtype in DTYPES.items():
         model = build_model(SEED, "cuda", dtype)
+        predictor = Predictor(model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        times, preds = [], []
-        for batch in batches:
-            k1, k2 = segment_sum_sorted.launches, edge_map.launches
-            t0 = time.perf_counter()
-            out = predict(model, batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            launched = (segment_sum_sorted.launches - k1, edge_map.launches - k2)
-            check(launched == (8, 8), f"forward {dname}: launches (K1, K2) = {launched}, want (8, 8)")
-            check(out.shape == (GRAPHS,), f"forward {dname}: output shape {tuple(out.shape)}")
-            check(bool(torch.isfinite(out).all()), f"forward {dname}: non-finite predictions")
-            preds.append(out.float().cpu())
+        runs = {}
+        for mode, fn in (("eager", lambda b: predict(model, b)), ("captured", predictor)):
+            times, preds = [], []
+            for i, batch in enumerate(batches):
+                before = launch_counts()
+                t0 = time.perf_counter()
+                out = fn(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                launched = tuple(a - b for a, b in zip(launch_counts(), before))[:2]
+                # served: the first call runs eagerly and records the kernels
+                # into its graph (both counted); a replay runs no wrapper
+                want = (8, 8) if mode == "eager" else (16, 16) if i == 0 else (0, 0)
+                check(launched == want, f"forward {dname} {mode}: launches (K1, K2) = {launched}, want {want}")
+                check(out.shape == (GRAPHS,), f"forward {dname} {mode}: output shape {tuple(out.shape)}")
+                check(bool(torch.isfinite(out).all()), f"forward {dname} {mode}: non-finite predictions")
+                preds.append(out.float().cpu())
+            runs[mode] = (times, preds)
+        (times, preds), (cap_times, cap_preds) = runs["eager"], runs["captured"]
+        call = predictor.graphs
+        check((call.captures, call.replays) == (1, len(batches) - 1),
+              f"forward {dname}: {call.captures} captures, {call.replays} replays")
+        err = max((a - b).abs().max().item() for a, b in zip(cap_preds, preds))
         results[dname] = {
             "first_ms": times[0],
             "ms_per_batch": float(np.median(times[1:])),
             "ms_all": times,
+            "captured_first_ms": cap_times[0],
+            "captured_ms_per_batch": float(np.median(cap_times[1:])),
+            "captured_ms_all": cap_times,
+            "captured_vs_eager_max_abs": err,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "predictions_batch0": preds[0].tolist(),
         }
-        del model
+        check(err <= FORWARD_ATOL, f"forward {dname}: captured vs eager max abs {err:.3g} > {FORWARD_ATOL}")
+        del model, predictor
     results["launches"] = dict(zip(KERNEL_COUNTS, launch_counts()))
     check(launch_counts()[2:] == (0, 0), "forward: the backward kernel ran during prediction")
     results["bf16_vs_fp32_max_abs"] = (
@@ -698,51 +794,189 @@ def reset_counts() -> None:
         edge_map_backward.dtype_launches[dtype] = 0
 
 
-def phase_train(batch, dtype: torch.dtype = torch.bfloat16) -> dict:
-    """A training path: the full-width LBA training step through
-    gcpnet_torch.train (bf16 compute over float32 masters, or float32
-    throughout; dropout 0.1, Adam at lr 1e-4) for TRAIN_STEPS steps on one
-    batch, as the JAX benchmark reuses its batch, with every kernel count set
-    to 0 just before and read just after; in float32 then one warm step
-    under torch.profiler."""
-    name = "train" if dtype == torch.bfloat16 else "train-fp32"
-    model, state = build_lba_training(SEED, "cuda", dtype, lr=1e-4, dropout=0.1)
-    dev_batch = batch.to(torch.device("cuda"))
-    generator = torch.Generator(device="cuda").manual_seed(SEED)
+def _lba_training(dtype: torch.dtype):
+    """The full-width LBA training of the train phases: weights from SEED,
+    dropout 0.1, Adam at lr 1e-4, the adaptive clip and TRAIN_SCHEDULE, and
+    a dropout generator from SEED."""
+    model, state = build_lba_training(SEED, "cuda", dtype, lr=TRAIN_LR, dropout=0.1, adaptive_clip=True)
+    state.scheduler = build_schedule(state.optimizer, TRAIN_SCHEDULE)
+    return model, state, torch.Generator(device="cuda").manual_seed(SEED)
+
+
+def _train_state(model, state) -> dict:
+    """Every tensor a step updates: the parameters, Adam's moments and
+    count, the ring, the schedule's count and the rate, cloned."""
+    opt = state.optimizer
+    out = {
+        "params": flat_params(model),
+        "exp_avg": torch.cat([opt.state[p]["exp_avg"].reshape(-1) for p in model.parameters()]),
+        "exp_avg_sq": torch.cat([opt.state[p]["exp_avg_sq"].reshape(-1) for p in model.parameters()]),
+        "adam_step": opt.state[next(model.parameters())]["step"].clone(),
+        "ring.buffer": state.ring.buffer.clone(), "ring.count": state.ring.count.clone(),
+        "ring.head": state.ring.head.clone(), "schedule.count": state.scheduler.count.clone(),
+        "lr": opt.lr.clone(),
+    }
+    return out
+
+
+def _state_distance(a: dict, b: dict) -> dict:
+    """How far two runs' states part: parameters in max abs, moments in
+    norm-relative terms, losses and norms in max abs relative."""
+    return {
+        "params": (a["params"] - b["params"]).abs().max().item(),
+        "exp_avg": norm_rel_err(a["exp_avg"], b["exp_avg"]),
+        "exp_avg_sq": norm_rel_err(a["exp_avg_sq"], b["exp_avg_sq"]),
+        "losses": float(np.max(np.abs(np.subtract(a["losses"], b["losses"])) / np.abs(b["losses"]))),
+        "grad_norms": float(np.max(np.abs(np.subtract(a["grad_norms"], b["grad_norms"])) / np.abs(b["grad_norms"]))),
+    }
+
+
+def flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def param_gap(got: torch.Tensor, want: torch.Tensor, start: torch.Tensor, lr: float, steps: int) -> dict:
+    """How far two runs' flat parameters part after ``steps`` updates at
+    rate ``lr`` from ``start``: max abs beside its limit of 2 lr a step;
+    the share of entries more than REPLAY_PARAM_ATOL_LR * lr apart; and the
+    share of entries that ``want``'s run moved that far from ``start``
+    (what a run that skipped its updates would part by)."""
+    atol = REPLAY_PARAM_ATOL_LR * lr
+    diff = (got - want).abs()
+    return {
+        "max_abs": diff.max().item(), "max_abs_limit": 2 * lr * steps, "atol": atol,
+        "share_apart": (diff > atol).double().mean().item(),
+        "moved_share": ((want - start).abs() > atol).double().mean().item(),
+    }
+
+
+def check_param_gap(name: str, gap: dict) -> None:
+    check(gap["share_apart"] <= REPLAY_PARAM_SHARE and gap["max_abs"] <= gap["max_abs_limit"],
+          f"{name}: the parameters part by {gap} (at most {REPLAY_PARAM_SHARE} of them beyond atol)")
+
+
+def _train_run(batch, dtype: torch.dtype, captured: bool, want: tuple) -> dict:
+    """TRAIN_STEPS training steps on one batch from _lba_training: eager
+    (train_step) or captured (TrainSteps: the first call runs eagerly and
+    captures, the rest replay, each replay under
+    torch.cuda.set_sync_debug_mode("error")).  Each step's launches are
+    read around it: ``want`` an eager step's; the captured first step
+    counts them twice (its eager run and the capture's records), a replay
+    runs no wrapper and counts none."""
+    model, state, gen = _lba_training(dtype)
+    start = flat_params(model)
+    if captured:
+        steps = TrainSteps(model, state, graph_regression_loss, gen)
+        pinned = batch.pinned()
+        run = lambda: steps([pinned])  # noqa: E731
+    else:
+        dev_batch = batch.to(torch.device("cuda"))
+        run = lambda: train_step(model, state, dev_batch, graph_regression_loss, gen)  # noqa: E731
+    name = "captured" if captured else "eager"
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    want = (8, 8, 8, 0) if dtype == torch.bfloat16 else (8, 8, 0, 8)
     times, losses, norms = [], [], []
     for step in range(TRAIN_STEPS):
         before = launch_counts()
         t0 = time.perf_counter()
-        result = train_step(model, state, dev_batch, graph_regression_loss, generator)
+        if captured and step > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            result = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         launched = tuple(a - b for a, b in zip(launch_counts(), before))
-        check(launched == want, f"{name} step {step}: launches {KERNEL_COUNTS} = {launched}, want {want}")
+        step_want = want if not captured else tuple(2 * n for n in want) if step == 0 else (0,) * len(want)
+        check(launched == step_want, f"{name} step {step}: launches {KERNEL_COUNTS} = {launched}, want {step_want}")
         losses.append(result.loss.item())
         norms.append(result.grad_norm.item())
-        check(result.ok and np.isfinite(losses[-1]) and np.isfinite(norms[-1]),
+        check(bool(result.ok.all()) and np.isfinite(losses[-1]) and np.isfinite(norms[-1]),
               f"{name} step {step}: loss {losses[-1]}, grad norm {norms[-1]}")
+    if captured:
+        check((steps.call.captures, steps.call.replays) == (1, TRAIN_STEPS - 1),
+              f"captured: {steps.call.captures} captures, {steps.call.replays} replays")
     ms = float(np.median(times[1:]))
-    results = {
-        "launches": dict(zip(KERNEL_COUNTS, launch_counts())),
-        "ms_per_step": ms,
-        "graphs_per_s": GRAPHS / ms * 1e3,
-        "first_ms": times[0],
-        "ms_all": times,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "losses": losses,
-        "grad_norms": norms,
-        "steps": TRAIN_STEPS,
+    return {
+        "ms_per_step": ms, "graphs_per_s": GRAPHS / ms * 1e3, "first_ms": times[0], "ms_all": times,
+        "losses": losses, "grad_norms": norms, "state": _train_state(model, state), "start": start,
+        "objects": (model, state, gen, steps if captured else None),
     }
-    if dtype == torch.float32:
-        results["profile"] = device_profile(
-            lambda: train_step(model, state, dev_batch, graph_regression_loss, generator)
-        )
-    print(f"phase {name}: ok " + json.dumps(results))
+
+
+def phase_train(batch, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """A training path: the full-width LBA training step (bf16 compute over
+    float32 masters, or float32 throughout; _lba_training) for TRAIN_STEPS
+    steps on one batch, as the JAX benchmark reuses its batch: twice eagerly
+    (train_step), then captured as the CLI runs it (TrainSteps, one replay a
+    step; every kernel count set to 0 just before and read just after).
+    The captured run's parameters against the first eager run's
+    (param_gap), its moments and per-step losses within what the two eager
+    runs part by (REPLAY_TOL); a batch with a NaN label replayed through
+    the graph must leave the state as it was, bit for bit; then one warm
+    eager step and one replay under torch.profiler, which reads the
+    replay's kernels from the trace."""
+    name = "train" if dtype == torch.bfloat16 else "train-fp32"
+    want = (8, 8, 8, 0) if dtype == torch.bfloat16 else (8, 8, 0, 8)
+    eager = [_train_run(batch, dtype, False, want) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    captured = _train_run(batch, dtype, True, want)
+    launches = dict(zip(KERNEL_COUNTS, launch_counts()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def summary(run):
+        keep = ("ms_per_step", "graphs_per_s", "first_ms", "ms_all", "losses", "grad_norms")
+        return {k: run[k] for k in keep}
+
+    spread = _state_distance({**eager[1]["state"], **summary(eager[1])}, {**eager[0]["state"], **summary(eager[0])})
+    apart = _state_distance({**captured["state"], **summary(captured)}, {**eager[0]["state"], **summary(eager[0])})
+    bound = {k: max(REPLAY_TOL[k], REPLAY_SPREAD_FACTOR * spread[k]) for k in REPLAY_TOL}
+    gap = {
+        run: param_gap(other["state"]["params"], eager[0]["state"]["params"], eager[0]["start"], TRAIN_LR, TRAIN_STEPS)
+        for run, other in (("eager_again", eager[1]), ("captured", captured))
+    }
+    model, state, gen, steps = captured["objects"]
+    results = {
+        "launches": launches, **summary(eager[0]), "eager_again": summary(eager[1]),
+        "captured": summary(captured), "peak_mem_gb_captured": peak, "steps": TRAIN_STEPS,
+        "eager_spread": spread, "captured_vs_eager": apart, "bound": bound, "param_gap": gap,
+        "replays": steps.call.replays,
+    }
+
+    # a NaN label through the same graph: nothing moves
+    label = batch.extras["label"]
+    bad = dataclasses.replace(batch, extras={**batch.extras, "label": np.full_like(label, np.nan)})
+    bad_pinned = bad.pinned()
+    before = _train_state(model, state)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        result = steps([bad_pinned])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    after = _train_state(model, state)
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    results["nan_replay"] = {"ok": bool(result.ok.all()), "changed": changed, "replays": steps.call.replays}
+
+    pinned = batch.pinned()
+    dev_batch = batch.to(torch.device("cuda"))
+    emodel, estate, egen, _ = eager[0]["objects"]
+    kernels = {"K1": 8, "K2": 8, "K3": 8}
+    results["profile"] = profile_kernels(
+        lambda: train_step(emodel, estate, dev_batch, graph_regression_loss, egen), kernels
+    )
+    results["profile_captured"] = profile_kernels(lambda: steps([pinned]), kernels)
+    print(f"phase {name}: " + json.dumps(results), flush=True)
+    for key, limit in bound.items():
+        check(apart[key] <= limit, f"{name}: captured vs eager {key} {apart[key]:.3g} > {limit:.3g}")
+    check_param_gap(f"{name} captured vs eager", gap["captured"])
+    check(not results["nan_replay"]["ok"] and not changed and results["nan_replay"]["replays"] == TRAIN_STEPS,
+          f"{name}: the NaN replay {results['nan_replay']}")
+    for prof in (results["profile"], results["profile_captured"]):
+        check(prof["kernels"] == kernels, f"{name}: profiled kernels {prof['kernels']}, want 8 of each")
+    print(f"phase {name}: ok")
     return results
 
 
@@ -898,7 +1132,9 @@ def phase_bf16_check() -> dict:
 def device_profile(fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall time, device busy time
     (the sum of the CUDA kernels' times; one stream, so they do not
-    overlap), idle share and time by kernel."""
+    overlap), idle share, time by kernel, the launches of K1, K2 and K3
+    read from the trace (those a graph's replay runs included), and the
+    host's calls into the CUDA runtime and driver."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -913,6 +1149,12 @@ def device_profile(fn) -> dict:
     kernels = [
         e for e in prof.events() if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
     ]
+    # the host's calls into the CUDA runtime and driver (cudaLaunchKernel,
+    # cudaGraphLaunch, cudaMemcpyAsync, ...): what the host pays per call
+    api = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith(("cuda", "cu")):
+            api[e.name] = api.get(e.name, 0) + 1
     by_name = {}
     for e in kernels:
         name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
@@ -930,6 +1172,10 @@ def device_profile(fn) -> dict:
         "device_busy_ms": busy_us / 1e3 if kernels else "not measured",
         "device_idle_share": 1 - busy_us / wall_us if kernels else "not measured",
         "kernel_launches": len(kernels),
+        "kernels": {label: sum(1 for e in kernels if key in e.name) for label, key in KERNEL_NAMES.items()},
+        "launches": {label: sum(1 for e in kernels if key in e.name) for label, key in TRACE_NAMES.items()},
+        "cuda_api_calls": sum(api.values()),
+        "cuda_api_by_name": api,
         "share": {
             label: sum(v for k, v in by_name.items() if any(key in k for key in keys)) / busy_us
             if kernels else "not measured"
@@ -939,21 +1185,36 @@ def device_profile(fn) -> dict:
     }
 
 
+def profile_kernels(fn, want: dict, tries: int = 3) -> dict:
+    """device_profile of ``fn``, taken again (up to ``tries`` times) while
+    the K1/K2/K3 counts read from the trace differ from ``want``: the
+    profiler can lose a device event now and then (see device_ms).  The
+    last profile, with the number of tries it took; a kernel missing from
+    every try fails the caller's check."""
+    for i in range(tries):
+        prof = device_profile(fn)
+        if prof["kernels"] == want:
+            break
+    prof["tries"] = i + 1
+    return prof
+
+
 def phase_profile(batches) -> dict:
-    """Where the time goes: one warm bf16 full-width forward, and one warm
-    bf16 full-width training step, each under torch.profiler."""
+    """Where the time goes in prediction: one warm bf16 full-width forward,
+    eager and replayed, each under torch.profiler (the training steps are
+    profiled in their phases)."""
     model = build_model(SEED, "cuda", torch.bfloat16)
+    predictor = Predictor(model)
     predict(model, batches[0])
-    result = {"forward": device_profile(lambda: predict(model, batches[1]))}
-    del model
-    model, state = build_lba_training(SEED, "cuda", torch.bfloat16, lr=1e-4, dropout=0.1)
-    dev_batch = batches[0].to(torch.device("cuda"))
-    generator = torch.Generator(device="cuda").manual_seed(SEED)
-    train_step(model, state, dev_batch, graph_regression_loss, generator)
-    result["train_step"] = device_profile(
-        lambda: train_step(model, state, dev_batch, graph_regression_loss, generator)
-    )
+    predictor(batches[0])
+    kernels = {"K1": 8, "K2": 8, "K3": 0}
+    result = {
+        "forward": profile_kernels(lambda: predict(model, batches[1]), kernels),
+        "forward_captured": profile_kernels(lambda: predictor(batches[1]), kernels),
+    }
     print("phase profile: ok " + json.dumps(result))
+    for key, prof in result.items():
+        check(prof["kernels"] == kernels, f"profile {key}: kernels {prof['kernels']}")
     return result
 
 
@@ -1029,68 +1290,208 @@ def phase_nms_check(data_root: str) -> dict:
 
 class EpochClock:
     """A trainer logger that keeps each logged line with the seconds since
-    the previous one (or since it was made)."""
+    the previous one (or since it was made), and ``model``'s flat
+    parameters as the first line is logged (after the first epoch)."""
 
-    def __init__(self):
+    def __init__(self, model=None):
         self.last = time.perf_counter()
         self.lines = []
+        self.model, self.first_params = model, None
 
     def log_metrics(self, metrics, step=None) -> None:
         now = time.perf_counter()
         self.lines.append({**metrics, "step": step, "seconds": now - self.last})
+        if self.model is not None and self.first_params is None:
+            self.first_params = flat_params(self.model)
         self.last = now
+
+
+def _eager_epoch(build, dm, loss_fn, graphs_per_batch: int) -> dict:
+    """The first epoch of a fit run eagerly, step by step, on the Trainer
+    ``build(max_epochs=1)`` makes (so the fit's weights, batches and dropout
+    masks): train_step over the training batches, then eval_step over the
+    validation batches, each batch copied to the card in a prefetch thread.
+    Its seconds, train graphs/s, losses, and the parameters before and
+    after it."""
+    trainer = build(max_epochs=1)
+    model, state, gen, dev = trainer.model, trainer.state, trainer.generator, trainer.device
+
+    def staged(batches):
+        return prefetched((b.to(dev, non_blocking=True) for b in batches), depth=2)
+
+    start = flat_params(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [train_step(model, state, b, loss_fn, gen).loss for b in staged(dm.train_batches(seed=0))]
+    train_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
+    train_seconds = time.perf_counter() - t0
+    val = torch.stack([eval_step(model, b, loss_fn)[0] for b in staged(dm.val_batches())]).cpu().numpy()
+    return {
+        "seconds": time.perf_counter() - t0, "train/loss": train_loss,
+        "val/loss": float(np.mean(val, dtype=np.float64)), "steps": len(losses),
+        "train_graphs_per_s": len(losses) * graphs_per_batch / train_seconds,
+        "start": start, "params": flat_params(model),
+    }
+
+
+def fit_parity(build, dm, loss_fn) -> dict:
+    """The first FIT_PARITY_STEPS training steps of a fit and its
+    validation batches, captured (a Trainer from ``build`` with
+    scan_chunk_size FIT_CHUNK: a chunk's first call runs eagerly and
+    captures, the rest replay) and run eagerly step by step (train_step,
+    eval_step) from the same weights and generator seed, both under
+    torch.use_deterministic_algorithms (main sets CUBLAS_WORKSPACE_CONFIG,
+    which it needs): whether the parameters, the generators' states, the
+    training losses (averaged as the Trainer does) and the validation loss
+    (evaluated twice, the second time all replays) are equal bit for bit,
+    and the parameters' distance besides."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager = build(max_epochs=1)
+        dev = eager.device
+        start = flat_params(eager.model)
+        batches = itertools.islice(dm.train_batches(seed=0), FIT_PARITY_STEPS)
+        losses = [train_step(eager.model, eager.state, b.to(dev), loss_fn, eager.generator).loss for b in batches]
+        chunks = [torch.stack(losses[i : i + FIT_CHUNK]).mean() for i in range(0, len(losses), FIT_CHUNK)]
+        eager_train = float(np.average(torch.stack(chunks).cpu().numpy(), weights=[FIT_CHUNK] * len(chunks)))
+        val = torch.stack([eval_step(eager.model, b.to(dev), loss_fn)[0] for b in dm.val_batches()])
+        eager_val = float(np.mean(val.cpu().numpy(), dtype=np.float64))
+        captured = build(max_epochs=1, scan_chunk_size=FIT_CHUNK, max_steps_per_epoch=FIT_PARITY_STEPS)
+        train = captured.train_epoch(dm.train_batches(seed=0), 0)["train/loss"]
+        val_loss = [captured.eval_epoch(dm.val_batches())["val/loss"] for _ in range(2)]
+        calls = captured.train_graphs.call, captured.eval_graphs.call
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got, want = flat_params(captured.model), flat_params(eager.model)
+    return {
+        "steps": len(losses), "train_replays": calls[0].replays, "eval_replays": calls[1].replays,
+        "params_equal": torch.equal(got, want),
+        "generator_equal": torch.equal(captured.generator.get_state(), eager.generator.get_state()),
+        "train_loss": [train, eager_train], "val_loss": [*val_loss, eager_val],
+        "param_gap": param_gap(got, want, start, FIT_LR, len(losses)),
+    }
+
+
+def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict) -> None:
+    """What every captured fit must show: the wrappers counted the kernels
+    of each graph's first call only (its eager run and the capture's
+    records: twice a layer's K1, K2 and fp32 K3 launches for each training
+    batch captured, K1 and K2 for each evaluation batch), so every other
+    chunk ran as a replay; the traced replays of a train chunk and an eval
+    chunk run K1, K2 and the fp32 K3 once a layer a step (K3 not in
+    evaluation), as the profiled eager step does; the parity run's
+    captured steps equal its eager ones bit for bit (fit_parity), with
+    replays among them; the first epoch's losses are the eager epoch's
+    within FIT_EAGER_RTOL[name]."""
+    g = results["graphs"]
+    train, evals = 2 * layers * g["train_captured_batches"], 2 * layers * g["eval_captured_batches"]
+    want = {"K1": train + evals, "K2": train + evals, "K3_bf16": 0, "K3_fp32": train}
+    check(results["launches"] == want, f"{name}: launches {results['launches']}, want {want} (graphs {g})")
+    chunk = layers * FIT_CHUNK
+    traced = {
+        "profile": {"K1": layers, "K2": layers, "K3_bf16": 0, "K3_fp32": layers},
+        "profile_captured": {"K1": chunk, "K2": chunk, "K3_bf16": 0, "K3_fp32": chunk},
+        "profile_eval_captured": {"K1": chunk, "K2": chunk, "K3_bf16": 0, "K3_fp32": 0},
+    }
+    for key, want in traced.items():
+        check(results[key]["launches"] == want, f"{name}: {key} launches {results[key]['launches']}, want {want}")
+    parity = results["parity"]
+    check(parity["params_equal"] and parity["generator_equal"] and parity["train_loss"][0] == parity["train_loss"][1]
+          and len(set(parity["val_loss"])) == 1 and parity["train_replays"] > 0
+          and parity["eval_replays"] > 0 and parity["steps"] == FIT_PARITY_STEPS,
+          f"{name}: deterministic parity, captured vs eager: {parity}")
+    eager = results["eager_epoch"]
+    for k in ("train/loss", "val/loss"):
+        rel = abs(first_epoch[k] - eager[k]) / abs(eager[k])
+        check(rel <= FIT_EAGER_RTOL[name], f"{name}: epoch 0 {k} {first_epoch[k]} captured, {eager[k]} eager")
+
+
+def _fit_record(trainer, clock: EpochClock, eager: dict, lr: float) -> dict:
+    """A captured fit's kernel counts (read by the caller), its graphs, and
+    its first epoch's parameters against the eager epoch's."""
+    train, evals = trainer.train_graphs.call, trainer.eval_graphs.call
+    eager = dict(eager)
+    start, params = eager.pop("start"), eager.pop("params")
+    return {
+        "eager_epoch": eager,
+        "graphs": {
+            "train_captures": train.captures, "train_captured_batches": train.captured_batches,
+            "train_replays": train.replays, "eval_captures": evals.captures,
+            "eval_captured_batches": evals.captured_batches, "eval_replays": evals.replays,
+        },
+        "param_gap": param_gap(clock.first_params, params, start, lr, eager["steps"]),
+    }
+
+
+def _profile_steps(trainer, dm, loss_fn, layers: int) -> dict:
+    """One warm eager training step, and one replay each of the trainer's
+    captured train chunk and eval chunk (FIT_CHUNK batches of the fit's
+    shapes), each under torch.profiler, which reads the kernels each ran
+    from its trace (profile_kernels)."""
+    train = [b.pinned() for b in itertools.islice(dm.train_batches(seed=0), FIT_CHUNK)]
+    val = [b.pinned() for b in itertools.islice(dm.val_batches(), FIT_CHUNK)]
+    dev_batch = next(dm.train_batches(seed=0)).to(torch.device("cuda"))
+    eager = lambda: train_step(trainer.model, trainer.state, dev_batch, loss_fn, trainer.generator)  # noqa: E731
+    replay = lambda: trainer.train_graphs(train)  # noqa: E731
+    replay_eval = lambda: trainer.eval_graphs(val)  # noqa: E731
+    for fn in (eager, replay, replay_eval):  # warm, and captured where the graphs were dropped
+        fn()
+    chunk = layers * FIT_CHUNK
+    return {
+        "chunk_steps": FIT_CHUNK,
+        "profile": profile_kernels(eager, {"K1": layers, "K2": layers, "K3": layers}),
+        "profile_captured": profile_kernels(replay, {"K1": chunk, "K2": chunk, "K3": chunk}),
+        "profile_eval_captured": profile_kernels(replay_eval, {"K1": chunk, "K2": chunk, "K3": 0}),
+    }
 
 
 def phase_nms_fit(dm, ckpt_dir: str) -> dict:
     """The NMS path: the full-width NMS model with the experiment's defaults
-    (fp32, dropout 0.1, Adam at 1e-4) fitted by the Trainer for NMS_EPOCHS
-    epochs with checkpoints; a new Trainer resumes from the last checkpoint
-    to epoch NMS_RESUME_EPOCHS and tests the best checkpoint; then one warm
-    step under torch.profiler.  Every kernel count is set to 0 just before
-    the fit and read just after it; each training step's launches are read
-    around it."""
-    per_step = []
-    real_step = trainer_module.train_step
+    (fp32, dropout 0.1, Adam at 1e-4) fitted by the Trainer with
+    scan_chunk_size FIT_CHUNK (each full chunk of training or validation
+    batches one replay of a CUDA graph) for NMS_EPOCHS epochs with
+    checkpoints; a new Trainer resumes from the last checkpoint to epoch
+    NMS_RESUME_EPOCHS and tests the best checkpoint; beside it the first
+    epoch of the same fit run eagerly (_eager_epoch); then one warm eager
+    step and one replay of a train and an eval chunk under torch.profiler
+    (_profile_steps).  Every kernel count is set to 0 just before the fit
+    and read just after it (_fit_checks)."""
+    layers = nms_configs()[0].num_encoder_layers
+    build = lambda seed=SEED, **kw: build_nms_trainer(seed, "cuda", lr=FIT_LR, **kw)  # noqa: E731
+    eager = _eager_epoch(build, dm, nms_loss, NMS_BATCH)
+    parity = fit_parity(build, dm, nms_loss)
+    clock = EpochClock()
+    trainer = build(max_epochs=NMS_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock], scan_chunk_size=FIT_CHUNK)
+    clock.model = trainer.model
+    gc.collect()  # the eager and parity runs' trainers: their memory is not the fit's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    clock.last = time.perf_counter()
+    trainer.fit(dm)
+    torch.cuda.synchronize()
+    results = {"launches": dict(zip(KERNEL_COUNTS, launch_counts()))}
+    results["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    steps = trainer.state.step
+    results["steps"] = steps
+    results.update(_fit_record(trainer, clock, eager, FIT_LR), parity=parity)
 
-    def counted_step(*args, **kw):
-        before = launch_counts()
-        result = real_step(*args, **kw)
-        per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
-        return result
-
-    results = {}
-    trainer_module.train_step = counted_step
-    try:
-        clock = EpochClock()
-        trainer = build_nms_trainer(SEED, "cuda", max_epochs=NMS_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        clock.last = time.perf_counter()
-        trainer.fit(dm)
-        torch.cuda.synchronize()
-        results["launches"] = dict(zip(KERNEL_COUNTS, launch_counts()))
-        results["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        steps = trainer.state.step
-        results["steps"] = steps
-        results["launches_per_step"] = sorted(set(per_step))
-
-        resumed_clock = EpochClock()
-        resumed = build_nms_trainer(
-            SEED + 1, "cuda", max_epochs=NMS_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock]
-        )
-        resumed.load_checkpoint_state(resumed.ckpt.restore_last(map_location="cuda"))
-        same = all(torch.equal(p, q) for p, q in zip(trainer.model.parameters(), resumed.model.parameters()))
-        results["resumed_step"] = resumed.state.step
-        results["resumed_weights_equal"] = same
-        resumed.fit(dm, resume=True)
-        best = resumed.restore_best()
-        logged = resumed.ckpt.metrics(best)["val/loss"]
-        again = resumed.eval_epoch(dm.val_batches())["val/loss"]
-        test = resumed.test(dm)
-        torch.cuda.synchronize()
-    finally:
-        trainer_module.train_step = real_step
+    resumed_clock = EpochClock()
+    resumed = build(
+        seed=SEED + 1, max_epochs=NMS_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
+        scan_chunk_size=FIT_CHUNK,
+    )
+    resumed.load_checkpoint_state(resumed.ckpt.restore_last(map_location="cuda"))
+    same = all(torch.equal(p, q) for p, q in zip(trainer.model.parameters(), resumed.model.parameters()))
+    results["resumed_step"] = resumed.state.step
+    results["resumed_weights_equal"] = same
+    resumed.fit(dm, resume=True)
+    best = resumed.restore_best()
+    logged = resumed.ckpt.metrics(best)["val/loss"]
+    again = resumed.eval_epoch(dm.val_batches())["val/loss"]
+    test = resumed.test(dm)
+    torch.cuda.synchronize()
     epochs = clock.lines + resumed_clock.lines[:-1]
     results.update({
         "epochs": [
@@ -1105,10 +1506,7 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
         "final_step": resumed.state.step,
     })
     check(results["final_step"] == steps * NMS_RESUME_EPOCHS // NMS_EPOCHS, "nms-fit: resumed steps")
-    batch = next(dm.train_batches(seed=0)).to(torch.device("cuda"))
-    warm = lambda: train_step(resumed.model, resumed.state, batch, nms_loss, resumed.generator)  # noqa: E731
-    warm()
-    results["profile"] = device_profile(warm)
+    results.update(_profile_steps(resumed, dm, nms_loss, layers))
     print("phase nms-fit: " + json.dumps(results), flush=True)
 
     wanted = ("train/loss", "val/loss", "val/RMSE", "val/CosineSimilarity")
@@ -1117,11 +1515,7 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
     check(all(k in test and math.isfinite(test[k]) for k in ("test/loss", "test/RMSE", "test/CosineSimilarity")),
           f"nms-fit: test metrics {test}")
     check([line["epoch"] for line in epochs] == list(range(NMS_RESUME_EPOCHS)), "nms-fit: epochs run")
-    layers = nms_configs()[0].num_encoder_layers
-    want = (layers, layers, 0, layers)
-    check(results["launches_per_step"] == [want],
-          f"nms-fit: launches {KERNEL_COUNTS} per step {results['launches_per_step']}, want {want}")
-    check(results["launches"]["K3_fp32"] == layers * steps, f"nms-fit: K3 launches {results['launches']}")
+    _fit_checks("nms-fit", results, layers, epochs[0])
     check(results["resumed_step"] == steps and same, "nms-fit: the resumed state is not the saved one")
     check(abs(again - logged) <= NMS_VAL_RTOL * abs(logged),
           f"nms-fit: best checkpoint's val/loss {again} against {logged} logged")
@@ -1207,39 +1601,31 @@ def phase_rs_check(dm) -> dict:
 
 def phase_rs_fit(dm, ckpt_dir: str):
     """The RS path: the full-width RS model with the experiment's defaults
-    (fp32, dropout 0.1, Adam at 1e-4, seed 42) fitted by the Trainer for
-    RS_EPOCHS epochs with checkpoints, then the best checkpoint's test.
-    Every kernel count is set to 0 just before the fit and read just after;
-    each training step's launches are read around it."""
-    per_step = []
-    real_step = trainer_module.train_step
-
-    def counted_step(*args, **kw):
-        before = launch_counts()
-        result = real_step(*args, **kw)
-        per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
-        return result
-
-    clock = EpochClock()
-    trainer = build_rs_trainer(42, "cuda", max_epochs=RS_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock])
-    trainer_module.train_step = counted_step
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        clock.last = time.perf_counter()
-        trainer.fit(dm)
-        torch.cuda.synchronize()
-        launches = dict(zip(KERNEL_COUNTS, launch_counts()))
-    finally:
-        trainer_module.train_step = real_step
-    steps = trainer.state.step
-    best = trainer.restore_best()
-    test = trainer.test(dm)
+    (fp32, dropout 0.1, Adam at 1e-4, seed 42) fitted by the Trainer with
+    scan_chunk_size FIT_CHUNK for RS_EPOCHS epochs with checkpoints, then
+    the best checkpoint's test; beside it the first epoch of the same fit
+    run eagerly (_eager_epoch).  Every kernel count is set to 0 just before
+    the fit and read just after; rs-profile checks them (_fit_checks)."""
+    build = lambda **kw: build_rs_trainer(42, "cuda", lr=FIT_LR, **kw)  # noqa: E731
     graphs = dm.bucket().num_graphs
+    eager = _eager_epoch(build, dm, rs_loss, graphs)
+    parity = fit_parity(build, dm, rs_loss)
+    clock = EpochClock()
+    trainer = build(max_epochs=RS_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock], scan_chunk_size=FIT_CHUNK)
+    clock.model = trainer.model
+    gc.collect()  # the eager and parity runs' trainers: their memory is not the fit's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    clock.last = time.perf_counter()
+    trainer.fit(dm)
+    torch.cuda.synchronize()
+    launches = dict(zip(KERNEL_COUNTS, launch_counts()))
+    steps = trainer.state.step
     results = {
         "launches": launches,
-        "launches_per_step": sorted(set(per_step)),
+        **_fit_record(trainer, clock, eager, FIT_LR),
+        "parity": parity,
         "steps": steps,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "epochs": [
@@ -1247,9 +1633,9 @@ def phase_rs_fit(dm, ckpt_dir: str):
             | {"train_graphs_per_s": line["train/steps_per_sec"] * graphs}
             for line in clock.lines[:RS_EPOCHS]
         ],
-        "best_step": best,
-        "test": test,
     }
+    results["best_step"] = trainer.restore_best()
+    results["test"] = test = trainer.test(dm)
     print("phase rs-fit: " + json.dumps(results), flush=True)
     wanted = ("train/loss", "val/loss", "val/Accuracy", "val/F1")
     check([line["epoch"] for line in results["epochs"]] == list(range(RS_EPOCHS)), "rs-fit: epochs run")
@@ -1257,47 +1643,55 @@ def phase_rs_fit(dm, ckpt_dir: str):
         check(all(k in line and math.isfinite(line[k]) for k in wanted), f"rs-fit: epoch line {line}")
     check(all(k in test and math.isfinite(test[k]) for k in ("test/loss", "test/Accuracy", "test/F1")),
           f"rs-fit: test metrics {test}")
-    layers = rs_configs()[0].num_encoder_layers
-    want = (layers, layers, 0, layers)
-    check(results["launches_per_step"] == [want],
-          f"rs-fit: launches {KERNEL_COUNTS} per step {results['launches_per_step']}, want {want}")
     check(results["steps"] == RS_EPOCHS * len(dm.sampler("train")), f"rs-fit: {results['steps']} steps")
-    check(launches["K3_fp32"] == layers * results["steps"], f"rs-fit: K3 launches {launches}")
     print("phase rs-fit: ok")
     return trainer, results
 
 
-def phase_rs_profile(trainer, dm) -> dict:
-    """One warm RS training step of the fitted model under torch.profiler."""
-    batch = next(dm.train_batches(seed=0)).to(torch.device("cuda"))
-    warm = lambda: train_step(trainer.model, trainer.state, batch, rs_loss, trainer.generator)  # noqa: E731
-    warm()
-    results = device_profile(warm)
-    print("phase rs-profile: ok " + json.dumps(results))
+def phase_rs_profile(trainer, dm, fit: dict) -> dict:
+    """One warm eager RS training step of the fitted model and one replay
+    of its captured train and eval chunks under torch.profiler; then the
+    rs-fit's checks that read them (_fit_checks)."""
+    layers = rs_configs()[0].num_encoder_layers
+    results = _profile_steps(trainer, dm, rs_loss, layers)
+    print("phase rs-profile: " + json.dumps(results), flush=True)
+    _fit_checks("rs-fit", {**fit, **results}, layers, fit["epochs"][0])
+    print("phase rs-profile: ok")
     return results
 
 
 def kernel_line(report) -> dict:
     """The contract line: K1 and K2 at bf16 (the production precision) on
     the tile-aligned layout the main path uses, fp32 and K1's CSR layout
-    beside them, launches from the bf16 training run (the prediction run's
-    beside them); K3 as its two instantiations, bf16 (launched by the bf16
-    training run) and fp32 (split TF32, launched by the fp32 training
-    run).  Under "nms", each kernel at the NMS step's shape and its
-    launches a step of the NMS fit, read by dtype (the fit is fp32, so the
-    bf16 K3's count is 0); under "rs" the same at the RS step's shape and
-    the RS fit."""
+    beside them; ``launches`` the wrappers' count over the captured bf16
+    training run (its first step's eager launches and the capture's
+    records), ``replay_launches_traced`` the kernels one replay of that
+    graph ran, read from its trace, beside the run's ``replays``; the
+    prediction run's count beside them; K3 as its two instantiations, bf16
+    (the bf16 training run) and fp32 (split TF32, the fp32 training run).
+    Under "nms", each kernel at the NMS step's shape and its launches a
+    step of the NMS fit, read from the trace of one replay of a train chunk
+    (FIT_CHUNK steps) by instantiation (the fit is fp32, so the bf16 K3's
+    count is 0); under "rs" the same at the RS step's shape and the RS
+    fit."""
     k1, k2, k3 = report["K1"], report["K2"], report["K3"]
     forward, train, train_fp32 = report["forward"], report["train"], report["train_fp32"]
-    nk, nms_steps = report["nms_kernels"], report["nms_fit"]["launches_per_step"][0]
-    rk, rs_steps = report["rs_kernels"], report["rs_fit"]["launches_per_step"][0]
+    nk, rk = report["nms_kernels"], report["rs_kernels"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     replaces_k3 = "gcpnet_tpu/ops/pallas_fused.py:175"
 
-    def row(name, source, replaces, launches, main, dtype, **extra):
+    def per_step(profiles):
+        traced = profiles["profile_captured"]["launches"]
+        return {k: n / profiles["chunk_steps"] for k, n in traced.items()}
+
+    nms_steps, rs_steps = per_step(report["nms_fit"]), per_step(report["rs_profile"])
+
+    def row(name, source, replaces, run, count, main, dtype, **extra):
         return {
             "name": name, "route": "cuda", "source": f"gcpnet_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches, **{k: main[k] for k in keys}, "dtype": dtype, **extra,
+            "launches": run["launches"][count], **{k: main[k] for k in keys}, "dtype": dtype,
+            "replay_launches_traced": run["profile_captured"]["launches"][count], "replays": run["replays"],
+            **extra,
         }
 
     def nms(results, launches_per_step, **by_dtype):
@@ -1308,29 +1702,28 @@ def kernel_line(report) -> dict:
 
     return {
         "kernels": [
-            row("segment_sum_sorted", "segment_sorted.cu", "gcpnet_tpu/ops/pallas_segment.py:160",
-                train["launches"]["K1"], k1["tile128_bf16"], "bf16",
-                forward_launches=forward["launches"]["K1"],
+            row("segment_sum_sorted", "segment_sorted.cu", "gcpnet_tpu/ops/pallas_segment.py:160", train, "K1",
+                k1["tile128_bf16"], "bf16", forward_launches=forward["launches"]["K1"],
                 **{f"fp32_{k}": k1["tile128_fp32"][k] for k in keys},
                 **{f"csr_{k}": k1["tile1_bf16"][k] for k in keys},
                 **{f"csr_fp32_{k}": k1["tile1_fp32"][k] for k in keys},
-                nms=nms(nk["K1"], nms_steps[0], fp32="tile1_fp32", bf16="tile1_bf16"),
-                rs=nms(rk["K1"], rs_steps[0], fp32="tile1_fp32", bf16="tile1_bf16")),
-            row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train["launches"]["K2"],
+                nms=nms(nk["K1"], nms_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
+                rs=nms(rk["K1"], rs_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
+            row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train, "K2",
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
                 bound_rate=k2["bf16"]["bound_rate"],
                 **{f"fp32_{k}": k2["fp32"][k] for k in (*keys, "bound_rate")},
-                nms=nms(nk["K2"], nms_steps[1], fp32="fp32", bf16="bf16"),
-                rs=nms(rk["K2"], rs_steps[1], fp32="fp32", bf16="bf16")),
-            row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train["launches"]["K3_bf16"],
+                nms=nms(nk["K2"], nms_steps["K2"], fp32="fp32", bf16="bf16"),
+                rs=nms(rk["K2"], rs_steps["K2"], fp32="fp32", bf16="bf16")),
+            row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train, "K3_bf16",
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3_bf16"],
-                bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps[2], bf16="bf16"),
-                rs=nms(rk["K3"], rs_steps[2], bf16="bf16")),
-            row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32["launches"]["K3_fp32"],
+                bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps["K3_bf16"], bf16="bf16"),
+                rs=nms(rk["K3"], rs_steps["K3_bf16"], bf16="bf16")),
+            row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32, "K3_fp32",
                 k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"],
                 bound_ms_cuda_cores=k3["fp32"]["bound_ms_cuda_cores"],
-                nms=nms(nk["K3"], nms_steps[3], fp32="fp32"),
-                rs=nms(rk["K3"], rs_steps[3], fp32="fp32")),
+                nms=nms(nk["K3"], nms_steps["K3_fp32"], fp32="fp32"),
+                rs=nms(rk["K3"], rs_steps["K3_fp32"], fp32="fp32")),
         ]
     }
 
@@ -1346,6 +1739,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's checks need the card", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # cuBLAS reads it when it makes its first handle; deterministic
+    # algorithms (fit_parity) refuse cuBLAS without it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     os.makedirs(args.out_dir, exist_ok=True)
     # the simulated NMS splits (~70 MB) and checkpoints are removed at the end
     work = tempfile.mkdtemp(prefix="chip_smoke_nms_")
@@ -1362,22 +1758,23 @@ def main() -> int:
         report["K1"] = phase_k1({128: batches[0], 1: csr})
         report["K2"] = phase_k2(batches[0], bench_message_passing())
         report["K3"] = phase_k3(batches[0], bench_message_passing())
+        # every K1 timing (device_ms) before the first CUDA graph
+        dm, report["nms_data"] = phase_nms_data(data_root)
+        report["nms_kernels"] = phase_nms_kernels(dm)
+        rs_dm, report["rs_data"] = phase_rs_data()
+        report["rs_kernels"] = phase_rs_kernels(rs_dm)
         report["forward"] = phase_forward(batches)
         report["train"] = phase_train(batches[0])
         report["train_fp32"] = phase_train(batches[0], torch.float32)
         report["train_check"] = phase_train_check()
         report["bf16_check"] = phase_bf16_check()
         report["profile"] = phase_profile(batches)
-        dm, report["nms_data"] = phase_nms_data(data_root)
-        report["nms_kernels"] = phase_nms_kernels(dm)
         report["nms_check"] = phase_nms_check(data_root)
         report["nms_fit"] = phase_nms_fit(dm, ckpt_dir)
         del dm
-        rs_dm, report["rs_data"] = phase_rs_data()
-        report["rs_kernels"] = phase_rs_kernels(rs_dm)
         report["rs_check"] = phase_rs_check(rs_dm)
         rs_trainer, report["rs_fit"] = phase_rs_fit(rs_dm, rs_ckpt_dir)
-        report["rs_profile"] = phase_rs_profile(rs_trainer, rs_dm)
+        report["rs_profile"] = phase_rs_profile(rs_trainer, rs_dm, report["rs_fit"])
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

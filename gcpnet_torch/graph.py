@@ -104,7 +104,19 @@ class GraphBatch:
         type), masks as bool.  With ``non_blocking`` a copy to the card goes
         from pinned host memory and returns before it completes (it runs on
         the current stream, ahead of the work queued after it)."""
-        pin = non_blocking and torch.device(device).type == "cuda"
+        if non_blocking and torch.device(device).type == "cuda":
+            return self._map(lambda t: t.pin_memory().to(device, non_blocking=True), dtype)
+        return self._map(lambda t: t.to(device), dtype)
+
+    def pinned(self, dtype: torch.dtype = torch.float32) -> "GraphBatch":
+        """Torch tensors in pinned host memory, converted as :meth:`to`
+        converts them: the source of a copy to the card that does not
+        block (``train.graphs.BatchSlots.fill``)."""
+        return self._map(lambda t: t.pin_memory(), dtype)
+
+    def _map(self, fn, dtype: torch.dtype) -> "GraphBatch":
+        """``fn`` of every array as a torch tensor converted as :meth:`to`
+        describes (``None`` stays ``None``)."""
 
         def conv(name, a):
             if a is None:
@@ -116,9 +128,7 @@ class GraphBatch:
                 t = t.to(dtype)
             elif t.dtype != torch.bool:
                 t = t.to(torch.int64)
-            if pin:
-                return t.pin_memory().to(device, non_blocking=True)
-            return t.to(device)
+            return fn(t)
 
         fields = {
             f.name: conv(f.name, getattr(self, f.name))
@@ -127,6 +137,13 @@ class GraphBatch:
         }
         fields["extras"] = {k: conv(k, v) for k, v in self.extras.items()}
         return GraphBatch(**fields)
+
+    def tensors(self) -> Dict[str, Any]:
+        """Every array by name, ``extras`` as ``extras.<key>`` in sorted
+        order (``None`` for an absent optional array)."""
+        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self) if f.name != "extras"}
+        out.update({f"extras.{k}": self.extras[k] for k in sorted(self.extras)})
+        return out
 
 
 @dataclasses.dataclass

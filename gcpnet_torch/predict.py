@@ -7,7 +7,9 @@ of flax parameter paths, see ``gcpnet_torch.weights``), and answers
 ``--batches`` synthetic LBA-shaped batches, printing one JSON line of
 predictions per batch.  The batches are receiver-sorted, so the forward pass
 runs through the edge-map (K2) and sorted segment-sum (K1) kernels on the
-card.  It runs on the card unless ``--device cpu`` is given.
+card, where the forward is a CUDA graph captured for the batch shape and
+the model's dtype and replayed for every batch (:class:`Predictor`).  It
+runs on the card unless ``--device cpu`` is given.
 
 The synthetic graphs copy the JAX benchmark's generator: ATOM3D-LBA-shaped
 graphs with in-degrees uniform around the mean (24..32 for a mean of 28)
@@ -17,6 +19,7 @@ and random senders.  Real LBA inputs wait for the ATOM3D data.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 from typing import List, Optional, Sequence
 
@@ -28,6 +31,7 @@ from gcpnet_torch.data.batching import Bucket, collate_shards
 from gcpnet_torch.device import DeviceLike, resolve_device
 from gcpnet_torch.graph import GraphBatch, GraphData
 from gcpnet_torch.models.lba import GCPNetLBA
+from gcpnet_torch.train.graphs import CapturedCall
 from gcpnet_torch.weights import from_jax_params
 
 # spare edge rows for the 128-row tile alignment of the sorted layout
@@ -121,10 +125,49 @@ def build_model(
 
 @torch.inference_mode()
 def predict(model: GCPNetLBA, batch: GraphBatch) -> torch.Tensor:
-    """One forward pass over a host batch: ``[num_graphs]`` predictions on
-    the model's device, in its dtype."""
+    """One eager forward pass over a host batch: ``[num_graphs]``
+    predictions on the model's device, in its dtype."""
     param = next(model.parameters())
     return model(batch.to(param.device, param.dtype))
+
+
+class Predictor:
+    """The serving forward of ``model``: on the card one replay of a CUDA
+    graph captured per batch shape (and the model's dtype,
+    ``train.graphs.CapturedCall``), its input copied from pinned host
+    memory; on the CPU :func:`predict`.
+
+    Under inference mode the layers' packed weights (and K2's weight
+    images) are made in the eager first call and cached, and a graph reads
+    the cache.  So each call compares every parameter's and buffer's
+    address and version with those the graphs were captured with, and
+    drops the graphs where any changed (``load_state_dict``, an optimizer
+    step, ``model.to``)."""
+
+    def __init__(self, model: GCPNetLBA):
+        self.model = model
+        param = next(model.parameters())
+        self.graphs = None
+        self._weights = None
+        if param.device.type == "cuda":
+            self.graphs = CapturedCall(lambda batches: tuple(model(b) for b in batches), param.device)
+
+    def _weights_key(self) -> tuple:
+        # as ``GCPMessagePassing.packed_stack``: inference tensors keep no version
+        tensors = itertools.chain(self.model.parameters(), self.model.buffers())
+        return tuple((t.data_ptr(), 0 if t.is_inference() else t._version) for t in tensors)
+
+    @torch.inference_mode()
+    def __call__(self, batch: GraphBatch) -> torch.Tensor:
+        """``[num_graphs]`` predictions of a host batch, on the model's
+        device, in its dtype."""
+        if self.graphs is None:
+            return predict(self.model, batch)
+        weights = self._weights_key()
+        if weights != self._weights:
+            self.graphs.clear()
+            self._weights = weights
+        return self.graphs([batch.pinned(next(self.model.parameters()).dtype)])[0]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -144,8 +187,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     batches = synthetic_batches(
         args.batches, args.graphs, args.nodes, args.edges_per_node, args.seed
     )
+    predictor = Predictor(model)
     for i, batch in enumerate(batches):
-        preds = predict(model, batch).float().cpu()[torch.as_tensor(batch.graph_pad_mask)]
+        preds = predictor(batch).float().cpu()[torch.as_tensor(batch.graph_pad_mask)]
         print(json.dumps({"batch": i, "predictions": preds.tolist()}), flush=True)
 
 

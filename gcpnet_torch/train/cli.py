@@ -6,8 +6,10 @@ interaction layers of 8-layer message stacks, dropout 0.1) from ``--seed``,
 with float32 master weights, and takes ``--steps`` Adam steps (``--lr``,
 1e-4 as in the benchmark) on ``--batches`` synthetic LBA batches
 (``predict.synthetic_batches``, used in turn), computing in ``--dtype``
-(``bf16``: bf16 copies of the masters, the benchmark's policy).  Prints one
-JSON line per step: step, loss, gradient norm, milliseconds.
+(``bf16``: bf16 copies of the masters, the benchmark's policy).  On the
+card each step is one replay of a CUDA graph of the step
+(``train.graphs.TrainSteps``).  Prints one JSON line per step: step, loss,
+gradient norm, whether the update was applied, milliseconds.
 
 ``--task nms``: fits the NMS model on simulated Newtonian many-body data
 through the :class:`~gcpnet_torch.train.trainer.Trainer`, with the defaults
@@ -28,7 +30,9 @@ stacks with leaky relu, dropout 0.1, Adam at 1e-4, seed 42, batches of 64
 anchors each paired with its opposite enantiomer, at least 1 and at most
 1,000 epochs, early stopping after 10 epochs without a better
 ``val/loss``, the best 30 checkpoints), printing as ``--task nms`` does;
-its metrics are ``Accuracy`` and ``F1``.
+its metrics are ``Accuracy`` and ``F1``.  ``--scan-chunk-size k`` (the JAX
+trainer's ``trainer.scan_chunk_size``) runs each k training or validation
+batches in one dispatch: on the card one replay of a CUDA graph of k steps.
 
 The batches are receiver-sorted, so on the card every step runs the sorted
 segment sum (K1) and the edge map (K2) forward and the edge map's backward
@@ -53,6 +57,7 @@ from gcpnet_torch.models.lba import GCPNetLBA, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
 from gcpnet_torch.predict import DTYPES, lba_configs, synthetic_batches
+from gcpnet_torch.train.graphs import TrainSteps
 from gcpnet_torch.train.optim import build_optimizer
 from gcpnet_torch.train.state import GradNormRing, TrainState
 from gcpnet_torch.train.step import train_step
@@ -184,6 +189,7 @@ def _main_fit(args) -> None:
         args.seed, device, num_encoder_layers=args.num_encoder_layers, lr=args.lr,
         max_epochs=args.max_epochs, min_epochs=args.min_epochs, checkpoint_dir=args.checkpoint_dir,
         precision=args.precision, adaptive_clip=args.adaptive_clip, loggers=[JsonLines()],
+        scan_chunk_size=args.scan_chunk_size,
     )
     trainer.fit(dm, resume=args.resume)
     trainer.restore_best()
@@ -195,21 +201,22 @@ def _main_lba(args) -> None:
     model, state = build_lba_training(
         args.seed, device, DTYPES[args.dtype], lr=args.lr, adaptive_clip=args.adaptive_clip
     )
-    batches = [
-        b.to(device)
-        for b in synthetic_batches(args.batches, args.graphs, args.nodes, args.edges_per_node, args.seed)
-    ]
+    host = synthetic_batches(args.batches, args.graphs, args.nodes, args.edges_per_node, args.seed)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    if device.type == "cuda":
+        steps = TrainSteps(model, state, graph_regression_loss, generator)
+        batches = [b.pinned() for b in host]
+        run = lambda batch: steps([batch])  # noqa: E731
+    else:
+        batches = [b.to(device) for b in host]
+        run = lambda batch: train_step(model, state, batch, graph_regression_loss, generator)  # noqa: E731
     for step in range(args.steps):
         t0 = time.perf_counter()
-        result = train_step(model, state, batches[step % len(batches)], graph_regression_loss, generator)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        ms = (time.perf_counter() - t0) * 1e3
-        print(json.dumps({
-            "step": step, "loss": result.loss.item(), "grad_norm": result.grad_norm.item(),
-            "updated": result.ok, "ms": ms,
-        }), flush=True)
+        result = run(batches[step % len(batches)])
+        # the line's own reads of the step's results wait for it
+        line = {"step": step, "loss": result.loss.item(), "grad_norm": result.grad_norm.item(),
+                "updated": bool(result.ok.item())}
+        print(json.dumps({**line, "ms": (time.perf_counter() - t0) * 1e3}), flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -240,6 +247,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     fit.add_argument("--checkpoint-dir", default=None)
     fit.add_argument("--resume", action="store_true", help="go on from --checkpoint-dir's last checkpoint")
     fit.add_argument("--precision", type=int, choices=(32, 16), default=32)
+    fit.add_argument("--scan-chunk-size", type=int, default=1,
+                     help="training and validation batches a dispatch (the JAX trainer.scan_chunk_size)")
     args = parser.parse_args(argv)
     if args.seed is None:
         args.seed = 0 if args.task == "lba" else 42

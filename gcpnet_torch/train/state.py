@@ -3,8 +3,9 @@ gradient norms behind the adaptive clip.
 
 Port of ``gcpnet_tpu/train/state.py``.  The ring lives on the device as
 torch tensors and is updated in place (the JAX package's is an immutable
-pytree); the reference's rule is "max_norm = 1.5 * mean + 2 * std of the
-last 1000 gradient norms".
+pytree), so that a captured training step keeps writing the tensors it was
+captured with; the reference's rule is "max_norm = 1.5 * mean + 2 * std of
+the last 1000 gradient norms".
 """
 
 from __future__ import annotations
@@ -28,10 +29,17 @@ class GradNormRing:
     def capacity(self) -> int:
         return self.buffer.shape[0]
 
-    def push(self, value: Tensor) -> None:
-        self.buffer.index_put_((self.head.long().reshape(1),), value.float().reshape(1))
-        self.count = torch.clamp(self.count + 1, max=self.capacity)
-        self.head = (self.head + 1) % self.capacity
+    @torch.no_grad()
+    def push(self, value: Tensor, ok: Optional[Tensor] = None) -> None:
+        """Write ``value`` at the head and move on, where the boolean device
+        flag ``ok`` holds (always when ``None``); otherwise the slot, the
+        count and the head keep their values."""
+        slot = self.head.long().reshape(1)
+        if ok is None:
+            ok = torch.ones((), dtype=torch.bool, device=self.buffer.device)
+        self.buffer.index_put_((slot,), torch.where(ok, value.float(), self.buffer[slot]).reshape(1))
+        self.count.add_(ok.int()).clamp_(max=self.capacity)
+        self.head.add_(ok.int()).remainder_(self.capacity)
 
     def clip_threshold(self, std_multiplier: float = 2.0) -> Tensor:
         """``1.5 * mean + k * std`` over the filled part; ``inf`` while empty,
@@ -52,7 +60,9 @@ class TrainState:
     ``compute_dtype`` is the dtype the forward and backward run in
     (bfloat16: bf16 copies of the masters, the JAX package's
     ``precision=16`` policy); ``ring`` is ``None`` without the adaptive
-    clip; ``scheduler`` an optional LR schedule stepped per update."""
+    clip; ``scheduler`` an optional LR schedule stepped per update;
+    ``lr_scale`` an optional float64 0-d device tensor that scales the
+    rate (the plateau schedule's scale, written between epochs)."""
 
     optimizer: Any
     step: int = 0
@@ -60,3 +70,4 @@ class TrainState:
     compute_dtype: torch.dtype = torch.float32
     clip_std_multiplier: float = 2.0
     scheduler: Any = None
+    lr_scale: Optional[Tensor] = None

@@ -13,9 +13,14 @@ task: the loss is the task's ``loss_fn(preds, batch) -> (loss, labels)``.
   would keep the elementwise work in float32 and is not this policy);
 - the loss is taken in float32 against the float32 labels;
 - the global gradient norm, then the optional adaptive clip from the
-  ``GradNormRing``, then the update with the learning rate times ``lr_scale``;
-- a non-finite loss or norm leaves the parameters, the optimizer's moments
-  and the schedule as they were, while the step counter advances;
+  ``GradNormRing``, then the update with the learning rate times the
+  state's ``lr_scale``;
+- as the JAX step selects (``trainer.py:302-323``), so does this one, on
+  the device: ``ok`` is a device flag (finite loss and norm), the
+  gradients are zeroed where it fails, and the parameters, the optimizer's
+  moments and count and the schedule's count move only where it holds
+  (``train.optim``); nothing is read back to the host, so a CUDA graph
+  captured around :func:`apply_step` replays it (``train.graphs``);
 - the LR schedule counts real updates: under gradient accumulation it steps
   only when the accumulated gradients were applied (``optax.MultiSteps``
   wraps the whole chain, schedule included).
@@ -44,7 +49,7 @@ LossFn = Callable[[Tensor, GraphBatch], Tuple[Tensor, Tensor]]
 class StepResult:
     loss: Tensor  # float32 scalar on the device
     grad_norm: Tensor  # float32 scalar on the device, before the clip
-    ok: bool  # the update was applied (finite loss and norm)
+    ok: Tensor  # bool scalar on the device: the update was applied (finite loss and norm)
 
 
 def global_norm(tensors) -> Tensor:
@@ -54,21 +59,18 @@ def global_norm(tensors) -> Tensor:
     )
 
 
-def train_step(
+def apply_step(
     model: torch.nn.Module,
     state: TrainState,
     batch: GraphBatch,
     loss_fn: LossFn,
     generator: Optional[torch.Generator] = None,
-    lr_scale: float = 1.0,
     deterministic: bool = False,
 ) -> StepResult:
-    """One update of ``model``'s float32 parameters for the task loss
-    ``loss_fn`` on ``batch`` (a float32 batch on the model's device).
-    Dropout masks come from ``generator`` (on the same device) unless
-    ``deterministic``."""
+    """The device work of one training step: :func:`train_step` without
+    counting the step on the host."""
     params = dict(model.named_parameters())
-    state.optimizer.zero_grad(set_to_none=True)
+    state.optimizer.zero_grad()
     kwargs = dict(deterministic=deterministic, generator=generator)
     if state.compute_dtype == torch.float32:
         preds = model(batch, **kwargs)
@@ -80,30 +82,38 @@ def train_step(
     loss.backward()
 
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params.values()]
-    for p, g in zip(params.values(), grads):
-        p.grad = g
     gnorm = global_norm(grads)
-    thr = None
+    ok = torch.isfinite(loss) & torch.isfinite(gnorm)
     if state.ring is not None:
         thr = state.ring.clip_threshold(state.clip_std_multiplier)
         scale = torch.clamp(thr / torch.clamp(gnorm, min=1e-12), max=1.0)
         torch._foreach_mul_(grads, scale)
-    ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
-    if ok:
-        if state.ring is not None:
-            state.ring.push(torch.minimum(gnorm, thr))
-        lrs = [group["lr"] for group in state.optimizer.param_groups]
-        for group in state.optimizer.param_groups:
-            group["lr"] = group["lr"] * lr_scale
-        applied = state.optimizer.step()
-        for group, lr in zip(state.optimizer.param_groups, lrs):
-            group["lr"] = lr
-        # GradientAccumulation.step says whether it applied the update; a
-        # torch optimizer's step returns None and always applies it
-        if state.scheduler is not None and applied is not False:
-            state.scheduler.step()
-    state.step += 1
+        state.ring.push(torch.minimum(gnorm, thr), ok)
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    for p, g in zip(params.values(), grads):
+        p.grad = torch.where(ok, g, zero)
+    applied = state.optimizer.step(ok, state.lr_scale)
+    if state.scheduler is not None:
+        state.scheduler.step(applied)
     return StepResult(loss.detach(), gnorm.detach(), ok)
+
+
+def train_step(
+    model: torch.nn.Module,
+    state: TrainState,
+    batch: GraphBatch,
+    loss_fn: LossFn,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = False,
+) -> StepResult:
+    """One update of ``model``'s float32 parameters for the task loss
+    ``loss_fn`` on ``batch`` (a float32 batch on the model's device), run
+    eagerly.  Dropout masks come from ``generator`` (on the same device)
+    unless ``deterministic``.  The step counter advances whether or not
+    the update was applied."""
+    result = apply_step(model, state, batch, loss_fn, generator, deterministic)
+    state.step += 1
+    return result
 
 
 @torch.no_grad()

@@ -3,14 +3,24 @@
 Port of ``gcpnet_tpu/train/trainer.py:137-712`` for one device (the device
 of the model's parameters):
 
-- ``train_epoch`` runs :func:`train_step` over the batches; the losses stay
-  on the device and are fetched once, at the end of the epoch, for their
-  mean (``train/loss``), beside ``train/steps_per_sec``;
-- a host thread makes the next batch's tensors ahead of the step, in pinned
-  memory, and starts their copy to the card without blocking; an exception
-  in that thread reaches the caller;
-- ``eval_epoch`` gives ``<prefix>/loss`` (the mean of the batch losses) and
-  the task's metrics over the collected predictions; a metric that fails is
+- ``train_epoch`` runs the training step over the batches, in chunks of
+  ``scan_chunk_size`` as the JAX loops do (``trainer.py:450-533``): each
+  full chunk of k batches is one dispatch of k steps and the tail runs
+  step by step; the losses stay on the device and are fetched once, at
+  the end of the epoch, for ``train/loss``, the average of the chunks'
+  mean losses weighted by their steps, beside ``train/steps_per_sec``;
+- on the card a dispatch is the replay of a CUDA graph that holds the
+  chunk's steps (``train.graphs``; one graph per sequence of batch
+  shapes), and the step reads nothing back to the host; on the CPU a
+  chunk is its steps run eagerly (:func:`train_step`), with the same loop
+  and weighting;
+- a host thread makes the next batches' tensors ahead of the step, in
+  pinned memory, from which a replay's input slots are filled without
+  blocking (the eager steps copy them to the device themselves); an
+  exception in that thread reaches the caller;
+- ``eval_epoch`` gives ``<prefix>/loss`` (the mean of the batch losses)
+  and the task's metrics over the collected predictions, chunked as
+  ``train_epoch`` is (``trainer.py:565-610``); a metric that fails is
   logged, not raised;
 - ``fit`` resumes from the last checkpoint when asked, validates every
   ``check_val_every_n_epoch`` epochs, keeps the best ``save_top_k``
@@ -24,8 +34,6 @@ Two differences from the JAX trainer.  A resumed ``fit`` goes on from the
 epoch after the checkpoint's (the JAX one counts its epochs from 0 again),
 so that fitting two epochs and resuming for a third gives the three-epoch
 run; and every epoch's end writes the last checkpoint, validated or not.
-The JAX trainer's ``scan_chunk_size`` (one dispatch per chunk of steps) has
-no counterpart yet: it comes with capturing the step in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -37,12 +45,14 @@ import os
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, Iterable, Iterator, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.train.checkpoints import CheckpointManager
+from gcpnet_torch.train.graphs import EvalSteps, TrainSteps
 from gcpnet_torch.train.metrics import Collector
 from gcpnet_torch.train.optim import PlateauController, build_optimizer, build_schedule
 from gcpnet_torch.train.state import GradNormRing, TrainState
@@ -119,7 +129,9 @@ class Trainer:
         loggers: Optional[list] = None,
         precision: int = 32,
         checkpoint_every_n_steps: Optional[int] = None,
+        scan_chunk_size: int = 1,
     ):
+        """``scan_chunk_size`` as the JAX trainer's (``trainer.py:164-167``)."""
         self.model = model
         self.device = next(model.parameters()).device
         self.loss_fn = loss_fn
@@ -134,6 +146,7 @@ class Trainer:
         self.metric_fns = metric_fns or {}
         self.log_dir = log_dir
         self.loggers = loggers or []
+        self.scan_chunk_size = max(1, int(scan_chunk_size))
 
         optimizer_cfg = optimizer_cfg or {"_target_": "Adam", "lr": 1e-4}
         optimizer = build_optimizer(model.parameters(), optimizer_cfg)
@@ -156,9 +169,14 @@ class Trainer:
             compute_dtype=torch.bfloat16 if half else torch.float32,
             clip_std_multiplier=clip_std_multiplier,
             scheduler=scheduler,
+            lr_scale=torch.ones((), dtype=torch.float64, device=self.device),
         )
         # dropout masks: one stream from the seed, carried in checkpoints
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 17)
+        self.train_graphs = self.eval_graphs = None
+        if self.device.type == "cuda":
+            self.train_graphs = TrainSteps(model, self.state, loss_fn, self.generator)
+            self.eval_graphs = EvalSteps(model, loss_fn)
 
         self.ckpt = None
         self.checkpoint_every_n_steps = checkpoint_every_n_steps
@@ -173,43 +191,70 @@ class Trainer:
         self.history: Dict[str, list] = {}
 
     # ------------------------------------------------------------------
-    def _device_batches(self, batches: Iterable[GraphBatch], limit: Optional[int] = None):
-        """Host batches -> device batches, made in the prefetch thread."""
+    def _staged(self, batches: Iterable[GraphBatch], limit: Optional[int] = None):
+        """``(host batch, staged batch)`` pairs, made in the prefetch
+        thread: pinned host tensors that a replay copies into its slots, or
+        on the CPU the batch's tensors on the device."""
 
         def items():
             for i, batch in enumerate(batches):
                 if limit is not None and i >= limit:
                     return
-                yield batch, batch.to(self.device, non_blocking=True)
+                if self.train_graphs is not None:
+                    yield batch, batch.pinned()
+                else:
+                    yield batch, batch.to(self.device, non_blocking=True)
 
         return prefetched(items(), depth=2)
 
+    def _chunks(self, items: Iterable) -> Iterator[List]:
+        """Runs of ``scan_chunk_size`` consecutive items, then the tail's
+        items one by one (the JAX loops' split)."""
+        chunk: List = []
+        for item in items:
+            chunk.append(item)
+            if len(chunk) == self.scan_chunk_size:
+                yield chunk
+                chunk = []
+        for item in chunk:
+            yield [item]
+
     def train_epoch(self, batches: Iterable[GraphBatch], epoch: int) -> Dict[str, float]:
-        lr_scale = self.plateau.scale if self.plateau else 1.0
-        losses = []
+        self.state.lr_scale.fill_(self.plateau.scale if self.plateau else 1.0)
+        losses, weights = [], []
         t0 = time.perf_counter()
-        for _, batch in self._device_batches(batches, self.max_steps_per_epoch):
-            result = train_step(
-                self.model, self.state, batch, self.loss_fn, self.generator, lr_scale=lr_scale
-            )
-            losses.append(result.loss)
+        for chunk in self._chunks(self._staged(batches, self.max_steps_per_epoch)):
+            staged = [b for _, b in chunk]
+            if self.train_graphs is not None:
+                chunk_losses = self.train_graphs(staged).loss
+            else:
+                chunk_losses = torch.stack([
+                    train_step(self.model, self.state, b, self.loss_fn, self.generator).loss for b in staged
+                ])
+            losses.append(chunk_losses.mean())
+            weights.append(len(chunk))
         # step-frequency checkpoints (the reference's NStepModelCheckpoint)
         if self.ckpt is not None and self.checkpoint_every_n_steps:
             if self.state.step - self._last_step_ckpt >= self.checkpoint_every_n_steps:
                 self._last_step_ckpt = self.state.step
                 self.ckpt.save(self.state.step, self.checkpoint_state(), {"step": float(self.state.step)})
         # one fetch of the epoch's losses, which also waits for its steps
-        mean = torch.stack(losses).mean().item() if losses else float("nan")
+        mean = float(np.average(torch.stack(losses).cpu().numpy(), weights=weights)) if losses else float("nan")
         dt = time.perf_counter() - t0
-        return {"train/loss": mean, "train/steps_per_sec": len(losses) / max(dt, 1e-9)}
+        return {"train/loss": mean, "train/steps_per_sec": sum(weights) / max(dt, 1e-9)}
 
     def eval_epoch(self, batches: Iterable[GraphBatch], prefix: str = "val") -> Dict[str, float]:
         losses, outs = [], []
-        for host, batch in self._device_batches(batches):
-            loss, preds = eval_step(self.model, batch, self.loss_fn)
-            losses.append(loss)
-            outs.append((preds, host))
-        metrics = {f"{prefix}/loss": torch.stack(losses).mean().item() if losses else float("nan")}
+        for chunk in self._chunks(self._staged(batches)):
+            staged = [b for _, b in chunk]
+            if self.eval_graphs is not None:
+                chunk_losses, preds = self.eval_graphs(staged)
+            else:
+                results = [eval_step(self.model, b, self.loss_fn) for b in staged]
+                chunk_losses, preds = torch.stack([r[0] for r in results]), [r[1] for r in results]
+            losses.append(chunk_losses)
+            outs.extend(zip(preds, (host for host, _ in chunk)))
+        metrics = {f"{prefix}/loss": float(np.mean(torch.cat(losses).cpu().numpy(), dtype=np.float64)) if losses else float("nan")}
         if self.collect_fn is not None and self.metric_fns:
             collector = Collector()
             for preds, host in outs:
@@ -245,6 +290,8 @@ class Trainer:
         }
 
     def load_checkpoint_state(self, ckpt: dict) -> None:
+        """Copy ``ckpt`` into the live state, in place; the captured graphs
+        are dropped and captured again at their next call."""
         self.model.load_state_dict(ckpt["model"])
         self.state.optimizer.load_state_dict(ckpt["optimizer"])
         if self.state.scheduler is not None:
@@ -252,8 +299,8 @@ class Trainer:
         if self.state.ring is not None:
             ring = ckpt["ring"]
             self.state.ring.buffer.copy_(ring["buffer"])
-            self.state.ring.count = ring["count"].to(self.device)
-            self.state.ring.head = ring["head"].to(self.device)
+            self.state.ring.count.copy_(ring["count"])
+            self.state.ring.head.copy_(ring["head"])
         self.generator.set_state(ckpt["generator"].cpu())
         if self.plateau is not None:
             vars(self.plateau).update(ckpt["plateau"])
@@ -261,6 +308,9 @@ class Trainer:
         self.epoch = ckpt["epoch"]
         self.best, self.bad_epochs = ckpt["best"], ckpt["bad_epochs"]
         self._last_step_ckpt = ckpt["last_step_ckpt"]
+        for graphs in (self.train_graphs, self.eval_graphs):
+            if graphs is not None:
+                graphs.call.clear()
 
     def restore_best(self) -> Optional[int]:
         """Load the best checkpoint's state; its step, or None if there is none."""

@@ -9,6 +9,8 @@ it runs without the repository's ``conftest.py``, which sets JAX up:
 Without a CUDA device every test skips.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,10 @@ from gcpnet_torch.ops.edge_map import (
 )
 from gcpnet_torch.ops.segment_sorted import DTYPE_CODES, segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.train import cli as train_cli
+from gcpnet_torch.train.graphs import EvalSteps, TrainSteps
+from gcpnet_torch.train.optim import build_schedule
+from gcpnet_torch.train.step import train_step
+from gcpnet_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.gpu
 
@@ -649,3 +655,271 @@ def test_predict_on_card_matches_cpu(cuda):
     assert (segment_sum_sorted.launches - k1, edge_map.launches - k2) == (8, 8)
     on_cpu = port_predict.predict(port_predict.build_model(0, "cpu"), batch)
     np.testing.assert_allclose(on_card.cpu().numpy(), on_cpu.numpy(), atol=1e-4)
+
+
+# Captured steps (gcpnet_torch.train.graphs) against the eager ones.  The
+# glue's index_add_ adds with atomics in another order on every run, so a
+# replay and an eager step agree to a tolerance, not bit for bit: float32
+# gradients ~1e-7 apart relative.  Adam moves an entry by up to about lr a
+# step whatever its gradient's size, so an entry whose gradient lies
+# within rounding of 0 can take the other direction in the other run: the
+# parameters may part by up to 2 lr a step, and at most
+# REPLAY_PARAM_SHARE of them by more than REPLAY_PARAM_ATOL (a replay that
+# read stale weights or skipped an update would move most of them by
+# ~lr = 1e-3).  The losses are held
+# relative to REPLAY_LOSS_RTOL and the gradient norms to 1e-3 (at full
+# width two eager fp32 runs part by up to 3.2e-6 and 1.2e-4).
+REPLAY_PARAM_ATOL = 1e-4
+REPLAY_PARAM_SHARE = 0.01
+REPLAY_LR = 1e-3
+REPLAY_LOSS_RTOL = 1e-4
+
+
+def _lba_training(cuda):
+    """A 2-layer full-width LBA model with dropout 0.1, the adaptive clip,
+    Adam at 1e-3 and a StepLR schedule, and its dropout generator."""
+    model, state = train_cli.build_lba_training(
+        0, cuda, torch.float32, lr=REPLAY_LR, dropout=0.1, adaptive_clip=True, num_encoder_layers=2
+    )
+    state.scheduler = build_schedule(state.optimizer, {"_target_": "StepLR", "step_size": 2, "gamma": 0.5})
+    return model, state, torch.Generator(device=cuda).manual_seed(5)
+
+
+def _wrapper_launches() -> tuple:
+    return (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+
+
+def _traced_launches(fn) -> tuple:
+    """K1, K2 and K3 kernels that ran on the card during ``fn()``, read from
+    a torch.profiler trace (a replay runs no Python, so the wrappers do not
+    count its launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return tuple(sum(key in n for n in names) for key in ("seg_sum", "edge_map_tc_kernel", "edge_map_bwd_tc_kernel"))
+
+
+def _lba_batches(n, nodes=40, seed=1):
+    return port_predict.synthetic_batches(n, 2, nodes, 28, seed=seed)
+
+
+def _train_state(model, state) -> dict:
+    out = {f"param.{n}": p.detach().clone() for n, p in model.named_parameters()}
+    for i, st in enumerate(state.optimizer.state.values()):
+        out.update({f"opt.{i}.{k}": v.clone() for k, v in st.items()})
+    out.update({
+        "ring.buffer": state.ring.buffer.clone(), "ring.count": state.ring.count.clone(),
+        "ring.head": state.ring.head.clone(), "schedule.count": state.scheduler.count.clone(),
+        "lr": state.optimizer.lr.clone(),
+    })
+    return out
+
+
+def _assert_params_close(got, want, steps: int) -> None:
+    """Two runs' parameters (lists of tensors) after ``steps`` steps that
+    may part: within 2 lr a step, and at most REPLAY_PARAM_SHARE of the
+    entries beyond REPLAY_PARAM_ATOL."""
+    diff = torch.cat([(g.detach() - w.detach()).abs().reshape(-1) for g, w in zip(got, want)])
+    assert diff.max().item() <= 2 * REPLAY_LR * steps, diff.max().item()
+    assert (diff > REPLAY_PARAM_ATOL).float().mean().item() <= REPLAY_PARAM_SHARE
+
+
+def _assert_states_close(got: dict, want: dict, steps: int) -> None:
+    assert got.keys() == want.keys()
+    params = [k for k in want if k.startswith("param.")]
+    _assert_params_close([got[k] for k in params], [want[k] for k in params], steps)
+    for key in ("ring.count", "ring.head", "schedule.count", "lr"):
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_replayed_steps_match_eager_steps(cuda):
+    """Three steps replayed (the first runs eagerly and is captured) against
+    three eager steps from the same weights and generator seed: losses,
+    norms, parameters, counts and the generator's offset.  The wrappers
+    count the first call's launches (the eager step's and the capture's)
+    and none of a replay's; a replay's trace holds K1, K2 and K3."""
+    batches = _lba_batches(3)
+    runs = {}
+    for mode in ("eager", "replay"):
+        model, state, gen = _lba_training(cuda)
+        if mode == "eager":
+            results = [train_step(model, state, b.to(cuda), graph_regression_loss, gen) for b in batches]
+        else:
+            steps = TrainSteps(model, state, graph_regression_loss, gen)
+            results, counted = [], []
+            for i, b in enumerate(batches):
+                before = _wrapper_launches()
+                pinned = b.pinned()
+                if i == 2:
+                    traced = _traced_launches(lambda: results.append(steps([pinned])))
+                else:
+                    results.append(steps([pinned]))
+                counted.append(tuple(a - c for a, c in zip(_wrapper_launches(), before)))
+            assert (steps.call.captures, steps.call.replays) == (1, 2)
+            assert counted == [(4, 4, 4), (0, 0, 0), (0, 0, 0)] and traced == (2, 2, 2)
+        torch.cuda.synchronize()
+        runs[mode] = dict(
+            losses=[r.loss.item() for r in results], norms=[r.grad_norm.item() for r in results],
+            ok=[bool(r.ok.all()) for r in results], state=_train_state(model, state), step=state.step,
+            generator=gen.get_state(),
+        )
+    eager, replay = runs["eager"], runs["replay"]
+    assert eager["ok"] == replay["ok"] == [True] * 3 and eager["step"] == replay["step"] == 3
+    np.testing.assert_allclose(replay["losses"], eager["losses"], rtol=REPLAY_LOSS_RTOL)
+    np.testing.assert_allclose(replay["norms"], eager["norms"], rtol=1e-3)
+    _assert_states_close(replay["state"], eager["state"], 3)
+    assert torch.equal(replay["generator"], eager["generator"])
+
+
+def test_chunk_graph_equals_single_replays(cuda):
+    """Six steps as two chunks of 3 (the first eager, then captured; the
+    second one replay of the 3-step graph) against six single-step calls
+    (the first captured, five replays)."""
+    batches = [b.pinned() for b in _lba_batches(6)]
+    runs = {}
+    for chunk in (1, 3):
+        model, state, gen = _lba_training(cuda)
+        steps = TrainSteps(model, state, graph_regression_loss, gen)
+        losses = [steps(batches[i : i + chunk]).loss for i in range(0, 6, chunk)]
+        torch.cuda.synchronize()
+        assert steps.call.captures == 1 and steps.call.replays == 6 // chunk - 1
+        runs[chunk] = dict(losses=torch.cat(losses).tolist(), state=_train_state(model, state), generator=gen.get_state())
+    np.testing.assert_allclose(runs[3]["losses"], runs[1]["losses"], rtol=REPLAY_LOSS_RTOL)
+    _assert_states_close(runs[3]["state"], runs[1]["state"], 6)
+    assert torch.equal(runs[3]["generator"], runs[1]["generator"])
+
+
+def test_a_new_shape_is_captured_again(cuda):
+    """Batches of two shapes: each shape gets its graph on first sight and
+    replays it after; the eval step and the forward as well, with the eager
+    results."""
+    small, large = _lba_batches(1, nodes=32)[0], _lba_batches(1, nodes=40)[0]
+    model, state, gen = _lba_training(cuda)
+    steps = TrainSteps(model, state, graph_regression_loss, gen)
+    for batch in (small, small, large, large, small):
+        steps([batch.pinned()])
+    assert (steps.call.captures, steps.call.replays) == (2, 3)
+    evals, forward = EvalSteps(model, graph_regression_loss), port_predict.Predictor(model)
+    for batch in (small, large, small, large):
+        losses, preds = evals([batch.pinned()])
+        served = forward(batch)
+        want = port_predict.predict(model, batch)
+        np.testing.assert_allclose(preds[0].cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+        np.testing.assert_allclose(served.cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+    assert (evals.call.captures, evals.call.replays) == (2, 2)
+    assert (forward.graphs.captures, forward.graphs.replays) == (2, 2)
+
+
+def test_served_forward_follows_changed_weights(cuda):
+    """The served forward (a graph that reads the packed weights cached
+    under inference mode) after the weights change in place, by
+    load_state_dict and by an in-place update: it captures again and
+    serves the new weights' predictions, as the eager forward does."""
+    batch = _lba_batches(1)[0]
+    model = port_predict.build_model(0, cuda)
+    forward = port_predict.Predictor(model)
+    for _ in range(2):
+        forward(batch)
+    other = port_predict.build_model(1, "cpu").state_dict()
+    model.load_state_dict(other)
+    served = forward(batch)
+    np.testing.assert_allclose(served.cpu().numpy(), port_predict.predict(model, batch).cpu().numpy(), atol=1e-5)
+    assert (forward.graphs.captures, forward.graphs.replays) == (2, 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+    served = forward(batch)
+    np.testing.assert_allclose(served.cpu().numpy(), port_predict.predict(model, batch).cpu().numpy(), atol=1e-5)
+    assert forward.graphs.captures == 3
+    forward(batch)
+    assert forward.graphs.replays == 2
+
+
+def test_nan_batch_replayed_keeps_the_state(cuda):
+    """A batch with a NaN label, replayed through the step's graph, leaves
+    the parameters, moments, ring and schedule as they were, bit for bit."""
+    batch = _lba_batches(1)[0]
+    bad = dataclasses.replace(batch, extras={**batch.extras, "label": np.full_like(batch.extras["label"], np.nan)})
+    model, state, gen = _lba_training(cuda)
+    steps = TrainSteps(model, state, graph_regression_loss, gen)
+    steps([batch.pinned()])
+    steps([batch.pinned()])
+    before = _train_state(model, state)
+    result = steps([bad.pinned()])
+    torch.cuda.synchronize()
+    assert steps.call.replays == 2 and not bool(result.ok.any())
+    after = _train_state(model, state)
+    for key, value in before.items():
+        assert torch.equal(after[key], value), key
+
+
+def test_replays_do_not_sync(cuda):
+    """Under torch.cuda.set_sync_debug_mode("error") a replay of the step,
+    of the eval step and of the forward runs; a host read in the same mode
+    raises (the mode is on)."""
+    batch = _lba_batches(1)[0]
+    model, state, gen = _lba_training(cuda)
+    steps, evals = TrainSteps(model, state, graph_regression_loss, gen), EvalSteps(model, graph_regression_loss)
+    forward = port_predict.Predictor(model)
+    steps([batch.pinned()])
+    evals([batch.pinned()])
+    forward(batch)
+    pinned = [batch.pinned(), batch.pinned()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        result = steps([pinned[0]])
+        evals([pinned[1]])
+        forward(batch)
+        with pytest.raises(RuntimeError):
+            result.loss.item()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert steps.call.replays == evals.call.replays == forward.graphs.replays == 1
+
+
+def test_resume_through_replays_continues(cuda, tmp_path):
+    """An NMS fit (full width, 2 of 4 interaction layers, dropout 0.1,
+    chunks of 2 steps) for 2 epochs, then a third two ways: the same
+    Trainer going on through its graphs, and a new Trainer resumed from the
+    last checkpoint, which captures anew.  The restored state is the saved
+    one bit for bit; after the third epoch the two generators' states are
+    equal bit for bit (the replays drew the same dropout masks), and the
+    weights and losses agree to the replay tolerance."""
+    dm = NMSDataModule(
+        data_root=str(tmp_path / "data"), data_mode="small_20body", batch_size=4, num_train=16, num_valid=8,
+        num_test=8, sim_device="cpu",
+    )
+    dm.prepare_data()
+    dm.setup()
+
+    def trainer(epochs, ckpt=None):
+        model = GCPNetNMS(*train_cli.nms_configs(num_encoder_layers=2), generator=torch.Generator().manual_seed(0),
+                          device=cuda)
+        return Trainer(model, nms_loss, optimizer_cfg={"_target_": "Adam", "lr": REPLAY_LR}, max_epochs=epochs,
+                       checkpoint_dir=ckpt, early_stopping_patience=None, scan_chunk_size=2)
+
+    first = trainer(2, str(tmp_path / "ckpt"))
+    first.fit(dm)
+    resumed = trainer(3)
+    resumed.load_checkpoint_state(first.ckpt.restore_last(map_location=cuda))
+    assert resumed.state.step == first.state.step and resumed.epoch == first.epoch == 2
+    assert torch.equal(resumed.generator.get_state(), first.generator.get_state())
+    for (name, p), q in zip(first.model.named_parameters(), resumed.model.parameters()):
+        assert torch.equal(p, q), name
+    for a, b in zip(first.state.optimizer.state_dict()["exp_avg"], resumed.state.optimizer.state_dict()["exp_avg"]):
+        assert torch.equal(a, b)
+    replays = first.train_graphs.call.replays
+    first.max_epochs = 3
+    first.fit(dm)
+    resumed.fit(dm)
+    assert first.train_graphs.call.replays > replays and resumed.train_graphs.call.replays > 0
+    assert resumed.state.step == first.state.step == 12
+    assert torch.equal(resumed.generator.get_state(), first.generator.get_state())
+    _assert_params_close(list(resumed.model.parameters()), list(first.model.parameters()), 4)
+    np.testing.assert_allclose(resumed.history["train/loss"], first.history["train/loss"][2:], rtol=REPLAY_LOSS_RTOL)

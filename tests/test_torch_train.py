@@ -657,7 +657,7 @@ def test_steplr_counts_updates_under_accumulation(rng):
         for i, g in enumerate(grads):
             updates, opt_state = tx.update({"w": jnp.asarray(g)}, opt_state, params)
             params = optax.apply_updates(params, updates)
-            lr = optimizer.param_groups[0]["lr"]
+            lr = float(optimizer.param_groups[0]["lr"])  # a device tensor the schedule writes in place
             assert train_step(model, state, t(g), loss_fn, deterministic=True).ok
             if i % 2 == 1:  # the second mini-step applies the update
                 lrs.append(lr)
