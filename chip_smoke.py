@@ -30,14 +30,25 @@ Phases, one line each:
   9. rs-kernels: K1, K2 and K3 at the RS step's shape against their plain
      versions, fp32 and bf16, the stack's leaky relu included, with their
      times, bounds and shares of them;
- 10. forward: the LBA forward at the benchmark's full width (16 graphs x 448
+ 10. psr-data: synthetic PSR records at protein size (write_psr_records:
+     40 / 8 / 8 targets of 16 decoys, native chains of 400-2,000 heavy
+     atoms at protein packing, decoys the chain plus noise, a GDT-TS-like
+     label) written and read by gcpnet_torch.data.atom3d; a shuffled
+     training epoch's batches as the prefetch thread makes them (the
+     split's first pass before the first; then ms a batch to featurize,
+     pack and sort, and to pin), each batch's real nodes and edge rows
+     against the JAX bucket's 16,384 and 524,288;
+ 11. psr-kernels: K1, K2 and K3 at a PSR training batch (524,288 CSR rows
+     into 16,384 nodes) against their plain versions, fp32 and bf16, with
+     their times, bounds and shares of them;
+ 12. forward: the LBA forward at the benchmark's full width (16 graphs x 448
      atoms, 8 interaction layers x 8 message layers) through
      gcpnet_torch.predict, fp32 and bf16, eager and served (Predictor: a
      CUDA graph captured at the first batch, replayed for the rest): launch
      counts, finiteness, latency, peak memory, the served predictions
      against the eager ones; then the fp32 predictions against the same
      weights and batch run on the CPU through the plain versions;
- 11. train: the full-width LBA training step through gcpnet_torch.train
+ 13. train: the full-width LBA training step through gcpnet_torch.train
      (bf16 over fp32 masters, dropout 0.1, Adam at lr 1e-4, the adaptive
      clip, a StepLR schedule), 6 steps on one batch, twice eagerly and once
      captured (the first step runs eagerly and captures, 5 replays, each
@@ -48,20 +59,20 @@ Phases, one line each:
      leaves the state as it was; one warm eager step and one replay under
      torch.profiler (device busy and idle share, kernels by name and count
      read from the trace, the host's CUDA API calls);
- 12. train-fp32: the same in float32 (the JAX Trainer's default precision;
+ 14. train-fp32: the same in float32 (the JAX Trainer's default precision;
      every K3 launch is one of the tensor-core kernel, K3's only one);
- 13. train-check: one fp32 training step on the card against the same step
+ 15. train-check: one fp32 training step on the card against the same step
      on the CPU (2 interaction layers, 2 graphs, no dropout): loss, gradient
      norm, gradients and updated parameters; its launches of the fp32 K3;
- 14. bf16-check: the bf16 training step's gradients against the fp32
+ 16. bf16-check: the bf16 training step's gradients against the fp32
      step's on the card (the train-check's size), through the kernels and
      through the plain stack in bf16;
- 15. profile: one warm bf16 forward, eager and replayed, under
+ 17. profile: one warm bf16 forward, eager and replayed, under
      torch.profiler (device busy and idle share, time by kernel, the
      host's CUDA API calls);
- 16. nms-check: one fp32 NMS training step on the card against the CPU (2
+ 18. nms-check: one fp32 NMS training step on the card against the CPU (2
      interaction layers, 10 graphs, no dropout);
- 17. nms-fit: the NMS path, the full-width NMS model fitted by the Trainer
+ 19. nms-fit: the NMS path, the full-width NMS model fitted by the Trainer
      (fp32, the experiment's defaults) with scan_chunk_size 4 (4 batches a
      replay of a CUDA graph) for 3 epochs with checkpoints, then a new
      Trainer resumes to epoch 4 and tests the best checkpoint: the
@@ -74,18 +85,31 @@ Phases, one line each:
      step and one
      replay of a train and an eval chunk under torch.profiler, the kernels
      a step read from the trace (4 of each);
- 18. rs-check: one fp32 RS training step on the card against the CPU (2
+ 20. rs-check: one fp32 RS training step on the card against the CPU (2
      interaction layers, a paired batch, no dropout);
- 19. rs-fit: the RS path, the full-width RS model fitted by the Trainer
+ 21. rs-fit: the RS path, the full-width RS model fitted by the Trainer
      (fp32, the experiment's defaults) with scan_chunk_size 4 for 3 epochs
      with checkpoints, then the best checkpoint's test: the wrappers'
      launches, per-epoch seconds, train graphs/s, val/loss, val/Accuracy
      and val/F1, peak memory; the first epoch run eagerly beside it, and
      the deterministic parity run, as nms-fit;
- 20. rs-profile: one warm eager RS training step and one replay of a train
-     and an eval chunk under torch.profiler; the rs-fit's checks.
-Then the total time, one JSON line with every kernel's numbers (at the NMS
-and RS shapes too), the nvidia-smi line, and the final status line.  Any failed phase exits non-zero; without a CUDA device
+ 22. rs-profile: one warm eager RS training step and one replay of a train
+     and an eval chunk under torch.profiler; the rs-fit's checks;
+ 23. psr-check: one fp32 PSR training step on the card against the CPU (2
+     interaction layers, 2 decoys, no dropout), and the bf16 step's
+     gradients against the fp32 step's on the card;
+ 24. psr-fit: the PSR path, the full-width PSR model (5 interaction layers)
+     fitted by the Trainer in bf16 over float32 masters (the experiment's
+     defaults) with scan_chunk_size 4 for 2 epochs with checkpoints, a
+     resume to a third, and the best checkpoint's test: epoch seconds,
+     train graphs/s, the val and test metrics (local and global Pearson,
+     Spearman, Kendall), peak memory and what was allocated as the fit
+     began, the CUDA graphs held (at most a full chunk's and the tail's a
+     split); the deterministic parity run, as nms-fit;
+ 25. psr-profile: one warm eager PSR step and one replay of a train and an
+     eval chunk under torch.profiler; the psr-fit's checks.
+Then the total time, one JSON line with every kernel's numbers (at the NMS,
+RS and PSR shapes too), the nvidia-smi line, and the final status line.  Any failed phase exits non-zero; without a CUDA device
 the script exits non-zero before printing any result.  Full measurements go
 to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
 """
@@ -109,6 +133,7 @@ import time
 import numpy as np
 import torch
 
+from gcpnet_torch.data.atom3d import ATOM3DDataModule
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
 from gcpnet_torch.models.lba import graph_regression_loss
@@ -128,7 +153,15 @@ from gcpnet_torch.ops.edge_map import (
 )
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.predict import DTYPES, Predictor, build_model, lba_configs, predict, synthetic_batches
-from gcpnet_torch.train.cli import build_lba_training, build_nms_trainer, build_rs_trainer, nms_configs, rs_configs
+from gcpnet_torch.train.cli import (
+    FIT_DEFAULTS,
+    build_atom3d_trainer,
+    build_lba_training,
+    build_nms_trainer,
+    build_rs_trainer,
+    nms_configs,
+    rs_configs,
+)
 from gcpnet_torch.train.graphs import TrainSteps
 from gcpnet_torch.train.optim import build_optimizer, build_schedule
 from gcpnet_torch.train.state import TrainState
@@ -168,6 +201,23 @@ NMS_CHECK_GRAPHS, NMS_CHECK_LAYERS = 10, 2
 # 1,000 epochs; rs-check cuts to 2 interaction layers for the CPU.
 RS_EPOCHS = 3
 RS_CHECK_LAYERS = 2
+# The PSR path: the experiment gcpnet_psr at its published widths and depth
+# (hidden 100/16/32/4, 5 interaction layers of 8-layer message stacks,
+# dropout 0.1, Adam at 1e-4, seed 42, batches of up to 16 decoys in the JAX
+# bucket of 16,384 nodes and 524,288 edge rows, bf16 over float32 masters as
+# its trainer's precision 16).  The ATOM3D archives are not on the card's
+# machine: the records are synthetic, at protein size (write_psr_records),
+# and cut to 40 / 8 / 8 targets of 16 decoys, far fewer than ATOM3D PSR's
+# splits hold; the fit runs 2 of its up to 1,000 epochs and a resume for a
+# third; psr-check cuts to 2 interaction layers and 2 decoys.
+PSR_TARGETS = {"train": 40, "val": 8, "test": 8}
+PSR_DECOYS = 16
+PSR_ATOMS = (400, 2000)  # heavy atoms of a native chain, uniform
+PSR_DENSITY = 0.045  # heavy atoms per cubic angstrom the chain is folded to
+PSR_NOISE = (0.3, 4.0)  # a decoy's noise scale in angstrom, log-uniform
+PSR_BUCKET = (16384, 16384 * 32)
+PSR_EPOCHS, PSR_RESUME_EPOCHS = 2, 3
+PSR_CHECK_GRAPHS, PSR_CHECK_LAYERS, PSR_CHECK_NODES = 2, 2, 4096
 # the best checkpoint's val/loss evaluated again against the value logged
 # for it: the same weights and batches through the same kernels, but the
 # node-frame means sum with index_add_, whose atomics on the card add in
@@ -1373,7 +1423,7 @@ def fit_parity(build, dm, loss_fn) -> dict:
     }
 
 
-def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict) -> None:
+def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k3: str = "K3_fp32") -> None:
     """What every captured fit must show: the wrappers counted the kernels
     of each graph's first call only (its eager run and the capture's
     records: twice a layer's K1, K2 and fp32 K3 launches for each training
@@ -1383,16 +1433,21 @@ def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict) -> Non
     evaluation), as the profiled eager step does; the parity run's
     captured steps equal its eager ones bit for bit (fit_parity), with
     replays among them; the first epoch's losses are the eager epoch's
-    within FIT_EAGER_RTOL[name]."""
+    within FIT_EAGER_RTOL[name] where the fit ran one (``first_epoch``).
+    ``k3`` is the K3 of the fit's precision (the other counts none)."""
     g = results["graphs"]
     train, evals = 2 * layers * g["train_captured_batches"], 2 * layers * g["eval_captured_batches"]
-    want = {"K1": train + evals, "K2": train + evals, "K3_bf16": 0, "K3_fp32": train}
+
+    def k3s(n):
+        return {"K3_bf16": 0, "K3_fp32": 0, k3: n}
+
+    want = {"K1": train + evals, "K2": train + evals, **k3s(train)}
     check(results["launches"] == want, f"{name}: launches {results['launches']}, want {want} (graphs {g})")
     chunk = layers * FIT_CHUNK
     traced = {
-        "profile": {"K1": layers, "K2": layers, "K3_bf16": 0, "K3_fp32": layers},
-        "profile_captured": {"K1": chunk, "K2": chunk, "K3_bf16": 0, "K3_fp32": chunk},
-        "profile_eval_captured": {"K1": chunk, "K2": chunk, "K3_bf16": 0, "K3_fp32": 0},
+        "profile": {"K1": layers, "K2": layers, **k3s(layers)},
+        "profile_captured": {"K1": chunk, "K2": chunk, **k3s(chunk)},
+        "profile_eval_captured": {"K1": chunk, "K2": chunk, **k3s(0)},
     }
     for key, want in traced.items():
         check(results[key]["launches"] == want, f"{name}: {key} launches {results[key]['launches']}, want {want}")
@@ -1401,27 +1456,33 @@ def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict) -> Non
           and len(set(parity["val_loss"])) == 1 and parity["train_replays"] > 0
           and parity["eval_replays"] > 0 and parity["steps"] == FIT_PARITY_STEPS,
           f"{name}: deterministic parity, captured vs eager: {parity}")
+    if first_epoch is None:
+        return
     eager = results["eager_epoch"]
     for k in ("train/loss", "val/loss"):
         rel = abs(first_epoch[k] - eager[k]) / abs(eager[k])
         check(rel <= FIT_EAGER_RTOL[name], f"{name}: epoch 0 {k} {first_epoch[k]} captured, {eager[k]} eager")
 
 
-def _fit_record(trainer, clock: EpochClock, eager: dict, lr: float) -> dict:
-    """A captured fit's kernel counts (read by the caller), its graphs, and
-    its first epoch's parameters against the eager epoch's."""
+def _fit_record(trainer, clock: EpochClock, eager, lr: float) -> dict:
+    """A captured fit's kernel counts (read by the caller), its graphs (those
+    captured, and those its CapturedCalls hold now), and, where an eager
+    first epoch ran (``eager``), its first epoch's parameters against it."""
     train, evals = trainer.train_graphs.call, trainer.eval_graphs.call
-    eager = dict(eager)
-    start, params = eager.pop("start"), eager.pop("params")
-    return {
-        "eager_epoch": eager,
+    record = {
         "graphs": {
             "train_captures": train.captures, "train_captured_batches": train.captured_batches,
-            "train_replays": train.replays, "eval_captures": evals.captures,
+            "train_replays": train.replays, "train_held": train.num_graphs, "eval_captures": evals.captures,
             "eval_captured_batches": evals.captured_batches, "eval_replays": evals.replays,
+            "eval_held": evals.num_graphs,
         },
-        "param_gap": param_gap(clock.first_params, params, start, lr, eager["steps"]),
     }
+    if eager is not None:
+        eager = dict(eager)
+        start, params = eager.pop("start"), eager.pop("params")
+        record["eager_epoch"] = eager
+        record["param_gap"] = param_gap(clock.first_params, params, start, lr, eager["steps"])
+    return record
 
 
 def _profile_steps(trainer, dm, loss_fn, layers: int) -> dict:
@@ -1660,6 +1721,272 @@ def phase_rs_profile(trainer, dm, fit: dict) -> dict:
     return results
 
 
+def _native_chains(rng: np.random.Generator, sizes) -> list:
+    """Native chains of ``sizes`` heavy atoms: random walks of 1.5 A steps
+    whose direction turns a little each step and is pulled back inside a
+    sphere that holds the chain at PSR_DENSITY, so that an atom has about
+    20-30 others within 4.5 A (protein-like packing), all walks at once."""
+    sizes = np.asarray(sizes)
+    radius = (3 * sizes / (4 * np.pi * PSR_DENSITY)) ** (1 / 3)
+    x = np.zeros((len(sizes), sizes.max(), 3))
+    pos = np.zeros((len(sizes), 3))
+    direction = rng.normal(size=(len(sizes), 3))
+    for i in range(1, sizes.max()):
+        direction = direction / np.linalg.norm(direction, axis=1, keepdims=True) + 0.4 * rng.normal(size=pos.shape)
+        r = np.linalg.norm(pos, axis=1, keepdims=True)
+        direction = np.where(r > 0.9 * radius[:, None], direction - 3.0 * pos / np.maximum(r, 1e-9), direction)
+        pos = pos + 1.5 * direction / np.linalg.norm(direction, axis=1, keepdims=True)
+        x[:, i] = pos
+    return [x[k, :n] for k, n in enumerate(sizes)]
+
+
+def gdt_ts(decoy: np.ndarray, native: np.ndarray) -> float:
+    """A GDT-TS-like score (no superposition: the decoys are not moved):
+    the mean over 1, 2, 4 and 8 A of the share of atoms that far from
+    their native place or nearer."""
+    dist = np.linalg.norm(decoy - native, axis=1)
+    return float(np.mean([(dist <= t).mean() for t in (1.0, 2.0, 4.0, 8.0)]))
+
+
+def write_psr_records(root: str, seed: int = SEED, targets=None, decoys: int = PSR_DECOYS, atoms=PSR_ATOMS) -> dict:
+    """Synthetic PSR records in the npz format of
+    scripts/convert_atom3d_to_npz.py under ``root`` (``targets``: per split,
+    default PSR_TARGETS): for each target a native chain (_native_chains)
+    of heavy atoms drawn C, N, O, S as in proteins, and ``decoys`` decoys,
+    each the chain plus Gaussian noise of a log-uniform scale in
+    PSR_NOISE, labelled with its gdt_ts.  Returns the decoys per split."""
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for split, n_targets in (targets or PSR_TARGETS).items():
+        out = os.path.join(root, "PSR", "split-by-year", "data", f"{split}_npz")
+        os.makedirs(out, exist_ok=True)
+        chains = _native_chains(rng, rng.integers(atoms[0], atoms[1] + 1, size=n_targets))
+        for t, native in enumerate(chains):
+            elements = rng.choice(np.asarray(["C", "N", "O", "S"]), size=len(native), p=[0.62, 0.17, 0.19, 0.02])
+            for d in range(decoys):
+                scale = np.exp(rng.uniform(*np.log(PSR_NOISE)))
+                coords = (native + scale * rng.normal(size=native.shape)).astype(np.float32)
+                np.savez(
+                    os.path.join(out, f"{t:03d}_{d:02d}.npz"), coords=coords, elements=elements,
+                    label=np.float32(gdt_ts(coords, native)), target=f"{split}{t:03d}",
+                )
+        counts[split] = n_targets * decoys
+    return counts
+
+
+def psr_datamodule(root: str, batch_size: int = 16, max_nodes: int = PSR_BUCKET[0]) -> ATOM3DDataModule:
+    dm = ATOM3DDataModule(task="PSR", data_dir=root, batch_size=batch_size, max_nodes_per_batch=max_nodes)
+    dm.setup()
+    return dm
+
+
+def _batch_fill(batch) -> dict:
+    nodes, edges = int(batch.node_pad_mask.sum()), int(batch.edge_pad_mask.sum())
+    return {"graphs": int(batch.graph_pad_mask.sum()), "real_nodes": nodes, "real_edges": edges,
+            "edge_padding_share": 1 - edges / batch.num_edges, "node_padding_share": 1 - nodes / batch.num_nodes}
+
+
+def _timed_batches(batches) -> tuple:
+    """For each batch of ``batches``: its fill (_batch_fill), whether it has
+    the bucket's shape and CSR splits, the ms its making took (featurizing,
+    packing, sorting; for the first, anything before it) and the ms its
+    pinning took.  No batch is kept."""
+    fills, make_ms, pin_ms = [], [], []
+    it = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            return fills, make_ms, pin_ms
+        t1 = time.perf_counter()
+        batch.pinned()
+        pin_ms.append((time.perf_counter() - t1) * 1e3)
+        make_ms.append((t1 - t0) * 1e3)
+        in_bucket = (batch.num_nodes, batch.num_edges) == PSR_BUCKET and batch.edge_row_splits is not None
+        fills.append({**_batch_fill(batch), "in_bucket": in_bucket})
+
+
+def phase_psr_data(root: str):
+    """Synthetic PSR records written (write_psr_records) and read (setup);
+    one shuffled training epoch's batches made as the Trainer's prefetch
+    thread makes them: the split's first pass before the first batch
+    (which records featurize, the target codes), then each batch
+    featurized, packed and sorted (ms a batch, and its pinning, against
+    the step it must stay under); each batch's real nodes and edge rows
+    against the bucket's."""
+    t0 = time.perf_counter()
+    counts = write_psr_records(root)
+    write_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dm = psr_datamodule(root)
+    setup_seconds = time.perf_counter() - t0
+    fills, make_ms, pin_ms = _timed_batches(dm.train_batches(seed=0))
+    keys = ("graphs", "real_nodes", "real_edges", "edge_padding_share", "node_padding_share")
+    results = {
+        "decoys": counts, "write_seconds": write_seconds, "setup_seconds": setup_seconds,
+        "first_batch_seconds": make_ms[0] / 1e3, "train_batches": len(fills),
+        "featurize_ms_per_batch": {"mean": float(np.mean(make_ms[1:])), "max": float(np.max(make_ms[1:]))},
+        "pin_ms_per_batch": {"mean": float(np.mean(pin_ms)), "max": float(np.max(pin_ms))},
+        "bucket": {"nodes": PSR_BUCKET[0], "edges": PSR_BUCKET[1], "graphs": 16},
+        "fill_min_mean_max": {k: [float(f(np.asarray([x[k] for x in fills]))) for f in (np.min, np.mean, np.max)]
+                              for k in keys},
+        "mean_in_degree": float(np.mean([x["real_edges"] / x["real_nodes"] for x in fills])),
+        "graphs_per_batch": counts["train"] / len(fills),
+        "per_batch": fills,
+        "cuts": {"targets": dict(PSR_TARGETS), "decoys_per_target": PSR_DECOYS, "atoms": list(PSR_ATOMS),
+                 "epochs": [PSR_EPOCHS, PSR_RESUME_EPOCHS], "data": "synthetic chains, not ATOM3D"},
+    }
+    print("phase psr-data: " + json.dumps({k: v for k, v in results.items() if k != "per_batch"}), flush=True)
+    print("phase psr-data: per batch [decoys, real nodes, real edge rows]: "
+          + json.dumps([[x["graphs"], x["real_nodes"], x["real_edges"]] for x in fills]), flush=True)
+    check(sum(x["graphs"] for x in fills) == counts["train"],
+          f"psr-data: {len(fills)} batches hold {sum(x['graphs'] for x in fills)} decoys")
+    check(all(x["in_bucket"] for x in fills), "psr-data: a batch outside the bucket or without its CSR splits")
+    print("phase psr-data: ok")
+    return dm, results
+
+
+def phase_psr_kernels(dm) -> dict:
+    """K1, K2 and K3 at the PSR step's shape (a training batch: the bucket's
+    524,288 receiver-sorted CSR rows into 16,384 nodes), fp32 and bf16,
+    the LBA stack (PSR's is the same)."""
+    batch = next(dm.train_batches(seed=0))
+    results = {
+        "K1": phase_k1({1: batch}, name="psr-K1"),
+        "K2": phase_k2(batch, bench_message_passing(), name="psr-K2"),
+        "K3": phase_k3(batch, bench_message_passing(), name="psr-K3", full_bound=False),
+    }
+    for kernel, res in results.items():
+        for key, r in res.items():
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print("phase psr-kernels: ok " + json.dumps({
+        k: {d: {key: r[key] for key in ("ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms", "library_ms")}
+            for d, r in res.items()}
+        for k, res in results.items()
+    }))
+    return results
+
+
+def _psr_model(dev, layers: int, dtype: torch.dtype = torch.float32):
+    """The PSR model at full width with ``layers`` interaction layers, no
+    dropout, weights from SEED, and a train state (Adam at 1e-4) computing
+    in ``dtype``."""
+    trainer = build_atom3d_trainer(
+        "psr", SEED, dev, num_encoder_layers=layers, dropout=0.0, precision=16 if dtype == torch.bfloat16 else 32
+    )
+    return trainer.model, trainer.state
+
+
+def phase_psr_check(root: str) -> dict:
+    """The PSR step at PSR_CHECK_LAYERS interaction layers on
+    PSR_CHECK_GRAPHS decoys (a bucket of PSR_CHECK_NODES nodes): fp32 on the
+    card against the CPU (card_vs_cpu_step), then the bf16 step's
+    gradients against the fp32 step's on the card (BF16_STEP_TOL)."""
+    dm = psr_datamodule(root, PSR_CHECK_GRAPHS, PSR_CHECK_NODES)
+    batch = next(dm.val_batches())
+    results = {"fp32": card_vs_cpu_step("psr-check", lambda dev: _psr_model(dev, PSR_CHECK_LAYERS), batch,
+                                        graph_regression_loss, PSR_CHECK_LAYERS)}
+    dev_batch = batch.to(torch.device("cuda"))
+    steps = {}
+    reset_counts()
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model, state = _psr_model("cuda", PSR_CHECK_LAYERS, dtype)
+        result = train_step(model, state, dev_batch, graph_regression_loss, deterministic=True)
+        steps[name] = {"loss": result.loss.item(), "grad_norm": result.grad_norm.item(),
+                       "grads": torch.cat([p.grad.reshape(-1) for p in model.parameters()])}
+    ref, bf16 = steps["fp32"], steps["bf16"]
+    results["bf16"] = r = {
+        "loss_rel_diff": abs(bf16["loss"] - ref["loss"]) / abs(ref["loss"]),
+        "grad_norm_rel_diff": abs(bf16["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+        "grads_cosine": torch.nn.functional.cosine_similarity(bf16["grads"], ref["grads"], dim=0).item(),
+        "launches": dict(zip(KERNEL_COUNTS, launch_counts())),
+    }
+    print("phase psr-check bf16: " + json.dumps(r), flush=True)
+    check(r["launches"]["K3_bf16"] == r["launches"]["K3_fp32"] == PSR_CHECK_LAYERS,
+          f"psr-check: K3 launches {r['launches']}")
+    check(r["loss_rel_diff"] <= BF16_STEP_TOL["loss_rel"], "psr-check: bf16 loss differs")
+    check(r["grad_norm_rel_diff"] <= BF16_STEP_TOL["grad_norm_rel"], "psr-check: bf16 grad norm differs")
+    check(r["grads_cosine"] >= BF16_STEP_TOL["grads_cosine"], "psr-check: bf16 gradients differ")
+    print("phase psr-check: ok")
+    return results
+
+
+PSR_METRICS = ("loss", "RMSE", "local_pearson", "local_spearman", "local_kendall", "global_pearson",
+               "global_spearman", "global_kendall")
+
+
+def phase_psr_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
+    """The PSR path: the full-width PSR model with the experiment's defaults
+    (bf16 over float32 masters, dropout 0.1, Adam at 1e-4, seed 42) fitted
+    by the Trainer with scan_chunk_size FIT_CHUNK for PSR_EPOCHS epochs with
+    checkpoints, on a datamodule that has not read the records yet (the
+    first epoch makes the training split's first pass); a new Trainer
+    resumes from the last checkpoint to epoch PSR_RESUME_EPOCHS and tests
+    the best checkpoint.  Beside it the deterministic parity run
+    (fit_parity).  Every kernel count is set to 0 just before the fit and
+    read just after (psr-profile checks them); after the fit and after the
+    resume each CapturedCall may hold two graphs, a full chunk's and the
+    tail's, as every batch has the bucket's shape."""
+    layers = FIT_DEFAULTS["psr"]["num_encoder_layers"]
+    build = lambda seed=42, **kw: build_atom3d_trainer("psr", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    parity = fit_parity(build, psr_datamodule(root), graph_regression_loss)
+    dm = psr_datamodule(root)
+    clock = EpochClock()
+    trainer = build(max_epochs=PSR_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock], scan_chunk_size=FIT_CHUNK)
+    gc.collect()  # the parity run's trainers: their memory is not the fit's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # allocated as the fit begins: its model and optimizer, and what earlier
+    # phases still hold, all inside the peak
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    clock.last = time.perf_counter()
+    trainer.fit(dm)
+    torch.cuda.synchronize()
+    results = {"launches": dict(zip(KERNEL_COUNTS, launch_counts())), "held_at_start_gb": held_gb,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "steps": trainer.state.step}
+    results.update(_fit_record(trainer, clock, None, FIT_LR), parity=parity)
+    resumed_clock = EpochClock()
+    resumed = build(max_epochs=PSR_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
+                    scan_chunk_size=FIT_CHUNK)
+    resumed.fit(dm, resume=True)
+    results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
+    results["best_step"] = resumed.restore_best()
+    results["test"] = test = resumed.test(dm)
+    torch.cuda.synchronize()
+    epochs = clock.lines + resumed_clock.lines[:-1]
+    results["epochs"] = [
+        {k: line[k] for k in ("epoch", "seconds", "train/loss", "train/steps_per_sec")}
+        | {f"val/{m}": line[f"val/{m}"] for m in PSR_METRICS}
+        | {"train_graphs_per_s": line["train/steps_per_sec"] * graphs_per_batch}
+        for line in epochs
+    ]
+    results["final_step"] = resumed.state.step
+    print("phase psr-fit: " + json.dumps(results), flush=True)
+    check([line["epoch"] for line in epochs] == list(range(PSR_RESUME_EPOCHS)), "psr-fit: epochs run")
+    for line in results["epochs"]:
+        check(all(math.isfinite(v) for v in line.values()), f"psr-fit: epoch line {line}")
+    check(all(math.isfinite(test[f"test/{m}"]) for m in PSR_METRICS), f"psr-fit: test metrics {test}")
+    check(results["final_step"] == results["steps"] * PSR_RESUME_EPOCHS // PSR_EPOCHS, "psr-fit: resumed steps")
+    for graphs in (results["graphs"], results["resumed_graphs"]):
+        check(graphs["train_held"] <= 2 and graphs["eval_held"] <= 2, f"psr-fit: CUDA graphs held {graphs}")
+    print("phase psr-fit: ok")
+    return resumed, dm, results
+
+
+def phase_psr_profile(trainer, dm, fit: dict) -> dict:
+    """One warm eager PSR training step of the fitted model and one replay
+    of its captured train and eval chunks under torch.profiler (busy ms,
+    idle share, kernels: K1, K2 and the bf16 K3 5 times a step); then the
+    psr-fit's checks that read them (_fit_checks)."""
+    layers = FIT_DEFAULTS["psr"]["num_encoder_layers"]
+    results = _profile_steps(trainer, dm, graph_regression_loss, layers)
+    print("phase psr-profile: " + json.dumps(results), flush=True)
+    _fit_checks("psr-fit", {**fit, **results}, layers, None, k3="K3_bf16")
+    print("phase psr-profile: ok")
+    return results
+
+
 def kernel_line(report) -> dict:
     """The contract line: K1 and K2 at bf16 (the production precision) on
     the tile-aligned layout the main path uses, fp32 and K1's CSR layout
@@ -1673,10 +2000,11 @@ def kernel_line(report) -> dict:
     step of the NMS fit, read from the trace of one replay of a train chunk
     (FIT_CHUNK steps) by instantiation (the fit is fp32, so the bf16 K3's
     count is 0); under "rs" the same at the RS step's shape and the RS
-    fit."""
+    fit; under "psr" at the PSR step's shape and the PSR fit (bf16, so the
+    fp32 K3's count is 0)."""
     k1, k2, k3 = report["K1"], report["K2"], report["K3"]
     forward, train, train_fp32 = report["forward"], report["train"], report["train_fp32"]
-    nk, rk = report["nms_kernels"], report["rs_kernels"]
+    nk, rk, pk = report["nms_kernels"], report["rs_kernels"], report["psr_kernels"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     replaces_k3 = "gcpnet_tpu/ops/pallas_fused.py:175"
 
@@ -1685,6 +2013,7 @@ def kernel_line(report) -> dict:
         return {k: n / profiles["chunk_steps"] for k, n in traced.items()}
 
     nms_steps, rs_steps = per_step(report["nms_fit"]), per_step(report["rs_profile"])
+    psr_steps = per_step(report["psr_profile"])
 
     def row(name, source, replaces, run, count, main, dtype, **extra):
         return {
@@ -1708,22 +2037,26 @@ def kernel_line(report) -> dict:
                 **{f"csr_{k}": k1["tile1_bf16"][k] for k in keys},
                 **{f"csr_fp32_{k}": k1["tile1_fp32"][k] for k in keys},
                 nms=nms(nk["K1"], nms_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
-                rs=nms(rk["K1"], rs_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
+                rs=nms(rk["K1"], rs_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
+                psr=nms(pk["K1"], psr_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
             row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train, "K2",
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
                 bound_rate=k2["bf16"]["bound_rate"],
                 **{f"fp32_{k}": k2["fp32"][k] for k in (*keys, "bound_rate")},
                 nms=nms(nk["K2"], nms_steps["K2"], fp32="fp32", bf16="bf16"),
-                rs=nms(rk["K2"], rs_steps["K2"], fp32="fp32", bf16="bf16")),
+                rs=nms(rk["K2"], rs_steps["K2"], fp32="fp32", bf16="bf16"),
+                psr=nms(pk["K2"], psr_steps["K2"], fp32="fp32", bf16="bf16")),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train, "K3_bf16",
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3_bf16"],
                 bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps["K3_bf16"], bf16="bf16"),
-                rs=nms(rk["K3"], rs_steps["K3_bf16"], bf16="bf16")),
+                rs=nms(rk["K3"], rs_steps["K3_bf16"], bf16="bf16"),
+                psr=nms(pk["K3"], psr_steps["K3_bf16"], bf16="bf16")),
             row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32, "K3_fp32",
                 k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"],
                 bound_ms_cuda_cores=k3["fp32"]["bound_ms_cuda_cores"],
                 nms=nms(nk["K3"], nms_steps["K3_fp32"], fp32="fp32"),
-                rs=nms(rk["K3"], rs_steps["K3_fp32"], fp32="fp32")),
+                rs=nms(rk["K3"], rs_steps["K3_fp32"], fp32="fp32"),
+                psr=nms(pk["K3"], psr_steps["K3_fp32"], fp32="fp32")),
         ]
     }
 
@@ -1747,8 +2080,9 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_nms_")
     data_root, ckpt_dir = os.path.join(work, "data"), os.path.join(args.out_dir, "nms_checkpoints")
     rs_ckpt_dir = os.path.join(args.out_dir, "rs_checkpoints")
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    shutil.rmtree(rs_ckpt_dir, ignore_errors=True)
+    psr_root, psr_ckpt_dir = os.path.join(work, "atom3d"), os.path.join(args.out_dir, "psr_checkpoints")
+    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir):
+        shutil.rmtree(path, ignore_errors=True)
     report = {}
     try:
         report["device"] = phase_device()
@@ -1763,6 +2097,9 @@ def main() -> int:
         report["nms_kernels"] = phase_nms_kernels(dm)
         rs_dm, report["rs_data"] = phase_rs_data()
         report["rs_kernels"] = phase_rs_kernels(rs_dm)
+        psr_dm, report["psr_data"] = phase_psr_data(psr_root)
+        report["psr_kernels"] = phase_psr_kernels(psr_dm)
+        del psr_dm
         report["forward"] = phase_forward(batches)
         report["train"] = phase_train(batches[0])
         report["train_fp32"] = phase_train(batches[0], torch.float32)
@@ -1775,13 +2112,18 @@ def main() -> int:
         report["rs_check"] = phase_rs_check(rs_dm)
         rs_trainer, report["rs_fit"] = phase_rs_fit(rs_dm, rs_ckpt_dir)
         report["rs_profile"] = phase_rs_profile(rs_trainer, rs_dm, report["rs_fit"])
+        del rs_trainer, rs_dm
+        report["psr_check"] = phase_psr_check(psr_root)
+        psr_trainer, psr_dm, report["psr_fit"] = phase_psr_fit(
+            psr_root, psr_ckpt_dir, report["psr_data"]["graphs_per_batch"]
+        )
+        report["psr_profile"] = phase_psr_profile(psr_trainer, psr_dm, report["psr_fit"])
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
-        shutil.rmtree(work, ignore_errors=True)
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-        shutil.rmtree(rs_ckpt_dir, ignore_errors=True)
+        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir):
+            shutil.rmtree(path, ignore_errors=True)
         report["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1)

@@ -48,9 +48,9 @@ def sort_edges_by_receiver(batch: GraphBatch, tile: int = 128) -> GraphBatch:
             "bucket so the counts differ"
         )
     pad = ~np.asarray(batch.edge_pad_mask)
-    order = np.lexsort(
-        (np.arange(num_edges), receivers + pad * (num_nodes + 1))
-    )
+    # real edges by receiver, then the padding, each in its original order
+    # (a stable sort: the JAX function's lexsort with the row as the tie key)
+    order = np.argsort(receivers.astype(np.int64) + pad * (num_nodes + 1), kind="stable")
     real = int((~pad).sum())
     sorted_recv = receivers[order][:real]
     counts = np.bincount(sorted_recv, minlength=num_nodes)
@@ -141,6 +141,15 @@ def collate_shards(
     if sort_edges:
         batch = sort_edges_by_receiver(batch, tile=sort_tile)
     return batch
+
+
+def shuffled_order(n: int, seed: int) -> np.ndarray:
+    """``range(n)`` in the order ``np.random.default_rng(seed).shuffle``
+    gives it: the JAX ``batches_from_dataset``'s order of an epoch's
+    graphs."""
+    order = np.arange(n)
+    np.random.default_rng(seed).shuffle(order)
+    return order
 
 
 def batches_from_dataset(

@@ -1,7 +1,8 @@
 """Host-side featurization helpers (numpy).
 
-The port's copy of ``gcpnet_tpu/data/features.py:15-42``: nan-safe unit
-vectors, Gaussian RBF expansions and chain orientation vectors.  They run in
+The port's copy of ``gcpnet_tpu/data/features.py:15-56``: nan-safe unit
+vectors, Gaussian RBF expansions, chain orientation vectors and the edge
+features of an atom graph.  They run in
 the host input pipeline; graphs reach the card already featurized.
 """
 
@@ -33,3 +34,15 @@ def orientations(x: np.ndarray) -> np.ndarray:
     forward = np.concatenate([forward, np.zeros((1, 3), x.dtype)], axis=0)
     backward = np.concatenate([np.zeros((1, 3), x.dtype), backward], axis=0)
     return np.stack([forward, backward], axis=1).astype(np.float32)
+
+
+def edge_geometric_features(
+    coords: np.ndarray, senders: np.ndarray, receivers: np.ndarray, d_max: float = 4.5, num_rbf: int = 16
+):
+    """``(RBF(|x_j - x_i|) [E, num_rbf], unit(x_j - x_i) [E, 1, 3])`` of each
+    edge ``j -> i`` (senders ``j``, receivers ``i``)."""
+    vec = coords[senders] - coords[receivers]
+    dist = np.linalg.norm(vec, axis=-1)
+    edge_s = rbf(dist, d_max=d_max, d_count=num_rbf)
+    edge_v = normalize(vec)[:, None, :].astype(np.float32)
+    return np.nan_to_num(edge_s), np.nan_to_num(edge_v)

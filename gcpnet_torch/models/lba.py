@@ -1,8 +1,9 @@
-"""LBA task model: ligand binding affinity graph regression.
+"""LBA task model: ligand binding affinity graph regression; PSR.
 
 Port of ``gcpnet_tpu/models/lba.py``: centre + frames -> encoder ->
 invariant projection -> graph mean-pool -> 2-layer dense head; the masked
-per-graph MSE loss.
+per-graph MSE loss.  PSR (structure ranking: one GDT-TS a decoy) is the same
+model and loss (``GCPNetPSR``).
 """
 
 from __future__ import annotations
@@ -74,8 +75,11 @@ class GCPNetLBA(nn.Module):
 
 
 def graph_regression_loss(preds: Tensor, batch: GraphBatch) -> Tuple[Tensor, Tensor]:
-    """Masked per-graph MSE (JAX ``models/lba.py:72-77``): ``(loss,
-    labels)``, in the dtype of ``preds`` and the labels."""
+    """Masked per-graph MSE of LBA and PSR (JAX ``models/lba.py:72-77``):
+    ``(loss, labels)``, in the dtype of ``preds`` and the labels."""
     labels = batch.extras["label"]
     loss = masked_mean((preds - labels) ** 2, batch.graph_pad_mask)
     return loss, labels
+
+
+GCPNetPSR = GCPNetLBA  # PSR runs the LBA architecture with 9 atom types (JAX models/lba.py:80)

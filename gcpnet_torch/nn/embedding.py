@@ -1,11 +1,13 @@
 """Input embedding for nodes and edges.
 
-Port of ``gcpnet_tpu/nn/embedding.py`` as LBA and NMS use it: the node
-scalars are atom types through an embedding table (``num_atom_types > 0``)
-or float features taken as they are (``num_atom_types == 0``); GCPLayerNorm
-of the inputs (pre-norm), then one edge GCP and one node GCP.  Inputs
-without vector channels, post-norm and the ligand flag are options of other
-task models and are not ported yet.
+Port of ``gcpnet_tpu/nn/embedding.py`` as LBA, PSR, NMS and RS use it: the
+node scalars are atom types through an embedding table (``num_atom_types >
+0``) or float features taken as they are (``num_atom_types == 0``), with
+the ligand flag's embedding appended where ``cfg.concatenate_lig_flag``
+(LBA on ATOM3D records, ``batch.extras["lig_flag"]``); GCPLayerNorm of the
+inputs (pre-norm), then one edge GCP and one node GCP.  Inputs without
+vector channels and post-norm are options of other task models and are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.nn.frames import node_mean_frames
 from gcpnet_torch.nn.gcp import make_gcp
 from gcpnet_torch.nn.primitives import GCPLayerNorm, ScalarVector, pack_vector
+
+NUM_LIG_FLAGS = 2  # pocket atom, ligand atom
 
 
 class Embed(nn.Module):
@@ -50,12 +54,14 @@ class GCPEmbedding(nn.Module):
         device,
     ):
         super().__init__()
-        if cfg.concatenate_lig_flag:
-            raise NotImplementedError("GCPEmbedding: the ligand-flag embedding is not ported yet")
         if edge_input_dims[1] <= 0 or node_input_dims[1] <= 0:
             raise NotImplementedError("GCPEmbedding: only inputs with node and edge vectors are ported")
         kw = dict(generator=generator, device=device)
         self.atom_embedding = Embed(num_atom_types, num_atom_types, **kw) if num_atom_types > 0 else None
+        self.lig_flag_embedding = None
+        if cfg.concatenate_lig_flag:
+            self.lig_flag_embedding = Embed(NUM_LIG_FLAGS, NUM_LIG_FLAGS, **kw)
+            node_input_dims = (node_input_dims[0] + NUM_LIG_FLAGS, node_input_dims[1])
         self.edge_normalization = GCPLayerNorm(edge_input_dims[0], device=device)
         self.node_normalization = GCPLayerNorm(node_input_dims[0], device=device)
         # embedding GCPs: no nonlinearities, bottleneck 1, no vector residual
@@ -71,6 +77,8 @@ class GCPEmbedding(nn.Module):
         count_mask: Optional[Tensor] = None,
     ) -> Tuple[ScalarVector, ScalarVector]:
         h = batch.h if self.atom_embedding is None else self.atom_embedding(batch.h)
+        if self.lig_flag_embedding is not None:
+            h = torch.cat([h, self.lig_flag_embedding(batch.extras["lig_flag"]).to(h.dtype)], dim=-1)
         node_rep = ScalarVector(h, pack_vector(batch.chi))
         edge_rep = ScalarVector(batch.e, pack_vector(batch.xi))
         edge_rep = self.edge_normalization(edge_rep)

@@ -1,15 +1,30 @@
-"""Train with the port: ``python -m gcpnet_torch.train [--task lba|nms|rs]``.
+"""Train with the port: ``python -m gcpnet_torch.train [--task lba|psr|nms|rs]``.
 
-``--task lba`` (the default): builds the LBA model at the width of the JAX
-package's benchmark (``predict.lba_configs``: hidden 100/16/32/4, 8
-interaction layers of 8-layer message stacks, dropout 0.1) from ``--seed``,
-with float32 master weights, and takes ``--steps`` Adam steps (``--lr``,
-1e-4 as in the benchmark) on ``--batches`` synthetic LBA batches
-(``predict.synthetic_batches``, used in turn), computing in ``--dtype``
-(``bf16``: bf16 copies of the masters, the benchmark's policy).  On the
-card each step is one replay of a CUDA graph of the step
+``--task lba`` (the default) without ``--data-dir``: builds the LBA model
+at the width of the JAX package's benchmark (``predict.lba_configs``:
+hidden 100/16/32/4, 8 interaction layers of 8-layer message stacks, dropout
+0.1) from ``--seed``, with float32 master weights, and takes ``--steps``
+Adam steps (``--lr``, 1e-4 as in the benchmark) on ``--batches`` synthetic
+LBA batches (``predict.synthetic_batches``, used in turn), computing in
+``--dtype`` (``bf16``: bf16 copies of the masters, the benchmark's policy).
+On the card each step is one replay of a CUDA graph of the step
 (``train.graphs.TrainSteps``).  Prints one JSON line per step: step, loss,
 gradient norm, whether the update was applied, milliseconds.
+
+``--task psr``: fits the PSR structure-ranking model on ATOM3D records
+(``data.atom3d``: the npz record directories that
+``scripts/convert_atom3d_to_npz.py`` writes, under ``--data-dir``, by default
+``data/ATOM3D``) through the :class:`~gcpnet_torch.train.trainer.Trainer`,
+with the defaults of the JAX package's experiment ``gcpnet_psr`` (hidden
+100/16/32/4, 5 interaction layers of 8-layer message stacks, dropout 0.1,
+Adam at 1e-4, seed 42, batches of 16 graphs in a bucket of 16,384 nodes and
+524,288 edge rows, at least 1 and at most 1,000 epochs, early stopping after
+10 epochs without a better ``val/loss``, the best 30 checkpoints, bf16
+compute over float32 masters as the JAX trainer's ``precision: 16``); its
+metrics are RMSE, Pearson and Spearman, and the per-target (``local_*``)
+and global Pearson, Spearman and Kendall correlations.  ``--task lba
+--data-dir D`` fits LBA on ATOM3D records the same way (``gcpnet_lba``: 8
+interaction layers; ``--lba-split``, 30 by default).
 
 ``--task nms``: fits the NMS model on simulated Newtonian many-body data
 through the :class:`~gcpnet_torch.train.trainer.Trainer`, with the defaults
@@ -42,6 +57,7 @@ segment sum (K1) and the edge map (K2) forward and the edge map's backward
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import time
 from typing import Optional, Sequence, Tuple
@@ -50,10 +66,11 @@ import torch
 
 from gcpnet_torch import tasks
 from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg, MPCfg
+from gcpnet_torch.data.atom3d import ATOM3DDataModule
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
 from gcpnet_torch.device import DeviceLike, resolve_device
-from gcpnet_torch.models.lba import GCPNetLBA, graph_regression_loss
+from gcpnet_torch.models.lba import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
 from gcpnet_torch.predict import DTYPES, lba_configs, synthetic_batches
@@ -157,6 +174,32 @@ def build_rs_trainer(
     return _task_trainer(model, rs_loss, "GCPNetRS", seed, lr, trainer_kw)
 
 
+def build_atom3d_trainer(
+    task: str,
+    seed: int = 42,
+    device: DeviceLike = None,
+    num_encoder_layers: Optional[int] = None,
+    lr: float = 1e-4,
+    dropout: float = 0.1,
+    **trainer_kw,
+) -> Trainer:
+    """The PSR (``task="psr"``) or LBA (``"lba"``) model of the JAX package's
+    experiments at their widths (``predict.lba_configs``), with 5 or 8
+    interaction layers unless ``num_encoder_layers`` says otherwise and
+    dropout ``dropout``, weights drawn from ``seed`` on ``device`` (``None``:
+    the card), in a :class:`Trainer` (:func:`_task_trainer`) with the task's
+    metrics."""
+    model_cfg, module_cfg, layer_cfg = lba_configs()
+    layers = num_encoder_layers or FIT_DEFAULTS[task]["num_encoder_layers"]
+    model_cfg = model_cfg.replace(num_encoder_layers=layers, dropout=dropout, dense_dropout=dropout)
+    model_cls, name = (GCPNetPSR, "GCPNetPSR") if task == "psr" else (GCPNetLBA, "GCPNetLBA")
+    model = model_cls(
+        model_cfg, module_cfg, layer_cfg.replace(dropout=dropout), num_atom_types=9,
+        generator=torch.Generator().manual_seed(seed), device=device,
+    )
+    return _task_trainer(model, graph_regression_loss, name, seed, lr, trainer_kw)
+
+
 class JsonLines:
     """A trainer logger: one JSON line of metrics on standard output."""
 
@@ -164,10 +207,13 @@ class JsonLines:
         print(json.dumps({**metrics, "step": step}), flush=True)
 
 
-# per task: the experiment's batch size, encoder depth and epoch bounds
+# per task: the experiment's batch size, encoder depth, epoch bounds and
+# precision (the ATOM3D experiments take configs/trainer/default.yaml's 16)
 FIT_DEFAULTS = {
-    "nms": dict(batch_size=100, num_encoder_layers=4, min_epochs=100, max_epochs=12000),
-    "rs": dict(batch_size=64, num_encoder_layers=8, min_epochs=1, max_epochs=1000),
+    "nms": dict(batch_size=100, num_encoder_layers=4, min_epochs=100, max_epochs=12000, precision=32),
+    "rs": dict(batch_size=64, num_encoder_layers=8, min_epochs=1, max_epochs=1000, precision=32),
+    "psr": dict(batch_size=16, num_encoder_layers=5, min_epochs=1, max_epochs=1000, precision=16),
+    "lba": dict(batch_size=16, num_encoder_layers=8, min_epochs=1, max_epochs=1000, precision=16),
 }
 
 
@@ -179,6 +225,12 @@ def _main_fit(args) -> None:
             num_train=args.num_train, num_valid=args.num_valid, num_test=args.num_test, sim_device=device,
         )
         build = build_nms_trainer
+    elif args.task in ("psr", "lba"):
+        dm = ATOM3DDataModule(
+            task=args.task, data_dir=args.data_dir or "data/ATOM3D", lba_split=args.lba_split,
+            batch_size=args.batch_size,
+        )
+        build = functools.partial(build_atom3d_trainer, args.task)
     else:
         sizes = {"train": args.num_train or 4096, "valid": args.num_valid or 512, "test": args.num_test or 512}
         dm = RSDataModule(seed=args.seed, batch_size=args.batch_size, synthetic_sizes=sizes)
@@ -221,12 +273,12 @@ def _main_lba(args) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--task", choices=("lba", "nms", "rs"), default="lba")
+    parser.add_argument("--task", choices=("lba", "psr", "nms", "rs"), default="lba")
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--adaptive-clip", action="store_true")
-    parser.add_argument("--seed", type=int, default=None, help="default: 0 (lba), 42 (nms, rs)")
+    parser.add_argument("--seed", type=int, default=None, help="default: 0 (lba's bench steps), 42 (the fits)")
     parser.add_argument("--device", default=None, help="default: the CUDA card")
-    lba = parser.add_argument_group("--task lba")
+    lba = parser.add_argument_group("--task lba without --data-dir")
     lba.add_argument("--steps", type=int, default=6)
     lba.add_argument("--graphs", type=int, default=16)
     lba.add_argument("--nodes", type=int, default=448)
@@ -236,23 +288,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     nms = parser.add_argument_group("--task nms")
     nms.add_argument("--data-root", default="data/NMS")
     nms.add_argument("--data-mode", default="small_20body")
-    fit = parser.add_argument_group("--task nms and --task rs")
-    fit.add_argument("--batch-size", type=int, default=None, help="default: 100 (nms), 64 anchors (rs)")
+    atom3d = parser.add_argument_group("--task psr, and --task lba with --data-dir")
+    atom3d.add_argument("--data-dir", default=None, help="the ATOM3D npz records (psr: default data/ATOM3D)")
+    atom3d.add_argument("--lba-split", type=int, default=30, help="LBA's sequence-identity split")
+    fit = parser.add_argument_group("the fits: --task nms, rs, psr, and lba with --data-dir")
+    fit.add_argument("--batch-size", type=int, default=None,
+                     help="default: 100 (nms), 64 anchors (rs), 16 (psr, lba)")
     fit.add_argument("--num-train", type=int, default=None, help="default: 10,000 (nms), 4,096 (rs)")
     fit.add_argument("--num-valid", type=int, default=None, help="default: 2,000 (nms), 512 (rs)")
     fit.add_argument("--num-test", type=int, default=None, help="default: 2,000 (nms), 512 (rs)")
-    fit.add_argument("--num-encoder-layers", type=int, default=None, help="default: 4 (nms), 8 (rs)")
-    fit.add_argument("--max-epochs", type=int, default=None, help="default: 12,000 (nms), 1,000 (rs)")
-    fit.add_argument("--min-epochs", type=int, default=None, help="default: 100 (nms), 1 (rs)")
+    fit.add_argument("--num-encoder-layers", type=int, default=None, help="default: 4 (nms), 8 (rs, lba), 5 (psr)")
+    fit.add_argument("--max-epochs", type=int, default=None, help="default: 12,000 (nms), 1,000 (rs, psr, lba)")
+    fit.add_argument("--min-epochs", type=int, default=None, help="default: 100 (nms), 1 (rs, psr, lba)")
     fit.add_argument("--checkpoint-dir", default=None)
     fit.add_argument("--resume", action="store_true", help="go on from --checkpoint-dir's last checkpoint")
-    fit.add_argument("--precision", type=int, choices=(32, 16), default=32)
+    fit.add_argument("--precision", type=int, choices=(32, 16), default=None,
+                     help="default: 32 (nms, rs), 16 (psr, lba): bf16 over float32 masters")
     fit.add_argument("--scan-chunk-size", type=int, default=1,
                      help="training and validation batches a dispatch (the JAX trainer.scan_chunk_size)")
     args = parser.parse_args(argv)
+    bench_steps = args.task == "lba" and args.data_dir is None
     if args.seed is None:
-        args.seed = 0 if args.task == "lba" else 42
-    if args.task == "lba":
+        args.seed = 0 if bench_steps else 42
+    if bench_steps:
         _main_lba(args)
         return
     for key, value in FIT_DEFAULTS[args.task].items():

@@ -98,6 +98,12 @@ class CapturedCall:
         self.captured_batches = 0  # batches those graphs take, together
         self.replays = 0
 
+    @property
+    def num_graphs(self) -> int:
+        """The graphs held now: one per sequence of batch shapes seen since
+        the last :meth:`clear`."""
+        return len(self._graphs)
+
     def clear(self) -> None:
         """Drop every graph and slot: the next call captures again."""
         self._graphs.clear()

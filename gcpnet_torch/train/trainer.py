@@ -20,8 +20,10 @@ of the model's parameters):
   exception in that thread reaches the caller;
 - ``eval_epoch`` gives ``<prefix>/loss`` (the mean of the batch losses)
   and the task's metrics over the collected predictions, chunked as
-  ``train_epoch`` is (``trainer.py:565-610``); a metric that fails is
-  logged, not raised;
+  ``train_epoch`` is (``trainer.py:565-610``); until the epoch's end it
+  keeps each batch's predictions on the device and what the task's
+  collect function keeps of the batch (``tasks.Collect.keep``), not the
+  batch; a metric that fails is logged, not raised;
 - ``fit`` resumes from the last checkpoint when asked, validates every
   ``check_val_every_n_epoch`` epochs, keeps the best ``save_top_k``
   checkpoints by ``monitor``, feeds a ReduceLROnPlateau schedule
@@ -131,7 +133,8 @@ class Trainer:
         checkpoint_every_n_steps: Optional[int] = None,
         scan_chunk_size: int = 1,
     ):
-        """``scan_chunk_size`` as the JAX trainer's (``trainer.py:164-167``)."""
+        """``scan_chunk_size`` as the JAX trainer's (``trainer.py:164-167``);
+        ``collect_fn`` a task's :class:`~gcpnet_torch.tasks.Collect`."""
         self.model = model
         self.device = next(model.parameters()).device
         self.loss_fn = loss_fn
@@ -243,22 +246,31 @@ class Trainer:
         dt = time.perf_counter() - t0
         return {"train/loss": mean, "train/steps_per_sec": sum(weights) / max(dt, 1e-9)}
 
+    def _eval_chunk(self, chunk: List) -> tuple:
+        """A chunk's losses and, per batch, its predictions on the device
+        with what the collect function keeps of its host batch (not the
+        batch)."""
+        staged = [b for _, b in chunk]
+        if self.eval_graphs is not None:
+            losses, preds = self.eval_graphs(staged)
+        else:
+            results = [eval_step(self.model, b, self.loss_fn) for b in staged]
+            losses, preds = torch.stack([r[0] for r in results]), [r[1] for r in results]
+        keep = self.collect_fn.keep if self.collect_fn is not None else (lambda host: None)
+        return losses, list(zip(preds, (keep(host) for host, _ in chunk)))
+
     def eval_epoch(self, batches: Iterable[GraphBatch], prefix: str = "val") -> Dict[str, float]:
         losses, outs = [], []
-        for chunk in self._chunks(self._staged(batches)):
-            staged = [b for _, b in chunk]
-            if self.eval_graphs is not None:
-                chunk_losses, preds = self.eval_graphs(staged)
-            else:
-                results = [eval_step(self.model, b, self.loss_fn) for b in staged]
-                chunk_losses, preds = torch.stack([r[0] for r in results]), [r[1] for r in results]
+        # no chunk outlives its step: the epoch keeps predictions and what
+        # the collect function keeps of each batch
+        for chunk_losses, kept in map(self._eval_chunk, self._chunks(self._staged(batches))):
             losses.append(chunk_losses)
-            outs.extend(zip(preds, (host for host, _ in chunk)))
+            outs.extend(kept)
         metrics = {f"{prefix}/loss": float(np.mean(torch.cat(losses).cpu().numpy(), dtype=np.float64)) if losses else float("nan")}
         if self.collect_fn is not None and self.metric_fns:
             collector = Collector()
-            for preds, host in outs:
-                self.collect_fn(collector, preds.float().cpu().numpy(), host)
+            for preds, kept in outs:
+                self.collect_fn.add(collector, preds.float().cpu().numpy(), kept)
             p, labels, groups = collector.cat()
             for name, fn in self.metric_fns.items():
                 try:

@@ -18,8 +18,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from gcpnet_torch import predict as port_predict
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
+from gcpnet_torch.data.atom3d import ATOM3DDataModule
 from gcpnet_torch.data.nms import NMSDataModule
-from gcpnet_torch.models.lba import GCPNetLBA, graph_regression_loss
+from gcpnet_torch.models.lba import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
 from gcpnet_torch.data.rs import RSDataModule
@@ -638,6 +639,76 @@ def test_rs_gradients_on_card_match_cpu(cuda):
         got = grads["cuda"][name]
         assert got is not None, name
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+def _psr_datamodule(root, batch_size: int, max_nodes: int, **records) -> ATOM3DDataModule:
+    """PSR on synthetic chain records (chip_smoke.write_psr_records)."""
+    from chip_smoke import write_psr_records
+
+    write_psr_records(str(root), **records)
+    dm = ATOM3DDataModule(task="PSR", data_dir=str(root), batch_size=batch_size, max_nodes_per_batch=max_nodes)
+    dm.setup()
+    return dm
+
+
+def test_psr_gradients_on_card_match_cpu(cuda, tmp_path):
+    """The PSR model at full width (2 of its 5 interaction layers) on two
+    synthetic decoys of 300-400 heavy atoms: the loss and every parameter's
+    gradient on the card against the CPU, through K1, K2 and the fp32 K3."""
+    dm = _psr_datamodule(tmp_path, 2, 1024, targets={"train": 1, "val": 1, "test": 1}, decoys=2, atoms=(300, 400))
+    batch = next(dm.val_batches())
+    assert int(batch.graph_pad_mask.sum()) == 2
+    model_cfg, module_cfg, layer_cfg = port_predict.lba_configs()
+    model_cfg = model_cfg.replace(num_encoder_layers=2, dropout=0.0, dense_dropout=0.0)
+    grads, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = GCPNetPSR(
+            model_cfg, module_cfg, layer_cfg.replace(dropout=0.0),
+            generator=torch.Generator().manual_seed(0), device=dev,
+        )
+        launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+        b = batch.to(torch.device(dev))
+        loss, _ = graph_regression_loss(model(b), b)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+            assert tuple(a - b for a, b in zip(now, launches)) == (2, 2, 2)
+        losses[dev] = loss.item()
+        grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_k2_k3_match_plain_at_a_psr_batch(rng, cuda, tmp_path, dtype):
+    """K1, K2 and K3 at a PSR training batch: the JAX bucket's 16,384 nodes
+    and 524,288 receiver-sorted CSR rows (K1 sums the real rows into the
+    nodes), LBA's stack widths (PSR's), against their plain versions: K1 at
+    _k1_check's bounds, K2 at test_k2_k3_match_plain_at_lba_widths', K3
+    under the kink rule (_k3_check_with_kink_rule)."""
+    dm = _psr_datamodule(tmp_path, 16, 16384, targets={"train": 2, "val": 1, "test": 1}, decoys=8)
+    batch = next(dm.train_batches(seed=0))
+    assert (batch.num_nodes, batch.num_edges) == (16384, 16384 * 32)
+    splits = torch.as_tensor(batch.edge_row_splits).to(cuda)
+    data = torch.from_numpy(rng.normal(size=(batch.num_edges, 148)).astype(np.float32)).to(cuda, dtype)
+    _k1_check(data, splits, batch.num_nodes)
+    with torch.no_grad():
+        stack = _lba_width_message_passing(ModuleCfg()).to(cuda, dtype).packed_stack()
+    e = batch.num_edges
+    msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
+    frames = frames * torch.as_tensor(batch.edge_pad_mask).to(cuda)[:, None]
+    with torch.no_grad():
+        got = edge_map(msg, frames, stack)
+        want = edge_map_plain(msg, frames, stack)
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel_err(got, want) <= (1e-4 if dtype == torch.float32 else K2_BF16_TOL)
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    _k3_check_with_kink_rule(msg, frames, stack, grad_out)
 
 
 def test_k2_cuda_rejects_unsupported_activation(cuda):

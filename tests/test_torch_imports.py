@@ -2,10 +2,10 @@
 every module of the package, the chip scripts (``chip_smoke.py``,
 ``k1_versions.py``, ``k2_versions.py``, ``k3_breakdown.py``), the card's
 tests (``test_torch_gpu.py``, which run where JAX is absent), a CPU
-prediction, a CPU LBA training run, a CPU NMS fit with its simulated data
-and a CPU RS fit on synthetic enantiomers (``python -m gcpnet_torch.train
-[--task nms|rs]``) in a fresh interpreter whose import system refuses those
-packages."""
+prediction, a CPU LBA training run, a CPU NMS fit with its simulated data,
+a CPU RS fit on synthetic enantiomers and a CPU PSR fit on synthetic ATOM3D
+records (``python -m gcpnet_torch.train [--task nms|rs|psr]``) in a fresh
+interpreter whose import system refuses those packages."""
 
 import subprocess
 import sys
@@ -64,6 +64,21 @@ sys.argv = ["gcpnet_torch.train", "--task", "rs", "--device", "cpu", "--num-trai
             "--num-test", "4", "--batch-size", "2", "--num-encoder-layers", "1", "--max-epochs", "1",
             "--min-epochs", "0"]
 runpy.run_module("gcpnet_torch.train", run_name="__main__")
+import functools
+
+from chip_smoke import write_psr_records
+from gcpnet_torch.data import atom3d
+from gcpnet_torch.train import cli
+
+with tempfile.TemporaryDirectory() as root:
+    write_psr_records(root, targets={"train": 2, "val": 1, "test": 1}, decoys=3, atoms=(20, 40))
+    # the entry point with a bucket of 128 nodes (the JAX one's 16,384 take
+    # minutes a step on the CPU)
+    cli.ATOM3DDataModule = functools.partial(atom3d.ATOM3DDataModule, max_nodes_per_batch=128)
+    sys.argv = ["gcpnet_torch.train", "--task", "psr", "--device", "cpu", "--data-dir", root, "--batch-size", "3",
+                "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0"]
+    runpy.run_module("gcpnet_torch.train", run_name="__main__")
+assert "gcpnet_torch.data.atom3d" in names
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names))
