@@ -41,6 +41,16 @@ Phases, one line each:
  11. psr-kernels: K1, K2 and K3 at a PSR training batch (524,288 CSR rows
      into 16,384 nodes) against their plain versions, fp32 and bf16, with
      their times, bounds and shares of them;
+ 11a. cpd-data: synthetic CATH chains (write_cath_chains: 1,000 / 100 /
+     100 chains of 40-500 residues with ideal backbone geometry from
+     (phi, psi) in helix, strand and coil segments, each residue drawn by
+     its region and burial) in the chain_set.jsonl format, read by
+     gcpnet_torch.data.cath; a shuffled training epoch's batches: host ms
+     a batch, real nodes and edge rows against the bucket's 2,048 and
+     61,440;
+ 11b. cpd-kernels: K1, K2 and K3 at a CPD training batch (61,440 CSR rows
+     into 2,048 nodes) against their plain versions, fp32 and bf16, with
+     their times, bounds and shares of them;
  12. forward: the LBA forward at the benchmark's full width (16 graphs x 448
      atoms, 8 interaction layers x 8 message layers) through
      gcpnet_torch.predict, fp32 and bf16, eager and served (Predictor: a
@@ -107,9 +117,26 @@ Phases, one line each:
      began, the CUDA graphs held (at most a full chunk's and the tail's a
      split); the deterministic parity run, as nms-fit;
  25. psr-profile: one warm eager PSR step and one replay of a train and an
-     eval chunk under torch.profiler; the psr-fit's checks.
+     eval chunk under torch.profiler; the psr-fit's checks;
+ 26. cpd-check: one fp32 CPD training step on the card against the CPU (2
+     encoder and 2 decoder layers, 2 chains, no dropout), and the bf16
+     step's gradients against the fp32 step's on the card;
+ 27. cpd-fit: the CPD path, the full-width, full-depth CPD model (9 encoder
+     and 3 autoregressive decoder layers) fitted by the Trainer in bf16
+     over float32 masters with the experiment's defaults (gradients
+     accumulated over 4 batches) and scan_chunk_size 4 for 2 epochs with
+     checkpoints, a resume to a third, and the best checkpoint's test:
+     epoch seconds, train graphs/s, val/loss and val/recovery_argmax, peak
+     memory, the CUDA graphs held; the deterministic parity run;
+ 28. cpd-profile: one warm eager CPD step and one replay of a train and an
+     eval chunk under torch.profiler; the cpd-fit's checks;
+ 29. cpd-design: the fitted model designs 12 test chains (evaluate_cpd: 100
+     sequences each at temperature 0.1): median perplexity and recovery
+     for all, short and single_chain, ms a chain, the device's launches a
+     position; the argmax samples of one chain, card against CPU.
 Then the total time, one JSON line with every kernel's numbers (at the NMS,
-RS and PSR shapes too), the nvidia-smi line, and the final status line.  Any failed phase exits non-zero; without a CUDA device
+RS, PSR and CPD shapes too), the nvidia-smi line, and the final status
+line.  Any failed phase exits non-zero; without a CUDA device
 the script exits non-zero before printing any result.  Full measurements go
 to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
 """
@@ -134,8 +161,13 @@ import numpy as np
 import torch
 
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
+from gcpnet_torch.data.batching import Bucket, batches_from_dataset
+from gcpnet_torch.data.cath import CATHDataModule
+from gcpnet_torch.data.cath_synthetic import write_cath_chains
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
+from gcpnet_torch.models.cpd import cpd_loss
+from gcpnet_torch.models.cpd_eval import datum_recovery, evaluate_cpd
 from gcpnet_torch.models.lba import graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
@@ -156,9 +188,11 @@ from gcpnet_torch.predict import DTYPES, Predictor, build_model, lba_configs, pr
 from gcpnet_torch.train.cli import (
     FIT_DEFAULTS,
     build_atom3d_trainer,
+    build_cpd_trainer,
     build_lba_training,
     build_nms_trainer,
     build_rs_trainer,
+    cpd_configs,
     nms_configs,
     rs_configs,
 )
@@ -218,6 +252,34 @@ PSR_NOISE = (0.3, 4.0)  # a decoy's noise scale in angstrom, log-uniform
 PSR_BUCKET = (16384, 16384 * 32)
 PSR_EPOCHS, PSR_RESUME_EPOCHS = 2, 3
 PSR_CHECK_GRAPHS, PSR_CHECK_LAYERS, PSR_CHECK_NODES = 2, 2, 4096
+# The CPD path: the experiment gcpnet_cpd at its published widths and depth
+# (hidden 100/16/32/4, 9 encoder and 3 autoregressive decoder layers of
+# 8-layer message stacks, dropout 0.2, Adam at 1e-4 with weight decay 1e-8,
+# gradients accumulated over 4 batches, seed 42, batches of up to 8 chains
+# in the JAX bucket of 2,048 nodes and 61,440 edge rows, bf16 over float32
+# masters).  CATH 4.2 is not on the card's machine: the chains are
+# synthetic, in its chain_set.jsonl format (write_cath_chains), cut to
+# 1,000 / 100 / 100 chains of 40-500 residues (CATH 4.2's splits hold
+# 18,024 / 608 / 1,120); the fit runs 2 of its up to 1,000 epochs and a
+# resume for a third; the design samples CPD_DESIGN_CHAINS of the 100 test
+# chains, 100 sequences each at temperature 0.1 (the JAX protocol; the
+# sampler runs eagerly, 17-20 ms a residue on one H100 80GB HBM3 at 700 W);
+# cpd-check cuts to 2 encoder and 2 decoder layers and 2 chains in a bucket
+# of 512 nodes.
+CPD_CHAINS = {"train": 1000, "validation": 100, "test": 100}
+CPD_LENGTHS = (40, 500)  # residues, log-uniform
+CPD_BUCKET = (2048, 2048 * 30)
+CPD_EPOCHS, CPD_RESUME_EPOCHS = 2, 3
+CPD_CHECK_GRAPHS, CPD_CHECK_LAYERS, CPD_CHECK_NODES = 2, 2, 512
+CPD_DESIGN_CHAINS, CPD_SAMPLES, CPD_TEMPERATURE = 12, 100, 0.1
+# the argmax samples (temperature 1e-6) of one chain, card against CPU:
+# CPD_ARGMAX_SAMPLES copies of the shortest design chain
+CPD_ARGMAX_SAMPLES = 4
+# the share of those residues that must agree: the two sum in another order
+# (the card's index_add_ atomics), so a position whose two best logits lie
+# within float32 rounding of each other may go either way, and the later
+# positions read it
+CPD_ARGMAX_EQUAL_SHARE = 0.99
 # the best checkpoint's val/loss evaluated again against the value logged
 # for it: the same weights and batches through the same kernels, but the
 # node-frame means sum with index_add_, whose atomics on the card add in
@@ -1064,7 +1126,9 @@ def _step_diffs(a: dict, b: dict) -> dict:
     }
 
 
-def card_vs_cpu_step(name: str, build, batch, loss_fn, layers: int, rounding_draws: int = 0) -> dict:
+def card_vs_cpu_step(
+    name: str, build, batch, loss_fn, layers: int, rounding_draws: int = 0, params_by_share: bool = False
+) -> dict:
     """One float32 training step on the card against the same step on the
     CPU (plain versions): ``build(device) -> (model, state)`` gives both the
     same weights; the same host ``batch``, no dropout.  Held to
@@ -1073,7 +1137,9 @@ def card_vs_cpu_step(name: str, build, batch, loss_fn, layers: int, rounding_dra
     part as far as ROUNDING_SPREAD_FACTOR times the CPU step parts from
     itself under a float32 rounding's worth of weight noise (the largest of
     that many draws): for a step whose gradient float32 rounding alone
-    moves by more than TRAIN_CHECK_ATOL."""
+    moves by more than TRAIN_CHECK_ATOL.  With ``params_by_share`` the
+    updated parameters are held by the share of entries apart alone (the
+    largest distance is printed, not held: see phase_cpd_check)."""
     reset_counts()
     card = _step_outcome(build, "cuda", batch, loss_fn)
     fp32_k3 = launch_counts()[3]
@@ -1104,7 +1170,8 @@ def card_vs_cpu_step(name: str, build, batch, loss_fn, layers: int, rounding_dra
     check(results["loss_abs_diff"] <= TRAIN_CHECK_ATOL["loss"], f"{name}: loss differs")
     check(results["grad_norm_abs_diff"] <= TRAIN_CHECK_ATOL["grad_norm"], f"{name}: grad norm differs")
     check(results["grads_norm_rel_err"] <= bound["grads_norm_rel"], f"{name}: gradients differ")
-    check(results["params_max_abs_diff"] <= bound["params"], f"{name}: parameters differ")
+    if not params_by_share:
+        check(results["params_max_abs_diff"] <= bound["params"], f"{name}: parameters differ")
     check(results["params_share_above_1e-6"] <= bound["params_share_above_1e-6"],
           f"{name}: too many parameters differ")
     print(f"phase {name}: ok")
@@ -1423,7 +1490,8 @@ def fit_parity(build, dm, loss_fn) -> dict:
     }
 
 
-def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k3: str = "K3_fp32") -> None:
+def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k3: str = "K3_fp32",
+                k1_layers: int = None) -> None:
     """What every captured fit must show: the wrappers counted the kernels
     of each graph's first call only (its eager run and the capture's
     records: twice a layer's K1, K2 and fp32 K3 launches for each training
@@ -1434,20 +1502,22 @@ def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k3: st
     captured steps equal its eager ones bit for bit (fit_parity), with
     replays among them; the first epoch's losses are the eager epoch's
     within FIT_EAGER_RTOL[name] where the fit ran one (``first_epoch``).
-    ``k3`` is the K3 of the fit's precision (the other counts none)."""
+    ``k3`` is the K3 of the fit's precision (the other counts none);
+    ``k1_layers`` the K1 launches a step, where they are not ``layers``
+    (CPD: the encoder's and the decoder's)."""
     g = results["graphs"]
-    train, evals = 2 * layers * g["train_captured_batches"], 2 * layers * g["eval_captured_batches"]
+    k1_layers = k1_layers or layers
+    train, evals = 2 * g["train_captured_batches"], 2 * g["eval_captured_batches"]
 
     def k3s(n):
         return {"K3_bf16": 0, "K3_fp32": 0, k3: n}
 
-    want = {"K1": train + evals, "K2": train + evals, **k3s(train)}
+    want = {"K1": k1_layers * (train + evals), "K2": layers * (train + evals), **k3s(layers * train)}
     check(results["launches"] == want, f"{name}: launches {results['launches']}, want {want} (graphs {g})")
-    chunk = layers * FIT_CHUNK
     traced = {
-        "profile": {"K1": layers, "K2": layers, **k3s(layers)},
-        "profile_captured": {"K1": chunk, "K2": chunk, **k3s(chunk)},
-        "profile_eval_captured": {"K1": chunk, "K2": chunk, **k3s(0)},
+        "profile": {"K1": k1_layers, "K2": layers, **k3s(layers)},
+        "profile_captured": {"K1": k1_layers * FIT_CHUNK, "K2": layers * FIT_CHUNK, **k3s(layers * FIT_CHUNK)},
+        "profile_eval_captured": {"K1": k1_layers * FIT_CHUNK, "K2": layers * FIT_CHUNK, **k3s(0)},
     }
     for key, want in traced.items():
         check(results[key]["launches"] == want, f"{name}: {key} launches {results[key]['launches']}, want {want}")
@@ -1485,11 +1555,13 @@ def _fit_record(trainer, clock: EpochClock, eager, lr: float) -> dict:
     return record
 
 
-def _profile_steps(trainer, dm, loss_fn, layers: int) -> dict:
+def _profile_steps(trainer, dm, loss_fn, layers: int, k1_layers: int = None) -> dict:
     """One warm eager training step, and one replay each of the trainer's
     captured train chunk and eval chunk (FIT_CHUNK batches of the fit's
     shapes), each under torch.profiler, which reads the kernels each ran
-    from its trace (profile_kernels)."""
+    from its trace (profile_kernels); ``k1_layers`` K1 launches a step
+    where they are not ``layers``."""
+    k1_layers = k1_layers or layers
     train = [b.pinned() for b in itertools.islice(dm.train_batches(seed=0), FIT_CHUNK)]
     val = [b.pinned() for b in itertools.islice(dm.val_batches(), FIT_CHUNK)]
     dev_batch = next(dm.train_batches(seed=0)).to(torch.device("cuda"))
@@ -1498,12 +1570,12 @@ def _profile_steps(trainer, dm, loss_fn, layers: int) -> dict:
     replay_eval = lambda: trainer.eval_graphs(val)  # noqa: E731
     for fn in (eager, replay, replay_eval):  # warm, and captured where the graphs were dropped
         fn()
-    chunk = layers * FIT_CHUNK
+    chunk, k1_chunk = layers * FIT_CHUNK, k1_layers * FIT_CHUNK
     return {
         "chunk_steps": FIT_CHUNK,
-        "profile": profile_kernels(eager, {"K1": layers, "K2": layers, "K3": layers}),
-        "profile_captured": profile_kernels(replay, {"K1": chunk, "K2": chunk, "K3": chunk}),
-        "profile_eval_captured": profile_kernels(replay_eval, {"K1": chunk, "K2": chunk, "K3": 0}),
+        "profile": profile_kernels(eager, {"K1": k1_layers, "K2": layers, "K3": layers}),
+        "profile_captured": profile_kernels(replay, {"K1": k1_chunk, "K2": chunk, "K3": chunk}),
+        "profile_eval_captured": profile_kernels(replay_eval, {"K1": k1_chunk, "K2": chunk, "K3": 0}),
     }
 
 
@@ -1786,11 +1858,11 @@ def _batch_fill(batch) -> dict:
             "edge_padding_share": 1 - edges / batch.num_edges, "node_padding_share": 1 - nodes / batch.num_nodes}
 
 
-def _timed_batches(batches) -> tuple:
+def _timed_batches(batches, bucket=PSR_BUCKET) -> tuple:
     """For each batch of ``batches``: its fill (_batch_fill), whether it has
-    the bucket's shape and CSR splits, the ms its making took (featurizing,
-    packing, sorting; for the first, anything before it) and the ms its
-    pinning took.  No batch is kept."""
+    the ``bucket``'s shape (nodes, edge rows) and CSR splits, the ms its
+    making took (featurizing, packing, sorting; for the first, anything
+    before it) and the ms its pinning took.  No batch is kept."""
     fills, make_ms, pin_ms = [], [], []
     it = iter(batches)
     while True:
@@ -1802,7 +1874,7 @@ def _timed_batches(batches) -> tuple:
         batch.pinned()
         pin_ms.append((time.perf_counter() - t1) * 1e3)
         make_ms.append((t1 - t0) * 1e3)
-        in_bucket = (batch.num_nodes, batch.num_edges) == PSR_BUCKET and batch.edge_row_splits is not None
+        in_bucket = (batch.num_nodes, batch.num_edges) == tuple(bucket) and batch.edge_row_splits is not None
         fills.append({**_batch_fill(batch), "in_bucket": in_bucket})
 
 
@@ -1987,6 +2059,285 @@ def phase_psr_profile(trainer, dm, fit: dict) -> dict:
     return results
 
 
+# --- CPD ----------------------------------------------------------------------
+
+def cpd_datamodule(root: str, batch_size: int = 8, max_nodes: int = CPD_BUCKET[0]) -> CATHDataModule:
+    dm = CATHDataModule(data_dir=root, batch_size=batch_size, max_nodes_per_batch=max_nodes)
+    dm.prepare_data()
+    dm.setup()
+    return dm
+
+
+def phase_cpd_data(root: str):
+    """Synthetic CATH chains written (write_cath_chains) and read
+    (CATHDataModule); a shuffled training epoch's batches made as the
+    Trainer's prefetch thread makes them (featurized on threads, packed,
+    receiver-sorted): ms a batch and its pinning, each batch's real nodes
+    and edge rows against the bucket's 2,048 and 61,440."""
+    t0 = time.perf_counter()
+    written = write_cath_chains(root, seed=SEED, chains=CPD_CHAINS, lengths=CPD_LENGTHS)
+    write_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dm = cpd_datamodule(root)
+    setup_seconds = time.perf_counter() - t0
+    fills, make_ms, pin_ms = _timed_batches(dm.train_batches(seed=0), CPD_BUCKET)
+    keys = ("graphs", "real_nodes", "real_edges", "edge_padding_share", "node_padding_share")
+    results = {
+        **written, "write_seconds": write_seconds, "setup_seconds": setup_seconds,
+        "custom_splits": {k: len(v) for k, v in dm.custom_splits.items()},
+        "train_batches": len(fills),
+        "host_ms_per_batch": {"mean": float(np.mean(make_ms[1:])), "max": float(np.max(make_ms[1:])),
+                              "first": make_ms[0]},
+        "pin_ms_per_batch": {"mean": float(np.mean(pin_ms)), "max": float(np.max(pin_ms))},
+        "bucket": {"nodes": CPD_BUCKET[0], "edges": CPD_BUCKET[1], "graphs": 8},
+        "fill_min_mean_max": {k: [float(f(np.asarray([x[k] for x in fills]))) for f in (np.min, np.mean, np.max)]
+                              for k in keys},
+        "graphs_per_batch": CPD_CHAINS["train"] / len(fills),
+        "per_batch": fills,
+        "cuts": {"chains": dict(CPD_CHAINS), "lengths": list(CPD_LENGTHS), "epochs": [CPD_EPOCHS, CPD_RESUME_EPOCHS],
+                 "design_chains": CPD_DESIGN_CHAINS, "data": "synthetic chains, not CATH 4.2"},
+    }
+    print("phase cpd-data: " + json.dumps({k: v for k, v in results.items() if k != "per_batch"}), flush=True)
+    print("phase cpd-data: per batch [chains, real nodes, real edge rows]: "
+          + json.dumps([[x["graphs"], x["real_nodes"], x["real_edges"]] for x in fills]), flush=True)
+    check(written["chains"] == CPD_CHAINS, f"cpd-data: chains written {written['chains']}")
+    check([len(v) for v in dm.splits.values()] == list(CPD_CHAINS.values()), "cpd-data: splits read")
+    check(sum(x["graphs"] for x in fills) == CPD_CHAINS["train"],
+          f"cpd-data: {len(fills)} batches hold {sum(x['graphs'] for x in fills)} chains")
+    check(all(x["in_bucket"] for x in fills), "cpd-data: a batch outside the bucket or without its CSR splits")
+    print("phase cpd-data: ok")
+    return dm, results
+
+
+def cpd_message_passing() -> GCPMessagePassing:
+    """One encoder layer's message passing of the CPD model (8 GCP2 layers,
+    hidden 100/16, edges 32/4), random weights from the seed."""
+    model_cfg, module_cfg, layer_cfg = cpd_configs()
+    node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
+    edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
+    return GCPMessagePassing(
+        node_dims, node_dims, edge_dims, module_cfg, layer_cfg,
+        generator=torch.Generator().manual_seed(SEED), device="cuda",
+    )
+
+
+def phase_cpd_kernels(dm) -> dict:
+    """K1, K2 and K3 at the CPD step's shape (a training batch: the bucket's
+    61,440 receiver-sorted CSR rows into 2,048 nodes), fp32 and bf16, the
+    encoder's stack; K3 fp32 by the kink rule."""
+    batch = next(dm.train_batches(seed=0))
+    results = {
+        "K1": phase_k1({1: batch}, name="cpd-K1"),
+        "K2": phase_k2(batch, cpd_message_passing(), name="cpd-K2"),
+        "K3": phase_k3(batch, cpd_message_passing(), name="cpd-K3", full_bound=False),
+    }
+    for kernel, res in results.items():
+        for key, r in res.items():
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print("phase cpd-kernels: ok " + json.dumps({
+        k: {d: {key: r[key] for key in ("ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms", "library_ms")}
+            for d, r in res.items()}
+        for k, res in results.items()
+    }))
+    return results
+
+
+def _cpd_model(dev, layers: int, dtype: torch.dtype = torch.float32):
+    """The CPD model at full width with ``layers`` encoder and decoder
+    layers, no dropout, weights from SEED, and a train state (Adam at 1e-4,
+    weight decay 1e-8, no accumulation) computing in ``dtype``."""
+    trainer = build_cpd_trainer(
+        SEED, dev, num_encoder_layers=layers, num_decoder_layers=layers, dropout=0.0, accumulate_grad_batches=1,
+        precision=16 if dtype == torch.bfloat16 else 32,
+    )
+    return trainer.model, trainer.state
+
+
+def phase_cpd_check(root: str) -> dict:
+    """The CPD step at CPD_CHECK_LAYERS encoder and decoder layers on
+    CPD_CHECK_GRAPHS validation chains (a bucket of CPD_CHECK_NODES nodes):
+    fp32 on the card against the CPU (card_vs_cpu_step: loss, gradient
+    norm, every gradient, the share of updated parameters apart), then
+    the bf16 step's gradients against the fp32 step's on the card
+    (BF16_STEP_TOL).  The updated parameters are held by the share apart
+    alone: Adam's first step moves every entry by about lr times its
+    gradient's sign, so a gradient within rounding of 0 that takes the other
+    sign parts the two steps by up to 2 lr (on one H100 80GB HBM3 at 700 W,
+    0.005-0.03% of the 825,332 entries parted by up to 1.8e-4), and a
+    max-abs bound that allows that cannot fail."""
+    dm = cpd_datamodule(root, CPD_CHECK_GRAPHS, CPD_CHECK_NODES)
+    batch = next(dm.val_batches())
+    results = {"fp32": card_vs_cpu_step("cpd-check", lambda dev: _cpd_model(dev, CPD_CHECK_LAYERS), batch,
+                                        cpd_loss, CPD_CHECK_LAYERS, params_by_share=True)}
+    dev_batch = batch.to(torch.device("cuda"))
+    steps = {}
+    reset_counts()
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model, state = _cpd_model("cuda", CPD_CHECK_LAYERS, dtype)
+        result = train_step(model, state, dev_batch, cpd_loss, deterministic=True)
+        steps[name] = {"loss": result.loss.item(), "grad_norm": result.grad_norm.item(),
+                       "grads": torch.cat([p.grad.reshape(-1) for p in model.parameters()])}
+    ref, bf16 = steps["fp32"], steps["bf16"]
+    results["bf16"] = r = {
+        "loss_rel_diff": abs(bf16["loss"] - ref["loss"]) / abs(ref["loss"]),
+        "grad_norm_rel_diff": abs(bf16["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+        "grads_cosine": torch.nn.functional.cosine_similarity(bf16["grads"], ref["grads"], dim=0).item(),
+        "launches": dict(zip(KERNEL_COUNTS, launch_counts())),
+    }
+    print("phase cpd-check bf16: " + json.dumps(r), flush=True)
+    # K1: the encoder's means and the decoder's sums; K2, K3: the encoder's
+    want = {"K1": 4 * CPD_CHECK_LAYERS, "K2": 2 * CPD_CHECK_LAYERS, "K3_bf16": CPD_CHECK_LAYERS,
+            "K3_fp32": CPD_CHECK_LAYERS}
+    check(r["launches"] == want, f"cpd-check: launches {r['launches']}, want {want}")
+    check(r["loss_rel_diff"] <= BF16_STEP_TOL["loss_rel"], "cpd-check: bf16 loss differs")
+    check(r["grad_norm_rel_diff"] <= BF16_STEP_TOL["grad_norm_rel"], "cpd-check: bf16 grad norm differs")
+    check(r["grads_cosine"] >= BF16_STEP_TOL["grads_cosine"], "cpd-check: bf16 gradients differ")
+    print("phase cpd-check: ok")
+    return results
+
+
+CPD_METRICS = ("loss", "recovery_argmax")
+
+
+def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
+    """The CPD path: the full-width, full-depth CPD model with the
+    experiment's defaults (autoregressive decoder, bf16 over float32
+    masters, dropout 0.2, Adam at 1e-4 with weight decay 1e-8, gradients
+    accumulated over 4 batches, seed 42) fitted by the Trainer with
+    scan_chunk_size FIT_CHUNK for CPD_EPOCHS epochs with checkpoints; a new
+    Trainer resumes from the last checkpoint to epoch CPD_RESUME_EPOCHS and
+    tests the best checkpoint.  Beside it the deterministic parity run
+    (fit_parity).  Every kernel count is set to 0 just before the fit and
+    read just after (cpd-profile checks them)."""
+    build = lambda seed=42, **kw: build_cpd_trainer(seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    parity = fit_parity(build, cpd_datamodule(root), cpd_loss)
+    dm = cpd_datamodule(root)
+    clock = EpochClock()
+    trainer = build(max_epochs=CPD_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock], scan_chunk_size=FIT_CHUNK)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    clock.last = time.perf_counter()
+    trainer.fit(dm)
+    torch.cuda.synchronize()
+    results = {"launches": dict(zip(KERNEL_COUNTS, launch_counts())), "held_at_start_gb": held_gb,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "steps": trainer.state.step}
+    results.update(_fit_record(trainer, clock, None, FIT_LR), parity=parity)
+    resumed_clock = EpochClock()
+    resumed = build(max_epochs=CPD_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
+                    scan_chunk_size=FIT_CHUNK)
+    resumed.fit(dm, resume=True)
+    results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
+    results["best_step"] = resumed.restore_best()
+    results["test"] = test = resumed.test(dm)
+    torch.cuda.synchronize()
+    epochs = clock.lines + resumed_clock.lines[:-1]
+    results["epochs"] = [
+        {k: line[k] for k in ("epoch", "seconds", "train/loss", "train/steps_per_sec")}
+        | {f"val/{m}": line[f"val/{m}"] for m in CPD_METRICS}
+        | {"train_graphs_per_s": line["train/steps_per_sec"] * graphs_per_batch}
+        for line in epochs
+    ]
+    results["final_step"] = resumed.state.step
+    print("phase cpd-fit: " + json.dumps(results), flush=True)
+    check([line["epoch"] for line in epochs] == list(range(CPD_RESUME_EPOCHS)), "cpd-fit: epochs run")
+    for line in results["epochs"]:
+        check(all(math.isfinite(v) for v in line.values()), f"cpd-fit: epoch line {line}")
+    check(all(math.isfinite(test[f"test/{m}"]) for m in CPD_METRICS), f"cpd-fit: test metrics {test}")
+    check(results["final_step"] == results["steps"] * CPD_RESUME_EPOCHS // CPD_EPOCHS, "cpd-fit: resumed steps")
+    for graphs in (results["graphs"], results["resumed_graphs"]):
+        check(graphs["train_held"] <= 2 and graphs["eval_held"] <= 2, f"cpd-fit: CUDA graphs held {graphs}")
+    print("phase cpd-fit: ok")
+    return resumed, dm, results
+
+
+def phase_cpd_profile(trainer, dm, fit: dict) -> dict:
+    """One warm eager CPD training step of the fitted model and one replay
+    of its captured train and eval chunks under torch.profiler (busy ms,
+    idle share, kernels: K2 and the bf16 K3 9 times a step, K1 12 times:
+    the encoder's 9 means and the decoder's 3 sums); then the cpd-fit's
+    checks that read them (_fit_checks)."""
+    layers = FIT_DEFAULTS["cpd"]["num_encoder_layers"]
+    k1_layers = layers + trainer.model.num_decoder_layers
+    results = _profile_steps(trainer, dm, cpd_loss, layers, k1_layers)
+    print("phase cpd-profile: " + json.dumps(results), flush=True)
+    _fit_checks("cpd-fit", {**fit, **results}, layers, None, k3="K3_bf16", k1_layers=k1_layers)
+    print("phase cpd-profile: ok")
+    return results
+
+
+def phase_cpd_design(trainer, dm) -> dict:
+    """The fitted model's design of test chains (evaluate_cpd, float32):
+    the first CPD_DESIGN_CHAINS test chains, CPD_SAMPLES sequences each at
+    CPD_TEMPERATURE, median perplexity and recovery for all, short and
+    single_chain; ms a chain, and the device's launches a position (one
+    chain's sampling under torch.profiler); every kernel count set to 0
+    just before and read just after.  Then the argmax samples
+    (temperature 1e-6) of the shortest of those chains, CPD_ARGMAX_SAMPLES
+    copies, card against CPU on the same weights."""
+    model = trainer.model
+    chains = list(itertools.islice(dm.named_graphs("test"), CPD_DESIGN_CHAINS))
+    names = {n for n, _ in chains}
+    subsets = {k: v & names for k, v in dm.custom_splits.items()}
+    per_chain = []
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = evaluate_cpd(model, chains, subsets, num_samples=CPD_SAMPLES, temperature=CPD_TEMPERATURE,
+                           per_chain=per_chain)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_COUNTS, launch_counts()))
+    name, graph = min(chains, key=lambda c: c[1].num_nodes)
+    prof = device_profile(lambda: datum_recovery(model, graph, CPD_SAMPLES, CPD_TEMPERATURE))
+    card = datum_samples(model, graph, CPD_ARGMAX_SAMPLES)
+    cpu_model = build_cpd_trainer(SEED, "cpu").model
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu = datum_samples(cpu_model, graph, CPD_ARGMAX_SAMPLES)
+    positions = int(graph.num_nodes)
+    results = {
+        "metrics": metrics, "chains": len(per_chain), "seconds": seconds,
+        "ms_per_chain": 1e3 * float(np.mean([c[3] for c in per_chain])),
+        "ms_per_residue": 1e3 * sum(c[3] for c in per_chain) / sum(g.num_nodes for _, g in chains),
+        "per_chain": [[c[0], c[1], c[2], c[3]] for c in per_chain],
+        "launches": launches,
+        "profiled_chain": {"name": name, "positions": positions, "wall_ms": prof["wall_ms"],
+                           "device_busy_ms": prof["device_busy_ms"], "device_idle_share": prof["device_idle_share"],
+                           "kernel_launches": prof["kernel_launches"],
+                           "launches_per_position": prof["kernel_launches"] / positions,
+                           "kernels": prof["kernels"], "top_ms": prof["top_ms"]},
+        "argmax_card_vs_cpu": {"chain": name, "copies": CPD_ARGMAX_SAMPLES,
+                               "equal_share": float((card == cpu).mean()), "equal": bool((card == cpu).all())},
+    }
+    print("phase cpd-design: " + json.dumps(results), flush=True)
+    check(results["chains"] == len(chains) == CPD_DESIGN_CHAINS, f"cpd-design: {results['chains']} chains evaluated")
+    for key in ("all", "short", "single_chain"):
+        for m in ("perplexity", "recovery"):
+            check(math.isfinite(metrics.get(f"test/{key}_{m}", float("nan"))), f"cpd-design: test/{key}_{m}")
+    # the encoder on the card: 9 K2 and 9 K1 for each chain's perplexity and
+    # for its sampling batch
+    layers = FIT_DEFAULTS["cpd"]["num_encoder_layers"]
+    decoders = model.num_decoder_layers
+    want = {"K1": len(chains) * (2 * layers + decoders), "K2": len(chains) * 2 * layers, "K3_bf16": 0, "K3_fp32": 0}
+    check(launches == want, f"cpd-design: launches {launches}, want {want}")
+    check(results["argmax_card_vs_cpu"]["equal_share"] >= CPD_ARGMAX_EQUAL_SHARE,
+          f"cpd-design: argmax samples card vs CPU {results['argmax_card_vs_cpu']}")
+    print("phase cpd-design: ok")
+    return results
+
+
+def datum_samples(model, graph, copies: int) -> np.ndarray:
+    """The argmax samples (temperature 1e-6) of ``copies`` copies of
+    ``graph`` on the model's device, ``[copies, n]``."""
+    n = graph.num_nodes
+    bucket = Bucket(n * copies, graph.num_edges * copies, copies)
+    batch = next(batches_from_dataset([graph] * copies, bucket))
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return model.sample(batch.to(dev), n, 1e-6, gen).cpu().numpy().reshape(copies, n)
+
+
 def kernel_line(report) -> dict:
     """The contract line: K1 and K2 at bf16 (the production precision) on
     the tile-aligned layout the main path uses, fp32 and K1's CSR layout
@@ -2001,7 +2352,8 @@ def kernel_line(report) -> dict:
     (FIT_CHUNK steps) by instantiation (the fit is fp32, so the bf16 K3's
     count is 0); under "rs" the same at the RS step's shape and the RS
     fit; under "psr" at the PSR step's shape and the PSR fit (bf16, so the
-    fp32 K3's count is 0)."""
+    fp32 K3's count is 0); under "cpd" at the CPD step's shape and the CPD
+    fit (bf16; K1 a step: the encoder's 9 and the decoder's 3)."""
     k1, k2, k3 = report["K1"], report["K2"], report["K3"]
     forward, train, train_fp32 = report["forward"], report["train"], report["train_fp32"]
     nk, rk, pk = report["nms_kernels"], report["rs_kernels"], report["psr_kernels"]
@@ -2014,6 +2366,7 @@ def kernel_line(report) -> dict:
 
     nms_steps, rs_steps = per_step(report["nms_fit"]), per_step(report["rs_profile"])
     psr_steps = per_step(report["psr_profile"])
+    ck, cpd_steps = report["cpd_kernels"], per_step(report["cpd_profile"])
 
     def row(name, source, replaces, run, count, main, dtype, **extra):
         return {
@@ -2038,25 +2391,29 @@ def kernel_line(report) -> dict:
                 **{f"csr_fp32_{k}": k1["tile1_fp32"][k] for k in keys},
                 nms=nms(nk["K1"], nms_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
                 rs=nms(rk["K1"], rs_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
-                psr=nms(pk["K1"], psr_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
+                psr=nms(pk["K1"], psr_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
+                cpd=nms(ck["K1"], cpd_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
             row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train, "K2",
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
                 bound_rate=k2["bf16"]["bound_rate"],
                 **{f"fp32_{k}": k2["fp32"][k] for k in (*keys, "bound_rate")},
                 nms=nms(nk["K2"], nms_steps["K2"], fp32="fp32", bf16="bf16"),
                 rs=nms(rk["K2"], rs_steps["K2"], fp32="fp32", bf16="bf16"),
-                psr=nms(pk["K2"], psr_steps["K2"], fp32="fp32", bf16="bf16")),
+                psr=nms(pk["K2"], psr_steps["K2"], fp32="fp32", bf16="bf16"),
+                cpd=nms(ck["K2"], cpd_steps["K2"], fp32="fp32", bf16="bf16")),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train, "K3_bf16",
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3_bf16"],
                 bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps["K3_bf16"], bf16="bf16"),
                 rs=nms(rk["K3"], rs_steps["K3_bf16"], bf16="bf16"),
-                psr=nms(pk["K3"], psr_steps["K3_bf16"], bf16="bf16")),
+                psr=nms(pk["K3"], psr_steps["K3_bf16"], bf16="bf16"),
+                cpd=nms(ck["K3"], cpd_steps["K3_bf16"], bf16="bf16")),
             row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32, "K3_fp32",
                 k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"],
                 bound_ms_cuda_cores=k3["fp32"]["bound_ms_cuda_cores"],
                 nms=nms(nk["K3"], nms_steps["K3_fp32"], fp32="fp32"),
                 rs=nms(rk["K3"], rs_steps["K3_fp32"], fp32="fp32"),
-                psr=nms(pk["K3"], psr_steps["K3_fp32"], fp32="fp32")),
+                psr=nms(pk["K3"], psr_steps["K3_fp32"], fp32="fp32"),
+                cpd=nms(ck["K3"], cpd_steps["K3_fp32"], fp32="fp32")),
         ]
     }
 
@@ -2081,7 +2438,8 @@ def main() -> int:
     data_root, ckpt_dir = os.path.join(work, "data"), os.path.join(args.out_dir, "nms_checkpoints")
     rs_ckpt_dir = os.path.join(args.out_dir, "rs_checkpoints")
     psr_root, psr_ckpt_dir = os.path.join(work, "atom3d"), os.path.join(args.out_dir, "psr_checkpoints")
-    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir):
+    cpd_root, cpd_ckpt_dir = os.path.join(work, "cath"), os.path.join(args.out_dir, "cpd_checkpoints")
+    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir):
         shutil.rmtree(path, ignore_errors=True)
     report = {}
     try:
@@ -2100,6 +2458,9 @@ def main() -> int:
         psr_dm, report["psr_data"] = phase_psr_data(psr_root)
         report["psr_kernels"] = phase_psr_kernels(psr_dm)
         del psr_dm
+        cpd_dm, report["cpd_data"] = phase_cpd_data(cpd_root)
+        report["cpd_kernels"] = phase_cpd_kernels(cpd_dm)
+        del cpd_dm
         report["forward"] = phase_forward(batches)
         report["train"] = phase_train(batches[0])
         report["train_fp32"] = phase_train(batches[0], torch.float32)
@@ -2118,11 +2479,18 @@ def main() -> int:
             psr_root, psr_ckpt_dir, report["psr_data"]["graphs_per_batch"]
         )
         report["psr_profile"] = phase_psr_profile(psr_trainer, psr_dm, report["psr_fit"])
+        del psr_trainer, psr_dm
+        report["cpd_check"] = phase_cpd_check(cpd_root)
+        cpd_trainer, cpd_dm, report["cpd_fit"] = phase_cpd_fit(
+            cpd_root, cpd_ckpt_dir, report["cpd_data"]["graphs_per_batch"]
+        )
+        report["cpd_profile"] = phase_cpd_profile(cpd_trainer, cpd_dm, report["cpd_fit"])
+        report["cpd_design"] = phase_cpd_design(cpd_trainer, cpd_dm)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
-        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir):
+        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir):
             shutil.rmtree(path, ignore_errors=True)
         report["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:

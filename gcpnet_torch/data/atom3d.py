@@ -21,15 +21,13 @@ slot-major layout, which the port does not have yet (the math is the same).
 
 from __future__ import annotations
 
-import collections
 import logging
 import os
-from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gcpnet_torch.data.batching import Bucket, batches_from_dataset, shuffled_order
+from gcpnet_torch.data.batching import Bucket, batches_from_dataset, made_ahead, shuffled_order
 from gcpnet_torch.data.features import edge_geometric_features, orientations
 from gcpnet_torch.graph import GraphBatch, GraphData
 
@@ -38,10 +36,6 @@ log = logging.getLogger(__name__)
 ATOM_TYPES = {"H": 0, "C": 1, "N": 2, "O": 3, "F": 4, "S": 5, "Cl": 6, "CL": 6, "P": 7}
 NUM_ATOM_TYPES = 9  # 8 named and "other"
 CONVERTER = "scripts/convert_atom3d_to_npz.py"
-# graphs featurized at once, on threads (numpy and scipy release the GIL in
-# their array work), and how many may be made ahead of the one packed
-FEATURIZE_THREADS = min(8, os.cpu_count() or 1)
-FEATURIZE_AHEAD = 4 * FEATURIZE_THREADS
 
 
 def element_to_type(elements) -> np.ndarray:
@@ -88,19 +82,6 @@ def featurize_atoms(
     )
 
 
-def _made_ahead(fn: Callable, items: Iterable) -> Iterator[Future]:
-    """The futures of ``fn(item)`` for each item, in order, computed on
-    FEATURIZE_THREADS threads at most FEATURIZE_AHEAD items ahead of the
-    one the caller reads."""
-    with ThreadPoolExecutor(FEATURIZE_THREADS) as pool:
-        pending = collections.deque()
-        for item in items:
-            pending.append(pool.submit(fn, item))
-            if len(pending) >= FEATURIZE_AHEAD:
-                yield pending.popleft()
-        yield from pending
-
-
 class ATOM3DDataModule:
     """LBA and PSR batches from npz records.
 
@@ -110,7 +91,7 @@ class ATOM3DDataModule:
     shuffled split's order is ``np.random.default_rng(seed).shuffle`` of
     its graphs' indices; the last batch is kept.  Unlike it, graphs are
     featurized on threads a few ahead of the one being packed
-    (:func:`_made_ahead`), and a shuffled epoch never holds its split's
+    (:func:`~gcpnet_torch.data.batching.made_ahead`), and a shuffled epoch never holds its split's
     graphs: the JAX module featurizes the whole split into memory before
     shuffling it (about 3 MB a 1,300-atom decoy), where the port reads a
     split through once, to learn which records featurize and to give the
@@ -215,7 +196,7 @@ class ATOM3DDataModule:
         records = self.datasets[split]
         order = range(len(records)) if index is None else index
         kept = []
-        for i, made in zip(order, _made_ahead(self._featurize, (records[i] for i in order))):
+        for i, made in zip(order, made_ahead(self._featurize, (records[i] for i in order))):
             try:
                 g, target = made.result()
             except (KeyError, ValueError) as exc:

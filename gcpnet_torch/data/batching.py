@@ -7,12 +7,34 @@ numpy; the result goes to the card through ``GraphBatch.to``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Iterable, Iterator, List, Optional, Sequence
+import os
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from gcpnet_torch.graph import GraphBatch, GraphData, batch_graphs
+
+
+# graphs featurized at once, on threads (numpy and scipy release the GIL in
+# their array work), and how many may be made ahead of the one packed
+FEATURIZE_THREADS = min(8, os.cpu_count() or 1)
+FEATURIZE_AHEAD = 4 * FEATURIZE_THREADS
+
+
+def made_ahead(fn: Callable, items: Iterable) -> Iterator[Future]:
+    """The futures of ``fn(item)`` for each item, in order, computed on
+    FEATURIZE_THREADS threads at most FEATURIZE_AHEAD items ahead of the
+    one the caller reads."""
+    with ThreadPoolExecutor(FEATURIZE_THREADS) as pool:
+        pending = collections.deque()
+        for item in items:
+            pending.append(pool.submit(fn, item))
+            if len(pending) >= FEATURIZE_AHEAD:
+                yield pending.popleft()
+        yield from pending
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
+from gcpnet_torch.models.cpd import GCPNetCPD
 from gcpnet_torch.models.lba import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS
 from gcpnet_torch.models.rs import GCPNetRS
 
-__all__ = ["GCPNetLBA", "GCPNetNMS", "GCPNetPSR", "GCPNetRS", "graph_regression_loss"]
+__all__ = ["GCPNetCPD", "GCPNetLBA", "GCPNetNMS", "GCPNetPSR", "GCPNetRS", "graph_regression_loss"]

@@ -1,13 +1,14 @@
 """Input embedding for nodes and edges.
 
-Port of ``gcpnet_tpu/nn/embedding.py`` as LBA, PSR, NMS and RS use it: the
-node scalars are atom types through an embedding table (``num_atom_types >
-0``) or float features taken as they are (``num_atom_types == 0``), with
-the ligand flag's embedding appended where ``cfg.concatenate_lig_flag``
-(LBA on ATOM3D records, ``batch.extras["lig_flag"]``); GCPLayerNorm of the
-inputs (pre-norm), then one edge GCP and one node GCP.  Inputs without
-vector channels and post-norm are options of other task models and are not
-ported yet.
+Port of ``gcpnet_tpu/nn/embedding.py`` as LBA, PSR, CPD, NMS and RS use
+it: the node scalars are atom types through an embedding table
+(``num_atom_types > 0``) or float features taken as they are
+(``num_atom_types == 0``), with the ligand flag's embedding appended where
+``cfg.concatenate_lig_flag`` (LBA on ATOM3D records,
+``batch.extras["lig_flag"]``); one edge GCP and one node GCP, with a
+GCPLayerNorm of their inputs (``pre_norm``) or of their outputs (CPD).
+Inputs without vector channels are options of other task models and are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -49,11 +50,13 @@ class GCPEmbedding(nn.Module):
         node_hidden_dims: Tuple[int, int],
         cfg: ModuleCfg,
         num_atom_types: int,
+        pre_norm: bool = True,
         *,
         generator: torch.Generator,
         device,
     ):
         super().__init__()
+        self.pre_norm = pre_norm
         if edge_input_dims[1] <= 0 or node_input_dims[1] <= 0:
             raise NotImplementedError("GCPEmbedding: only inputs with node and edge vectors are ported")
         kw = dict(generator=generator, device=device)
@@ -62,8 +65,11 @@ class GCPEmbedding(nn.Module):
         if cfg.concatenate_lig_flag:
             self.lig_flag_embedding = Embed(NUM_LIG_FLAGS, NUM_LIG_FLAGS, **kw)
             node_input_dims = (node_input_dims[0] + NUM_LIG_FLAGS, node_input_dims[1])
-        self.edge_normalization = GCPLayerNorm(edge_input_dims[0], device=device)
-        self.node_normalization = GCPLayerNorm(node_input_dims[0], device=device)
+        edge_norm_dims, node_norm_dims = (
+            (edge_input_dims, node_input_dims) if pre_norm else (edge_hidden_dims, node_hidden_dims)
+        )
+        self.edge_normalization = GCPLayerNorm(edge_norm_dims[0], device=device)
+        self.node_normalization = GCPLayerNorm(node_norm_dims[0], device=device)
         # embedding GCPs: no nonlinearities, bottleneck 1, no vector residual
         overrides = dict(nonlinearities=(None, None), bottleneck=1, vector_residual=False)
         self.edge_embedding = make_gcp(edge_input_dims, edge_hidden_dims, cfg, **overrides, **kw)
@@ -81,9 +87,13 @@ class GCPEmbedding(nn.Module):
             h = torch.cat([h, self.lig_flag_embedding(batch.extras["lig_flag"]).to(h.dtype)], dim=-1)
         node_rep = ScalarVector(h, pack_vector(batch.chi))
         edge_rep = ScalarVector(batch.e, pack_vector(batch.xi))
-        edge_rep = self.edge_normalization(edge_rep)
-        node_rep = self.node_normalization(node_rep)
+        if self.pre_norm:
+            edge_rep = self.edge_normalization(edge_rep)
+            node_rep = self.node_normalization(node_rep)
         edge_out = self.edge_embedding(edge_rep, frames, edge_mask)
         nf = node_mean_frames(frames, batch.senders, batch.h.shape[0], edge_mask, count_mask)
         node_out = self.node_embedding(node_rep, nf)
+        if not self.pre_norm:
+            edge_out = self.edge_normalization(edge_out)
+            node_out = self.node_normalization(node_out)
         return node_out, edge_out

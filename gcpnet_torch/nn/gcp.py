@@ -132,8 +132,10 @@ class GCP2(nn.Module):
     scalarize(vector_down_frames(v))])`` for scalars, ``vector_up`` with a
     sigmoid gate (or a norm gate) for vectors.
 
-    The frame gate, E(3) mode, ablations and scalar-only inputs belong to
-    other task models and are not ported yet; they raise.
+    With ``ablate_frame_updates`` (CPD's decoder) the frames take no
+    part: no ``vector_down_frames``, no scalarize term and no frame gate.
+    The frame gate, E(3) mode, the other ablations and scalar-only inputs
+    belong to other task models and are not ported yet; they raise.
     """
 
     def __init__(
@@ -149,12 +151,11 @@ class GCP2(nn.Module):
         st = settings
         unported = [
             name
-            for name in (
-                "frame_gate", "enable_e3_equivariance", "ablate_frame_updates",
-                "ablate_scalars", "ablate_vectors", "feedforward_out",
-            )
+            for name in ("enable_e3_equivariance", "ablate_scalars", "ablate_vectors", "feedforward_out")
             if getattr(st, name)
         ]
+        if st.frame_gate and not st.ablate_frame_updates:
+            unported.append("frame_gate")
         if input_dims[1] <= 0:
             unported.append("scalar-only input")
         if unported:
@@ -167,26 +168,32 @@ class GCP2(nn.Module):
         kw = dict(generator=generator, device=device)
         self.hidden = _hidden_vec_dim(v_in, v_out, st.bottleneck)
         self.vector_down = VecDense(v_in, self.hidden, **kw)
-        self.vector_down_frames = VecDense(v_in, st.sv_dim, **kw)
-        self.scalar_out = Dense(s_in + self.hidden + 3 * st.sv_dim, s_out, **kw)
+        frame_dims = 0
+        if not st.ablate_frame_updates:
+            self.vector_down_frames = VecDense(v_in, st.sv_dim, **kw)
+            frame_dims = 3 * st.sv_dim
+        self.scalar_out = Dense(s_in + self.hidden + frame_dims, s_out, **kw)
         if v_out:
             self.vector_up = VecDense(self.hidden, v_out, **kw)
             if st.vector_gate:
                 self.vector_out_scale = Dense(s_out, v_out, **kw)
 
-    def forward(self, rep, frames: Tensor, frame_mask: Optional[Tensor] = None):
+    def forward(self, rep, frames: Optional[Tensor], frame_mask: Optional[Tensor] = None):
         """``rep`` is a ``ScalarVector``.  ``frames`` are the rows' frames:
         edge frames for edge inputs (then ``frame_mask`` gates the scalarize
         numerators), or ``node_mean_frames`` for node inputs (already
-        masked).  Returns a ``ScalarVector``, or the scalars alone when the
-        output has no vector channels."""
+        masked); unread (may be ``None``) with ``ablate_frame_updates``.
+        Returns a ``ScalarVector``, or the scalars alone when the output has
+        no vector channels."""
         st = self.settings
         act_s = get_nonlinearity(st.scalar_nonlinearity, st.nonlinearity_slope)
         act_v = get_nonlinearity(st.vector_nonlinearity, st.nonlinearity_slope)
         scalar_rep, vector_rep = rep
         vh = self.vector_down(vector_rep)
-        vdf = self.vector_down_frames(vector_rep)
-        merged = torch.cat([scalar_rep, safe_vec_norm(vh), scalarize(vdf, frames, frame_mask)], dim=-1)
+        merged = [scalar_rep, safe_vec_norm(vh)]
+        if not st.ablate_frame_updates:
+            merged.append(scalarize(self.vector_down_frames(vector_rep), frames, frame_mask))
+        merged = torch.cat(merged, dim=-1)
         s_new = self.scalar_out(merged)
         if not self.output_dims[1]:
             return act_s(s_new)

@@ -1,10 +1,18 @@
 """The GCP interaction layer of LBA/PSR/CPD/NMS/RS.
 
-Port of ``gcpnet_tpu/nn/interactions.py:GCPInteractions`` without the
-autoregressive branch: message passing, dropout + residual + norm, a
-feed-forward GCP stack, dropout + residual + norm, and with
-``updating_node_positions`` the equivariant position update of NMS
-(``_derive_x_update``, ``interactions.py:260-365``).
+Port of ``gcpnet_tpu/nn/interactions.py:GCPInteractions``: message
+passing, dropout + residual + norm, a feed-forward GCP stack, dropout +
+residual + norm, and with ``updating_node_positions`` the equivariant
+position update of NMS (``_derive_x_update``, ``interactions.py:260-365``).
+
+The autoregressive branch (CPD's decoder, ``interactions.py:119-150``)
+sums the messages: edges with sender < receiver read ``node_rep``, the
+others ``node_rep_regressive``, and the sum is divided by each node's
+whole in-degree.  The JAX layer runs the message stack twice, once on
+each edge set with the other masked out.  The stack works row by row, so
+an edge's message depends only on its own row: the rep it reads, its
+edge features and its frame.  The port builds each edge's stack input
+from the rep its direction selects and runs the stack once.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from gcpnet_torch.nn.frames import frame_rows, node_mean_frames
 from gcpnet_torch.nn.gcp import Dense, make_gcp, uniform_param
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector, get_nonlinearity, vec_at
-from gcpnet_torch.ops.segment import gather_rows, segment_mean
+from gcpnet_torch.ops.segment import gather_rows, segment_count, segment_mean
 
 
 def _ff_hidden_dims(node_dims: Tuple[int, int], num_ff: int) -> Tuple[int, int]:
@@ -39,6 +47,7 @@ class GCPInteractions(nn.Module):
         layer_cfg: LayerCfg,
         dropout: float = 0.1,
         updating_node_positions: bool = False,
+        autoregressive: bool = False,
         *,
         generator: torch.Generator,
         device,
@@ -49,7 +58,9 @@ class GCPInteractions(nn.Module):
         self.nonlinearity_slope = layer_cfg.nonlinearity_slope
         self.updating_node_positions = updating_node_positions
         self.pre_norm = layer_cfg.pre_norm
-        self.interaction = GCPMessagePassing(node_dims, node_dims, edge_dims, cfg, layer_cfg, **kw)
+        self.interaction = GCPMessagePassing(
+            node_dims, node_dims, edge_dims, cfg, layer_cfg, reduce_function="add" if autoregressive else "mean", **kw
+        )
         self.gcp_norm_0 = GCPLayerNorm(node_dims[0], device=device)
         self.gcp_norm_1 = GCPLayerNorm(node_dims[0], device=device)
         self.gcp_dropout_0 = GCPDropout(dropout)
@@ -75,6 +86,7 @@ class GCPInteractions(nn.Module):
         for i, module in enumerate(ff):
             self.add_module(f"feedforward_{i}", module)
         self.num_ff = num_ff
+        self.ff_reads_frames = not all(m.settings.ablate_frame_updates for m in ff)
 
         if updating_node_positions:
             s_dim = node_dims[0]
@@ -102,9 +114,12 @@ class GCPInteractions(nn.Module):
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
         node_pos: Optional[Tensor] = None,
+        node_rep_regressive: Optional[ScalarVector] = None,
     ):
         """The new node representation; with ``updating_node_positions``,
-        ``(node_rep, node_pos + x_update)`` for positions ``node_pos [N, 3]``."""
+        ``(node_rep, node_pos + x_update)`` for positions ``node_pos [N, 3]``.
+        ``node_rep_regressive`` (with ``autoregressive``) is the rep the
+        edges with sender >= receiver read."""
         num_nodes = node_rep.scalar.shape[0]
         # node validity gates the scalarize numerators inside the message
         # GCPs, but the aggregation runs over every real edge: only the
@@ -118,11 +133,17 @@ class GCPInteractions(nn.Module):
         node_rep_in = node_rep
         if self.pre_norm:
             node_rep = self.gcp_norm_0(node_rep)
-        hidden = self.interaction(
-            node_rep, edge_rep, senders, receivers, frames,
-            edge_mask=agg_mask, count_mask=count_mask,
-            row_splits=row_splits, frame_mask=frame_mask,
-        )
+        if node_rep_regressive is None:
+            hidden = self.interaction(
+                node_rep, edge_rep, senders, receivers, frames,
+                edge_mask=agg_mask, count_mask=count_mask,
+                row_splits=row_splits, frame_mask=frame_mask,
+            )
+        else:
+            hidden = self._autoregressive_messages(
+                node_rep, node_rep_regressive, edge_rep, senders, receivers, frames,
+                agg_mask, count_mask, frame_mask, row_splits,
+            )
         node_rep = node_rep + self.gcp_dropout_0(hidden, deterministic, generator)
         node_rep = self.gcp_norm_1(node_rep) if self.pre_norm else self.gcp_norm_0(node_rep)
 
@@ -131,7 +152,9 @@ class GCPInteractions(nn.Module):
             ff_edge_mask = ff_count_mask = frame_mask
         else:
             ff_edge_mask, ff_count_mask = edge_mask, count_mask
-        nf = node_mean_frames(frames, senders, num_nodes, ff_edge_mask, ff_count_mask)
+        nf = None
+        if self.ff_reads_frames:
+            nf = node_mean_frames(frames, senders, num_nodes, ff_edge_mask, ff_count_mask)
         hidden = node_rep
         for i in range(self.num_ff):
             hidden = getattr(self, f"feedforward_{i}")(hidden, nf)
@@ -155,6 +178,28 @@ class GCPInteractions(nn.Module):
             nf_pos = node_mean_frames(frames, senders, num_nodes, frame_mask, count_mask)
         x_update = self._derive_x_update(node_rep, senders, receivers, frames, agg_mask, nf_pos)
         return node_rep, node_pos + x_update
+
+    def _autoregressive_messages(
+        self, node_rep, node_rep_regressive, edge_rep, senders, receivers, frames,
+        agg_mask, count_mask, frame_mask, row_splits,
+    ) -> ScalarVector:
+        """The summed messages of the forward (sender < receiver, reading
+        ``node_rep``) and backward (the rest, reading ``node_rep_regressive``)
+        edges over each node's in-degree (``count_mask``'s edges)."""
+        mp = self.interaction
+        fwd = mp.messages(node_rep, edge_rep, senders, receivers)
+        bwd = mp.messages(node_rep_regressive, edge_rep, senders, receivers)
+        fm = (senders < receivers)[:, None]
+        message = ScalarVector(torch.where(fm, fwd.scalar, bwd.scalar), torch.where(fm, fwd.vector, bwd.vector))
+        hidden = mp(
+            node_rep, edge_rep, senders, receivers, frames, edge_mask=agg_mask, count_mask=count_mask,
+            row_splits=row_splits, frame_mask=frame_mask, message=message,
+        )
+        count = torch.clamp(segment_count(receivers, node_rep.scalar.shape[0], mask=count_mask), min=1.0)[:, None]
+        return ScalarVector(
+            (hidden.scalar.float() / count).to(hidden.scalar.dtype),
+            (hidden.vector.float() / count).to(hidden.vector.dtype),
+        )
 
     def _derive_x_update(
         self,

@@ -2,15 +2,16 @@
 
 Port of ``gcpnet_tpu/nn/message_passing.py`` in its receiver-keyed,
 non-attention form: every edge builds the message ``[src node ‖ edge ‖ dst
-node]``, a (Res)GCP2 stack maps it, and a masked mean reduces the messages
-into their receivers.  (The sum reduce of the autoregressive branch comes
-with the task models that use it.)
+node]``, a (Res)GCP2 stack maps it, and a masked mean (``"mean"``) or sum
+(``"sum"``, ``"add"``: the autoregressive decoder's) reduces the messages
+into their receivers.
 
-When the batch carries receiver-sorted ``row_splits`` the stack runs as one
-fused edge map (``ops.edge_map``, kernel K2) and the reduction as the
-sorted segment sum (``ops.segment_sorted``, kernel K1), as the JAX
-package's ``"fused"`` configuration does; otherwise the stack runs module
-by module and the reduction is an ``index_add_``.  Both give the same math.
+When the batch carries receiver-sorted ``row_splits`` the reduction is the
+sorted segment sum (``ops.segment_sorted``, kernel K1), and a stack that
+the fused edge map covers (``_fast_supported``) runs as one (``ops.
+edge_map``, kernel K2), as the JAX package's ``"fused"`` configuration
+does; otherwise the stack runs module by module and the reduction is an
+``index_add_``.  Both give the same math.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from gcpnet_torch.config.schema import LayerCfg, ModuleCfg
 from gcpnet_torch.nn.gcp import GCP2, GCPSettings, make_gcp
 from gcpnet_torch.nn.primitives import ScalarVector
 from gcpnet_torch.ops.edge_map import PackedStack, StackLayer, edge_map, pack_stack
-from gcpnet_torch.ops.segment import gather_rows, segment_mean
+from gcpnet_torch.ops.segment import gather_rows, segment_mean, segment_sum
 
 
 def _fast_supported(settings: GCPSettings, input_dims, output_dims) -> bool:
@@ -68,11 +69,15 @@ class GCPMessagePassing(nn.Module):
         edge_dims: Tuple[int, int],
         cfg: ModuleCfg,
         layer_cfg: LayerCfg,
+        reduce_function: str = "mean",
         *,
         generator: torch.Generator,
         device,
     ):
         super().__init__()
+        if reduce_function not in ("mean", "sum", "add"):
+            raise ValueError(f"unknown reduce_function {reduce_function!r}")
+        self.reduce_function = reduce_function
         self.output_dims = tuple(output_dims)
         self.residual = layer_cfg.mp_cfg.use_residual_message_gcp
         s_in, v_in = input_dims
@@ -126,6 +131,14 @@ class GCPMessagePassing(nn.Module):
             self._packed_key = key
         return self._packed
 
+    def messages(self, node_rep: ScalarVector, edge_rep: ScalarVector, senders: Tensor, receivers: Tensor):
+        """The stack's input ``[src node ‖ edge ‖ dst node]`` of each edge."""
+        flat_nodes = node_rep.flatten()
+        v_dim = node_rep.dims[1]
+        src = ScalarVector.recover(gather_rows(flat_nodes, senders), v_dim)
+        dst = ScalarVector.recover(gather_rows(flat_nodes, receivers), v_dim)
+        return src.concat((edge_rep, dst))
+
     def forward(
         self,
         node_rep: ScalarVector,
@@ -137,17 +150,17 @@ class GCPMessagePassing(nn.Module):
         count_mask: Optional[Tensor] = None,
         row_splits: Optional[Tensor] = None,
         frame_mask: Optional[Tensor] = None,
+        message: Optional[ScalarVector] = None,
     ) -> ScalarVector:
         """``edge_mask`` gates the aggregation; ``frame_mask`` (default
         ``edge_mask``) gates the scalarize numerators inside the stack;
-        ``count_mask`` gates the mean's denominator."""
+        ``count_mask`` gates the mean's denominator.  ``message``, when
+        given, is the stack's input in place of :meth:`messages` of
+        ``node_rep``."""
         num_nodes = node_rep.scalar.shape[0]
         fm = frame_mask if frame_mask is not None else edge_mask
-        flat_nodes = node_rep.flatten()
-        v_dim = node_rep.dims[1]
-        src = ScalarVector.recover(gather_rows(flat_nodes, senders), v_dim)
-        dst = ScalarVector.recover(gather_rows(flat_nodes, receivers), v_dim)
-        message = src.concat((edge_rep, dst))
+        if message is None:
+            message = self.messages(node_rep, edge_rep, senders, receivers)
 
         if row_splits is not None and self.fast_supported:
             fr = frames if fm is None else frames * fm[:, None].to(frames.dtype)
@@ -164,7 +177,10 @@ class GCPMessagePassing(nn.Module):
                     rep = module(rep, frames, fm)
             flat = rep.flatten()
 
-        agg = segment_mean(
-            flat, receivers, num_nodes, mask=edge_mask, count_mask=count_mask, row_splits=row_splits
-        )
+        if self.reduce_function == "mean":
+            agg = segment_mean(
+                flat, receivers, num_nodes, mask=edge_mask, count_mask=count_mask, row_splits=row_splits
+            )
+        else:
+            agg = segment_sum(flat, receivers, num_nodes, mask=edge_mask, row_splits=row_splits)
         return ScalarVector.recover(agg, self.output_dims[1])

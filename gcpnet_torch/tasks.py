@@ -1,8 +1,8 @@
 """Task wiring: the metric collection of each task model.
 
 The port's copy of the collect and metric functions of
-``gcpnet_tpu/tasks.py`` for the task models ported so far (LBA, PSR, NMS
-and RS).
+``gcpnet_tpu/tasks.py`` for the task models ported so far (LBA, PSR, NMS,
+RS and CPD).
 A collect function (:class:`Collect`) keeps what it reads of a batch and
 adds the batch's host predictions and labels to a
 :class:`~gcpnet_torch.train.metrics.Collector`; the metric functions run on
@@ -18,7 +18,7 @@ import numpy as np
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.train import metrics as M
 
-TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetPSR": "psr", "GCPNetNMS": "nms", "GCPNetRS": "rs"}
+TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetPSR": "psr", "GCPNetNMS": "nms", "GCPNetRS": "rs", "GCPNetCPD": "cpd"}
 
 
 def _task(model_name: str) -> str:
@@ -51,8 +51,21 @@ def _node_pos_keep(batch: GraphBatch) -> Dict[str, Any]:
     return {"label": batch.extras["label"], "mask": np.repeat(np.asarray(batch.valid_node_mask()), 3), "groups": None}
 
 
+def _residue_keep(batch: GraphBatch) -> Dict[str, Any]:
+    return {"label": batch.extras["seq"], "mask": batch.valid_node_mask(), "groups": None}
+
+
 def _add(collector: M.Collector, out: np.ndarray, kept: Dict[str, Any]) -> None:
     collector.add(out, kept["label"], mask=kept["mask"], groups=kept["groups"])
+
+
+def _add_argmax(collector: M.Collector, logits: np.ndarray, kept: Dict[str, Any]) -> None:
+    """CPD: the predicted residue of each node, ``argmax`` of its logits."""
+    _add(collector, np.argmax(logits, axis=-1), kept)
+
+
+def _recovery(p: np.ndarray, l: np.ndarray) -> float:
+    return float((p.astype(int) == l.astype(int)).mean()) if p.size else float("nan")
 
 
 def _cosine3(p: np.ndarray, l: np.ndarray) -> float:
@@ -60,7 +73,10 @@ def _cosine3(p: np.ndarray, l: np.ndarray) -> float:
 
 
 def build_collect(model_name: str) -> Collect:
-    keep = {"lba": _graph_keep, "psr": _graph_keep, "nms": _node_pos_keep, "rs": _graph_keep}[_task(model_name)]
+    task = _task(model_name)
+    if task == "cpd":
+        return Collect(_residue_keep, _add_argmax)
+    keep = {"lba": _graph_keep, "psr": _graph_keep, "nms": _node_pos_keep, "rs": _graph_keep}[task]
     return Collect(keep, _add)
 
 
@@ -74,4 +90,5 @@ def build_metric_fns(model_name: str) -> Dict[str, Callable]:
         },
         "nms": {"RMSE": M.rmse, "CosineSimilarity": _cosine3},
         "rs": {"Accuracy": M.accuracy, "F1": M.f1},
+        "cpd": {"recovery_argmax": _recovery},
     }[_task(model_name)]

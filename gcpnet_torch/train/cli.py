@@ -1,4 +1,4 @@
-"""Train with the port: ``python -m gcpnet_torch.train [--task lba|psr|nms|rs]``.
+"""Train with the port: ``python -m gcpnet_torch.train [--task lba|psr|nms|rs|cpd]``.
 
 ``--task lba`` (the default) without ``--data-dir``: builds the LBA model
 at the width of the JAX package's benchmark (``predict.lba_configs``:
@@ -49,6 +49,24 @@ its metrics are ``Accuracy`` and ``F1``.  ``--scan-chunk-size k`` (the JAX
 trainer's ``trainer.scan_chunk_size``) runs each k training or validation
 batches in one dispatch: on the card one replay of a CUDA graph of k steps.
 
+``--task cpd``: fits the CPD protein-design model on CATH chains
+(``data.cath``: ``chain_set.jsonl``, ``chain_set_splits.json`` and the
+``short`` and ``single_chain`` test subsets under ``--data-dir``, by
+default ``data/CATH``; nothing is downloaded) with the defaults of the JAX
+package's experiment ``gcpnet_cpd`` (hidden 100/16/32/4, 9 encoder layers
+and 3 autoregressive decoder layers of 8-layer message stacks, or the
+direct-shot MLP head with ``--no-autoregressive``, dropout 0.2, Adam at
+1e-4 with weight decay 1e-8, gradients accumulated over 4 batches, seed
+42, batches of 8 chains in a bucket of 2,048 nodes and 61,440 edge rows,
+at least 1 and at most 1,000 epochs, early stopping after 10 epochs
+without a better ``val/loss``, the best 30 checkpoints, bf16 over float32
+masters); its metric is ``recovery_argmax``.  After the test of the best
+checkpoint it prints the JAX ``eval.py``'s CPD metrics of the test chains
+(``models.cpd_eval.evaluate_cpd``: median perplexity, and with the
+autoregressive decoder the median recovery of ``--num-samples`` sequences
+sampled at temperature 0.1, for all chains, ``short`` and
+``single_chain``).
+
 The batches are receiver-sorted, so on the card every step runs the sorted
 segment sum (K1) and the edge map (K2) forward and the edge map's backward
 (K3).  It runs on the card unless ``--device cpu`` is given.
@@ -67,9 +85,12 @@ import torch
 from gcpnet_torch import tasks
 from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg, MPCfg
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
+from gcpnet_torch.data.cath import CATHDataModule
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
 from gcpnet_torch.device import DeviceLike, resolve_device
+from gcpnet_torch.models.cpd import GCPNetCPD, cpd_loss
+from gcpnet_torch.models.cpd_eval import evaluate_cpd
 from gcpnet_torch.models.lba import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
@@ -132,16 +153,34 @@ def rs_configs(num_encoder_layers: int = 8, dropout: float = 0.1):
     return model_cfg, ModuleCfg(scalar_nonlinearity="leakyrelu"), layer_cfg
 
 
-def _task_trainer(model, loss_fn, model_name: str, seed: int, lr: float, trainer_kw) -> Trainer:
-    """``model`` in a :class:`Trainer` with Adam at ``lr``, the task's
-    metrics, and the experiments' early stopping and checkpoint defaults
-    unless ``trainer_kw`` overrides them."""
+def cpd_configs(num_encoder_layers: int = 9, num_decoder_layers: int = 3, dropout: float = 0.2):
+    """(ModelCfg, ModuleCfg, LayerCfg) of the CPD model
+    (``configs/model/{model_cfg,module_cfg,layer_cfg}/*_cpd.yaml``, the
+    experiment's dropout 0.2): LBA's widths, a vocabulary of 20."""
+    model_cfg = ModelCfg(
+        chi_input_dim=2, e_input_dim=16, xi_input_dim=1,
+        h_hidden_dim=100, chi_hidden_dim=16, e_hidden_dim=32, xi_hidden_dim=4,
+        num_encoder_layers=num_encoder_layers, num_decoder_layers=num_decoder_layers, output_dim=20,
+        dropout=dropout, decoder_residual_updates=True,
+    )
+    return model_cfg, ModuleCfg(), LayerCfg(mp_cfg=MPCfg(num_message_layers=8))
+
+
+# the CPD experiment's optimizer (configs/model/gcpnet_cpd.yaml) and its
+# trainer's accumulate_grad_batches (configs/experiment/gcpnet_cpd.yaml)
+CPD_WEIGHT_DECAY, CPD_ACCUMULATE = 1e-8, 4
+
+
+def _task_trainer(model, loss_fn, model_name: str, seed: int, lr: float, trainer_kw, **optimizer) -> Trainer:
+    """``model`` in a :class:`Trainer` with Adam at ``lr`` (and ``optimizer``'s
+    other settings), the task's metrics, and the experiments' early stopping
+    and checkpoint defaults unless ``trainer_kw`` overrides them."""
     kw = dict(
         monitor="val/loss", early_stopping_patience=10, save_top_k=30, seed=seed,
         collect_fn=tasks.build_collect(model_name), metric_fns=tasks.build_metric_fns(model_name),
     )
     kw.update(trainer_kw)
-    return Trainer(model, loss_fn, optimizer_cfg={"_target_": "Adam", "lr": lr}, **kw)
+    return Trainer(model, loss_fn, optimizer_cfg={"_target_": "Adam", "lr": lr, **optimizer}, **kw)
 
 
 def build_nms_trainer(
@@ -200,6 +239,32 @@ def build_atom3d_trainer(
     return _task_trainer(model, graph_regression_loss, name, seed, lr, trainer_kw)
 
 
+def build_cpd_trainer(
+    seed: int = 42,
+    device: DeviceLike = None,
+    num_encoder_layers: int = 9,
+    lr: float = 1e-4,
+    autoregressive: bool = True,
+    dropout: float = 0.2,
+    num_decoder_layers: int = 3,
+    accumulate_grad_batches: int = CPD_ACCUMULATE,
+    **trainer_kw,
+) -> Trainer:
+    """The CPD model of the experiment ``gcpnet_cpd`` (:func:`cpd_configs`,
+    the autoregressive decoder unless ``autoregressive`` is false) with
+    weights drawn from ``seed`` on ``device`` (``None``: the card), in a
+    :class:`Trainer` (:func:`_task_trainer`) with Adam at ``lr``, weight
+    decay 1e-8 and ``accumulate_grad_batches``."""
+    model = GCPNetCPD(
+        *cpd_configs(num_encoder_layers, num_decoder_layers, dropout), autoregressive_decoder=autoregressive,
+        generator=torch.Generator().manual_seed(seed), device=device,
+    )
+    return _task_trainer(
+        model, cpd_loss, "GCPNetCPD", seed, lr, trainer_kw,
+        weight_decay=CPD_WEIGHT_DECAY, accumulate_grad_batches=accumulate_grad_batches,
+    )
+
+
 class JsonLines:
     """A trainer logger: one JSON line of metrics on standard output."""
 
@@ -214,6 +279,7 @@ FIT_DEFAULTS = {
     "rs": dict(batch_size=64, num_encoder_layers=8, min_epochs=1, max_epochs=1000, precision=32),
     "psr": dict(batch_size=16, num_encoder_layers=5, min_epochs=1, max_epochs=1000, precision=16),
     "lba": dict(batch_size=16, num_encoder_layers=8, min_epochs=1, max_epochs=1000, precision=16),
+    "cpd": dict(batch_size=8, num_encoder_layers=9, min_epochs=1, max_epochs=1000, precision=16),
 }
 
 
@@ -231,6 +297,9 @@ def _main_fit(args) -> None:
             batch_size=args.batch_size,
         )
         build = functools.partial(build_atom3d_trainer, args.task)
+    elif args.task == "cpd":
+        dm = CATHDataModule(data_dir=args.data_dir or "data/CATH", batch_size=args.batch_size)
+        build = functools.partial(build_cpd_trainer, autoregressive=args.autoregressive)
     else:
         sizes = {"train": args.num_train or 4096, "valid": args.num_valid or 512, "test": args.num_test or 512}
         dm = RSDataModule(seed=args.seed, batch_size=args.batch_size, synthetic_sizes=sizes)
@@ -246,6 +315,12 @@ def _main_fit(args) -> None:
     trainer.fit(dm, resume=args.resume)
     trainer.restore_best()
     trainer.test(dm)
+    if args.task == "cpd":
+        metrics = evaluate_cpd(
+            trainer.model, dm.named_graphs("test"), custom_splits=dm.custom_splits,
+            num_samples=args.num_samples, max_nodes=dm.max_nodes_per_batch, compute_recovery=args.autoregressive,
+        )
+        print(json.dumps(metrics), flush=True)
 
 
 def _main_lba(args) -> None:
@@ -273,7 +348,7 @@ def _main_lba(args) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--task", choices=("lba", "psr", "nms", "rs"), default="lba")
+    parser.add_argument("--task", choices=("lba", "psr", "nms", "rs", "cpd"), default="lba")
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--adaptive-clip", action="store_true")
     parser.add_argument("--seed", type=int, default=None, help="default: 0 (lba's bench steps), 42 (the fits)")
@@ -288,22 +363,28 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     nms = parser.add_argument_group("--task nms")
     nms.add_argument("--data-root", default="data/NMS")
     nms.add_argument("--data-mode", default="small_20body")
-    atom3d = parser.add_argument_group("--task psr, and --task lba with --data-dir")
-    atom3d.add_argument("--data-dir", default=None, help="the ATOM3D npz records (psr: default data/ATOM3D)")
+    atom3d = parser.add_argument_group("--task psr and cpd, and --task lba with --data-dir")
+    atom3d.add_argument("--data-dir", default=None,
+                        help="the ATOM3D npz records (psr: default data/ATOM3D), or the CATH files (cpd: data/CATH)")
     atom3d.add_argument("--lba-split", type=int, default=30, help="LBA's sequence-identity split")
-    fit = parser.add_argument_group("the fits: --task nms, rs, psr, and lba with --data-dir")
+    cpd = parser.add_argument_group("--task cpd")
+    cpd.add_argument("--autoregressive", action=argparse.BooleanOptionalAction, default=True,
+                     help="the autoregressive decoder (the experiment's), or the direct-shot MLP head")
+    cpd.add_argument("--num-samples", type=int, default=100, help="sequences sampled a test chain for its recovery")
+    fit = parser.add_argument_group("the fits: --task nms, rs, psr, cpd, and lba with --data-dir")
     fit.add_argument("--batch-size", type=int, default=None,
-                     help="default: 100 (nms), 64 anchors (rs), 16 (psr, lba)")
+                     help="default: 100 (nms), 64 anchors (rs), 16 (psr, lba), 8 (cpd)")
     fit.add_argument("--num-train", type=int, default=None, help="default: 10,000 (nms), 4,096 (rs)")
     fit.add_argument("--num-valid", type=int, default=None, help="default: 2,000 (nms), 512 (rs)")
     fit.add_argument("--num-test", type=int, default=None, help="default: 2,000 (nms), 512 (rs)")
-    fit.add_argument("--num-encoder-layers", type=int, default=None, help="default: 4 (nms), 8 (rs, lba), 5 (psr)")
-    fit.add_argument("--max-epochs", type=int, default=None, help="default: 12,000 (nms), 1,000 (rs, psr, lba)")
-    fit.add_argument("--min-epochs", type=int, default=None, help="default: 100 (nms), 1 (rs, psr, lba)")
+    fit.add_argument("--num-encoder-layers", type=int, default=None,
+                     help="default: 4 (nms), 8 (rs, lba), 5 (psr), 9 (cpd)")
+    fit.add_argument("--max-epochs", type=int, default=None, help="default: 12,000 (nms), 1,000 (rs, psr, lba, cpd)")
+    fit.add_argument("--min-epochs", type=int, default=None, help="default: 100 (nms), 1 (rs, psr, lba, cpd)")
     fit.add_argument("--checkpoint-dir", default=None)
     fit.add_argument("--resume", action="store_true", help="go on from --checkpoint-dir's last checkpoint")
     fit.add_argument("--precision", type=int, choices=(32, 16), default=None,
-                     help="default: 32 (nms, rs), 16 (psr, lba): bf16 over float32 masters")
+                     help="default: 32 (nms, rs), 16 (psr, lba, cpd): bf16 over float32 masters")
     fit.add_argument("--scan-chunk-size", type=int, default=1,
                      help="training and validation batches a dispatch (the JAX trainer.scan_chunk_size)")
     args = parser.parse_args(argv)

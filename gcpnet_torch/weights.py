@@ -4,6 +4,10 @@ The port keeps flax's parameter names and layouts, so the bridge only
 renames: the flax path ``params/encoder/interaction_0/interaction/
 message_fusion_3/vector_down/kernel`` is the state-dict key
 ``encoder.interaction_0.interaction.message_fusion_3.vector_down.kernel``.
+Every task model keeps its JAX module names, so the same renaming serves
+each: CPD's ``gcp_embedding``, ``encoder_{i}``, ``seq_embedding``,
+``decoder_{i}`` (or the MLP head's ``decoder/readout_{i}``) and
+``invariant_node_projection`` included.
 Layouts, identical on both sides (no transposes):
 
 - ``Dense`` / ``VecDense`` ``kernel``: ``[in, out]`` (the port computes

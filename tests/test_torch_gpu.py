@@ -19,7 +19,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from gcpnet_torch import predict as port_predict
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
+from gcpnet_torch.data.batching import Bucket, batches_from_dataset
+from gcpnet_torch.data.cath import CATHDataModule
+from gcpnet_torch.data.cath_synthetic import write_cath_chains
 from gcpnet_torch.data.nms import NMSDataModule
+from gcpnet_torch.models.cpd import GCPNetCPD, cpd_loss
 from gcpnet_torch.models.lba import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
@@ -682,6 +686,73 @@ def test_psr_gradients_on_card_match_cpu(cuda, tmp_path):
         got = grads["cuda"][name]
         assert got is not None, name
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+def _cpd_datamodule(root, batch_size: int, max_nodes: int, chains: dict) -> CATHDataModule:
+    """CPD on synthetic CATH chains (data.cath_synthetic)."""
+    write_cath_chains(str(root), chains=chains, lengths=(40, 120))
+    dm = CATHDataModule(data_dir=str(root), batch_size=batch_size, max_nodes_per_batch=max_nodes)
+    dm.setup()
+    return dm
+
+
+def _cpd_model(dev, encoder_layers: int = 2, decoder_layers: int = 1) -> GCPNetCPD:
+    model_cfg, module_cfg, layer_cfg = train_cli.cpd_configs(encoder_layers, decoder_layers, dropout=0.0)
+    return GCPNetCPD(model_cfg, module_cfg, layer_cfg, autoregressive_decoder=True,
+                     generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def test_cpd_gradients_on_card_match_cpu(cuda, tmp_path):
+    """The CPD model at full width (2 of its 9 encoder layers, 1 of its 3
+    decoder layers) on two synthetic chains: the logits, the loss and every
+    parameter's gradient on the card against the CPU, through K1 (the
+    encoder's means and the decoder's sum), K2 and the fp32 K3."""
+    dm = _cpd_datamodule(tmp_path, 2, 256, {"train": 1, "validation": 2, "test": 1})
+    batch = next(dm.val_batches())
+    assert int(batch.graph_pad_mask.sum()) == 2
+    grads, out = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = _cpd_model(dev)
+        launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+        b = batch.to(torch.device(dev))
+        logits = model(b)
+        loss, _ = cpd_loss(logits, b)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+            assert tuple(a - b for a, b in zip(now, launches)) == (3, 2, 2)
+        out[dev] = (logits.detach().cpu().numpy(), loss.item())
+        grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=1e-4)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-4
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+def test_cpd_argmax_samples_on_card_match_cpu(cuda, tmp_path):
+    """The autoregressive sampler at temperature 1e-6 (an argmax) on three
+    copies of a synthetic chain: each position's logits on the card are the
+    CPU's, and so are the sequences."""
+    dm = _cpd_datamodule(tmp_path, 1, 256, {"train": 1, "validation": 1, "test": 1})
+    _, graph = next(dm.named_graphs("test"))
+    n, copies = graph.num_nodes, 3
+    batch = next(batches_from_dataset([graph] * copies, Bucket(n * copies, graph.num_edges * copies, copies)))
+    seqs, logits = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = _cpd_model(dev, 2, 3)
+        logits[dev] = []
+        model.invariant_node_projection.register_forward_hook(lambda m, i, out: logits[dev].append(out.cpu()))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        seqs[dev] = model.sample(batch.to(torch.device(dev)), n, 1e-6, gen).cpu().numpy()
+    assert len(logits["cuda"]) == len(logits["cpu"]) == n
+    for got, want in zip(logits["cuda"], logits["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(seqs["cuda"], seqs["cpu"])
+    assert (seqs["cpu"].reshape(copies, n) == seqs["cpu"][:n]).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -3,8 +3,9 @@ every module of the package, the chip scripts (``chip_smoke.py``,
 ``k1_versions.py``, ``k2_versions.py``, ``k3_breakdown.py``), the card's
 tests (``test_torch_gpu.py``, which run where JAX is absent), a CPU
 prediction, a CPU LBA training run, a CPU NMS fit with its simulated data,
-a CPU RS fit on synthetic enantiomers and a CPU PSR fit on synthetic ATOM3D
-records (``python -m gcpnet_torch.train [--task nms|rs|psr]``) in a fresh
+a CPU RS fit on synthetic enantiomers, a CPU PSR fit on synthetic ATOM3D
+records and a CPU CPD fit with its design metrics on synthetic CATH chains
+(``python -m gcpnet_torch.train [--task nms|rs|psr|cpd]``) in a fresh
 interpreter whose import system refuses those packages."""
 
 import subprocess
@@ -78,7 +79,19 @@ with tempfile.TemporaryDirectory() as root:
     sys.argv = ["gcpnet_torch.train", "--task", "psr", "--device", "cpu", "--data-dir", root, "--batch-size", "3",
                 "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0"]
     runpy.run_module("gcpnet_torch.train", run_name="__main__")
-assert "gcpnet_torch.data.atom3d" in names
+from gcpnet_torch.data import cath
+from gcpnet_torch.data.cath_synthetic import write_cath_chains
+
+with tempfile.TemporaryDirectory() as root:
+    write_cath_chains(root, chains={"train": 3, "validation": 2, "test": 2}, lengths=(20, 40))
+    cli.CATHDataModule = functools.partial(cath.CATHDataModule, max_nodes_per_batch=128)
+    sys.argv = ["gcpnet_torch.train", "--task", "cpd", "--device", "cpu", "--data-dir", root, "--batch-size", "2",
+                "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0", "--num-samples", "2"]
+    runpy.run_module("gcpnet_torch.train", run_name="__main__")
+for name in ("gcpnet_torch.data.atom3d", "gcpnet_torch.data.cath", "gcpnet_torch.data.cath_synthetic",
+             "gcpnet_torch.data.protein_graph",
+             "gcpnet_torch.models.cpd", "gcpnet_torch.models.cpd_eval", "gcpnet_torch.nn.decoder"):
+    assert name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names))
