@@ -1,14 +1,16 @@
 #!/usr/bin/env bash
 # The proof run of a tree on one H100: the card tests, the CPD entry point
 # on synthetic CATH chains (64 / 16 / 8 chains, 2 epochs, then the test
-# chains' design metrics at 20 samples), then every phase of chip_smoke.py.
+# chains' design metrics at 20 samples), the EQ entry point on synthetic
+# decoys (16 / 4 / 4 decoys of 100-300 residues, 2 epochs), then every
+# phase of chip_smoke.py.
 # Run it from the root of a checkout, for example a `git archive` of the
 # commit unpacked into a git-ignored directory:
 #
 #     bash chip_proof.sh OUT_DIR
 #
 # OUT_DIR receives chip_smoke.py's report (chip_smoke.json), its standard
-# output and errors.  Exits with the first non-zero code of the three.
+# output and errors.  Exits with the first non-zero code of the four.
 set -u
 out=${1:?usage: bash chip_proof.sh OUT_DIR}
 mkdir -p "$out"
@@ -28,13 +30,21 @@ cpd_rc=$?
 tail -4 "$out/task_cpd.txt" | cut -c1-600
 rm -rf "$data"
 
+data=$(mktemp -d)
+python -c "from gcpnet_torch.data.eq_synthetic import write_eq_decoys
+print(write_eq_decoys('$data', targets={'train': 4, 'valid': 1, 'test': 1}, decoys=4, residues=(100, 300)))"
+python -m gcpnet_torch.train --task eq --data-dir "$data" --max-epochs 2 --min-epochs 0 > "$out/task_eq.txt" 2>&1
+eq_rc=$?
+tail -3 "$out/task_eq.txt" | cut -c1-600
+rm -rf "$data"
+
 python3 chip_smoke.py --out-dir "$out" > "$out/stdout.txt" 2> "$out/stderr.txt"
 smoke_rc=$?
 grep -hE "^phase [a-z0-9-]+: ok|FAILED|every phase" "$out/stdout.txt" "$out/stderr.txt" | cut -c1-300
 tail -3 "$out/stdout.txt" | cut -c1-6000
 
-echo "card tests rc=$tests_rc, --task cpd rc=$cpd_rc, chip_smoke rc=$smoke_rc"
-for rc in $tests_rc $cpd_rc $smoke_rc; do
+echo "card tests rc=$tests_rc, --task cpd rc=$cpd_rc, --task eq rc=$eq_rc, chip_smoke rc=$smoke_rc"
+for rc in $tests_rc $cpd_rc $eq_rc $smoke_rc; do
     [ "$rc" -ne 0 ] && exit "$rc"
 done
 exit 0

@@ -9,8 +9,8 @@ Phases, one line each:
      started together; ptxas resource usage goes to <out-dir>/ptxas.txt);
   3. K1 (sorted segment sum) against its plain PyTorch version at the main
      path's shape, fp32 and bf16, on the tile-aligned and the CSR layouts,
-     device time under torch.profiler in turns with torch.segment_reduce
-     (library, kernel, kernel, library);
+     device time of back-to-back calls (queued_ms) in turns with
+     torch.segment_reduce (library, kernel, kernel, library);
   4. K2 (fused message stack, on the tensor cores: bf16, and float32 as
      split TF32) against its plain version at the main path's shape, fp32
      and bf16;
@@ -67,8 +67,9 @@ Phases, one line each:
      memory; the captured run's parameters, moments and losses against the
      eager run's; a batch with a NaN label replayed through the graph
      leaves the state as it was; one warm eager step and one replay under
-     torch.profiler (device busy and idle share, kernels by name and count
-     read from the trace, the host's CUDA API calls);
+     torch.profiler (device busy and idle share, kernels by name, the
+     host's CUDA API calls; the eager step's K1-K3 as the wrappers count
+     them, the replay's read from its graph's kernel nodes);
  14. train-fp32: the same in float32 (the JAX Trainer's default precision;
      every K3 launch is one of the tensor-core kernel, K3's only one);
  15. train-check: one fp32 training step on the card against the same step
@@ -92,9 +93,8 @@ Phases, one line each:
      to the captured epoch's, the parameters' distance printed); 16 steps
      and the validation batches run captured and eagerly under
      torch.use_deterministic_algorithms, equal bit for bit; one warm eager
-     step and one
-     replay of a train and an eval chunk under torch.profiler, the kernels
-     a step read from the trace (4 of each);
+     step and one replay of a train and an eval chunk under torch.profiler,
+     the replays' kernels a step read from their graphs' kernel nodes;
  20. rs-check: one fp32 RS training step on the card against the CPU (2
      interaction layers, a paired batch, no dropout);
  21. rs-fit: the RS path, the full-width RS model fitted by the Trainer
@@ -133,9 +133,35 @@ Phases, one line each:
  29. cpd-design: the fitted model designs 12 test chains (evaluate_cpd: 100
      sequences each at temperature 0.1): median perplexity and recovery
      for all, short and single_chain, ms a chain, the device's launches a
-     position; the argmax samples of one chain, card against CPU.
-Then the total time, one JSON line with every kernel's numbers (at the NMS,
-RS, PSR and CPD shapes too), the nvidia-smi line, and the final status
+     position; the argmax samples of one chain, card against CPU;
+ 30. eq-data (before any CUDA graph, as eq-kernels): synthetic EQ decoys
+     (write_eq_decoys: 8 / 2 / 2 natives of 100-700 residues with side
+     chains, 8 noisy decoys each with a plDDT in the b-factor column, a
+     seeded ESM cache file a sequence), each split's first pass (the
+     lDDT labels made and the graphs cached), a shuffled training epoch's
+     batches: host ms a batch, real nodes and edge rows against the
+     bucket's 8,192 and 262,144;
+ 31. eq-kernels: K1, K2 and K3 at an EQ training batch (262,144 CSR rows
+     into 8,192 nodes; the GCP3 stack) against their plain versions, fp32
+     and bf16, with their times, bounds and shares of them;
+ 32. determinism (after rs-profile): two eager fp32 RS runs of 16 full-width
+     steps without torch.use_deterministic_algorithms end with equal
+     parameters, bit for bit;
+ 33. eq-check: one fp32 EQ training step on the card against the CPU (2
+     layers, one decoy, no dropout), and the bf16 step's gradients against
+     the fp32 step's on the card;
+ 34. eq-fit: the EQ path, the full-width, full-depth EQ model (5
+     GCPInteractions2 layers, message attention, sums over senders) fitted
+     by the Trainer in bf16 over float32 masters with scan_chunk_size 4 for
+     2 epochs with checkpoints, a resume to a third, and the best
+     checkpoint's test: epoch seconds, train graphs/s, val and test RMSE
+     and Pearson, peak memory; the deterministic parity run;
+ 35. eq-profile: one warm eager EQ step and one replay of a train and an
+     eval chunk under torch.profiler (K1, K2, K3 a step, no scatter
+     kernel); the eq-fit's checks.
+Every profiled training step lists the scatter kernels it ran (none
+allowed; a replay's read from its graph's kernel nodes).  Then the total time, one JSON line with every kernel's numbers (at the NMS,
+RS, PSR, CPD and EQ shapes too), the nvidia-smi line, and the final status
 line.  Any failed phase exits non-zero; without a CUDA device
 the script exits non-zero before printing any result.  Full measurements go
 to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
@@ -164,10 +190,13 @@ from gcpnet_torch.data.atom3d import ATOM3DDataModule
 from gcpnet_torch.data.batching import Bucket, batches_from_dataset
 from gcpnet_torch.data.cath import CATHDataModule
 from gcpnet_torch.data.cath_synthetic import write_cath_chains
+from gcpnet_torch.data.eq import EQDataModule
+from gcpnet_torch.data.eq_synthetic import write_eq_decoys
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
 from gcpnet_torch.models.cpd import cpd_loss
 from gcpnet_torch.models.cpd_eval import datum_recovery, evaluate_cpd
+from gcpnet_torch.models.eq import eq_loss
 from gcpnet_torch.models.lba import graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
@@ -189,14 +218,16 @@ from gcpnet_torch.train.cli import (
     FIT_DEFAULTS,
     build_atom3d_trainer,
     build_cpd_trainer,
+    build_eq_trainer,
     build_lba_training,
     build_nms_trainer,
     build_rs_trainer,
     cpd_configs,
+    eq_configs,
     nms_configs,
     rs_configs,
 )
-from gcpnet_torch.train.graphs import TrainSteps
+from gcpnet_torch.train.graphs import CapturedCall, TrainSteps
 from gcpnet_torch.train.optim import build_optimizer, build_schedule
 from gcpnet_torch.train.state import TrainState
 from gcpnet_torch.train.step import eval_step, train_step
@@ -213,12 +244,12 @@ TRAIN_LR = 1e-4
 # the fits' scan_chunk_size: 4 training or validation batches a replay
 FIT_CHUNK = 4
 FIT_LR = 1e-4  # the NMS and RS experiments' Adam rate
-# kernel names in a profiler trace, by the kernel they belong to
-KERNEL_NAMES = {"K1": "seg_sum", "K2": "edge_map_tc_kernel", "K3": "edge_map_bwd_tc_kernel"}
-# the same in KERNEL_COUNTS' order, K3 by its instantiation
-TRACE_NAMES = {
-    "K1": "seg_sum", "K2": "edge_map_tc_kernel", "K3_bf16": "edge_map_bwd_tc_kernel<__nv_bfloat16>",
-    "K3_fp32": "edge_map_bwd_tc_kernel<float>",
+# kernel names by the count they belong to (KERNEL_COUNTS' order, K3 by its
+# instantiation), as a graph's nodes give them (mangled) or demangled
+KERNEL_NAMES = {
+    "K1": ("seg_sum",), "K2": ("edge_map_tc_kernel",),
+    "K3_bf16": ("edge_map_bwd_tc_kernelI13__nv_bfloat16", "edge_map_bwd_tc_kernel<__nv_bfloat16>"),
+    "K3_fp32": ("edge_map_bwd_tc_kernelIf", "edge_map_bwd_tc_kernel<float>"),
 }
 TRAIN_CHECK_GRAPHS, TRAIN_CHECK_LAYERS = 2, 2
 # The NMS path: small_20body at the published widths and batch (100 graphs
@@ -285,6 +316,28 @@ CPD_ARGMAX_EQUAL_SHARE = 0.99
 # node-frame means sum with index_add_, whose atomics on the card add in
 # another order each run (float32: a few roundings of 2^-24 relative)
 NMS_VAL_RTOL = 1e-5
+# The EQ path: the experiment gcpnet_eq at its published widths and depth
+# (1,281 node scalars, ESM-2 and plDDT, and 38 atom types; 18 edge scalars;
+# hidden 100/16/32/4; 5 GCPInteractions2 layers of 8-layer GCP3 message
+# stacks with scalar message attention and sums over senders; dropout 0.1;
+# Adam at 1e-4 without weight decay; seed 42; one decoy a batch in the JAX
+# bucket of 8,192 nodes, 262,144 edge rows and 1,100 residues; bf16 over
+# float32 masters).  No EQ decoys and no ESM-2 checkpoint are on the card's
+# machine: the decoy/native pairs are synthetic (write_eq_decoys: natives
+# of 100-700 residues, about 8.5 heavy atoms each, decoys with 0.3-4 A of
+# noise, a seeded ESM cache file a sequence), cut to 8 / 2 / 2 targets of 8
+# decoys; the fit runs 2 of its up to 1,000 epochs and a resume for a
+# third; eq-check cuts to 2 layers and one decoy of 60-100 residues in a
+# bucket of 1,024 nodes and 128 residues.
+EQ_TARGETS = {"train": 8, "valid": 2, "test": 2}
+EQ_DECOYS = 8
+EQ_RESIDUES = (100, 700)
+EQ_BUCKET, EQ_MAX_RESIDUES = (8192, 8192 * 32), 1100
+EQ_EPOCHS, EQ_RESUME_EPOCHS = 2, 3
+EQ_CHECK_LAYERS, EQ_CHECK_NODES, EQ_CHECK_RESIDUES = 2, 1024, 128
+# determinism: two eager fp32 RS runs of this many steps, without
+# torch.use_deterministic_algorithms, must end with equal parameters
+DETERMINISM_STEPS = 16
 # The published H100 SXM peaks (NVIDIA data sheet, dense): device memory
 # rate, and the operation rate for each input type (bf16 on the tensor
 # cores, fp32 on the CUDA cores), and TF32 on the tensor cores, the route
@@ -481,6 +534,41 @@ def device_ms(fn, calls: int = 100, tries: int = 5) -> float:
     raise PhaseError(f"device_ms: the profiler lost device events in {tries} windows (last: {counts})")
 
 
+def queued_ms(fn, calls: int = 100, tries: int = 3) -> float:
+    """Device time of ``fn`` per call, for calls as short as the host's
+    launch of them: ``calls`` calls queued behind a spin kernel that keeps
+    the card busy until the host has launched them all, so that they run
+    back to back, timed by CUDA events around them (the median of
+    ``tries``).  The time includes the card's gap between consecutive
+    kernels.  (K1's earlier times were the kernels' own durations under
+    torch.profiler, device_ms; in one process the profiler's traces of
+    such windows lost kernels, and from about the 40th window whole
+    windows, on one H100 80GB HBM3.)  The spin is doubled until it
+    outlasts the launches; ``fn`` must not wait for the card."""
+    fn()
+    torch.cuda.synchronize()
+    spin = 50_000_000  # cycles, ~30 ms
+    times = []
+    while len(times) < tries:
+        if spin > 2**33:
+            raise PhaseError("queued_ms: the calls did not fit behind the spin (does fn wait for the card?)")
+        before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        before.record()
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if host_ms >= 0.8 * before.elapsed_time(start):
+            spin *= 2
+            continue
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 class timed_inputs:
     """An endless rotation of ``data`` and copies of it, enough that
     together they hold at least twice L2_BYTES: each call of a kernel timed
@@ -586,17 +674,20 @@ def phase_k1(batches_by_tile, d_out: int = 100 + 3 * 16, name: str = "K1") -> di
             library = lambda: torch.segment_reduce(next(copies)[:end], "sum", lengths=lengths, unsafe=True)  # noqa: E731
             # device time (a call is as short as its launch), in turns:
             # library, kernel, kernel, library
-            lib_a, k_a, k_b, lib_b = (device_ms(fn) for fn in (library, kernel, kernel, library))
+            lib_a, k_a, k_b, lib_b = (queued_ms(fn) for fn in (library, kernel, kernel, library))
             results[f"tile{tile}_{dname}"] = {
                 "max_abs_err": err,
                 "ms": (k_a + k_b) / 2,
-                "plain_ms": device_ms(lambda: segment_sum_sorted_plain(next(copies), splits, n), calls=20),
+                # the plain version reads the valid rows' count back
+                # (boolean indexing): CUDA events around its calls
+                "plain_ms": cuda_ms(lambda: segment_sum_sorted_plain(next(copies), splits, n)),
                 "library_ms": (lib_a + lib_b) / 2,
                 "ms_turns": [lib_a, k_a, k_b, lib_b],
                 "timed_copies": copies.count,
                 "bound_ms": b_ms,
                 "bound_by": b_by,
                 "shape": [batch.num_edges, d_out, n],
+                "rows_summed": rows,
             }
     print(f"phase {name}: ok " + json.dumps(results))
     return results
@@ -826,7 +917,7 @@ def phase_forward(batches) -> dict:
     (gcpnet_torch.predict.Predictor: a CUDA graph captured at the first
     batch and replayed for the rest), with every kernel count set to 0 just
     before and read just after (the wrappers count the eager launches and
-    the capture's; phase_profile reads a replay's kernels from its trace);
+    the capture's; phase_profile reads a replay's kernels from its graph);
     the served predictions against the eager ones; then the eager fp32
     predictions against the same weights and batch run on the CPU through
     the plain versions."""
@@ -849,7 +940,8 @@ def phase_forward(batches) -> dict:
                 launched = tuple(a - b for a, b in zip(launch_counts(), before))[:2]
                 # served: the first call runs eagerly and records the kernels
                 # into its graph (both counted); a replay runs no wrapper
-                want = (8, 8) if mode == "eager" else (16, 16) if i == 0 else (0, 0)
+                k1 = k1_steps("lba", 8)[1]
+                want = (k1, 8) if mode == "eager" else (2 * k1, 16) if i == 0 else (0, 0)
                 check(launched == want, f"forward {dname} {mode}: launches (K1, K2) = {launched}, want {want}")
                 check(out.shape == (GRAPHS,), f"forward {dname} {mode}: output shape {tuple(out.shape)}")
                 check(bool(torch.isfinite(out).all()), f"forward {dname} {mode}: non-finite predictions")
@@ -904,6 +996,28 @@ def reset_counts() -> None:
     segment_sum_sorted.launches = edge_map.launches = edge_map_backward.launches = 0
     for dtype in edge_map_backward.dtype_launches:
         edge_map_backward.dtype_launches[dtype] = 0
+
+
+# K1 launches a model runs outside its interaction layers, in the forward:
+# the centring's graph mean, the embedding's node frames, and the head's
+# node frames and pool (LBA, PSR, RS: the graph pool; EQ: the residue
+# mean; CPD: node frames alone; NMS: no head)
+K1_FIXED = {"lba": 4, "psr": 4, "rs": 4, "eq": 4, "nms": 2, "cpd": 3}
+
+
+def k1_steps(task: str, layers: int, decoders: int = 0) -> tuple:
+    """K1 launches ``(a training step, an evaluation step)`` of a task's
+    model with ``layers`` interaction layers (CPD: encoder layers, and
+    ``decoders`` autoregressive decoder layers).  The forward: K1_FIXED,
+    and each layer's sum or mean of its messages and its feed-forward's
+    node frames (a decoder layer: its sum alone); the backward: each
+    layer's two gathers of node rows (senders, receivers; a decoder
+    layer's four, as it gathers two reps) and CPD's gather of the
+    sequence embedding, each K1 over the cotangent rows.  Every other
+    backward of a sum is a gather."""
+    forward = K1_FIXED[task] + 2 * layers + decoders
+    backward = 2 * layers + 4 * decoders + (1 if task == "cpd" else 0)
+    return forward + backward, forward
 
 
 def _lba_training(dtype: torch.dtype):
@@ -1026,10 +1140,12 @@ def phase_train(batch, dtype: torch.dtype = torch.bfloat16) -> dict:
     (param_gap), its moments and per-step losses within what the two eager
     runs part by (REPLAY_TOL); a batch with a NaN label replayed through
     the graph must leave the state as it was, bit for bit; then one warm
-    eager step and one replay under torch.profiler, which reads the
-    replay's kernels from the trace."""
+    eager step and one replay under torch.profiler (the eager step's
+    kernels as the wrappers count them, the replay's read from its graph's
+    kernel nodes: profile_eager, profile_replay)."""
     name = "train" if dtype == torch.bfloat16 else "train-fp32"
-    want = (8, 8, 8, 0) if dtype == torch.bfloat16 else (8, 8, 0, 8)
+    k1 = k1_steps("lba", 8)[0]
+    want = (k1, 8, 8, 0) if dtype == torch.bfloat16 else (k1, 8, 0, 8)
     eager = [_train_run(batch, dtype, False, want) for _ in range(2)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1075,11 +1191,9 @@ def phase_train(batch, dtype: torch.dtype = torch.bfloat16) -> dict:
     pinned = batch.pinned()
     dev_batch = batch.to(torch.device("cuda"))
     emodel, estate, egen, _ = eager[0]["objects"]
-    kernels = {"K1": 8, "K2": 8, "K3": 8}
-    results["profile"] = profile_kernels(
-        lambda: train_step(emodel, estate, dev_batch, graph_regression_loss, egen), kernels
-    )
-    results["profile_captured"] = profile_kernels(lambda: steps([pinned]), kernels)
+    kernels = dict(zip(KERNEL_COUNTS, want))
+    results["profile"] = profile_eager(lambda: train_step(emodel, estate, dev_batch, graph_regression_loss, egen))
+    results["profile_captured"] = profile_replay(lambda: steps([pinned]), steps.call, [pinned])
     print(f"phase {name}: " + json.dumps(results), flush=True)
     for key, limit in bound.items():
         check(apart[key] <= limit, f"{name}: captured vs eager {key} {apart[key]:.3g} > {limit:.3g}")
@@ -1087,7 +1201,8 @@ def phase_train(batch, dtype: torch.dtype = torch.bfloat16) -> dict:
     check(not results["nan_replay"]["ok"] and not changed and results["nan_replay"]["replays"] == TRAIN_STEPS,
           f"{name}: the NaN replay {results['nan_replay']}")
     for prof in (results["profile"], results["profile_captured"]):
-        check(prof["kernels"] == kernels, f"{name}: profiled kernels {prof['kernels']}, want 8 of each")
+        check(prof["launches"] == kernels, f"{name}: profiled kernels {prof['launches']}, want {kernels}")
+        check(not prof["scatters"], f"{name}: scatter kernels in the step {prof['scatters']}")
     print(f"phase {name}: ok")
     return results
 
@@ -1246,37 +1361,56 @@ def phase_bf16_check() -> dict:
     return results
 
 
+# kernels that add rows into other rows by an index, by name: index_add_
+# (indexFunc*), the backward of indexing (index_put_ with accumulate,
+# indexing_backward) and of embedding lookups, scatter_add and the
+# scatter/gather kernel.  Their float additions meet in an order that
+# changes from run to run; the port's training steps run none (the
+# "scatters" of profile_eager and profile_replay).
+SCATTER_NAMES = ("indexFuncSmallIndex", "indexFuncLargeIndex", "index_add", "indexing_backward", "scatter_add",
+                 "_scatter_gather_elementwise", "embedding_backward", "compute_grad_weight")
+
+
+PROFILED = "chip_smoke.profiled"  # the range device_profile gives fn
+
+
 def device_profile(fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall time, device busy time
     (the sum of the CUDA kernels' times; one stream, so they do not
-    overlap), idle share, time by kernel, the launches of K1, K2 and K3
-    read from the trace (those a graph's replay runs included), and the
-    host's calls into the CUDA runtime and driver."""
+    overlap), idle share, time by kernel, the scatter kernels the trace
+    holds by name (SCATTER_NAMES), and the host's calls into the CUDA
+    runtime and driver.  The trace can miss a kernel now and then (on one
+    H100 80GB HBM3: a K1 in some windows), so kernel counts are not read
+    from it (profile_eager, profile_replay)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
+        with record_function(PROFILED):
+            fn()
+            torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # user annotations (``Optimizer.step#Adam.step``) also appear on the
     # device's timeline, as ranges over the kernels they launched: not work
-    kernels = [
-        e for e in prof.events() if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-    ]
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     # the host's calls into the CUDA runtime and driver (cudaLaunchKernel,
-    # cudaGraphLaunch, cudaMemcpyAsync, ...): what the host pays per call
+    # cudaGraphLaunch, cudaMemcpyAsync, ...) within fn's range: what the
+    # host pays per call
+    window = next(e.time_range for e in prof.events() if e.device_type == DeviceType.CPU and e.name == PROFILED)
     api = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith(("cuda", "cu")):
+        if (e.device_type == DeviceType.CPU and e.name.startswith(("cuda", "cu"))
+                and window.start <= e.time_range.start <= window.end):
             api[e.name] = api.get(e.name, 0) + 1
-    by_name = {}
+    by_name, by_count = {}, {}
     for e in kernels:
         name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
         name = name.split("(")[0][:80]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+        by_count[name] = by_count.get(name, 0) + 1
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     labels = (
@@ -1289,8 +1423,7 @@ def device_profile(fn) -> dict:
         "device_busy_ms": busy_us / 1e3 if kernels else "not measured",
         "device_idle_share": 1 - busy_us / wall_us if kernels else "not measured",
         "kernel_launches": len(kernels),
-        "kernels": {label: sum(1 for e in kernels if key in e.name) for label, key in KERNEL_NAMES.items()},
-        "launches": {label: sum(1 for e in kernels if key in e.name) for label, key in TRACE_NAMES.items()},
+        "scatters": _scatters(by_count),
         "cuda_api_calls": sum(api.values()),
         "cuda_api_by_name": api,
         "share": {
@@ -1302,17 +1435,33 @@ def device_profile(fn) -> dict:
     }
 
 
-def profile_kernels(fn, want: dict, tries: int = 3) -> dict:
-    """device_profile of ``fn``, taken again (up to ``tries`` times) while
-    the K1/K2/K3 counts read from the trace differ from ``want``: the
-    profiler can lose a device event now and then (see device_ms).  The
-    last profile, with the number of tries it took; a kernel missing from
-    every try fails the caller's check."""
-    for i in range(tries):
-        prof = device_profile(fn)
-        if prof["kernels"] == want:
-            break
-    prof["tries"] = i + 1
+def _scatters(by_count: dict) -> dict:
+    return {k: by_count[k] for k in sorted(by_count) if any(key in k for key in SCATTER_NAMES)}
+
+
+def profile_eager(fn) -> dict:
+    """device_profile of an eager ``fn``, its ``launches`` of K1, K2 and K3
+    as the wrappers count them (every count set to 0 just before)."""
+    reset_counts()
+    prof = device_profile(fn)
+    prof["launches"] = dict(zip(KERNEL_COUNTS, launch_counts()))
+    return prof
+
+
+def profile_replay(fn, call, batches) -> dict:
+    """device_profile of ``fn``, one replay of ``call``'s graph for
+    ``batches`` (a CapturedCall captured with ``keep_graphs``), with what
+    the replay launches read from the graph's kernel nodes, which no trace
+    can drop: ``launches`` of K1, K2 and K3, and ``scatters`` (beside the
+    trace's, ``traced_scatters``)."""
+    prof = device_profile(fn)
+    names = call.kernel_names(batches)
+    prof["launches"] = {
+        label: sum(n for name, n in names.items() if any(key in name for key in keys))
+        for label, keys in KERNEL_NAMES.items()
+    }
+    prof["traced_scatters"], prof["scatters"] = prof["scatters"], _scatters(names)
+    prof["graph_kernel_nodes"] = sum(names.values())
     return prof
 
 
@@ -1324,14 +1473,15 @@ def phase_profile(batches) -> dict:
     predictor = Predictor(model)
     predict(model, batches[0])
     predictor(batches[0])
-    kernels = {"K1": 8, "K2": 8, "K3": 0}
+    kernels = {"K1": k1_steps("lba", 8)[1], "K2": 8, "K3_bf16": 0, "K3_fp32": 0}
     result = {
-        "forward": profile_kernels(lambda: predict(model, batches[1]), kernels),
-        "forward_captured": profile_kernels(lambda: predictor(batches[1]), kernels),
+        "forward": profile_eager(lambda: predict(model, batches[1])),
+        "forward_captured": profile_replay(lambda: predictor(batches[1]), predictor.graphs,
+                                           [batches[1].pinned(torch.bfloat16)]),
     }
     print("phase profile: ok " + json.dumps(result))
     for key, prof in result.items():
-        check(prof["kernels"] == kernels, f"profile {key}: kernels {prof['kernels']}")
+        check(prof["launches"] == kernels, f"profile {key}: kernels {prof['launches']}")
     return result
 
 
@@ -1490,37 +1640,40 @@ def fit_parity(build, dm, loss_fn) -> dict:
     }
 
 
-def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k3: str = "K3_fp32",
-                k1_layers: int = None) -> None:
+def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k1: tuple, k3: str = "K3_fp32") -> None:
     """What every captured fit must show: the wrappers counted the kernels
     of each graph's first call only (its eager run and the capture's
-    records: twice a layer's K1, K2 and fp32 K3 launches for each training
-    batch captured, K1 and K2 for each evaluation batch), so every other
-    chunk ran as a replay; the traced replays of a train chunk and an eval
-    chunk run K1, K2 and the fp32 K3 once a layer a step (K3 not in
-    evaluation), as the profiled eager step does; the parity run's
-    captured steps equal its eager ones bit for bit (fit_parity), with
-    replays among them; the first epoch's losses are the eager epoch's
-    within FIT_EAGER_RTOL[name] where the fit ran one (``first_epoch``).
-    ``k3`` is the K3 of the fit's precision (the other counts none);
-    ``k1_layers`` the K1 launches a step, where they are not ``layers``
-    (CPD: the encoder's and the decoder's)."""
+    records: twice a training step's K1 launches and a layer's K2 and K3
+    launches for each training batch captured, an evaluation step's K1 and
+    a layer's K2 for each evaluation batch), so every other chunk ran as a
+    replay; the replays of a train chunk and an eval chunk (their graphs'
+    kernel nodes) run K1 ``k1`` (``(a training step's, an evaluation
+    step's)``: k1_steps) times a step and K2 and K3 once a layer a step (K3
+    not in evaluation), as the profiled eager step does (its wrappers'
+    counts), and no scatter kernel in training; the
+    parity run's captured steps equal its eager ones bit for bit
+    (fit_parity), with replays among them; the first epoch's losses are
+    the eager epoch's within FIT_EAGER_RTOL[name] where the fit ran one
+    (``first_epoch``).  ``k3`` is the K3 of the fit's precision (the other
+    counts none)."""
     g = results["graphs"]
-    k1_layers = k1_layers or layers
     train, evals = 2 * g["train_captured_batches"], 2 * g["eval_captured_batches"]
+    k1_train, k1_eval = k1
 
     def k3s(n):
         return {"K3_bf16": 0, "K3_fp32": 0, k3: n}
 
-    want = {"K1": k1_layers * (train + evals), "K2": layers * (train + evals), **k3s(layers * train)}
+    want = {"K1": k1_train * train + k1_eval * evals, "K2": layers * (train + evals), **k3s(layers * train)}
     check(results["launches"] == want, f"{name}: launches {results['launches']}, want {want} (graphs {g})")
-    traced = {
-        "profile": {"K1": k1_layers, "K2": layers, **k3s(layers)},
-        "profile_captured": {"K1": k1_layers * FIT_CHUNK, "K2": layers * FIT_CHUNK, **k3s(layers * FIT_CHUNK)},
-        "profile_eval_captured": {"K1": k1_layers * FIT_CHUNK, "K2": layers * FIT_CHUNK, **k3s(0)},
+    profiled = {
+        "profile": {"K1": k1_train, "K2": layers, **k3s(layers)},
+        "profile_captured": {"K1": k1_train * FIT_CHUNK, "K2": layers * FIT_CHUNK, **k3s(layers * FIT_CHUNK)},
+        "profile_eval_captured": {"K1": k1_eval * FIT_CHUNK, "K2": layers * FIT_CHUNK, **k3s(0)},
     }
-    for key, want in traced.items():
+    for key, want in profiled.items():
         check(results[key]["launches"] == want, f"{name}: {key} launches {results[key]['launches']}, want {want}")
+    for key in ("profile", "profile_captured"):
+        check(not results[key]["scatters"], f"{name}: scatter kernels in {key}: {results[key]['scatters']}")
     parity = results["parity"]
     check(parity["params_equal"] and parity["generator_equal"] and parity["train_loss"][0] == parity["train_loss"][1]
           and len(set(parity["val_loss"])) == 1 and parity["train_replays"] > 0
@@ -1555,13 +1708,12 @@ def _fit_record(trainer, clock: EpochClock, eager, lr: float) -> dict:
     return record
 
 
-def _profile_steps(trainer, dm, loss_fn, layers: int, k1_layers: int = None) -> dict:
+def _profile_steps(trainer, dm, loss_fn, layers: int, k1: tuple) -> dict:
     """One warm eager training step, and one replay each of the trainer's
     captured train chunk and eval chunk (FIT_CHUNK batches of the fit's
-    shapes), each under torch.profiler, which reads the kernels each ran
-    from its trace (profile_kernels); ``k1_layers`` K1 launches a step
-    where they are not ``layers``."""
-    k1_layers = k1_layers or layers
+    shapes), each under torch.profiler (profile_eager: the kernels as the
+    wrappers count them; profile_replay: as the graph's kernel nodes hold
+    them)."""
     train = [b.pinned() for b in itertools.islice(dm.train_batches(seed=0), FIT_CHUNK)]
     val = [b.pinned() for b in itertools.islice(dm.val_batches(), FIT_CHUNK)]
     dev_batch = next(dm.train_batches(seed=0)).to(torch.device("cuda"))
@@ -1570,12 +1722,11 @@ def _profile_steps(trainer, dm, loss_fn, layers: int, k1_layers: int = None) -> 
     replay_eval = lambda: trainer.eval_graphs(val)  # noqa: E731
     for fn in (eager, replay, replay_eval):  # warm, and captured where the graphs were dropped
         fn()
-    chunk, k1_chunk = layers * FIT_CHUNK, k1_layers * FIT_CHUNK
     return {
         "chunk_steps": FIT_CHUNK,
-        "profile": profile_kernels(eager, {"K1": k1_layers, "K2": layers, "K3": layers}),
-        "profile_captured": profile_kernels(replay, {"K1": k1_chunk, "K2": chunk, "K3": chunk}),
-        "profile_eval_captured": profile_kernels(replay_eval, {"K1": k1_chunk, "K2": chunk, "K3": 0}),
+        "profile": profile_eager(eager),
+        "profile_captured": profile_replay(replay, trainer.train_graphs.call, train),
+        "profile_eval_captured": profile_replay(replay_eval, trainer.eval_graphs.call, val),
     }
 
 
@@ -1639,7 +1790,7 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
         "final_step": resumed.state.step,
     })
     check(results["final_step"] == steps * NMS_RESUME_EPOCHS // NMS_EPOCHS, "nms-fit: resumed steps")
-    results.update(_profile_steps(resumed, dm, nms_loss, layers))
+    results.update(_profile_steps(resumed, dm, nms_loss, layers, k1_steps("nms", layers)))
     print("phase nms-fit: " + json.dumps(results), flush=True)
 
     wanted = ("train/loss", "val/loss", "val/RMSE", "val/CosineSimilarity")
@@ -1648,7 +1799,7 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
     check(all(k in test and math.isfinite(test[k]) for k in ("test/loss", "test/RMSE", "test/CosineSimilarity")),
           f"nms-fit: test metrics {test}")
     check([line["epoch"] for line in epochs] == list(range(NMS_RESUME_EPOCHS)), "nms-fit: epochs run")
-    _fit_checks("nms-fit", results, layers, epochs[0])
+    _fit_checks("nms-fit", results, layers, epochs[0], k1_steps("nms", layers))
     check(results["resumed_step"] == steps and same, "nms-fit: the resumed state is not the saved one")
     check(abs(again - logged) <= NMS_VAL_RTOL * abs(logged),
           f"nms-fit: best checkpoint's val/loss {again} against {logged} logged")
@@ -1786,9 +1937,9 @@ def phase_rs_profile(trainer, dm, fit: dict) -> dict:
     of its captured train and eval chunks under torch.profiler; then the
     rs-fit's checks that read them (_fit_checks)."""
     layers = rs_configs()[0].num_encoder_layers
-    results = _profile_steps(trainer, dm, rs_loss, layers)
+    results = _profile_steps(trainer, dm, rs_loss, layers, k1_steps("rs", layers))
     print("phase rs-profile: " + json.dumps(results), flush=True)
-    _fit_checks("rs-fit", {**fit, **results}, layers, fit["epochs"][0])
+    _fit_checks("rs-fit", {**fit, **results}, layers, fit["epochs"][0], k1_steps("rs", layers))
     print("phase rs-profile: ok")
     return results
 
@@ -2052,9 +2203,9 @@ def phase_psr_profile(trainer, dm, fit: dict) -> dict:
     idle share, kernels: K1, K2 and the bf16 K3 5 times a step); then the
     psr-fit's checks that read them (_fit_checks)."""
     layers = FIT_DEFAULTS["psr"]["num_encoder_layers"]
-    results = _profile_steps(trainer, dm, graph_regression_loss, layers)
+    results = _profile_steps(trainer, dm, graph_regression_loss, layers, k1_steps("psr", layers))
     print("phase psr-profile: " + json.dumps(results), flush=True)
-    _fit_checks("psr-fit", {**fit, **results}, layers, None, k3="K3_bf16")
+    _fit_checks("psr-fit", {**fit, **results}, layers, None, k1_steps("psr", layers), k3="K3_bf16")
     print("phase psr-profile: ok")
     return results
 
@@ -2169,31 +2320,40 @@ def phase_cpd_check(root: str) -> dict:
     batch = next(dm.val_batches())
     results = {"fp32": card_vs_cpu_step("cpd-check", lambda dev: _cpd_model(dev, CPD_CHECK_LAYERS), batch,
                                         cpd_loss, CPD_CHECK_LAYERS, params_by_share=True)}
+    k1 = 2 * k1_steps("cpd", CPD_CHECK_LAYERS, CPD_CHECK_LAYERS)[0]
+    want = {"K1": k1, "K2": 2 * CPD_CHECK_LAYERS, "K3_bf16": CPD_CHECK_LAYERS, "K3_fp32": CPD_CHECK_LAYERS}
+    results["bf16"] = bf16_vs_fp32_step("cpd-check", lambda dev, dtype: _cpd_model(dev, CPD_CHECK_LAYERS, dtype),
+                                        batch, cpd_loss, want)
+    print("phase cpd-check: ok")
+    return results
+
+
+def bf16_vs_fp32_step(name: str, build, batch, loss_fn, want: dict) -> dict:
+    """One bf16 and one fp32 training step on the card from the same
+    weights (``build(device, dtype) -> (model, state)``), no dropout: the
+    bf16 step's loss, gradient norm and gradients against the fp32 step's
+    (BF16_STEP_TOL); ``want`` the kernel launches of the two steps."""
     dev_batch = batch.to(torch.device("cuda"))
     steps = {}
     reset_counts()
-    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        model, state = _cpd_model("cuda", CPD_CHECK_LAYERS, dtype)
-        result = train_step(model, state, dev_batch, cpd_loss, deterministic=True)
-        steps[name] = {"loss": result.loss.item(), "grad_norm": result.grad_norm.item(),
-                       "grads": torch.cat([p.grad.reshape(-1) for p in model.parameters()])}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model, state = build("cuda", dtype)
+        result = train_step(model, state, dev_batch, loss_fn, deterministic=True)
+        steps[dname] = {"loss": result.loss.item(), "grad_norm": result.grad_norm.item(),
+                        "grads": torch.cat([p.grad.reshape(-1) for p in model.parameters()])}
     ref, bf16 = steps["fp32"], steps["bf16"]
-    results["bf16"] = r = {
+    r = {
         "loss_rel_diff": abs(bf16["loss"] - ref["loss"]) / abs(ref["loss"]),
         "grad_norm_rel_diff": abs(bf16["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
         "grads_cosine": torch.nn.functional.cosine_similarity(bf16["grads"], ref["grads"], dim=0).item(),
         "launches": dict(zip(KERNEL_COUNTS, launch_counts())),
     }
-    print("phase cpd-check bf16: " + json.dumps(r), flush=True)
-    # K1: the encoder's means and the decoder's sums; K2, K3: the encoder's
-    want = {"K1": 4 * CPD_CHECK_LAYERS, "K2": 2 * CPD_CHECK_LAYERS, "K3_bf16": CPD_CHECK_LAYERS,
-            "K3_fp32": CPD_CHECK_LAYERS}
-    check(r["launches"] == want, f"cpd-check: launches {r['launches']}, want {want}")
-    check(r["loss_rel_diff"] <= BF16_STEP_TOL["loss_rel"], "cpd-check: bf16 loss differs")
-    check(r["grad_norm_rel_diff"] <= BF16_STEP_TOL["grad_norm_rel"], "cpd-check: bf16 grad norm differs")
-    check(r["grads_cosine"] >= BF16_STEP_TOL["grads_cosine"], "cpd-check: bf16 gradients differ")
-    print("phase cpd-check: ok")
-    return results
+    print(f"phase {name} bf16: " + json.dumps(r), flush=True)
+    check(r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
+    check(r["loss_rel_diff"] <= BF16_STEP_TOL["loss_rel"], f"{name}: bf16 loss differs")
+    check(r["grad_norm_rel_diff"] <= BF16_STEP_TOL["grad_norm_rel"], f"{name}: bf16 grad norm differs")
+    check(r["grads_cosine"] >= BF16_STEP_TOL["grads_cosine"], f"{name}: bf16 gradients differ")
+    return r
 
 
 CPD_METRICS = ("loss", "recovery_argmax")
@@ -2256,14 +2416,14 @@ def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
 def phase_cpd_profile(trainer, dm, fit: dict) -> dict:
     """One warm eager CPD training step of the fitted model and one replay
     of its captured train and eval chunks under torch.profiler (busy ms,
-    idle share, kernels: K2 and the bf16 K3 9 times a step, K1 12 times:
-    the encoder's 9 means and the decoder's 3 sums); then the cpd-fit's
-    checks that read them (_fit_checks)."""
+    idle share, kernels: K2 and the bf16 K3 9 times a step, K1 as
+    k1_steps counts it for 9 encoder and 3 decoder layers); then the
+    cpd-fit's checks that read them (_fit_checks)."""
     layers = FIT_DEFAULTS["cpd"]["num_encoder_layers"]
-    k1_layers = layers + trainer.model.num_decoder_layers
-    results = _profile_steps(trainer, dm, cpd_loss, layers, k1_layers)
+    k1 = k1_steps("cpd", layers, trainer.model.num_decoder_layers)
+    results = _profile_steps(trainer, dm, cpd_loss, layers, k1)
     print("phase cpd-profile: " + json.dumps(results), flush=True)
-    _fit_checks("cpd-fit", {**fit, **results}, layers, None, k3="K3_bf16", k1_layers=k1_layers)
+    _fit_checks("cpd-fit", {**fit, **results}, layers, None, k1, k3="K3_bf16")
     print("phase cpd-profile: ok")
     return results
 
@@ -2306,7 +2466,7 @@ def phase_cpd_design(trainer, dm) -> dict:
                            "device_busy_ms": prof["device_busy_ms"], "device_idle_share": prof["device_idle_share"],
                            "kernel_launches": prof["kernel_launches"],
                            "launches_per_position": prof["kernel_launches"] / positions,
-                           "kernels": prof["kernels"], "top_ms": prof["top_ms"]},
+                           "top_ms": prof["top_ms"]},
         "argmax_card_vs_cpu": {"chain": name, "copies": CPD_ARGMAX_SAMPLES,
                                "equal_share": float((card == cpu).mean()), "equal": bool((card == cpu).all())},
     }
@@ -2315,15 +2475,236 @@ def phase_cpd_design(trainer, dm) -> dict:
     for key in ("all", "short", "single_chain"):
         for m in ("perplexity", "recovery"):
             check(math.isfinite(metrics.get(f"test/{key}_{m}", float("nan"))), f"cpd-design: test/{key}_{m}")
-    # the encoder on the card: 9 K2 and 9 K1 for each chain's perplexity and
-    # for its sampling batch
+    # each chain's perplexity (an evaluation forward) and its sampling
+    # batch's encoder (the centring, the embedding's node frames, a mean
+    # and node frames a layer), 9 K2 each; and the sampler's decoder steps,
+    # a sum a decoder layer at each position with a valid node (the
+    # subgraphs carry their indices' sorted forms)
     layers = FIT_DEFAULTS["cpd"]["num_encoder_layers"]
     decoders = model.num_decoder_layers
-    want = {"K1": len(chains) * (2 * layers + decoders), "K2": len(chains) * 2 * layers, "K3_bf16": 0, "K3_fp32": 0}
+    k1 = k1_steps("cpd", layers, decoders)[1] + 2 + 2 * layers
+    steps = sum(g.num_nodes if g.node_mask is None else int(np.sum(g.node_mask)) for _, g in chains)
+    want = {"K1": len(chains) * k1 + decoders * steps, "K2": len(chains) * 2 * layers,
+            "K3_bf16": 0, "K3_fp32": 0}
     check(launches == want, f"cpd-design: launches {launches}, want {want}")
     check(results["argmax_card_vs_cpu"]["equal_share"] >= CPD_ARGMAX_EQUAL_SHARE,
           f"cpd-design: argmax samples card vs CPU {results['argmax_card_vs_cpu']}")
     print("phase cpd-design: ok")
+    return results
+
+
+def phase_determinism(dm) -> dict:
+    """Two eager fp32 RS runs at full width, DETERMINISM_STEPS training
+    steps each from the same weights, batches and dropout seed, without
+    torch.use_deterministic_algorithms: every sum and every gather's
+    backward runs through K1 (or a scatter-free gather), so the parameters
+    must end equal bit for bit; the share of entries apart is printed."""
+    runs = []
+    for _ in range(2):
+        trainer = build_rs_trainer(42, "cuda", lr=FIT_LR)
+        for batch in itertools.islice(dm.train_batches(seed=0), DETERMINISM_STEPS):
+            train_step(trainer.model, trainer.state, batch.to(torch.device("cuda")), rs_loss, trainer.generator)
+        torch.cuda.synchronize()
+        runs.append(flat_params(trainer.model))
+        del trainer
+    apart = (runs[0] != runs[1]).double().mean().item()
+    results = {"steps": DETERMINISM_STEPS, "params_equal": torch.equal(runs[0], runs[1]), "share_apart": apart,
+               "moved_share": (runs[0] != flat_params(build_rs_trainer(42, "cuda", lr=FIT_LR).model)).double()
+               .mean().item()}
+    print("phase determinism: " + json.dumps(results), flush=True)
+    check(results["params_equal"], f"determinism: two eager fp32 RS runs part in {apart:.3g} of the entries")
+    print("phase determinism: ok")
+    return results
+
+
+def eq_datamodule(root: str, max_nodes: int = EQ_BUCKET[0], max_residues: int = EQ_MAX_RESIDUES) -> EQDataModule:
+    dm = EQDataModule.from_data_dir(root, batch_size=1, max_nodes_per_batch=max_nodes,
+                                    max_residues_per_batch=max_residues)
+    dm.prepare_data()
+    dm.setup()
+    return dm
+
+
+def phase_eq_data(root: str):
+    """Synthetic EQ decoys written (write_eq_decoys) and read (EQDataModule):
+    each split's first pass (parsing, the ESM cache, the radius graph and
+    the per-residue lDDT labels, each graph then cached, as the JAX module
+    caches its graphs), then one shuffled training epoch's batches as the
+    Trainer's prefetch thread makes them from the cache: ms a batch to read,
+    pack, sort and attach the sorted indices, and to pin; each batch's real
+    nodes, edge rows and residues against the bucket's."""
+    t0 = time.perf_counter()
+    written = write_eq_decoys(root, seed=SEED, targets=EQ_TARGETS, decoys=EQ_DECOYS, residues=EQ_RESIDUES)
+    write_seconds = time.perf_counter() - t0
+    dm = eq_datamodule(root)
+    first_pass = {}
+    for split in ("train", "valid", "test"):
+        t0 = time.perf_counter()
+        graphs = sum(1 for _ in dm._graphs(split))
+        first_pass[split] = {"graphs": graphs, "seconds": time.perf_counter() - t0}
+    fills, make_ms, pin_ms = _timed_batches(dm.train_batches(seed=0), EQ_BUCKET)
+    labels = np.concatenate([b.extras["label"][b.extras["res_mask"] > 0] for b in dm.val_batches()])
+    keys = ("real_nodes", "real_edges", "edge_padding_share", "node_padding_share")
+    results = {
+        **written, "write_seconds": write_seconds, "first_pass": first_pass,
+        "featurize_ms_per_decoy": 1e3 * first_pass["train"]["seconds"] / first_pass["train"]["graphs"],
+        "train_batches": len(fills),
+        "host_ms_per_batch": {"mean": float(np.mean(make_ms)), "max": float(np.max(make_ms))},
+        "pin_ms_per_batch": {"mean": float(np.mean(pin_ms)), "max": float(np.max(pin_ms))},
+        "bucket": {"nodes": EQ_BUCKET[0], "edges": EQ_BUCKET[1], "graphs": 1, "residues": EQ_MAX_RESIDUES},
+        "fill_min_mean_max": {k: [float(f(np.asarray([x[k] for x in fills]))) for f in (np.min, np.mean, np.max)]
+                              for k in keys},
+        "val_label_mean_std": [float(labels.mean()), float(labels.std())],
+        "cuts": {"targets": dict(EQ_TARGETS), "decoys_per_target": EQ_DECOYS, "residues": list(EQ_RESIDUES),
+                 "epochs": [EQ_EPOCHS, EQ_RESUME_EPOCHS], "data": "synthetic decoys and ESM cache, not EQ"},
+    }
+    print("phase eq-data: " + json.dumps(results), flush=True)
+    want = {k: EQ_TARGETS[k] * EQ_DECOYS for k in EQ_TARGETS}
+    check(written["decoys"] == want and {k: v["graphs"] for k, v in first_pass.items()} == want,
+          f"eq-data: decoys written {written['decoys']}, featurized {first_pass}")
+    check(len(fills) == want["train"] and all(x["in_bucket"] for x in fills),
+          "eq-data: a batch outside the bucket or without its CSR splits")
+    check(0.05 < labels.mean() < 0.95 and labels.std() > 0.02, f"eq-data: lDDT labels {results['val_label_mean_std']}")
+    print("phase eq-data: ok")
+    return dm, results
+
+
+def eq_message_passing() -> GCPMessagePassing:
+    """One EQ layer's message passing (8 GCP3 layers, hidden 100/16, edges
+    32/4, the attention and the sum over senders), random weights from the
+    seed."""
+    model_cfg, module_cfg, layer_cfg = eq_configs()
+    node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
+    edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
+    return GCPMessagePassing(
+        node_dims, node_dims, edge_dims, module_cfg, layer_cfg, reduce_function="sum",
+        use_scalar_message_attention=True, aggregate_with_row=True,
+        generator=torch.Generator().manual_seed(SEED), device="cuda",
+    )
+
+
+def phase_eq_kernels(dm) -> dict:
+    """K1, K2 and K3 at the EQ step's shape (a training batch: the bucket's
+    262,144 receiver-sorted CSR rows into 8,192 nodes), fp32 and bf16, an
+    EQ layer's GCP3 stack; K3 fp32 by the kink rule.  The timed batch's
+    real nodes and edge rows are printed beside them (the bounds count
+    what this batch's data needs)."""
+    batch = next(dm.train_batches(seed=0))
+    fill = _batch_fill(batch)
+    results = {
+        "K1": phase_k1({1: batch}, name="eq-K1"),
+        "K2": phase_k2(batch, eq_message_passing(), name="eq-K2"),
+        "K3": phase_k3(batch, eq_message_passing(), name="eq-K3", full_bound=False),
+    }
+    for kernel, res in results.items():
+        for key, r in res.items():
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print("phase eq-kernels: ok " + json.dumps({"batch": fill} | {
+        k: {d: {key: r[key] for key in ("ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms", "library_ms")}
+            for d, r in res.items()}
+        for k, res in results.items()
+    }))
+    return {"batch": fill, **results}
+
+
+def _eq_model(dev, layers: int, dtype: torch.dtype = torch.float32):
+    """The EQ model at full width with ``layers`` layers, no dropout,
+    weights from SEED, and a train state (Adam at 1e-4) computing in
+    ``dtype``."""
+    trainer = build_eq_trainer(SEED, dev, num_encoder_layers=layers, dropout=0.0,
+                               precision=16 if dtype == torch.bfloat16 else 32)
+    return trainer.model, trainer.state
+
+
+def phase_eq_check(root: str) -> dict:
+    """The EQ step at EQ_CHECK_LAYERS layers on one decoy of 60-100 residues
+    (written under ``root``, apart from the fit's, in a bucket of
+    EQ_CHECK_NODES nodes): fp32 on the card
+    against the CPU (card_vs_cpu_step: loss, gradient norm, every gradient,
+    the updated parameters by the share apart, as cpd-check), then the bf16
+    step's gradients against the fp32 step's on the card (BF16_STEP_TOL)."""
+    write_eq_decoys(root, seed=SEED + 1, targets={"valid": 1}, decoys=1, residues=(60, 100))
+    dm = eq_datamodule(root, EQ_CHECK_NODES, EQ_CHECK_RESIDUES)
+    batch = next(dm.val_batches())
+    results = {"fp32": card_vs_cpu_step("eq-check", lambda dev: _eq_model(dev, EQ_CHECK_LAYERS), batch, eq_loss,
+                                        EQ_CHECK_LAYERS, params_by_share=True)}
+    k1 = 2 * k1_steps("eq", EQ_CHECK_LAYERS)[0]
+    want = {"K1": k1, "K2": 2 * EQ_CHECK_LAYERS, "K3_bf16": EQ_CHECK_LAYERS, "K3_fp32": EQ_CHECK_LAYERS}
+    results["bf16"] = bf16_vs_fp32_step("eq-check", lambda dev, dtype: _eq_model(dev, EQ_CHECK_LAYERS, dtype),
+                                        batch, eq_loss, want)
+    print("phase eq-check: ok")
+    return results
+
+
+EQ_METRICS = ("loss", "RMSE", "PearsonCorrCoef")
+
+
+def phase_eq_fit(root: str, ckpt_dir: str):
+    """The EQ path: the full-width, full-depth EQ model with the
+    experiment's defaults (bf16 over float32 masters, dropout 0.1, Adam at
+    1e-4, seed 42, one decoy a batch) fitted by the Trainer with
+    scan_chunk_size FIT_CHUNK for EQ_EPOCHS epochs with checkpoints; a new
+    Trainer resumes from the last checkpoint to epoch EQ_RESUME_EPOCHS and
+    tests the best checkpoint: seconds an epoch, train graphs/s, val and
+    test RMSE and Pearson on the synthetic labels, peak memory.  Beside it
+    the deterministic parity run (fit_parity).  Every kernel count is set to
+    0 just before the fit and read just after (eq-profile checks them)."""
+    build = lambda seed=42, **kw: build_eq_trainer(seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    parity = fit_parity(build, eq_datamodule(root), eq_loss)
+    dm = eq_datamodule(root)
+    clock = EpochClock()
+    trainer = build(max_epochs=EQ_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock], scan_chunk_size=FIT_CHUNK)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    clock.last = time.perf_counter()
+    trainer.fit(dm)
+    torch.cuda.synchronize()
+    results = {"launches": dict(zip(KERNEL_COUNTS, launch_counts())), "held_at_start_gb": held_gb,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "steps": trainer.state.step}
+    results.update(_fit_record(trainer, clock, None, FIT_LR), parity=parity)
+    resumed_clock = EpochClock()
+    resumed = build(max_epochs=EQ_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
+                    scan_chunk_size=FIT_CHUNK)
+    resumed.fit(dm, resume=True)
+    results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
+    results["best_step"] = resumed.restore_best()
+    results["test"] = test = resumed.test(dm)
+    torch.cuda.synchronize()
+    epochs = clock.lines + resumed_clock.lines[:-1]
+    results["epochs"] = [
+        {k: line[k] for k in ("epoch", "seconds", "train/loss", "train/steps_per_sec")}
+        | {f"val/{m}": line[f"val/{m}"] for m in EQ_METRICS}
+        | {"train_graphs_per_s": line["train/steps_per_sec"]}
+        for line in epochs
+    ]
+    results["final_step"] = resumed.state.step
+    print("phase eq-fit: " + json.dumps(results), flush=True)
+    check([line["epoch"] for line in epochs] == list(range(EQ_RESUME_EPOCHS)), "eq-fit: epochs run")
+    for line in results["epochs"]:
+        check(all(math.isfinite(v) for v in line.values()), f"eq-fit: epoch line {line}")
+    check(all(math.isfinite(test[f"test/{m}"]) for m in EQ_METRICS), f"eq-fit: test metrics {test}")
+    check(results["final_step"] == results["steps"] * EQ_RESUME_EPOCHS // EQ_EPOCHS, "eq-fit: resumed steps")
+    for graphs in (results["graphs"], results["resumed_graphs"]):
+        check(graphs["train_held"] <= 2 and graphs["eval_held"] <= 2, f"eq-fit: CUDA graphs held {graphs}")
+    print("phase eq-fit: ok")
+    return resumed, dm, results
+
+
+def phase_eq_profile(trainer, dm, fit: dict) -> dict:
+    """One warm eager EQ training step of the fitted model and one replay of
+    its captured train and eval chunks under torch.profiler (busy ms, idle
+    share, kernels: K2 and the bf16 K3 5 times a step, K1 as k1_steps counts
+    it, no scatter kernel); then the eq-fit's checks that read them
+    (_fit_checks)."""
+    layers = FIT_DEFAULTS["eq"]["num_encoder_layers"]
+    k1 = k1_steps("eq", layers)
+    results = _profile_steps(trainer, dm, eq_loss, layers, k1)
+    print("phase eq-profile: " + json.dumps(results), flush=True)
+    _fit_checks("eq-fit", {**fit, **results}, layers, None, k1, k3="K3_bf16")
+    print("phase eq-profile: ok")
     return results
 
 
@@ -2343,17 +2724,18 @@ def kernel_line(report) -> dict:
     the tile-aligned layout the main path uses, fp32 and K1's CSR layout
     beside them; ``launches`` the wrappers' count over the captured bf16
     training run (its first step's eager launches and the capture's
-    records), ``replay_launches_traced`` the kernels one replay of that
-    graph ran, read from its trace, beside the run's ``replays``; the
+    records), ``replay_launches`` the kernels one replay of that graph
+    launches, read from its kernel nodes, beside the run's ``replays``; the
     prediction run's count beside them; K3 as its two instantiations, bf16
     (the bf16 training run) and fp32 (split TF32, the fp32 training run).
     Under "nms", each kernel at the NMS step's shape and its launches a
-    step of the NMS fit, read from the trace of one replay of a train chunk
+    step of the NMS fit, read from the graph of one replay of a train chunk
     (FIT_CHUNK steps) by instantiation (the fit is fp32, so the bf16 K3's
     count is 0); under "rs" the same at the RS step's shape and the RS
     fit; under "psr" at the PSR step's shape and the PSR fit (bf16, so the
     fp32 K3's count is 0); under "cpd" at the CPD step's shape and the CPD
-    fit (bf16; K1 a step: the encoder's 9 and the decoder's 3)."""
+    fit (bf16; K1 a step as k1_steps counts it); under "eq" at the EQ
+    step's shape and the EQ fit (bf16)."""
     k1, k2, k3 = report["K1"], report["K2"], report["K3"]
     forward, train, train_fp32 = report["forward"], report["train"], report["train_fp32"]
     nk, rk, pk = report["nms_kernels"], report["rs_kernels"], report["psr_kernels"]
@@ -2361,24 +2743,26 @@ def kernel_line(report) -> dict:
     replaces_k3 = "gcpnet_tpu/ops/pallas_fused.py:175"
 
     def per_step(profiles):
-        traced = profiles["profile_captured"]["launches"]
-        return {k: n / profiles["chunk_steps"] for k, n in traced.items()}
+        replayed = profiles["profile_captured"]["launches"]
+        return {k: n / profiles["chunk_steps"] for k, n in replayed.items()}
 
     nms_steps, rs_steps = per_step(report["nms_fit"]), per_step(report["rs_profile"])
     psr_steps = per_step(report["psr_profile"])
     ck, cpd_steps = report["cpd_kernels"], per_step(report["cpd_profile"])
+    ek, eq_steps = report["eq_kernels"], per_step(report["eq_profile"])
 
     def row(name, source, replaces, run, count, main, dtype, **extra):
         return {
             "name": name, "route": "cuda", "source": f"gcpnet_torch/csrc/{source}", "replaces": replaces,
             "launches": run["launches"][count], **{k: main[k] for k in keys}, "dtype": dtype,
-            "replay_launches_traced": run["profile_captured"]["launches"][count], "replays": run["replays"],
+            "replay_launches": run["profile_captured"]["launches"][count], "replays": run["replays"],
             **extra,
         }
 
     def nms(results, launches_per_step, **by_dtype):
         return {
             "shape": next(iter(results.values()))["shape"], "launches_per_step": launches_per_step,
+            **{k: v for k, v in next(iter(results.values())).items() if k == "rows_summed"},
             **{d: {k: results[key][k] for k in (*keys, "share_of_bound")} for d, key in by_dtype.items()},
         }
 
@@ -2392,7 +2776,8 @@ def kernel_line(report) -> dict:
                 nms=nms(nk["K1"], nms_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
                 rs=nms(rk["K1"], rs_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
                 psr=nms(pk["K1"], psr_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
-                cpd=nms(ck["K1"], cpd_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
+                cpd=nms(ck["K1"], cpd_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
+                eq=nms(ek["K1"], eq_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
             row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train, "K2",
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
                 bound_rate=k2["bf16"]["bound_rate"],
@@ -2400,20 +2785,23 @@ def kernel_line(report) -> dict:
                 nms=nms(nk["K2"], nms_steps["K2"], fp32="fp32", bf16="bf16"),
                 rs=nms(rk["K2"], rs_steps["K2"], fp32="fp32", bf16="bf16"),
                 psr=nms(pk["K2"], psr_steps["K2"], fp32="fp32", bf16="bf16"),
-                cpd=nms(ck["K2"], cpd_steps["K2"], fp32="fp32", bf16="bf16")),
+                cpd=nms(ck["K2"], cpd_steps["K2"], fp32="fp32", bf16="bf16"),
+                eq=nms(ek["K2"], eq_steps["K2"], fp32="fp32", bf16="bf16")),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train, "K3_bf16",
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3_bf16"],
                 bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps["K3_bf16"], bf16="bf16"),
                 rs=nms(rk["K3"], rs_steps["K3_bf16"], bf16="bf16"),
                 psr=nms(pk["K3"], psr_steps["K3_bf16"], bf16="bf16"),
-                cpd=nms(ck["K3"], cpd_steps["K3_bf16"], bf16="bf16")),
+                cpd=nms(ck["K3"], cpd_steps["K3_bf16"], bf16="bf16"),
+                eq=nms(ek["K3"], eq_steps["K3_bf16"], bf16="bf16")),
             row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32, "K3_fp32",
                 k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"],
                 bound_ms_cuda_cores=k3["fp32"]["bound_ms_cuda_cores"],
                 nms=nms(nk["K3"], nms_steps["K3_fp32"], fp32="fp32"),
                 rs=nms(rk["K3"], rs_steps["K3_fp32"], fp32="fp32"),
                 psr=nms(pk["K3"], psr_steps["K3_fp32"], fp32="fp32"),
-                cpd=nms(ck["K3"], cpd_steps["K3_fp32"], fp32="fp32")),
+                cpd=nms(ck["K3"], cpd_steps["K3_fp32"], fp32="fp32"),
+                eq=nms(ek["K3"], eq_steps["K3_fp32"], fp32="fp32")),
         ]
     }
 
@@ -2432,6 +2820,9 @@ def main() -> int:
     # cuBLAS reads it when it makes its first handle; deterministic
     # algorithms (fit_parity) refuse cuBLAS without it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # every graph keeps its nodes, from which profile_replay reads a
+    # replay's kernels
+    CapturedCall.keep_graphs = True
     os.makedirs(args.out_dir, exist_ok=True)
     # the simulated NMS splits (~70 MB) and checkpoints are removed at the end
     work = tempfile.mkdtemp(prefix="chip_smoke_nms_")
@@ -2439,7 +2830,8 @@ def main() -> int:
     rs_ckpt_dir = os.path.join(args.out_dir, "rs_checkpoints")
     psr_root, psr_ckpt_dir = os.path.join(work, "atom3d"), os.path.join(args.out_dir, "psr_checkpoints")
     cpd_root, cpd_ckpt_dir = os.path.join(work, "cath"), os.path.join(args.out_dir, "cpd_checkpoints")
-    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir):
+    eq_root, eq_ckpt_dir = os.path.join(work, "eq"), os.path.join(args.out_dir, "eq_checkpoints")
+    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir):
         shutil.rmtree(path, ignore_errors=True)
     report = {}
     try:
@@ -2450,7 +2842,7 @@ def main() -> int:
         report["K1"] = phase_k1({128: batches[0], 1: csr})
         report["K2"] = phase_k2(batches[0], bench_message_passing())
         report["K3"] = phase_k3(batches[0], bench_message_passing())
-        # every K1 timing (device_ms) before the first CUDA graph
+        # every K1 timing (queued_ms) before the first CUDA graph
         dm, report["nms_data"] = phase_nms_data(data_root)
         report["nms_kernels"] = phase_nms_kernels(dm)
         rs_dm, report["rs_data"] = phase_rs_data()
@@ -2461,6 +2853,9 @@ def main() -> int:
         cpd_dm, report["cpd_data"] = phase_cpd_data(cpd_root)
         report["cpd_kernels"] = phase_cpd_kernels(cpd_dm)
         del cpd_dm
+        eq_dm, report["eq_data"] = phase_eq_data(eq_root)
+        report["eq_kernels"] = phase_eq_kernels(eq_dm)
+        del eq_dm
         report["forward"] = phase_forward(batches)
         report["train"] = phase_train(batches[0])
         report["train_fp32"] = phase_train(batches[0], torch.float32)
@@ -2473,7 +2868,9 @@ def main() -> int:
         report["rs_check"] = phase_rs_check(rs_dm)
         rs_trainer, report["rs_fit"] = phase_rs_fit(rs_dm, rs_ckpt_dir)
         report["rs_profile"] = phase_rs_profile(rs_trainer, rs_dm, report["rs_fit"])
-        del rs_trainer, rs_dm
+        del rs_trainer
+        report["determinism"] = phase_determinism(rs_dm)
+        del rs_dm
         report["psr_check"] = phase_psr_check(psr_root)
         psr_trainer, psr_dm, report["psr_fit"] = phase_psr_fit(
             psr_root, psr_ckpt_dir, report["psr_data"]["graphs_per_batch"]
@@ -2486,11 +2883,15 @@ def main() -> int:
         )
         report["cpd_profile"] = phase_cpd_profile(cpd_trainer, cpd_dm, report["cpd_fit"])
         report["cpd_design"] = phase_cpd_design(cpd_trainer, cpd_dm)
+        del cpd_trainer, cpd_dm
+        report["eq_check"] = phase_eq_check(os.path.join(work, "eq_check"))
+        eq_trainer, eq_dm, report["eq_fit"] = phase_eq_fit(eq_root, eq_ckpt_dir)
+        report["eq_profile"] = phase_eq_profile(eq_trainer, eq_dm, report["eq_fit"])
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
-        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir):
+        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir):
             shutil.rmtree(path, ignore_errors=True)
         report["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:

@@ -46,6 +46,36 @@ class Bucket:
     num_graphs: int
 
 
+def sorted_index(index: np.ndarray, valid: np.ndarray, num_segments: int):
+    """``(perm, inv, splits)``: the rows with ``valid`` stably sorted by
+    ``index``, then the others in their order; its inverse; and each
+    segment's ``[S+1]`` int32 range of sorted rows (the host side of
+    ``ops.segment.SortedIndex``)."""
+    index = np.asarray(index).astype(np.int64)
+    valid = np.asarray(valid, dtype=bool)
+    perm = np.argsort(np.where(valid, index, num_segments), kind="stable")
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0])
+    counts = np.bincount(index[valid], minlength=num_segments)
+    splits = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return perm, inv, splits
+
+
+def with_sorted_indices(batch: GraphBatch) -> GraphBatch:
+    """``batch`` with the sorted forms of its senders (``sender_perm``,
+    ``sender_inv_perm``, ``sender_splits``) and of its nodes' graph ids
+    (``graph_splits``: the real nodes must come first, in graph order)."""
+    perm, inv, splits = sorted_index(batch.senders, batch.edge_pad_mask, batch.num_nodes)
+    real = np.asarray(batch.node_pad_mask, dtype=bool)
+    graph_id = np.asarray(batch.graph_id)
+    n_real = int(real.sum())
+    if not real[:n_real].all() or np.any(np.diff(graph_id[:n_real]) < 0):
+        raise ValueError("with_sorted_indices: the real nodes must come first, in graph order")
+    counts = np.bincount(graph_id[:n_real], minlength=batch.num_graphs)
+    graph_splits = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return batch.replace(sender_perm=perm, sender_inv_perm=inv, sender_splits=splits, graph_splits=graph_splits)
+
+
 def sort_edges_by_receiver(batch: GraphBatch, tile: int = 128) -> GraphBatch:
     """Reorder a batch's edges so real edges are sorted by receiver and
     attach ``[N+1]`` row splits: node ``n`` owns edge rows
@@ -56,7 +86,9 @@ def sort_edges_by_receiver(batch: GraphBatch, tile: int = 128) -> GraphBatch:
     padding rows that fall inside the range of the last node of each group,
     so every consumer must mask them.  ``tile=1`` gives plain CSR splits with
     no holes.  Without enough spare edge slots for the alignment the edges
-    are still sorted but no splits are attached.
+    are still sorted but no splits are attached.  The sorted forms of the
+    senders and of the graph ids are attached too
+    (:func:`with_sorted_indices`).
     """
     receivers = np.asarray(batch.receivers)
     num_edges = receivers.shape[0]
@@ -120,7 +152,7 @@ def sort_edges_by_receiver(batch: GraphBatch, tile: int = 128) -> GraphBatch:
         )
         for k, v in batch.extras.items()
     }
-    return batch.replace(
+    return with_sorted_indices(batch.replace(
         e=reorder(batch.e),
         xi=reorder(batch.xi),
         senders=reorder(batch.senders),
@@ -128,7 +160,7 @@ def sort_edges_by_receiver(batch: GraphBatch, tile: int = 128) -> GraphBatch:
         edge_pad_mask=np.asarray(batch.edge_pad_mask)[final_order],
         edge_row_splits=splits,
         extras=extras,
-    )
+    ))
 
 
 def collate_shards(

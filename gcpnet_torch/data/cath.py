@@ -64,6 +64,7 @@ class CATHDataModule:
         self.max_nodes_per_batch = max_nodes_per_batch
         self.splits: Dict[str, List[dict]] = {}
         self.custom_splits: Dict[str, set] = {}
+        self._featurized: Dict[str, List[int]] = {}  # split -> indices of the records that featurize
 
     def prepare_data(self) -> None:
         """Downloads nothing (the JAX module fetches the files from the
@@ -107,6 +108,7 @@ class CATHDataModule:
                 with open(path) as f:
                     subset = json.load(f)
                 self.custom_splits[key] = set(subset.get("test", subset))
+        self._featurized = {}
         log.info("CATH splits: " + ", ".join(f"{k}={len(v)}" for k, v in self.splits.items()))
 
     # ------------------------------------------------------------------
@@ -117,15 +119,22 @@ class CATHDataModule:
         """``(name, graph)`` of the split's chains in record order (or the
         records ``index`` names, in its order), featurized on threads a few
         ahead (``data.batching.made_ahead``), skipping a chain that fails to
-        featurize (``KeyError``, ``ValueError``), as the JAX module does."""
+        featurize (``KeyError``, ``ValueError``), as the JAX module does.  A
+        pass over the whole split in record order records which records
+        featurize."""
         entries = self.splits[split]
-        chosen = [entries[i] for i in (range(len(entries)) if index is None else index)]
-        for entry, made in zip(chosen, made_ahead(self._featurize, chosen)):
+        order = range(len(entries)) if index is None else index
+        chosen = [entries[i] for i in order]
+        kept = []
+        for i, entry, made in zip(order, chosen, made_ahead(self._featurize, chosen)):
             try:
                 g = made.result()
             except (KeyError, ValueError):
                 continue
+            kept.append(i)
             yield entry.get("name") or entry.get("id") or "", g
+        if index is None:
+            self._featurized[split] = kept
 
     def _graphs(self, split: str, index: Optional[List[int]] = None) -> Iterator[GraphData]:
         return (g for _, g in self.named_graphs(split, index))
@@ -138,10 +147,16 @@ class CATHDataModule:
 
     def batches(self, split: str, shuffle: bool = False, seed: int = 0) -> Iterator[GraphBatch]:
         """The split's batches; shuffled, in the order of
-        ``np.random.default_rng(seed).shuffle`` of its records (the JAX
-        module shuffles its featurized graphs, the same order where every
-        record featurizes)."""
-        index = shuffled_order(len(self.splits[split]), seed).tolist() if shuffle else None
+        ``np.random.default_rng(seed).shuffle`` of the records that
+        featurize, as the JAX module shuffles its featurized graphs (the
+        split's first pass learns which)."""
+        index = None
+        if shuffle:
+            if split not in self._featurized:
+                for _ in self.named_graphs(split):
+                    pass
+            kept = np.asarray(self._featurized[split], dtype=np.int64)
+            index = kept[shuffled_order(len(kept), seed)].tolist()
         return batches_from_dataset(self._graphs(split, index), self.bucket())
 
     def train_batches(self, seed: int = 0) -> Iterator[GraphBatch]:

@@ -30,6 +30,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from gcpnet_torch.data.batching import with_sorted_indices
 from gcpnet_torch.data.features import normalize, rbf
 from gcpnet_torch.data.nms_sim import Mode, generate_split
 from gcpnet_torch.device import DeviceLike
@@ -139,7 +140,7 @@ class NMSDataModule:
         senders = (d["senders"][None, :] + offsets).reshape(-1)
         receivers = (d["receivers"][None, :] + offsets).reshape(-1)
         N, E = B * n, senders.shape[0]
-        return GraphBatch(
+        return with_sorted_indices(GraphBatch(
             h=d["h"][idx].reshape(N, 1),
             chi=d["chi"][idx].reshape(N, 3, 3),
             e=d["e"][idx].reshape(E, 1 + self.num_rbf),
@@ -154,7 +155,7 @@ class NMSDataModule:
             node_mask=None,
             edge_row_splits=(np.arange(N + 1) * (n - 1)).astype(np.int32),
             extras={"label": d["label"][idx].reshape(N, 3)},
-        )
+        ))
 
     def num_batches(self, split: str) -> int:
         return self.sizes[split] // self.batch_size

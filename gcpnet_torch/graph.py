@@ -11,7 +11,12 @@ A :class:`GraphBatch` holds numpy arrays while the host builds it
 (:func:`batch_graphs`, ``gcpnet_torch.data.batching``) and torch tensors
 after :meth:`GraphBatch.to`.
 
-Only the edge-list and receiver-sorted layouts are ported so far.  Note for
+Only the edge-list and receiver-sorted layouts are ported so far.  A
+receiver-sorted batch also carries the sorted forms of its indices
+(:meth:`GraphBatch.receiver_index`, :meth:`GraphBatch.sender_index`,
+:meth:`GraphBatch.graph_index`), so that
+on the card every sum and every gather's backward runs through K1
+(``ops.segment``).  Note for
 whoever ports the dense fixed-degree layout: the JAX package's comment on
 ``GraphBatch.edge_dense_degree`` (``gcpnet_tpu/graph.py:69-70``) calls that
 layout node-major (row ``n*K+j``), but the code is SLOT-MAJOR: row
@@ -26,6 +31,8 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from gcpnet_torch.ops.segment import SortedIndex
 
 Array = Any  # np.ndarray on the host, torch.Tensor after GraphBatch.to
 
@@ -50,6 +57,12 @@ class GraphBatch:
         features are invalid); ``None`` when a task has none.
       edge_row_splits: optional [N+1] int32 edge ranges when edges are
         sorted by receiver (``data.batching.sort_edges_by_receiver``).
+      sender_perm, sender_inv_perm, sender_splits: optional ``[E]``, ``[E]``
+        and ``[N+1]``: the edge rows stably sorted by sender (the padding
+        rows last), its inverse, and each node's range of sorted rows (the
+        CSR form of the JAX ``build_sender_perm``).
+      graph_splits: optional [G+1] each graph's range of nodes (the real
+        nodes are in graph order, the padding nodes after them).
       extras: task-specific arrays keyed by name (labels, ...).
     """
 
@@ -66,6 +79,10 @@ class GraphBatch:
     graph_pad_mask: Array
     node_mask: Optional[Array] = None
     edge_row_splits: Optional[Array] = None
+    sender_perm: Optional[Array] = None
+    sender_inv_perm: Optional[Array] = None
+    sender_splits: Optional[Array] = None
+    graph_splits: Optional[Array] = None
     extras: Dict[str, Array] = dataclasses.field(default_factory=dict)
 
     @property
@@ -93,6 +110,26 @@ class GraphBatch:
         nm = self.valid_node_mask()
         return self.edge_pad_mask & nm[self.senders] & nm[self.receivers]
 
+    def receiver_index(self):
+        """The receivers, in their sorted form (the row splits of a
+        receiver-sorted batch) where the batch has one."""
+        if self.edge_row_splits is None:
+            return self.receivers
+        return SortedIndex(self.receivers, self.edge_row_splits)
+
+    def sender_index(self):
+        """The senders, in their sorted form where the batch has one."""
+        if self.sender_splits is None:
+            return self.senders
+        return SortedIndex(self.senders, self.sender_splits, self.sender_perm, self.sender_inv_perm)
+
+    def graph_index(self):
+        """The nodes' graph ids, in their sorted form where the batch has
+        one."""
+        if self.graph_splits is None:
+            return self.graph_id
+        return SortedIndex(self.graph_id, self.graph_splits)
+
     def replace(self, **kwargs) -> "GraphBatch":
         return dataclasses.replace(self, **kwargs)
 
@@ -100,8 +137,8 @@ class GraphBatch:
         self, device: torch.device, dtype: torch.dtype = torch.float32, non_blocking: bool = False
     ) -> "GraphBatch":
         """Torch tensors on ``device``: float features in ``dtype``, index
-        arrays as int64, ``edge_row_splits`` as int32 (the kernels' index
-        type), masks as bool.  With ``non_blocking`` a copy to the card goes
+        arrays as int64, the splits (every array named ``*_splits``, extras
+        too) as int32 (the kernels' index type), masks as bool.  With ``non_blocking`` a copy to the card goes
         from pinned host memory and returns before it completes (it runs on
         the current stream, ahead of the work queued after it)."""
         if non_blocking and torch.device(device).type == "cuda":
@@ -122,7 +159,7 @@ class GraphBatch:
             if a is None:
                 return None
             t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a)
-            if name == "edge_row_splits":
+            if name.endswith("_splits"):
                 t = t.to(torch.int32)
             elif t.is_floating_point():
                 t = t.to(dtype)

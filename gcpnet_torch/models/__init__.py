@@ -1,6 +1,7 @@
 from gcpnet_torch.models.cpd import GCPNetCPD
+from gcpnet_torch.models.eq import GCPNetEQ, eq_loss
 from gcpnet_torch.models.lba import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS
 from gcpnet_torch.models.rs import GCPNetRS
 
-__all__ = ["GCPNetCPD", "GCPNetLBA", "GCPNetNMS", "GCPNetPSR", "GCPNetRS", "graph_regression_loss"]
+__all__ = ["GCPNetCPD", "GCPNetEQ", "GCPNetLBA", "GCPNetNMS", "GCPNetPSR", "GCPNetRS", "eq_loss", "graph_regression_loss"]

@@ -18,7 +18,7 @@ from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.nn.embedding import GCPEmbedding
 from gcpnet_torch.nn.frames import centralize, localize, node_mean_frames
 from gcpnet_torch.nn.gcp import Dense, make_gcp
-from gcpnet_torch.nn.interactions import GCPInteractions
+from gcpnet_torch.nn.interactions import LAYER_CLASSES
 from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector, get_nonlinearity
 from gcpnet_torch.ops.segment import segment_mean
 
@@ -32,7 +32,7 @@ def batch_masks(batch: GraphBatch) -> Tuple[Tensor, Tensor]:
 def centralize_and_frames(batch: GraphBatch, norm_x_diff: bool = True):
     """Returns (centroid [G, 3], centred x [N, 3], frames [E, 9])."""
     centroid, centered = centralize(
-        batch.x, batch.graph_id, batch.num_graphs, node_mask=batch.valid_node_mask()
+        batch.x, batch.graph_index(), batch.num_graphs, node_mask=batch.valid_node_mask()
     )
     edge_mask, _ = batch_masks(batch)
     frames = localize(
@@ -84,9 +84,9 @@ class InvariantPooledHead(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tensor:
         out = self.projection_norm(node_rep)
-        nf = node_mean_frames(frames, batch.senders, node_rep.scalar.shape[0], edge_mask, count_mask)
+        nf = node_mean_frames(frames, batch.sender_index(), node_rep.scalar.shape[0], edge_mask, count_mask)
         out = self.invariant_node_projection(out, nf)
-        pooled = segment_mean(out, batch.graph_id, batch.num_graphs, mask=batch.valid_node_mask())
+        pooled = segment_mean(out, batch.graph_index(), batch.num_graphs, mask=batch.valid_node_mask())
         y = self.dense_activation(self.dense_0(pooled))
         y = self.dense_dropout(y, deterministic, generator)
         y = self.dense_1(y)
@@ -94,7 +94,9 @@ class InvariantPooledHead(nn.Module):
 
 
 class GCPNetEncoder(nn.Module):
-    """Embedding + a stack of interaction layers (the shared trunk).  With
+    """Embedding + a stack of interaction layers (the shared trunk):
+    ``layer_class`` ``"GCPInteractions"`` or ``"GCPInteractions2"`` (EQ),
+    ``embedding_nonlinearities`` the embedding's edge GCP's.  With
     ``updating_node_positions`` every layer also moves the node positions
     it is given, and the encoder returns them."""
 
@@ -106,6 +108,8 @@ class GCPNetEncoder(nn.Module):
         num_atom_types: int,
         node_input_dims: Tuple[int, int],
         updating_node_positions: bool = False,
+        layer_class: str = "GCPInteractions",
+        embedding_nonlinearities: Optional[Tuple[Optional[str], Optional[str]]] = None,
         *,
         generator: torch.Generator,
         device,
@@ -122,6 +126,7 @@ class GCPNetEncoder(nn.Module):
             node_hidden_dims=node_dims,
             cfg=module_cfg,
             num_atom_types=num_atom_types,
+            nonlinearities=embedding_nonlinearities,
             **kw,
         )
         self.num_layers = mc.num_encoder_layers
@@ -129,7 +134,7 @@ class GCPNetEncoder(nn.Module):
         for i in range(self.num_layers):
             self.add_module(
                 f"interaction_{i}",
-                GCPInteractions(
+                LAYER_CLASSES[layer_class](
                     node_dims, edge_dims, module_cfg, layer_cfg, dropout=mc.dropout,
                     updating_node_positions=updating_node_positions, **kw,
                 ),
@@ -149,10 +154,9 @@ class GCPNetEncoder(nn.Module):
         node_rep, edge_rep = self.gcp_embedding(batch, frames, edge_mask, count_mask)
         for i in range(self.num_layers):
             out = getattr(self, f"interaction_{i}")(
-                node_rep, edge_rep, batch.senders, batch.receivers, frames,
+                node_rep, edge_rep, batch.sender_index(), batch.receiver_index(), frames,
                 node_mask=batch.node_mask, edge_mask=edge_mask, count_mask=count_mask,
-                row_splits=batch.edge_row_splits, deterministic=deterministic,
-                generator=generator, node_pos=node_pos,
+                deterministic=deterministic, generator=generator, node_pos=node_pos,
             )
             if self.updating_node_positions:
                 node_rep, node_pos = out

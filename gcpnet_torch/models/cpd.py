@@ -8,7 +8,7 @@ interaction layers whose edge scalars carry the sequence embedding of the
 sender on causal edges (sender < receiver), and the invariant projection
 to the vocabulary.
 
-The encoder passes the batch's ``row_splits``, so on the card its message
+The encoder passes the batch's sorted receivers, so on the card its message
 stacks run the edge map (K2, K3) and its reductions K1; the JAX model
 passes none and runs its plain stack (the same function).  The decoder's
 stacks ablate the frames, which the edge map does not cover: they run the
@@ -31,16 +31,17 @@ import torch
 from torch import Tensor, nn
 
 from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg
+from gcpnet_torch.data.batching import sorted_index
 from gcpnet_torch.device import DeviceLike, resolve_device
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.models.common import batch_masks, centralize_and_frames
 from gcpnet_torch.nn.decoder import GCPMLPDecoder
-from gcpnet_torch.nn.embedding import Embed, GCPEmbedding
+from gcpnet_torch.nn.embedding import Embed, GCPEmbedding, one_hot
 from gcpnet_torch.nn.frames import node_mean_frames
 from gcpnet_torch.nn.gcp import make_gcp
 from gcpnet_torch.nn.interactions import GCPInteractions
 from gcpnet_torch.nn.primitives import ScalarVector
-from gcpnet_torch.ops.segment import gather_rows, masked_mean
+from gcpnet_torch.ops.segment import Index, SortedIndex, gather_rows, index_of, masked_mean
 
 
 def decoder_cfg(cfg: ModuleCfg) -> ModuleCfg:
@@ -115,17 +116,18 @@ class GCPNetCPD(nn.Module):
         node_rep, edge_rep = self.gcp_embedding(batch, frames, edge_mask, count_mask)
         for i in range(self.num_encoder_layers):
             node_rep = getattr(self, f"encoder_{i}")(
-                node_rep, edge_rep, batch.senders, batch.receivers, frames,
+                node_rep, edge_rep, batch.sender_index(), batch.receiver_index(), frames,
                 node_mask=batch.node_mask, edge_mask=edge_mask, count_mask=count_mask,
-                row_splits=batch.edge_row_splits, deterministic=deterministic, generator=generator,
+                deterministic=deterministic, generator=generator,
             )
         return node_rep, edge_rep
 
-    def _causal_seq_edges(self, senders: Tensor, receivers: Tensor, seq: Tensor) -> Tensor:
+    def _causal_seq_edges(self, senders: Index, receivers: Tensor, seq: Tensor) -> Tensor:
         """The senders' sequence embeddings on causal edges (sender <
-        receiver), zero elsewhere."""
+        receiver), zero elsewhere (``senders`` in their sorted form where
+        the batch has one)."""
         e_seq = gather_rows(self.seq_embedding(seq), senders)
-        return e_seq * (senders < receivers)[:, None].to(e_seq.dtype)
+        return e_seq * (index_of(senders) < receivers)[:, None].to(e_seq.dtype)
 
     def forward(
         self,
@@ -142,16 +144,15 @@ class GCPNetCPD(nn.Module):
         node_rep, edge_rep = self._encode(batch, frames, deterministic, generator)
         if self.autoregressive_decoder:
             encoder_rep = node_rep
-            e_seq = self._causal_seq_edges(batch.senders, batch.receivers, batch.extras["seq"])
+            e_seq = self._causal_seq_edges(batch.sender_index(), batch.receivers, batch.extras["seq"])
             edge_rep = ScalarVector(torch.cat([edge_rep.scalar, e_seq], dim=-1), edge_rep.vector)
             for layer in self._decoders():
                 node_rep = layer(
-                    node_rep, edge_rep, batch.senders, batch.receivers, frames,
+                    node_rep, edge_rep, batch.sender_index(), batch.receiver_index(), frames,
                     node_mask=batch.node_mask, edge_mask=edge_mask, count_mask=count_mask,
-                    row_splits=batch.edge_row_splits, deterministic=deterministic, generator=generator,
-                    node_rep_regressive=encoder_rep,
+                    deterministic=deterministic, generator=generator, node_rep_regressive=encoder_rep,
                 )
-        nf = node_mean_frames(frames, batch.senders, batch.num_nodes, edge_mask, count_mask)
+        nf = node_mean_frames(frames, batch.sender_index(), batch.num_nodes, edge_mask, count_mask)
         out = self.invariant_node_projection(node_rep, nf)
         if self.autoregressive_decoder:
             return out
@@ -227,14 +228,15 @@ class SamplingStep(NamedTuple):
     edge's direction in the subgraph is its direction in the batch: the
     position's valid nodes and their in-edges' senders), ``edges`` (global
     rows of those nodes' in-edges under the padding mask), the edges'
-    ``senders`` and ``receivers`` as indices into ``nodes``; ``is_step``
-    over ``nodes``, ``step_rows`` (its indices) and ``step_nodes`` (their
-    global ids); ``all_edges`` (ones)."""
+    ``senders`` and ``receivers`` as indices into ``nodes``, each in its
+    sorted form (so that on the card the decoder's sums run through K1);
+    ``is_step`` over ``nodes``, ``step_rows`` (its indices) and
+    ``step_nodes`` (their global ids); ``all_edges`` (ones)."""
 
     nodes: Tensor
     edges: Tensor
-    senders: Tensor
-    receivers: Tensor
+    senders: SortedIndex
+    receivers: SortedIndex
     is_step: Tensor
     step_rows: Tensor
     step_nodes: Tensor
@@ -256,7 +258,10 @@ def sampling_plan(batch: GraphBatch, nodes_per_graph: int, device) -> List[Sampl
     node_pos = np.where(valid, local, nodes_per_graph)
     node_order = np.argsort(node_pos, kind="stable")
     node_bounds = np.searchsorted(node_pos[node_order], np.arange(nodes_per_graph + 1))
-    parts = {name: [] for name in ("nodes", "edges", "senders", "receivers", "is_step", "step_rows", "step_nodes")}
+    names = ("nodes", "edges", "is_step", "step_rows", "step_nodes")
+    index_parts = ("index", "perm", "inv", "splits")
+    names += tuple(f"{end}_{part}" for end in ("senders", "receivers") for part in index_parts)
+    parts = {name: [] for name in names}
     shapes = []
     for i in range(nodes_per_graph):
         step_nodes = node_order[node_bounds[i]:node_bounds[i + 1]]
@@ -267,8 +272,11 @@ def sampling_plan(batch: GraphBatch, nodes_per_graph: int, device) -> List[Sampl
         is_step = np.isin(nodes, step_nodes)
         parts["nodes"].append(nodes)
         parts["edges"].append(edges)
-        parts["senders"].append(np.searchsorted(nodes, senders[edges]))
-        parts["receivers"].append(np.searchsorted(nodes, receivers[edges]))
+        for end, ids in (("senders", senders), ("receivers", receivers)):
+            local_ids = np.searchsorted(nodes, ids[edges])
+            perm, inv, splits = sorted_index(local_ids, np.ones(edges.size, dtype=bool), nodes.size)
+            for part, arr in zip(index_parts, (local_ids, perm, inv, splits)):
+                parts[f"{end}_{part}"].append(arr)
         parts["is_step"].append(is_step)
         parts["step_rows"].append(np.flatnonzero(is_step))
         parts["step_nodes"].append(nodes[is_step])
@@ -278,14 +286,19 @@ def sampling_plan(batch: GraphBatch, nodes_per_graph: int, device) -> List[Sampl
         for name, arrs in parts.items()
     }
     ones = torch.ones(max((e for _, e, _ in shapes), default=0), dtype=torch.bool, device=device)
-    steps, n0, e0, k0 = [], 0, 0, 0
+    steps, n0, e0, k0, s0 = [], 0, 0, 0, 0
     for n, e, k in shapes:
-        nodes, edges, rows = slice(n0, n0 + n), slice(e0, e0 + e), slice(k0, k0 + k)
+        nodes, edges, rows, splits = slice(n0, n0 + n), slice(e0, e0 + e), slice(k0, k0 + k), slice(s0, s0 + n + 1)
+
+        def index(end):
+            return SortedIndex(**{part: flat[f"{end}_{part}"][splits if part == "splits" else edges]
+                                  for part in index_parts})
+
         steps.append(SamplingStep(
-            flat["nodes"][nodes], flat["edges"][edges], flat["senders"][edges], flat["receivers"][edges],
+            flat["nodes"][nodes], flat["edges"][edges], index("senders"), index("receivers"),
             flat["is_step"][nodes], flat["step_rows"][rows], flat["step_nodes"][rows], ones[:e],
         ))
-        n0, e0, k0 = n0 + n, e0 + e, k0 + k
+        n0, e0, k0, s0 = n0 + n, e0 + e, k0 + k, s0 + n + 1
     return steps
 
 
@@ -294,5 +307,6 @@ def cpd_loss(logits: Tensor, batch: GraphBatch) -> Tuple[Tensor, Tensor]:
     281-``): ``(loss, seq)``, the log-softmax taken in float32."""
     seq = batch.extras["seq"].long()
     log_probs = torch.log_softmax(logits.float(), dim=-1)
-    nll = -log_probs.gather(-1, seq[:, None])[:, 0]
+    # a one-hot product, whose backward scatters nothing
+    nll = -(log_probs * one_hot(seq, log_probs.shape[-1], log_probs.dtype)).sum(-1)
     return masked_mean(nll, batch.valid_node_mask()), seq

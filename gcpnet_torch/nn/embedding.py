@@ -8,7 +8,8 @@ it: the node scalars are atom types through an embedding table
 ``batch.extras["lig_flag"]``); one edge GCP and one node GCP, with a
 GCPLayerNorm of their inputs (``pre_norm``) or of their outputs (CPD).
 Inputs without vector channels are options of other task models and are
-not ported yet.
+not ported yet.  ``nonlinearities`` (EQ's) are the edge GCP's; the node
+GCP has none.
 """
 
 from __future__ import annotations
@@ -28,9 +29,17 @@ from gcpnet_torch.nn.primitives import GCPLayerNorm, ScalarVector, pack_vector
 NUM_LIG_FLAGS = 2  # pocket atom, ligand atom
 
 
+def one_hot(ids: Tensor, num: int, dtype: torch.dtype) -> Tensor:
+    """``[..., num]`` one-hot rows of ``ids`` in ``dtype`` (by comparison:
+    ``F.one_hot`` reads the ids' range back to the host)."""
+    return (ids.long()[..., None] == torch.arange(num, device=ids.device)).to(dtype)
+
+
 class Embed(nn.Module):
     """Lookup table with parameter ``embedding`` ``[num, features]``
-    (flax ``nn.Embed``), initialised ``N(0, 1/features)``."""
+    (flax ``nn.Embed``), initialised ``N(0, 1/features)``.  The lookup is a
+    one-hot product, so its backward is a matrix product and not a scatter
+    (the tables are small: at most 38 rows)."""
 
     def __init__(self, num_embeddings: int, features: int, *, generator: torch.Generator, device):
         super().__init__()
@@ -38,7 +47,7 @@ class Embed(nn.Module):
         self.embedding = nn.Parameter(w.to(device))
 
     def forward(self, ids: Tensor) -> Tensor:
-        return self.embedding[ids]
+        return one_hot(ids, self.embedding.shape[0], self.embedding.dtype) @ self.embedding
 
 
 class GCPEmbedding(nn.Module):
@@ -51,6 +60,7 @@ class GCPEmbedding(nn.Module):
         cfg: ModuleCfg,
         num_atom_types: int,
         pre_norm: bool = True,
+        nonlinearities: Optional[Tuple[Optional[str], Optional[str]]] = None,
         *,
         generator: torch.Generator,
         device,
@@ -70,10 +80,16 @@ class GCPEmbedding(nn.Module):
         )
         self.edge_normalization = GCPLayerNorm(edge_norm_dims[0], device=device)
         self.node_normalization = GCPLayerNorm(node_norm_dims[0], device=device)
-        # embedding GCPs: no nonlinearities, bottleneck 1, no vector residual
-        overrides = dict(nonlinearities=(None, None), bottleneck=1, vector_residual=False)
-        self.edge_embedding = make_gcp(edge_input_dims, edge_hidden_dims, cfg, **overrides, **kw)
-        self.node_embedding = make_gcp(node_input_dims, node_hidden_dims, cfg, **overrides, **kw)
+        # embedding GCPs: bottleneck 1, no vector residual, no
+        # nonlinearities but the edge GCP's ``nonlinearities`` (EQ's)
+        overrides = dict(bottleneck=1, vector_residual=False)
+        edge_nls = nonlinearities if nonlinearities is not None else (None, None)
+        self.edge_embedding = make_gcp(
+            edge_input_dims, edge_hidden_dims, cfg, nonlinearities=edge_nls, **overrides, **kw
+        )
+        self.node_embedding = make_gcp(
+            node_input_dims, node_hidden_dims, cfg, nonlinearities=(None, None), **overrides, **kw
+        )
 
     def forward(
         self,
@@ -91,7 +107,7 @@ class GCPEmbedding(nn.Module):
             edge_rep = self.edge_normalization(edge_rep)
             node_rep = self.node_normalization(node_rep)
         edge_out = self.edge_embedding(edge_rep, frames, edge_mask)
-        nf = node_mean_frames(frames, batch.senders, batch.h.shape[0], edge_mask, count_mask)
+        nf = node_mean_frames(frames, batch.sender_index(), batch.h.shape[0], edge_mask, count_mask)
         node_out = self.node_embedding(node_rep, nf)
         if not self.pre_norm:
             edge_out = self.edge_normalization(edge_out)

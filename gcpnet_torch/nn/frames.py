@@ -21,16 +21,17 @@ import torch
 from torch import Tensor
 
 from gcpnet_torch.nn.primitives import vec_components
-from gcpnet_torch.ops.segment import segment_mean, sender_mean
+from gcpnet_torch.ops.segment import Index, index_of, segment_mean, sender_mean
 
 
 def centralize(
-    x: Tensor, graph_id: Tensor, num_graphs: int, node_mask: Optional[Tensor] = None
+    x: Tensor, graph_id: Index, num_graphs: int, node_mask: Optional[Tensor] = None
 ) -> Tuple[Tensor, Tensor]:
     """Subtract each graph's masked centroid.  Returns ``(centroid [G, 3],
-    centered [N, 3])``; masked rows are zero."""
+    centered [N, 3])``; masked rows are zero.  ``graph_id`` may be in its
+    sorted form (``GraphBatch.graph_index``)."""
     centroid = segment_mean(x, graph_id, num_graphs, mask=node_mask)
-    centered = x - centroid[graph_id]
+    centered = x - centroid[index_of(graph_id)]
     if node_mask is not None:
         centered = centered * node_mask[:, None].to(x.dtype)
     return centroid, centered
@@ -77,14 +78,15 @@ def localize(
 
 def node_mean_frames(
     frames: Tensor,
-    senders: Tensor,
+    senders: Index,
     num_nodes: int,
     edge_mask: Optional[Tensor] = None,
     count_mask: Optional[Tensor] = None,
 ) -> Tensor:
     """Per-node mean of outgoing-edge frames, ``[N, 9]``: ``edge_mask``
     gates the numerator, ``count_mask`` (default ``edge_mask``) the
-    denominator."""
+    denominator; K1 over the frames sorted by sender where ``senders`` is
+    in its sorted form (``GraphBatch.sender_index``)."""
     return sender_mean(
         frames,
         senders,

@@ -1,4 +1,4 @@
-"""The Geometry-Complete Perceptron (GCP2) and its linear layers.
+"""The Geometry-Complete Perceptron (GCP2, GCP3) and its linear layers.
 
 Port of the module path of ``gcpnet_tpu/nn/gcp.py``.  Parameters keep the
 flax names and the flax ``[in, out]`` kernel layout (see
@@ -135,8 +135,12 @@ class GCP2(nn.Module):
     With ``ablate_frame_updates`` (CPD's decoder) the frames take no
     part: no ``vector_down_frames``, no scalarize term and no frame gate.
     The frame gate, E(3) mode, the other ablations and scalar-only inputs
-    belong to other task models and are not ported yet; they raise.
+    belong to other task models and are not ported yet; they raise.  GCP2
+    ignores ``feedforward_out``, as the reference's GCP2 does
+    (``gcpnet_tpu/nn/gcp.py:343-345``).
     """
+
+    supports_feedforward_out = False
 
     def __init__(
         self,
@@ -151,7 +155,7 @@ class GCP2(nn.Module):
         st = settings
         unported = [
             name
-            for name in ("enable_e3_equivariance", "ablate_scalars", "ablate_vectors", "feedforward_out")
+            for name in ("enable_e3_equivariance", "ablate_scalars", "ablate_vectors")
             if getattr(st, name)
         ]
         if st.frame_gate and not st.ablate_frame_updates:
@@ -159,7 +163,7 @@ class GCP2(nn.Module):
         if input_dims[1] <= 0:
             unported.append("scalar-only input")
         if unported:
-            raise NotImplementedError(f"GCP2: {unported} not ported yet")
+            raise NotImplementedError(f"{type(self).__name__}: {unported} not ported yet")
         self.input_dims = tuple(input_dims)
         self.output_dims = tuple(output_dims)
         self.settings = st
@@ -172,7 +176,13 @@ class GCP2(nn.Module):
         if not st.ablate_frame_updates:
             self.vector_down_frames = VecDense(v_in, st.sv_dim, **kw)
             frame_dims = 3 * st.sv_dim
-        self.scalar_out = Dense(s_in + self.hidden + frame_dims, s_out, **kw)
+        merged = s_in + self.hidden + frame_dims
+        self.feedforward_out = st.feedforward_out and self.supports_feedforward_out
+        if self.feedforward_out:
+            self.scalar_out_0 = Dense(merged, s_out, **kw)
+            self.scalar_out_1 = Dense(s_out, s_out, **kw)
+        else:
+            self.scalar_out = Dense(merged, s_out, **kw)
         if v_out:
             self.vector_up = VecDense(self.hidden, v_out, **kw)
             if st.vector_gate:
@@ -194,7 +204,11 @@ class GCP2(nn.Module):
         if not st.ablate_frame_updates:
             merged.append(scalarize(self.vector_down_frames(vector_rep), frames, frame_mask))
         merged = torch.cat(merged, dim=-1)
-        s_new = self.scalar_out(merged)
+        if self.feedforward_out:
+            act_out = get_nonlinearity(st.scalar_out_nonlinearity, st.nonlinearity_slope)
+            s_new = self.scalar_out_1(act_out(self.scalar_out_0(merged)))
+        else:
+            s_new = self.scalar_out(merged)
         if not self.output_dims[1]:
             return act_s(s_new)
 
@@ -209,6 +223,19 @@ class GCP2(nn.Module):
         return ScalarVector(act_s(s_new), vu)
 
 
+class GCP3(GCP2):
+    """GCP2 with an optional two-layer scalar output (EQ, AR):
+    ``feedforward_out`` replaces ``scalar_out`` by ``scalar_out_1(act(
+    scalar_out_0(merged)))``, ``act`` the ``scalar_out_nonlinearity``
+    (silu by default) (``gcpnet_tpu/nn/gcp.py:771-778``).  Without it
+    GCP3 is GCP2."""
+
+    supports_feedforward_out = True
+
+
+GCP_CLASSES = {"GCP2": GCP2, "GCP3": GCP3}
+
+
 def make_gcp(
     input_dims: Tuple[int, int],
     output_dims: Tuple[int, int],
@@ -218,9 +245,9 @@ def make_gcp(
     device,
     **overrides,
 ) -> GCP2:
-    """Build the configured GCP variant with call-site overrides.  Only
-    GCP2 (the variant of LBA, PSR, CPD, NMS and RS) is ported so far."""
-    if cfg.selected_gcp != "GCP2":
+    """Build the configured GCP variant with call-site overrides: GCP2 (LBA,
+    PSR, CPD, NMS, RS) or GCP3 (EQ); GCP v1 is not ported yet."""
+    if cfg.selected_gcp not in GCP_CLASSES:
         raise NotImplementedError(f"GCP variant {cfg.selected_gcp!r} is not ported yet")
     settings = GCPSettings.from_cfg(cfg, **overrides)
-    return GCP2(input_dims, output_dims, settings, generator=generator, device=device)
+    return GCP_CLASSES[cfg.selected_gcp](input_dims, output_dims, settings, generator=generator, device=device)

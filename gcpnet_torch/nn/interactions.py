@@ -1,4 +1,5 @@
-"""The GCP interaction layer of LBA/PSR/CPD/NMS/RS.
+"""The GCP interaction layers: ``GCPInteractions`` (LBA, PSR, CPD, NMS,
+RS) and ``GCPInteractions2`` (EQ).
 
 Port of ``gcpnet_tpu/nn/interactions.py:GCPInteractions``: message
 passing, dropout + residual + norm, a feed-forward GCP stack, dropout +
@@ -29,13 +30,22 @@ from gcpnet_torch.nn.frames import frame_rows, node_mean_frames
 from gcpnet_torch.nn.gcp import Dense, make_gcp, uniform_param
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector, get_nonlinearity, vec_at
-from gcpnet_torch.ops.segment import gather_rows, segment_count, segment_mean
+from gcpnet_torch.ops.segment import Index, gather_rows, index_of, segment_count, segment_mean
 
 
 def _ff_hidden_dims(node_dims: Tuple[int, int], num_ff: int) -> Tuple[int, int]:
     if num_ff == 1:
         return tuple(node_dims)
     return (4 * node_dims[0], 2 * node_dims[1])
+
+
+def _frame_mask(senders: Index, receivers: Index, node_mask: Optional[Tensor], edge_mask: Optional[Tensor]):
+    """``edge_mask`` and, with a node mask, both ends valid: node validity
+    gates the scalarize numerators inside the message GCPs."""
+    if node_mask is None:
+        return edge_mask
+    nm_e = node_mask[index_of(senders)] & node_mask[index_of(receivers)]
+    return nm_e if edge_mask is None else (edge_mask & nm_e)
 
 
 class GCPInteractions(nn.Module):
@@ -104,13 +114,12 @@ class GCPInteractions(nn.Module):
         self,
         node_rep: ScalarVector,
         edge_rep: ScalarVector,
-        senders: Tensor,
-        receivers: Tensor,
+        senders: Index,
+        receivers: Index,
         frames: Tensor,
         node_mask: Optional[Tensor] = None,
         edge_mask: Optional[Tensor] = None,
         count_mask: Optional[Tensor] = None,
-        row_splits: Optional[Tensor] = None,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
         node_pos: Optional[Tensor] = None,
@@ -119,15 +128,12 @@ class GCPInteractions(nn.Module):
         """The new node representation; with ``updating_node_positions``,
         ``(node_rep, node_pos + x_update)`` for positions ``node_pos [N, 3]``.
         ``node_rep_regressive`` (with ``autoregressive``) is the rep the
-        edges with sender >= receiver read."""
+        edges with sender >= receiver read.  ``senders`` and ``receivers``
+        each in its sorted form where the batch has one."""
         num_nodes = node_rep.scalar.shape[0]
-        # node validity gates the scalarize numerators inside the message
-        # GCPs, but the aggregation runs over every real edge: only the
-        # padding mask may gate it
-        frame_mask = edge_mask
-        if node_mask is not None:
-            nm_e = node_mask[senders] & node_mask[receivers]
-            frame_mask = nm_e if frame_mask is None else (frame_mask & nm_e)
+        frame_mask = _frame_mask(senders, receivers, node_mask, edge_mask)
+        # the aggregation runs over every real edge: only the padding mask
+        # may gate it
         agg_mask = count_mask if count_mask is not None else edge_mask
 
         node_rep_in = node_rep
@@ -136,13 +142,12 @@ class GCPInteractions(nn.Module):
         if node_rep_regressive is None:
             hidden = self.interaction(
                 node_rep, edge_rep, senders, receivers, frames,
-                edge_mask=agg_mask, count_mask=count_mask,
-                row_splits=row_splits, frame_mask=frame_mask,
+                edge_mask=agg_mask, count_mask=count_mask, frame_mask=frame_mask,
             )
         else:
             hidden = self._autoregressive_messages(
                 node_rep, node_rep_regressive, edge_rep, senders, receivers, frames,
-                agg_mask, count_mask, frame_mask, row_splits,
+                agg_mask, count_mask, frame_mask,
             )
         node_rep = node_rep + self.gcp_dropout_0(hidden, deterministic, generator)
         node_rep = self.gcp_norm_1(node_rep) if self.pre_norm else self.gcp_norm_0(node_rep)
@@ -181,7 +186,7 @@ class GCPInteractions(nn.Module):
 
     def _autoregressive_messages(
         self, node_rep, node_rep_regressive, edge_rep, senders, receivers, frames,
-        agg_mask, count_mask, frame_mask, row_splits,
+        agg_mask, count_mask, frame_mask,
     ) -> ScalarVector:
         """The summed messages of the forward (sender < receiver, reading
         ``node_rep``) and backward (the rest, reading ``node_rep_regressive``)
@@ -189,11 +194,11 @@ class GCPInteractions(nn.Module):
         mp = self.interaction
         fwd = mp.messages(node_rep, edge_rep, senders, receivers)
         bwd = mp.messages(node_rep_regressive, edge_rep, senders, receivers)
-        fm = (senders < receivers)[:, None]
+        fm = (index_of(senders) < index_of(receivers))[:, None]
         message = ScalarVector(torch.where(fm, fwd.scalar, bwd.scalar), torch.where(fm, fwd.vector, bwd.vector))
         hidden = mp(
             node_rep, edge_rep, senders, receivers, frames, edge_mask=agg_mask, count_mask=count_mask,
-            row_splits=row_splits, frame_mask=frame_mask, message=message,
+            frame_mask=frame_mask, message=message,
         )
         count = torch.clamp(segment_count(receivers, node_rep.scalar.shape[0], mask=count_mask), min=1.0)[:, None]
         return ScalarVector(
@@ -204,8 +209,8 @@ class GCPInteractions(nn.Module):
     def _derive_x_update(
         self,
         node_rep: ScalarVector,
-        senders: Tensor,
-        receivers: Tensor,
+        senders: Index,
+        receivers: Index,
         frames: Tensor,
         force_mask: Optional[Tensor],
         node_frames: Tensor,
@@ -229,3 +234,99 @@ class GCPInteractions(nn.Module):
                 force_e, receivers, h_v.shape[0], mask=force_mask, count_mask=force_mask
             )
         return torch.clamp(x_update * self.cfg.node_positions_weight, -100.0, 100.0)
+
+
+class GCPInteractions2(nn.Module):
+    """The leaner interaction layer of EQ (``gcpnet_tpu/nn/interactions.py:
+    368-534``): sum-reduced messages (with the layer config's scalar
+    message attention and sender-keyed aggregation), ``concat(messages,
+    node)`` into the feed-forward stack (GCP3 with ``feedforward_out`` on
+    its last GCP), one dropout + residual + norm, and the multiplicative
+    node mask.  The feed-forward runs on every real edge's frames, with
+    node-masked numerators.  The position update (AR's) is not ported yet
+    and raises."""
+
+    def __init__(
+        self,
+        node_dims: Tuple[int, int],
+        edge_dims: Tuple[int, int],
+        cfg: ModuleCfg,
+        layer_cfg: LayerCfg,
+        dropout: float = 0.1,
+        updating_node_positions: bool = False,
+        *,
+        generator: torch.Generator,
+        device,
+    ):
+        super().__init__()
+        if updating_node_positions:
+            raise NotImplementedError("GCPInteractions2: the position update (AR) is not ported yet")
+        kw = dict(generator=generator, device=device)
+        self.pre_norm = layer_cfg.pre_norm
+        self.interaction = GCPMessagePassing(
+            node_dims, node_dims, edge_dims, cfg, layer_cfg, reduce_function="sum",
+            use_scalar_message_attention=layer_cfg.use_scalar_message_attention,
+            aggregate_with_row=layer_cfg.aggregate_with_row, **kw,
+        )
+        self.gcp_norm_0 = GCPLayerNorm(node_dims[0], device=device)
+        self.gcp_dropout_0 = GCPDropout(dropout)
+        num_ff = layer_cfg.num_feedforward_layers
+        hidden = _ff_hidden_dims(node_dims, num_ff)
+        ff = [
+            make_gcp(
+                (2 * node_dims[0], 2 * node_dims[1]), hidden, cfg,
+                nonlinearities=(None, None) if num_ff == 1 else cfg.nonlinearities,
+                feedforward_out=num_ff == 1, vector_residual=False, **kw,
+            )
+        ]
+        ff += [make_gcp(hidden, hidden, cfg, nonlinearities=cfg.nonlinearities, **kw) for _ in range(max(0, num_ff - 2))]
+        if num_ff > 1:
+            ff.append(
+                make_gcp(
+                    hidden, node_dims, cfg, nonlinearities=(None, None), feedforward_out=True,
+                    vector_residual=False, **kw,
+                )
+            )
+        for i, module in enumerate(ff):
+            self.add_module(f"feedforward_{i}", module)
+        self.num_ff = num_ff
+
+    def forward(
+        self,
+        node_rep: ScalarVector,
+        edge_rep: ScalarVector,
+        senders: Index,
+        receivers: Index,
+        frames: Tensor,
+        node_mask: Optional[Tensor] = None,
+        edge_mask: Optional[Tensor] = None,
+        count_mask: Optional[Tensor] = None,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+        node_pos: Optional[Tensor] = None,
+    ) -> ScalarVector:
+        """The new node representation.  ``senders`` and ``receivers`` each
+        in its sorted form where the batch has one."""
+        frame_mask = _frame_mask(senders, receivers, node_mask, edge_mask)
+        agg_mask = count_mask if count_mask is not None else edge_mask
+
+        if self.pre_norm:
+            node_rep = self.gcp_norm_0(node_rep)
+        hidden = self.interaction(
+            node_rep, edge_rep, senders, receivers, frames, edge_mask=agg_mask, count_mask=count_mask,
+            frame_mask=frame_mask,
+        )
+        hidden = hidden.concat((node_rep,))
+        nf = node_mean_frames(frames, senders, node_rep.scalar.shape[0], frame_mask, count_mask)
+        for i in range(self.num_ff):
+            hidden = getattr(self, f"feedforward_{i}")(hidden, nf)
+        node_rep = node_rep + self.gcp_dropout_0(hidden, deterministic, generator)
+        if not self.pre_norm:
+            node_rep = self.gcp_norm_0(node_rep)
+        if node_mask is not None:
+            m = node_mask[:, None].to(node_rep.scalar.dtype)
+            node_rep = ScalarVector(node_rep.scalar * m, node_rep.vector * m)
+        return node_rep
+
+
+LAYER_CLASSES = {"GCPInteractions": GCPInteractions, "GCPInteractions2": GCPInteractions2}

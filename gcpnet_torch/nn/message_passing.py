@@ -1,17 +1,23 @@
 """Geometry-complete message passing.
 
-Port of ``gcpnet_tpu/nn/message_passing.py`` in its receiver-keyed,
-non-attention form: every edge builds the message ``[src node ‖ edge ‖ dst
-node]``, a (Res)GCP2 stack maps it, and a masked mean (``"mean"``) or sum
-(``"sum"``, ``"add"``: the autoregressive decoder's) reduces the messages
-into their receivers.
+Port of ``gcpnet_tpu/nn/message_passing.py``: every edge builds the message
+``[src node ‖ edge ‖ dst node]``, a (Res)GCP stack maps it, optionally
+the scalar message attention ``sigmoid(Dense(1)(s))`` scales its scalars
+(EQ, AR), and a masked mean (``"mean"``) or sum (``"sum"``, ``"add"``)
+reduces the messages into their receivers, or with ``aggregate_with_row``
+into their senders (EQ, AR).
 
-When the batch carries receiver-sorted ``row_splits`` the reduction is the
-sorted segment sum (``ops.segment_sorted``, kernel K1), and a stack that
-the fused edge map covers (``_fast_supported``) runs as one (``ops.
-edge_map``, kernel K2), as the JAX package's ``"fused"`` configuration
-does; otherwise the stack runs module by module and the reduction is an
-``index_add_``.  Both give the same math.
+On the card a stack that the fused edge map covers (``_fast_supported``)
+runs as one (``ops.edge_map``, kernels K2 and K3), whatever index it is
+summed by; on the CPU it does so where the receivers come in their sorted
+form (the row splits of a receiver-sorted batch), as the JAX package's
+``"fused"`` configuration does, and otherwise module by module.  An index
+in its sorted form (``ops.segment.SortedIndex``: ``GraphBatch.
+receiver_index``, ``GraphBatch.sender_index``) is summed through the
+sorted segment sum (kernel K1), and the gathers of the message's node rows
+have K1 as their backward.  The JAX EQ passes no
+row splits with ``aggregate_with_row`` and so reaches no Pallas kernel;
+running K1-K3 there is the port's choice, with the same math.
 """
 
 from __future__ import annotations
@@ -22,15 +28,16 @@ import torch
 from torch import Tensor, nn
 
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg
-from gcpnet_torch.nn.gcp import GCP2, GCPSettings, make_gcp
+from gcpnet_torch.nn.gcp import GCP2, Dense, GCPSettings, make_gcp
 from gcpnet_torch.nn.primitives import ScalarVector
 from gcpnet_torch.ops.edge_map import PackedStack, StackLayer, edge_map, pack_stack
-from gcpnet_torch.ops.segment import gather_rows, segment_mean, segment_sum
+from gcpnet_torch.ops.segment import Index, SortedIndex, gather_rows, segment_mean, segment_sum
 
 
 def _fast_supported(settings: GCPSettings, input_dims, output_dims) -> bool:
     """The settings the fused stack covers (the JAX ``_fast_supported``
-    set, restricted to GCP2, the only variant ported)."""
+    set: GCP2, or GCP3 without ``feedforward_out``, which is GCP2's
+    math)."""
     st = settings
     if input_dims[1] <= 0 or output_dims[1] <= 0:
         return False
@@ -70,6 +77,8 @@ class GCPMessagePassing(nn.Module):
         cfg: ModuleCfg,
         layer_cfg: LayerCfg,
         reduce_function: str = "mean",
+        use_scalar_message_attention: bool = False,
+        aggregate_with_row: bool = False,
         *,
         generator: torch.Generator,
         device,
@@ -101,15 +110,21 @@ class GCPMessagePassing(nn.Module):
                 f"message_fusion_{i}",
                 make_gcp(dims, self.output_dims, cfg, generator=generator, device=device, **spec),
             )
+        self.num_message_layers = len(specs)
         self.fast_supported = all(
-            _fast_supported(m.settings, m.input_dims, m.output_dims) for m in self.stack
+            _fast_supported(m.settings, m.input_dims, m.output_dims) and not m.feedforward_out for m in self.stack
+        )
+        self.aggregate_with_row = aggregate_with_row
+        self.scalar_message_attention = (
+            Dense(self.output_dims[0], 1, generator=generator, device=device)
+            if use_scalar_message_attention else None
         )
         self._packed: Optional[PackedStack] = None
         self._packed_key = None
 
     @property
     def stack(self):
-        return list(self.children())
+        return [getattr(self, f"message_fusion_{i}") for i in range(self.num_message_layers)]
 
     def packed_stack(self) -> PackedStack:
         """The stack's weights in the edge-map kernels' layout.  Outside
@@ -131,8 +146,10 @@ class GCPMessagePassing(nn.Module):
             self._packed_key = key
         return self._packed
 
-    def messages(self, node_rep: ScalarVector, edge_rep: ScalarVector, senders: Tensor, receivers: Tensor):
-        """The stack's input ``[src node ‖ edge ‖ dst node]`` of each edge."""
+    def messages(self, node_rep: ScalarVector, edge_rep: ScalarVector, senders: Index, receivers: Index):
+        """The stack's input ``[src node ‖ edge ‖ dst node]`` of each edge
+        (each index in its sorted form where there is one: the gathers'
+        backward is then K1)."""
         flat_nodes = node_rep.flatten()
         v_dim = node_rep.dims[1]
         src = ScalarVector.recover(gather_rows(flat_nodes, senders), v_dim)
@@ -143,26 +160,29 @@ class GCPMessagePassing(nn.Module):
         self,
         node_rep: ScalarVector,
         edge_rep: ScalarVector,
-        senders: Tensor,
-        receivers: Tensor,
+        senders: Index,
+        receivers: Index,
         frames: Tensor,
         edge_mask: Optional[Tensor] = None,
         count_mask: Optional[Tensor] = None,
-        row_splits: Optional[Tensor] = None,
         frame_mask: Optional[Tensor] = None,
         message: Optional[ScalarVector] = None,
     ) -> ScalarVector:
-        """``edge_mask`` gates the aggregation; ``frame_mask`` (default
-        ``edge_mask``) gates the scalarize numerators inside the stack;
-        ``count_mask`` gates the mean's denominator.  ``message``, when
-        given, is the stack's input in place of :meth:`messages` of
+        """``senders`` and ``receivers`` each in its sorted form where the
+        batch has one.  ``edge_mask`` gates the aggregation; ``frame_mask``
+        (default ``edge_mask``) gates the scalarize numerators inside the
+        stack; ``count_mask`` gates the mean's denominator.  ``message``,
+        when given, is the stack's input in place of :meth:`messages` of
         ``node_rep``."""
         num_nodes = node_rep.scalar.shape[0]
+        sorted_receivers = isinstance(receivers, SortedIndex)
+        if sorted_receivers and edge_mask is None:
+            raise ValueError("GCPMessagePassing: sorted receivers (the sorted layout) need edge_mask to zero its padding rows")
         fm = frame_mask if frame_mask is not None else edge_mask
         if message is None:
             message = self.messages(node_rep, edge_rep, senders, receivers)
 
-        if row_splits is not None and self.fast_supported:
+        if self.fast_supported and (sorted_receivers or message.scalar.is_cuda):
             fr = frames if fm is None else frames * fm[:, None].to(frames.dtype)
             flat = edge_map(message.flatten(), fr.contiguous(), self.packed_stack())
         else:
@@ -176,11 +196,15 @@ class GCPMessagePassing(nn.Module):
                 for module in stack:
                     rep = module(rep, frames, fm)
             flat = rep.flatten()
+        if self.scalar_message_attention is not None:
+            s_out = self.output_dims[0]
+            scalar = flat[:, :s_out]
+            attn = torch.sigmoid(self.scalar_message_attention(scalar).float()).to(flat.dtype)
+            flat = torch.cat([scalar * attn, flat[:, s_out:]], dim=-1)
 
+        ids = senders if self.aggregate_with_row else receivers
         if self.reduce_function == "mean":
-            agg = segment_mean(
-                flat, receivers, num_nodes, mask=edge_mask, count_mask=count_mask, row_splits=row_splits
-            )
+            agg = segment_mean(flat, ids, num_nodes, mask=edge_mask, count_mask=count_mask)
         else:
-            agg = segment_sum(flat, receivers, num_nodes, mask=edge_mask, row_splits=row_splits)
+            agg = segment_sum(flat, ids, num_nodes, mask=edge_mask)
         return ScalarVector.recover(agg, self.output_dims[1])

@@ -12,38 +12,115 @@ layouts).  Semantics follow ``torch_scatter.scatter``:
 Sums and counts accumulate in float32 and are returned in the input dtype.
 (A bfloat16 scatter-add, which the JAX package runs on XLA:CPU, stops
 counting at 256 and drifts on long sums: the LBA pool averages 448 atoms.)
+
+An index may come with its sorted form (:class:`SortedIndex`, built on the
+host by ``data.batching.sorted_index``).  A sum over it is then the sorted
+segment sum (``ops.segment_sorted``, kernel K1) over its rows taken in
+segment order, its backward a gather; a gather over it
+(:func:`gather_rows`) has K1 over the cotangent rows as its backward; a
+count is a difference of prefix sums at the splits.  None of them scatters,
+so on the card each gives the same bits from run to run.  Rows outside
+every segment (the batch's padding) are left out of a sorted sum and of a
+gather's backward: every consumer of gathered rows masks the padding rows
+before it reduces them (the JAX ``gather_by_senders`` contract,
+``gcpnet_tpu/ops/segment.py:227-233``), so their cotangents are zero.
+Without a sorted form a sum, a count and a gather's backward are an
+``index_add_``, on the CPU only: on the card each needs the index's sorted
+form and raises without it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 from torch import Tensor
 
-from gcpnet_torch.ops.segment_sorted import segment_sum_sorted
+from gcpnet_torch.ops.segment_sorted import _check, _segment_sum_sorted_forward, segment_sum_sorted
+
+
+class SortedIndex(NamedTuple):
+    """A row index into segments with its sorted form.  ``perm`` lists the
+    rows segment by segment, stably, with the rows of no segment (padding)
+    after the others; ``inv`` is its inverse; segment ``s`` holds the sorted
+    positions ``[splits[s], splits[s+1])`` (``[S+1]`` int32).  ``perm`` and
+    ``inv`` are ``None`` where the rows are in segment order already (the
+    receivers of a receiver-sorted batch, the graph ids of nodes)."""
+
+    index: Tensor
+    splits: Tensor
+    perm: Optional[Tensor] = None
+    inv: Optional[Tensor] = None
+
+    def sorted_rows(self, data: Tensor) -> Tensor:
+        """``data``'s rows in segment order (no autograd)."""
+        return data if self.perm is None else data[self.perm]
+
+    def unsorted_rows(self, data: Tensor) -> Tensor:
+        """The inverse of :meth:`sorted_rows` (no autograd)."""
+        return data if self.inv is None else data[self.inv]
+
+
+Index = Union[Tensor, SortedIndex]
+
+
+def index_of(ids: Index) -> Tensor:
+    """The row index of ``ids``, sorted form or not."""
+    return ids.index if isinstance(ids, SortedIndex) else ids
+
+
+def _plain_on_cpu(t: Tensor, what: str) -> None:
+    """``index_add_`` (whose float additions meet in another order on every
+    run on the card) serves CPU tensors only."""
+    if t.device.type != "cpu":
+        raise ValueError(f"{what} on the card needs the index's sorted form (ops.segment.SortedIndex)")
+
+
+def _sorted_sum(data: Tensor, sidx: SortedIndex, num_segments: int) -> Tensor:
+    """K1 over ``data``'s rows in segment order (no autograd)."""
+    rows = sidx.sorted_rows(data).contiguous()
+    _check(rows, sidx.splits, num_segments)
+    return _segment_sum_sorted_forward(rows, sidx.splits, num_segments)
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data: Tensor, index: Tensor) -> Tensor:
+    def forward(ctx, data: Tensor, index: Tensor, sidx: Optional[SortedIndex]) -> Tensor:
         ctx.save_for_backward(index)
+        ctx.sidx = sidx
         ctx.num_rows = data.shape[0]
         return data[index]
 
     @staticmethod
     def backward(ctx, grad: Tensor):
         (index,) = ctx.saved_tensors
+        if ctx.sidx is not None:
+            return _sorted_sum(grad.reshape(grad.shape[0], -1), ctx.sidx, ctx.num_rows).reshape(
+                (ctx.num_rows,) + tuple(grad.shape[1:])), None, None
+        _plain_on_cpu(grad, "gather_rows: a gather's backward")
         out = torch.zeros((ctx.num_rows,) + tuple(grad.shape[1:]), dtype=torch.float32, device=grad.device)
-        return out.index_add_(0, index, grad.float()).to(grad.dtype), None
+        return out.index_add_(0, index, grad.float()).to(grad.dtype), None, None
 
 
-def gather_rows(data: Tensor, index: Tensor) -> Tensor:
-    """``data[index]`` for an int64 row index, whose gradient is an
-    ``index_add_`` accumulated in float32 and rounded once (the gradient of
-    plain indexing sorts the index on the card first, which costs more than
-    the rest of the message passing's glue)."""
-    return _GatherRows.apply(data, index)
+def gather_rows(data: Tensor, index: Index) -> Tensor:
+    """``data[index]`` for an int64 row index.  With the index's sorted form
+    the gradient is K1 over the cotangent rows in segment order; without it
+    (on the CPU only) an ``index_add_`` accumulated in float32 and rounded
+    once."""
+    if isinstance(index, SortedIndex):
+        return _GatherRows.apply(data, index.index, index)
+    return _GatherRows.apply(data, index, None)
+
+
+class _PermuteRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data: Tensor, sidx: SortedIndex) -> Tensor:
+        ctx.sidx = sidx
+        return sidx.sorted_rows(data)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        return ctx.sidx.unsorted_rows(grad), None
 
 
 def _apply_mask(data: Tensor, mask: Optional[Tensor]) -> Tensor:
@@ -55,28 +132,21 @@ def _apply_mask(data: Tensor, mask: Optional[Tensor]) -> Tensor:
 
 def segment_sum(
     data: Tensor,
-    segment_ids: Tensor,
+    segment_ids: Index,
     num_segments: int,
     mask: Optional[Tensor] = None,
-    row_splits: Optional[Tensor] = None,
 ) -> Tensor:
-    """Masked sum of ``data`` rows into ``num_segments`` buckets.
-
-    ``row_splits`` (``[num_segments+1]`` int32, rows sorted by segment)
-    routes the sum through the sorted segment-sum kernel
-    (``ops.segment_sorted``); it then needs ``mask``, because the sorted
-    layout's alignment-hole rows fall inside the range of the last node of
-    each tile.  Otherwise the sum is an ``index_add_`` over
-    ``segment_ids``.
-    """
+    """Masked sum of ``data`` rows into ``num_segments`` buckets: K1 over
+    the rows in segment order where ``segment_ids`` is a
+    :class:`SortedIndex` (a receiver-sorted layout's alignment-hole rows
+    fall inside the range of the last node of each tile, so ``mask`` must
+    zero them there), otherwise (on the CPU only) an ``index_add_``."""
     data = _apply_mask(data, mask)
-    if row_splits is not None and data.dim() == 2:
-        if mask is None:
-            raise ValueError(
-                "segment_sum: row_splits (sorted path) requires a mask "
-                "zeroing the padding/alignment rows"
-            )
-        return segment_sum_sorted(data, row_splits, num_segments)
+    if isinstance(segment_ids, SortedIndex):
+        rows = data if segment_ids.perm is None else _PermuteRows.apply(data, segment_ids)
+        out = segment_sum_sorted(rows.reshape(rows.shape[0], -1).contiguous(), segment_ids.splits, num_segments)
+        return out.reshape((num_segments,) + tuple(data.shape[1:]))
+    _plain_on_cpu(data, "segment_sum")
     out = torch.zeros(
         (num_segments,) + tuple(data.shape[1:]), dtype=torch.float32, device=data.device
     )
@@ -84,9 +154,19 @@ def segment_sum(
 
 
 def segment_count(
-    segment_ids: Tensor, num_segments: int, mask: Optional[Tensor] = None
+    segment_ids: Index, num_segments: int, mask: Optional[Tensor] = None
 ) -> Tensor:
-    """Masked float32 count of rows per segment."""
+    """Masked float32 count of rows per segment: with a sorted index the
+    difference of the sorted mask's prefix sums at the splits (integers,
+    exact), otherwise (on the CPU only) an ``index_add_`` of ones."""
+    if isinstance(segment_ids, SortedIndex):
+        ids = segment_ids.index
+        ones = torch.ones(ids.shape, dtype=torch.int32, device=ids.device) if mask is None else mask.to(torch.int32)
+        prefix = torch.cumsum(segment_ids.sorted_rows(ones), 0, dtype=torch.int32)
+        prefix = torch.cat([prefix.new_zeros(1), prefix])
+        splits = segment_ids.splits.long()
+        return (prefix[splits[1:]] - prefix[splits[:-1]]).float()
+    _plain_on_cpu(segment_ids, "segment_count")
     ones = _apply_mask(torch.ones(segment_ids.shape, device=segment_ids.device), mask)
     out = torch.zeros((num_segments,), device=segment_ids.device)
     return out.index_add_(0, segment_ids, ones)
@@ -94,19 +174,18 @@ def segment_count(
 
 def segment_mean(
     data: Tensor,
-    segment_ids: Tensor,
+    segment_ids: Index,
     num_segments: int,
     mask: Optional[Tensor] = None,
     count_mask: Optional[Tensor] = None,
-    row_splits: Optional[Tensor] = None,
 ) -> Tensor:
     """Masked mean: ``mask`` gates the numerator, ``count_mask`` (default
     ``mask``) the denominator; counts are clamped to >= 1.  Counts always
-    come from the masked scatter of ones, never from split widths, which
-    include the sorted layout's alignment holes."""
+    come from the masked rows (:func:`segment_count`), never from split
+    widths, which include the sorted layout's alignment holes."""
     if count_mask is None:
         count_mask = mask
-    total = segment_sum(data, segment_ids, num_segments, mask=mask, row_splits=row_splits)
+    total = segment_sum(data, segment_ids, num_segments, mask=mask)
     count = torch.clamp(segment_count(segment_ids, num_segments, mask=count_mask), min=1.0)
     mean = total.float() / count.reshape(count.shape + (1,) * (total.dim() - 1))
     return mean.to(total.dtype)
@@ -114,13 +193,14 @@ def segment_mean(
 
 def sender_mean(
     data: Tensor,
-    senders: Tensor,
+    senders: Index,
     num_nodes: int,
     mask: Optional[Tensor] = None,
     count_mask: Optional[Tensor] = None,
 ) -> Tensor:
-    """Per-node masked mean of outgoing-edge rows (the scatter form; the
-    sender-dense permutation of the JAX package is not ported)."""
+    """Per-node masked mean of outgoing-edge rows: K1 over the rows sorted
+    by sender when ``senders`` is a :class:`SortedIndex` (the CSR form of
+    the JAX ``build_sender_perm``), else (on the CPU only) a scatter."""
     return segment_mean(data, senders, num_nodes, mask=mask, count_mask=count_mask)
 
 

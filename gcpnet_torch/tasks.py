@@ -2,7 +2,7 @@
 
 The port's copy of the collect and metric functions of
 ``gcpnet_tpu/tasks.py`` for the task models ported so far (LBA, PSR, NMS,
-RS and CPD).
+RS, CPD and EQ).
 A collect function (:class:`Collect`) keeps what it reads of a batch and
 adds the batch's host predictions and labels to a
 :class:`~gcpnet_torch.train.metrics.Collector`; the metric functions run on
@@ -18,7 +18,7 @@ import numpy as np
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.train import metrics as M
 
-TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetPSR": "psr", "GCPNetNMS": "nms", "GCPNetRS": "rs", "GCPNetCPD": "cpd"}
+TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetPSR": "psr", "GCPNetNMS": "nms", "GCPNetRS": "rs", "GCPNetCPD": "cpd", "GCPNetEQ": "eq"}
 
 
 def _task(model_name: str) -> str:
@@ -55,6 +55,11 @@ def _residue_keep(batch: GraphBatch) -> Dict[str, Any]:
     return {"label": batch.extras["seq"], "mask": batch.valid_node_mask(), "groups": None}
 
 
+def _eq_keep(batch: GraphBatch) -> Dict[str, Any]:
+    """EQ: each residue slot's label, its mask the residue mask."""
+    return {"label": batch.extras["label"], "mask": batch.extras["res_mask"], "groups": None}
+
+
 def _add(collector: M.Collector, out: np.ndarray, kept: Dict[str, Any]) -> None:
     collector.add(out, kept["label"], mask=kept["mask"], groups=kept["groups"])
 
@@ -76,7 +81,7 @@ def build_collect(model_name: str) -> Collect:
     task = _task(model_name)
     if task == "cpd":
         return Collect(_residue_keep, _add_argmax)
-    keep = {"lba": _graph_keep, "psr": _graph_keep, "nms": _node_pos_keep, "rs": _graph_keep}[task]
+    keep = {"lba": _graph_keep, "psr": _graph_keep, "nms": _node_pos_keep, "rs": _graph_keep, "eq": _eq_keep}[task]
     return Collect(keep, _add)
 
 
@@ -91,4 +96,5 @@ def build_metric_fns(model_name: str) -> Dict[str, Callable]:
         "nms": {"RMSE": M.rmse, "CosineSimilarity": _cosine3},
         "rs": {"Accuracy": M.accuracy, "F1": M.f1},
         "cpd": {"recovery_argmax": _recovery},
+        "eq": {"RMSE": M.rmse, "PearsonCorrCoef": M.pearson},
     }[_task(model_name)]

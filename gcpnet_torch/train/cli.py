@@ -1,4 +1,4 @@
-"""Train with the port: ``python -m gcpnet_torch.train [--task lba|psr|nms|rs|cpd]``.
+"""Train with the port: ``python -m gcpnet_torch.train [--task lba|psr|nms|rs|cpd|eq]``.
 
 ``--task lba`` (the default) without ``--data-dir``: builds the LBA model
 at the width of the JAX package's benchmark (``predict.lba_configs``:
@@ -67,6 +67,20 @@ autoregressive decoder the median recovery of ``--num-samples`` sequences
 sampled at temperature 0.1, for all chains, ``short`` and
 ``single_chain``).
 
+``--task eq``: fits the EQ structure-quality model (per-residue lDDT) on
+decoy and native PDBs (``data.eq``: ``splits/``, ``decoy_model/``,
+``true_model/`` and the ESM cache ``model_data_cache/esm/`` under
+``--data-dir``, by default ``data/EQ``; ``data.eq_synthetic`` writes a
+synthetic set in that layout) with the defaults of the JAX package's
+experiment ``gcpnet_eq`` (hidden 100/16/32/4, 1,281 + 38 atom-type node
+scalars, 5 ``GCPInteractions2`` layers of 8-layer message stacks of GCP3
+with scalar message attention and sender-keyed sums, dropout 0.1, Adam at
+1e-4 without weight decay, seed 42, one decoy a batch in a bucket of
+8,192 nodes, 262,144 edge rows and 1,100 residues, at least 1 and at most
+1,000 epochs, early stopping after 10 epochs without a better
+``val/loss``, the best 30 checkpoints, bf16 over float32 masters); its
+metrics are RMSE and Pearson over the residues.
+
 The batches are receiver-sorted, so on the card every step runs the sorted
 segment sum (K1) and the edge map (K2) forward and the edge map's backward
 (K3).  It runs on the card unless ``--device cpu`` is given.
@@ -86,11 +100,13 @@ from gcpnet_torch import tasks
 from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg, MPCfg
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
 from gcpnet_torch.data.cath import CATHDataModule
+from gcpnet_torch.data.eq import EQDataModule
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
 from gcpnet_torch.device import DeviceLike, resolve_device
 from gcpnet_torch.models.cpd import GCPNetCPD, cpd_loss
 from gcpnet_torch.models.cpd_eval import evaluate_cpd
+from gcpnet_torch.models.eq import GCPNetEQ, eq_loss
 from gcpnet_torch.models.lba import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
@@ -164,6 +180,23 @@ def cpd_configs(num_encoder_layers: int = 9, num_decoder_layers: int = 3, dropou
         dropout=dropout, decoder_residual_updates=True,
     )
     return model_cfg, ModuleCfg(), LayerCfg(mp_cfg=MPCfg(num_message_layers=8))
+
+
+def eq_configs(num_encoder_layers: int = 5, dropout: float = 0.1):
+    """(ModelCfg, ModuleCfg, LayerCfg) of the EQ model
+    (``configs/model/{model_cfg,module_cfg,layer_cfg}/*_eq.yaml``): GCP3,
+    1,281 node scalars (ESM-2 and plDDT), 18 edge scalars, scalar message
+    attention, sums over senders, one feed-forward GCP."""
+    model_cfg = ModelCfg(
+        h_input_dim=1281, chi_input_dim=2, e_input_dim=18, xi_input_dim=1,
+        h_hidden_dim=100, chi_hidden_dim=16, e_hidden_dim=32, xi_hidden_dim=4,
+        num_encoder_layers=num_encoder_layers, dropout=dropout, dense_dropout=dropout,
+    )
+    layer_cfg = LayerCfg(
+        pre_norm=False, num_feedforward_layers=1, dropout=dropout, use_scalar_message_attention=True,
+        aggregate_with_row=True, mp_cfg=MPCfg(num_message_layers=8),
+    )
+    return model_cfg, ModuleCfg(selected_gcp="GCP3"), layer_cfg
 
 
 # the CPD experiment's optimizer (configs/model/gcpnet_cpd.yaml) and its
@@ -265,6 +298,23 @@ def build_cpd_trainer(
     )
 
 
+def build_eq_trainer(
+    seed: int = 42,
+    device: DeviceLike = None,
+    num_encoder_layers: int = 5,
+    lr: float = 1e-4,
+    dropout: float = 0.1,
+    **trainer_kw,
+) -> Trainer:
+    """The EQ model of the experiment ``gcpnet_eq`` (:func:`eq_configs`) with
+    weights drawn from ``seed`` on ``device`` (``None``: the card), in a
+    :class:`Trainer` (:func:`_task_trainer`) with Adam at ``lr``."""
+    model = GCPNetEQ(
+        *eq_configs(num_encoder_layers, dropout), generator=torch.Generator().manual_seed(seed), device=device,
+    )
+    return _task_trainer(model, eq_loss, "GCPNetEQ", seed, lr, trainer_kw)
+
+
 class JsonLines:
     """A trainer logger: one JSON line of metrics on standard output."""
 
@@ -280,6 +330,7 @@ FIT_DEFAULTS = {
     "psr": dict(batch_size=16, num_encoder_layers=5, min_epochs=1, max_epochs=1000, precision=16),
     "lba": dict(batch_size=16, num_encoder_layers=8, min_epochs=1, max_epochs=1000, precision=16),
     "cpd": dict(batch_size=8, num_encoder_layers=9, min_epochs=1, max_epochs=1000, precision=16),
+    "eq": dict(batch_size=1, num_encoder_layers=5, min_epochs=1, max_epochs=1000, precision=16),
 }
 
 
@@ -300,6 +351,9 @@ def _main_fit(args) -> None:
     elif args.task == "cpd":
         dm = CATHDataModule(data_dir=args.data_dir or "data/CATH", batch_size=args.batch_size)
         build = functools.partial(build_cpd_trainer, autoregressive=args.autoregressive)
+    elif args.task == "eq":
+        dm = EQDataModule.from_data_dir(args.data_dir or "data/EQ", batch_size=args.batch_size)
+        build = build_eq_trainer
     else:
         sizes = {"train": args.num_train or 4096, "valid": args.num_valid or 512, "test": args.num_test or 512}
         dm = RSDataModule(seed=args.seed, batch_size=args.batch_size, synthetic_sizes=sizes)
@@ -348,7 +402,7 @@ def _main_lba(args) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--task", choices=("lba", "psr", "nms", "rs", "cpd"), default="lba")
+    parser.add_argument("--task", choices=("lba", "psr", "nms", "rs", "cpd", "eq"), default="lba")
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--adaptive-clip", action="store_true")
     parser.add_argument("--seed", type=int, default=None, help="default: 0 (lba's bench steps), 42 (the fits)")
@@ -363,28 +417,30 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     nms = parser.add_argument_group("--task nms")
     nms.add_argument("--data-root", default="data/NMS")
     nms.add_argument("--data-mode", default="small_20body")
-    atom3d = parser.add_argument_group("--task psr and cpd, and --task lba with --data-dir")
+    atom3d = parser.add_argument_group("--task psr, cpd and eq, and --task lba with --data-dir")
     atom3d.add_argument("--data-dir", default=None,
-                        help="the ATOM3D npz records (psr: default data/ATOM3D), or the CATH files (cpd: data/CATH)")
+                        help="the ATOM3D npz records (psr: default data/ATOM3D), the CATH files (cpd: data/CATH), "
+                             "or the EQ directories (eq: data/EQ)")
     atom3d.add_argument("--lba-split", type=int, default=30, help="LBA's sequence-identity split")
     cpd = parser.add_argument_group("--task cpd")
     cpd.add_argument("--autoregressive", action=argparse.BooleanOptionalAction, default=True,
                      help="the autoregressive decoder (the experiment's), or the direct-shot MLP head")
     cpd.add_argument("--num-samples", type=int, default=100, help="sequences sampled a test chain for its recovery")
-    fit = parser.add_argument_group("the fits: --task nms, rs, psr, cpd, and lba with --data-dir")
+    fit = parser.add_argument_group("the fits: --task nms, rs, psr, cpd, eq, and lba with --data-dir")
     fit.add_argument("--batch-size", type=int, default=None,
-                     help="default: 100 (nms), 64 anchors (rs), 16 (psr, lba), 8 (cpd)")
+                     help="default: 100 (nms), 64 anchors (rs), 16 (psr, lba), 8 (cpd), 1 (eq)")
     fit.add_argument("--num-train", type=int, default=None, help="default: 10,000 (nms), 4,096 (rs)")
     fit.add_argument("--num-valid", type=int, default=None, help="default: 2,000 (nms), 512 (rs)")
     fit.add_argument("--num-test", type=int, default=None, help="default: 2,000 (nms), 512 (rs)")
     fit.add_argument("--num-encoder-layers", type=int, default=None,
-                     help="default: 4 (nms), 8 (rs, lba), 5 (psr), 9 (cpd)")
-    fit.add_argument("--max-epochs", type=int, default=None, help="default: 12,000 (nms), 1,000 (rs, psr, lba, cpd)")
-    fit.add_argument("--min-epochs", type=int, default=None, help="default: 100 (nms), 1 (rs, psr, lba, cpd)")
+                     help="default: 4 (nms), 8 (rs, lba), 5 (psr, eq), 9 (cpd)")
+    fit.add_argument("--max-epochs", type=int, default=None,
+                     help="default: 12,000 (nms), 1,000 (rs, psr, lba, cpd, eq)")
+    fit.add_argument("--min-epochs", type=int, default=None, help="default: 100 (nms), 1 (rs, psr, lba, cpd, eq)")
     fit.add_argument("--checkpoint-dir", default=None)
     fit.add_argument("--resume", action="store_true", help="go on from --checkpoint-dir's last checkpoint")
     fit.add_argument("--precision", type=int, choices=(32, 16), default=None,
-                     help="default: 32 (nms, rs), 16 (psr, lba, cpd): bf16 over float32 masters")
+                     help="default: 32 (nms, rs), 16 (psr, lba, cpd, eq): bf16 over float32 masters")
     fit.add_argument("--scan-chunk-size", type=int, default=1,
                      help="training and validation batches a dispatch (the JAX trainer.scan_chunk_size)")
     args = parser.parse_args(argv)

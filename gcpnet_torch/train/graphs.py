@@ -27,7 +27,8 @@ runs it:
 - the outputs are cloned after a replay, as the next replay overwrites them;
 - a kernel wrapper counts its launches in Python: the warm-up's, and the
   capture's, which records them into the graph; a replay runs no Python,
-  so what it launches is read from a profiler's trace;
+  so what it launches is read from the graph's kernel nodes
+  (:meth:`CapturedCall.kernel_names`, with ``CapturedCall.keep_graphs``);
 - a failed capture or replay raises; nothing runs eagerly in its place.
 
 A graph fixes the host values it was captured with (the kernels' layer
@@ -41,6 +42,7 @@ graph each.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -77,11 +79,63 @@ class BatchSlots:
                 dst.copy_(t, non_blocking=True)
 
 
+# CUgraphNodeType (cuda.h)
+_KERNEL_NODE, _CHILD_GRAPH_NODE = 0, 4
+
+
+def graph_kernel_names(raw_graph: int) -> Dict[str, int]:
+    """The kernel nodes of a ``cudaGraph_t`` (child graphs included) by
+    function name, as the driver gives it (``cuFuncGetName``, mangled):
+    what one replay of the graph launches."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        err = getattr(cu, fn)(*args)
+        if err != 0:
+            raise RuntimeError(f"graph_kernel_names: {fn} failed with CUresult {err}")
+
+    get_params = "cuGraphKernelNodeGetParams_v2" if hasattr(cu, "cuGraphKernelNodeGetParams_v2") \
+        else "cuGraphKernelNodeGetParams"
+    counts: Dict[str, int] = {}
+    pending = [raw_graph]
+    while pending:
+        graph = ctypes.c_void_p(pending.pop())
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", graph, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        call("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
+        for node in nodes:
+            node = ctypes.c_void_p(node)
+            kind = ctypes.c_int()
+            call("cuGraphNodeGetType", node, ctypes.byref(kind))
+            if kind.value == _CHILD_GRAPH_NODE:
+                child = ctypes.c_void_p()
+                call("cuGraphChildGraphNodeGetGraph", node, ctypes.byref(child))
+                pending.append(child.value)
+            elif kind.value == _KERNEL_NODE:
+                # CUDA_KERNEL_NODE_PARAMS_v2: the CUfunction at byte 0, the
+                # CUkernel (read where no CUfunction is set) at byte 56
+                params = (ctypes.c_uint64 * 16)()
+                call(get_params, node, params)
+                name = ctypes.c_char_p()
+                if params[0]:
+                    call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params[0]))
+                else:
+                    call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params[7]))
+                key = name.value.decode()
+                counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
 class CapturedCall:
     """``fn(batches) -> tuple of tensors`` over lists of batches on the
     card, one CUDA graph per sequence of batch shapes (see the module's
     docstring).  ``generator``, when given, is the CUDA generator ``fn``
     draws from."""
+
+    # keep each graph's cudaGraph_t beside its executable graph, so that
+    # kernel_names can read its nodes (set before the capture)
+    keep_graphs = False
 
     def __init__(self, fn: Callable, device, generator: Optional[torch.Generator] = None):
         self.device = torch.device(device)
@@ -103,6 +157,13 @@ class CapturedCall:
         """The graphs held now: one per sequence of batch shapes seen since
         the last :meth:`clear`."""
         return len(self._graphs)
+
+    def kernel_names(self, batches: Sequence[GraphBatch]) -> Dict[str, int]:
+        """The kernels that one replay for ``batches``' sequence of shapes
+        launches, by name, read from its graph (captured with
+        ``keep_graphs``)."""
+        graph, _ = self._graphs[tuple(batch_key(b) for b in batches)]
+        return graph_kernel_names(graph.raw_cuda_graph())
 
     def clear(self) -> None:
         """Drop every graph and slot: the next call captures again."""
@@ -137,12 +198,14 @@ class CapturedCall:
         stream.wait_stream(side)
         for t in outputs:
             t.record_stream(stream)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if self.keep_graphs else torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         # thread_local: the prefetch thread may pin host memory meanwhile
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             static = tuple(self.fn(inputs))
+        if self.keep_graphs:
+            graph.instantiate()  # a kept graph is not instantiated at the capture's end
         self._graphs[keys] = (graph, static)
         self.captures += 1
         self.captured_batches += len(inputs)

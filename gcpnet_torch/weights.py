@@ -7,7 +7,12 @@ message_fusion_3/vector_down/kernel`` is the state-dict key
 Every task model keeps its JAX module names, so the same renaming serves
 each: CPD's ``gcp_embedding``, ``encoder_{i}``, ``seq_embedding``,
 ``decoder_{i}`` (or the MLP head's ``decoder/readout_{i}``) and
-``invariant_node_projection`` included.
+``invariant_node_projection`` included, and EQ's ``atom_embedding``,
+``encoder/interaction_{i}`` (``GCPInteractions2``: ``interaction/
+message_fusion_{j}``, ``interaction/scalar_message_attention``,
+``gcp_norm_0``, ``feedforward_0/scalar_out_0`` and ``scalar_out_1``),
+``projection_norm``, ``invariant_node_projection``, ``dense_0`` and
+``dense_1``.
 Layouts, identical on both sides (no transposes):
 
 - ``Dense`` / ``VecDense`` ``kernel``: ``[in, out]`` (the port computes

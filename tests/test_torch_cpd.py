@@ -26,6 +26,7 @@ and the model.
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -189,14 +190,26 @@ def _assert_same_batches(jbatches, batches, label):
         assert np.all(np.diff(b.receivers[real]) >= 0) and b.edge_row_splits[-1] == real.sum()
 
 
-def test_datamodule_matches_jax(cath_root, monkeypatch):
-    jdm, dm = _datamodules(cath_root, monkeypatch)
+def test_datamodule_matches_jax(cath_root, monkeypatch, tmp_path):
+    """On the fixture with one train record that fails to featurize (an
+    "X" in its sequence): both modules shuffle the records that featurize."""
+    shutil.copytree(cath_root, tmp_path, dirs_exist_ok=True)
+    path = os.path.join(tmp_path, "chain_set.jsonl")
+    with open(path) as f:
+        lines = f.read().splitlines()
+    bad = json.loads(lines[1])  # a train record
+    bad["seq"] = "X" + bad["seq"][1:]
+    lines[1] = json.dumps(bad)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    jdm, dm = _datamodules(str(tmp_path), monkeypatch)
     assert {k: [e["name"] for e in v] for k, v in dm.splits.items()} == {
         k: [e["name"] for e in v] for k, v in jdm.splits.items()
     }
     assert [len(v) for v in dm.splits.values()] == [5, 2, 3]
     assert dm.custom_splits == jdm.custom_splits and set(dm.custom_splits) == {"short", "single_chain"}
-    for seed in (0, 1):
+    assert len(list(dm.named_graphs("train"))) == 4
+    for seed in (0, 1, 2):
         _assert_same_batches(jdm.train_batches(seed=seed), dm.train_batches(seed=seed), f"train {seed}")
     _assert_same_batches(jdm.val_batches(), dm.val_batches(), "val")
     _assert_same_batches(jdm.test_batches(), dm.test_batches(), "test")

@@ -41,7 +41,8 @@ from gcpnet_torch.data import cath
 from gcpnet_torch.data.batching import Bucket, batches_from_dataset
 from gcpnet_torch.data.protein_graph import featurize_protein
 from gcpnet_torch.models import cpd_eval
-from gcpnet_torch.models.cpd import GCPNetCPD
+from gcpnet_torch.models.cpd import GCPNetCPD, cpd_loss
+from gcpnet_torch.ops import segment
 from gcpnet_torch.train import cli as train_cli
 from gcpnet_torch.train.metrics import Collector
 from test_torch_cpd import CPD_MESSAGE_LAYERS, CPD_MODEL, cpd_chain, cpd_models, jax_batch, write_cath
@@ -80,6 +81,33 @@ def test_argmax_samples_match_jax(chain, models):
     np.testing.assert_array_equal(got, want)
     assert got.reshape(3, n)[:, 5].tolist() == [0, 0, 0]  # the masked residue is never sampled
     assert len(set(got.tolist())) > 1
+
+
+@pytest.mark.parametrize("path", ["sample", "train_step"])
+def test_sorted_batches_reach_no_scatter(chain, models, monkeypatch, path):
+    """The sampler's per-position subgraphs and a teacher-forced training
+    step carry every index they sum by in its sorted form: with the
+    ``index_add_`` fallback (``ops.segment._plain_on_cpu``, which the card
+    refuses) made to raise on the CPU too, both run and give what they gave
+    before."""
+    graph, _ = chain
+    _, _, port = models
+    batch = copies_batch(graph, 2).to("cpu")
+
+    def run():
+        if path == "sample":
+            return port.sample(batch, graph.num_nodes, 0.1, torch.Generator().manual_seed(0))
+        port.zero_grad()
+        cpd_loss(port(batch), batch)[0].backward()
+        return torch.cat([p.grad.reshape(-1) for p in port.parameters()])
+
+    want = run()
+
+    def refuse(t, what):
+        raise AssertionError(f"{what} took the index_add_ fallback")
+
+    monkeypatch.setattr(segment, "_plain_on_cpu", refuse)
+    assert torch.equal(run(), want)
 
 
 def test_draws_follow_the_tempered_softmax(chain, models):

@@ -10,6 +10,7 @@ Without a CUDA device every test skips.
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -19,11 +20,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from gcpnet_torch import predict as port_predict
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
-from gcpnet_torch.data.batching import Bucket, batches_from_dataset
+from gcpnet_torch.data.batching import Bucket, batches_from_dataset, sorted_index
 from gcpnet_torch.data.cath import CATHDataModule
 from gcpnet_torch.data.cath_synthetic import write_cath_chains
+from gcpnet_torch.data.eq import EQDataModule
+from gcpnet_torch.data.eq_synthetic import write_eq_decoys
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.models.cpd import GCPNetCPD, cpd_loss
+from gcpnet_torch.models.eq import GCPNetEQ, eq_loss
 from gcpnet_torch.models.lba import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
@@ -40,14 +44,25 @@ from gcpnet_torch.ops.edge_map import (
     pack_stack,
     kink_margins,
 )
+from gcpnet_torch.ops.segment import SortedIndex, gather_rows, segment_count, segment_sum
 from gcpnet_torch.ops.segment_sorted import DTYPE_CODES, segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.train import cli as train_cli
-from gcpnet_torch.train.graphs import EvalSteps, TrainSteps
+from gcpnet_torch.train.graphs import CapturedCall, EvalSteps, TrainSteps
 from gcpnet_torch.train.optim import build_schedule
 from gcpnet_torch.train.step import train_step
 from gcpnet_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.gpu
+
+# K1 launches of a training step of 2 interaction layers: in the forward,
+# each layer's mean (or sum) and node frames, and outside the layers the
+# centring, the embedding's node frames and the head's node frames and pool
+# (NMS: no head; CPD: node frames alone, and 1 decoder layer's sum); in
+# the backward each layer's two gathers of node rows (a decoder layer's
+# four, and CPD's sequence gather), K1 over the cotangent rows
+K1_POOLED_STEP = 4 + 2 * 2 + 2 * 2  # LBA, PSR, RS, EQ
+K1_NMS_STEP = 2 + 2 * 2 + 2 * 2
+K1_CPD_STEP = (3 + 2 * 2 + 1) + (2 * 2 + 4 + 1)
 
 
 @pytest.fixture
@@ -602,7 +617,7 @@ def test_nms_gradients_on_card_match_cpu(cuda, tmp_path):
         if dev == "cuda":
             torch.cuda.synchronize()
             now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
-            assert tuple(a - b for a, b in zip(now, launches)) == (2, 2, 2)
+            assert tuple(a - b for a, b in zip(now, launches)) == (K1_NMS_STEP, 2, 2)
         losses[dev] = loss.item()
         grads[dev] = {n: p.grad for n, p in model.named_parameters()}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
@@ -634,7 +649,7 @@ def test_rs_gradients_on_card_match_cpu(cuda):
         if dev == "cuda":
             torch.cuda.synchronize()
             now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
-            assert tuple(a - b for a, b in zip(now, launches)) == (2, 2, 2)
+            assert tuple(a - b for a, b in zip(now, launches)) == (K1_POOLED_STEP, 2, 2)
         losses[dev] = loss.item()
         grads[dev] = {n: p.grad for n, p in model.named_parameters()}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
@@ -677,7 +692,7 @@ def test_psr_gradients_on_card_match_cpu(cuda, tmp_path):
         if dev == "cuda":
             torch.cuda.synchronize()
             now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
-            assert tuple(a - b for a, b in zip(now, launches)) == (2, 2, 2)
+            assert tuple(a - b for a, b in zip(now, launches)) == (K1_POOLED_STEP, 2, 2)
         losses[dev] = loss.item()
         grads[dev] = {n: p.grad for n, p in model.named_parameters()}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
@@ -721,7 +736,7 @@ def test_cpd_gradients_on_card_match_cpu(cuda, tmp_path):
         if dev == "cuda":
             torch.cuda.synchronize()
             now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
-            assert tuple(a - b for a, b in zip(now, launches)) == (3, 2, 2)
+            assert tuple(a - b for a, b in zip(now, launches)) == (K1_CPD_STEP, 2, 2)
         out[dev] = (logits.detach().cpu().numpy(), loss.item())
         grads[dev] = {n: p.grad for n, p in model.named_parameters()}
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=1e-4)
@@ -736,7 +751,9 @@ def test_cpd_gradients_on_card_match_cpu(cuda, tmp_path):
 def test_cpd_argmax_samples_on_card_match_cpu(cuda, tmp_path):
     """The autoregressive sampler at temperature 1e-6 (an argmax) on three
     copies of a synthetic chain: each position's logits on the card are the
-    CPU's, and so are the sequences."""
+    CPU's, and so are the sequences.  On the card every sum runs through K1:
+    the centring's, the embedding's node frames, two a encoder layer, and
+    each decoder layer's sum at each position with a valid node."""
     dm = _cpd_datamodule(tmp_path, 1, 256, {"train": 1, "validation": 1, "test": 1})
     _, graph = next(dm.named_graphs("test"))
     n, copies = graph.num_nodes, 3
@@ -747,7 +764,11 @@ def test_cpd_argmax_samples_on_card_match_cpu(cuda, tmp_path):
         logits[dev] = []
         model.invariant_node_projection.register_forward_hook(lambda m, i, out: logits[dev].append(out.cpu()))
         gen = torch.Generator(device=dev).manual_seed(0)
+        k1 = segment_sum_sorted.launches
         seqs[dev] = model.sample(batch.to(torch.device(dev)), n, 1e-6, gen).cpu().numpy()
+        if dev == "cuda":
+            positions = int(batch.valid_node_mask()[:n].sum())
+            assert segment_sum_sorted.launches - k1 == 2 + 2 * 2 + 3 * positions
     assert len(logits["cuda"]) == len(logits["cpu"]) == n
     for got, want in zip(logits["cuda"], logits["cpu"]):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
@@ -794,15 +815,17 @@ def test_predict_on_card_matches_cpu(cuda):
     k1, k2 = segment_sum_sorted.launches, edge_map.launches
     on_card = port_predict.predict(port_predict.build_model(0, cuda), batch)
     torch.cuda.synchronize()
-    assert (segment_sum_sorted.launches - k1, edge_map.launches - k2) == (8, 8)
+    # 8 layers: a mean and node frames each, and 4 outside them
+    assert (segment_sum_sorted.launches - k1, edge_map.launches - k2) == (2 * 8 + 4, 8)
     on_cpu = port_predict.predict(port_predict.build_model(0, "cpu"), batch)
     np.testing.assert_allclose(on_card.cpu().numpy(), on_cpu.numpy(), atol=1e-4)
 
 
 # Captured steps (gcpnet_torch.train.graphs) against the eager ones.  The
-# glue's index_add_ adds with atomics in another order on every run, so a
-# replay and an eager step agree to a tolerance, not bit for bit: float32
-# gradients ~1e-7 apart relative.  Adam moves an entry by up to about lr a
+# glue's index_add_ added with atomics in another order on every run, so a
+# replay and an eager step were held to a tolerance, not bit for bit:
+# float32 gradients ~1e-7 apart relative (its sums and gathers' backward
+# now run through K1; test_fp32_runs_are_reproducible holds that).  Adam moves an entry by up to about lr a
 # step whatever its gradient's size, so an entry whose gradient lies
 # within rounding of 0 can take the other direction in the other run: the
 # parameters may part by up to 2 lr a step, and at most
@@ -831,19 +854,13 @@ def _wrapper_launches() -> tuple:
     return (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
 
 
-def _traced_launches(fn) -> tuple:
-    """K1, K2 and K3 kernels that ran on the card during ``fn()``, read from
-    a torch.profiler trace (a replay runs no Python, so the wrappers do not
-    count its launches)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return tuple(sum(key in n for n in names) for key in ("seg_sum", "edge_map_tc_kernel", "edge_map_bwd_tc_kernel"))
+def _replayed_launches(call: CapturedCall, batches) -> tuple:
+    """K1, K2 and K3 kernels that one replay of ``call``'s graph for
+    ``batches`` launches, read from the graph's kernel nodes (a replay runs
+    no Python, so the wrappers do not count its launches)."""
+    names = call.kernel_names(batches)
+    keys = ("seg_sum", "edge_map_tc_kernel", "edge_map_bwd_tc_kernel")
+    return tuple(sum(count for name, count in names.items() if key in name) for key in keys)
 
 
 def _lba_batches(n, nodes=40, seed=1):
@@ -879,12 +896,14 @@ def _assert_states_close(got: dict, want: dict, steps: int) -> None:
         assert torch.equal(got[key], want[key]), key
 
 
-def test_replayed_steps_match_eager_steps(cuda):
+def test_replayed_steps_match_eager_steps(cuda, monkeypatch):
     """Three steps replayed (the first runs eagerly and is captured) against
     three eager steps from the same weights and generator seed: losses,
     norms, parameters, counts and the generator's offset.  The wrappers
     count the first call's launches (the eager step's and the capture's)
-    and none of a replay's; a replay's trace holds K1, K2 and K3."""
+    and none of a replay's; the replayed graph's kernel nodes hold a step's
+    K1, K2 and K3."""
+    monkeypatch.setattr(CapturedCall, "keep_graphs", True)
     batches = _lba_batches(3)
     runs = {}
     for mode in ("eager", "replay"):
@@ -897,13 +916,11 @@ def test_replayed_steps_match_eager_steps(cuda):
             for i, b in enumerate(batches):
                 before = _wrapper_launches()
                 pinned = b.pinned()
-                if i == 2:
-                    traced = _traced_launches(lambda: results.append(steps([pinned])))
-                else:
-                    results.append(steps([pinned]))
+                results.append(steps([pinned]))
                 counted.append(tuple(a - c for a, c in zip(_wrapper_launches(), before)))
             assert (steps.call.captures, steps.call.replays) == (1, 2)
-            assert counted == [(4, 4, 4), (0, 0, 0), (0, 0, 0)] and traced == (2, 2, 2)
+            assert counted == [(2 * K1_POOLED_STEP, 4, 4), (0, 0, 0), (0, 0, 0)]
+            assert _replayed_launches(steps.call, [pinned]) == (K1_POOLED_STEP, 2, 2)
         torch.cuda.synchronize()
         runs[mode] = dict(
             losses=[r.loss.item() for r in results], norms=[r.grad_norm.item() for r in results],
@@ -1065,3 +1082,141 @@ def test_resume_through_replays_continues(cuda, tmp_path):
     assert torch.equal(resumed.generator.get_state(), first.generator.get_state())
     _assert_params_close(list(resumed.model.parameters()), list(first.model.parameters()), 4)
     np.testing.assert_allclose(resumed.history["train/loss"], first.history["train/loss"][2:], rtol=REPLAY_LOSS_RTOL)
+
+
+# --- the sorted indices (K1 in both directions), EQ -----------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sorted_sum_and_gather_backward_run_k1(rng, cuda, dtype):
+    """A sum over an unsorted index with its sorted form, and a gather's
+    backward over it, on the card: K1 over the rows in segment order (one
+    launch each), against index_add_ on the CPU; padding rows (outside every
+    segment) are left out; the same bits on a second run; a count from
+    prefix sums."""
+    rows, segments, width = 5000, 700, 148
+    index = rng.integers(0, segments, size=rows)
+    valid = rng.random(rows) > 0.1
+    perm, inv, splits = sorted_index(index, valid, segments)
+    sidx = SortedIndex(*(torch.as_tensor(a).to(cuda) for a in (index, splits, perm, inv)))
+    data = torch.as_tensor(rng.normal(size=(rows, width)), dtype=torch.float32) * torch.as_tensor(valid)[:, None]
+    # the plain version on the same inputs, rounded to the dtype as the card's
+    want = torch.zeros(segments, width).index_add_(0, torch.as_tensor(index), data.to(dtype).float())
+    before = segment_sum_sorted.launches
+    got = segment_sum(data.to(cuda, dtype), sidx, segments)
+    again = segment_sum(data.to(cuda, dtype), sidx, segments)
+    assert segment_sum_sorted.launches == before + 2 and torch.equal(got, again)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(), **_k1_tol(dtype))
+    count = segment_count(sidx, segments, torch.as_tensor(valid).to(cuda))
+    np.testing.assert_array_equal(count.cpu().numpy(), np.bincount(index[valid], minlength=segments))
+    nodes = torch.as_tensor(rng.normal(size=(segments, width)), dtype=torch.float32)
+    for device, idx in ((cuda, sidx), ("cpu", torch.as_tensor(index))):
+        leaf = nodes.to(device, dtype).requires_grad_()
+        gathered = gather_rows(leaf, idx)
+        (gathered * data.to(device, dtype)).sum().backward()
+        if device == cuda:
+            card = leaf.grad.float().cpu()
+    np.testing.assert_allclose(card.numpy(), leaf.grad.float().numpy(), **_k1_tol(dtype))
+    # on the card an index without its sorted form is refused, not summed
+    # by index_add_
+    plain = torch.as_tensor(index).to(cuda)
+    with pytest.raises(ValueError, match="sorted form"):
+        leaf = nodes.to(cuda).requires_grad_()
+        gather_rows(leaf, plain).sum().backward()
+    with pytest.raises(ValueError, match="sorted form"):
+        segment_sum(data.to(cuda), plain, segments)
+    with pytest.raises(ValueError, match="sorted form"):
+        segment_count(plain, segments)
+
+
+def test_fp32_runs_are_reproducible(cuda):
+    """Two eager fp32 RS runs of 16 steps at full width (2 of its 8 layers),
+    without torch.use_deterministic_algorithms: the parameters end equal bit
+    for bit (before the sorted indices, 97% of the entries parted over an
+    epoch: the glue's index_add_ atomics)."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    dm = RSDataModule(batch_size=64, synthetic_sizes={"train": 1024, "valid": 16, "test": 16})
+    dm.setup()
+    batches = [b.to(cuda) for b in itertools.islice(dm.train_batches(seed=0), 16)]
+    assert len(batches) == 16
+    runs = []
+    for _ in range(2):
+        trainer = train_cli.build_rs_trainer(42, cuda, num_encoder_layers=2)
+        for b in batches:
+            train_step(trainer.model, trainer.state, b, rs_loss, trainer.generator)
+        torch.cuda.synchronize()
+        runs.append(torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()]))
+    assert torch.equal(runs[0], runs[1]), (runs[0] != runs[1]).double().mean().item()
+
+
+def _eq_datamodule(root, max_nodes: int = 1024, residues=(40, 90)) -> EQDataModule:
+    """EQ on synthetic decoys (data.eq_synthetic)."""
+    write_eq_decoys(str(root), targets={"train": 1, "valid": 1, "test": 1}, decoys=2, residues=residues)
+    dm = EQDataModule.from_data_dir(str(root), batch_size=1, max_nodes_per_batch=max_nodes, max_residues_per_batch=128)
+    dm.setup()
+    return dm
+
+
+def _eq_model(dev, layers: int = 2) -> GCPNetEQ:
+    return GCPNetEQ(*train_cli.eq_configs(layers, dropout=0.0), generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def test_eq_gradients_on_card_match_cpu(cuda, tmp_path):
+    """The EQ model at full width (2 of its 5 GCPInteractions2 layers) on a
+    synthetic decoy: the per-residue output, the loss and every parameter's
+    gradient on the card against the CPU, through K1 (the sums over
+    senders, the node frames, the residue mean and the gathers' backward),
+    K2 and the fp32 K3."""
+    batch = next(_eq_datamodule(tmp_path).val_batches())
+    grads, out = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = _eq_model(dev)
+        launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+        b = batch.to(torch.device(dev))
+        pred = model(b)
+        loss, _ = eq_loss(pred, b)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+            assert tuple(a - b for a, b in zip(now, launches)) == (K1_POOLED_STEP, 2, 2)
+        out[dev] = (pred.detach().cpu().numpy(), loss.item())
+        grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=1e-4)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-4
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+# the card's step tolerance for EQ's output under a rotation: fp32 (split
+# TF32 in K2) as the card against the CPU (FORWARD_ATOL in chip_smoke.py);
+# bf16 relative to the output's scale, as chip_smoke.py's BF16_STEP_TOL
+# holds a bf16 step's loss
+EQ_INVARIANCE_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eq_output_is_invariant_on_card(rng, cuda, tmp_path, dtype):
+    """EQ's per-residue output through K1-K3 (2 full-width layers) is
+    invariant under a random rotation and translation of x, chi and xi."""
+    batch = next(_eq_datamodule(tmp_path).val_batches())
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    q = q.astype(np.float32)
+    turned = batch.replace(x=batch.x @ q.T + rng.normal(scale=10.0, size=3).astype(np.float32),
+                           chi=batch.chi @ q.T, xi=batch.xi @ q.T)
+    model = _eq_model(cuda).to(dtype)
+    real = torch.as_tensor(batch.extras["res_mask"] > 0)
+    with torch.no_grad():
+        before = edge_map.launches
+        out = model(batch.to(cuda, dtype)).float().cpu()[real]
+        again = model(turned.to(cuda, dtype)).float().cpu()[real]
+        assert edge_map.launches == before + 4
+    scale = out.abs().max().item()
+    assert scale > 1e-3
+    assert (again - out).abs().max().item() <= EQ_INVARIANCE_TOL[dtype] * max(1.0, scale)

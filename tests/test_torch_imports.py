@@ -4,8 +4,9 @@ every module of the package, the chip scripts (``chip_smoke.py``,
 tests (``test_torch_gpu.py``, which run where JAX is absent), a CPU
 prediction, a CPU LBA training run, a CPU NMS fit with its simulated data,
 a CPU RS fit on synthetic enantiomers, a CPU PSR fit on synthetic ATOM3D
-records and a CPU CPD fit with its design metrics on synthetic CATH chains
-(``python -m gcpnet_torch.train [--task nms|rs|psr|cpd]``) in a fresh
+records, a CPU CPD fit with its design metrics on synthetic CATH chains and
+a CPU EQ fit on synthetic decoys (``python -m gcpnet_torch.train
+[--task nms|rs|psr|cpd|eq]``) in a fresh
 interpreter whose import system refuses those packages."""
 
 import subprocess
@@ -88,9 +89,22 @@ with tempfile.TemporaryDirectory() as root:
     sys.argv = ["gcpnet_torch.train", "--task", "cpd", "--device", "cpu", "--data-dir", root, "--batch-size", "2",
                 "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0", "--num-samples", "2"]
     runpy.run_module("gcpnet_torch.train", run_name="__main__")
+from gcpnet_torch.data import eq
+from gcpnet_torch.data.eq_synthetic import write_eq_decoys
+
+with tempfile.TemporaryDirectory() as root:
+    write_eq_decoys(root, targets={"train": 2, "valid": 1, "test": 1}, decoys=1, residues=(10, 20))
+    cli.EQDataModule.from_data_dir = functools.partial(
+        eq.EQDataModule.from_data_dir.__func__, eq.EQDataModule, max_nodes_per_batch=256, max_residues_per_batch=32
+    )
+    sys.argv = ["gcpnet_torch.train", "--task", "eq", "--device", "cpu", "--data-dir", root,
+                "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0"]
+    runpy.run_module("gcpnet_torch.train", run_name="__main__")
 for name in ("gcpnet_torch.data.atom3d", "gcpnet_torch.data.cath", "gcpnet_torch.data.cath_synthetic",
              "gcpnet_torch.data.protein_graph",
-             "gcpnet_torch.models.cpd", "gcpnet_torch.models.cpd_eval", "gcpnet_torch.nn.decoder"):
+             "gcpnet_torch.models.cpd", "gcpnet_torch.models.cpd_eval", "gcpnet_torch.nn.decoder",
+             "gcpnet_torch.data.eq", "gcpnet_torch.data.eq_synthetic", "gcpnet_torch.data.esm",
+             "gcpnet_torch.data.pdb", "gcpnet_torch.models.eq", "gcpnet_torch.utils.structure_metrics"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

@@ -148,8 +148,8 @@ def test_k2_plain_matches_pallas_edge_map(rng, monkeypatch, tile, num_message_la
     tb = batch.to("cpu")
     got = port(
         ScalarVectorT(t(node_s), t(node_v)), ScalarVectorT(t(edge_s), t(edge_v)),
-        tb.senders, tb.receivers, t(frames),
-        edge_mask=tb.edge_pad_mask, count_mask=tb.edge_pad_mask, row_splits=tb.edge_row_splits,
+        tb.senders, tb.receiver_index(), t(frames),
+        edge_mask=tb.edge_pad_mask, count_mask=tb.edge_pad_mask,
     )
     np.testing.assert_allclose(np_(got.scalar), np.asarray(want.scalar), atol=1e-4)
     np.testing.assert_allclose(np_(got.vector), np.asarray(want.vector), atol=1e-4)
@@ -272,13 +272,13 @@ def test_k2_plain_matches_module_stack(rng, cfg):
         (16, 4), (16, 4), (8, 4), cfg, LayerCfg(mp_cfg=MPCfg(num_message_layers=3)),
         generator=torch.Generator().manual_seed(0), device="cpu",
     )
-    args = (
+    reps = (
         ScalarVectorT(t(rng.normal(size=(n, 16))), t(rng.normal(size=(n, 12)))),
         ScalarVectorT(t(rng.normal(size=(e, 8))), t(rng.normal(size=(e, 12)))),
-        batch.senders, batch.receivers, t(rng.normal(size=(e, 9))),
     )
+    frames = t(rng.normal(size=(e, 9)))
     mask = dict(edge_mask=batch.edge_pad_mask, count_mask=batch.edge_pad_mask)
     with torch.inference_mode():
-        got = port(*args, row_splits=batch.edge_row_splits, **mask)
-        want = port(*args, **mask)
+        got = port(*reps, batch.senders, batch.receiver_index(), frames, **mask)
+        want = port(*reps, batch.senders, batch.receivers, frames, **mask)
     np.testing.assert_allclose(np_(got.flatten()), np_(want.flatten()), atol=1e-5)

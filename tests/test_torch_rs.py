@@ -323,8 +323,8 @@ def test_leaky_stack_matches_pallas_edge_map(rng, monkeypatch):
     xs = [t(a).requires_grad_() for a in inputs]
     tb = batch.to("cpu")
     out = port(
-        ScalarVector(xs[0], xs[1]), ScalarVector(xs[2], xs[3]), tb.senders, tb.receivers, t(frames),
-        edge_mask=tb.edge_pad_mask, count_mask=tb.edge_pad_mask, row_splits=tb.edge_row_splits,
+        ScalarVector(xs[0], xs[1]), ScalarVector(xs[2], xs[3]), tb.senders, tb.receiver_index(), t(frames),
+        edge_mask=tb.edge_pad_mask, count_mask=tb.edge_pad_mask,
     )
     np.testing.assert_allclose(np_(out.scalar), np.asarray(want_out.scalar), atol=ATOL)
     np.testing.assert_allclose(np_(out.vector), np.asarray(want_out.vector), atol=ATOL)

@@ -152,8 +152,8 @@ def test_stack_gradients_match_pallas_kernel(rng, monkeypatch):
     tb = batch.to("cpu")
     launches = edge_map_backward.launches
     out = port(
-        ScalarVectorT(xs[0], xs[1]), ScalarVectorT(xs[2], xs[3]), tb.senders, tb.receivers, t(frames),
-        edge_mask=tb.edge_pad_mask, count_mask=tb.edge_pad_mask, row_splits=tb.edge_row_splits,
+        ScalarVectorT(xs[0], xs[1]), ScalarVectorT(xs[2], xs[3]), tb.senders, tb.receiver_index(), t(frames),
+        edge_mask=tb.edge_pad_mask, count_mask=tb.edge_pad_mask,
     )
     ((out.scalar * t(cot_s)).sum() + (out.vector * t(cot_v)).sum()).backward()
     assert edge_map_backward.launches == launches  # the CPU path runs the plain version
