@@ -135,7 +135,7 @@ Phases, one line each:
      for all, short and single_chain, ms a chain, the device's launches a
      position; the argmax samples of one chain, card against CPU;
  30. eq-data (before any CUDA graph, as eq-kernels): synthetic EQ decoys
-     (write_eq_decoys: 8 / 2 / 2 natives of 100-700 residues with side
+     (write_eq_decoys: 4 / 2 / 2 natives of 100-700 residues with side
      chains, 8 noisy decoys each with a plDDT in the b-factor column, a
      seeded ESM cache file a sequence), each split's first pass (the
      lDDT labels made and the graphs cached), a shuffled training epoch's
@@ -159,9 +159,39 @@ Phases, one line each:
  35. eq-profile: one warm eager EQ step and one replay of a train and an
      eval chunk under torch.profiler (K1, K2, K3 a step, no scatter
      kernel); the eq-fit's checks.
+ 36. ar-data (before any CUDA graph, as ar-kernels): synthetic AR decoy
+     and native pairs (write_ar_pairs: 16 / 4 / 4 pairs, training chains
+     of 150-700 residues cropped to 250, evaluation chains of 100-380), each
+     split's first pass, a shuffled training epoch's batches (the crops
+     featurized anew, with the hybrid kNN graph of 128 + 2 x 12 rows an
+     atom): host ms a batch to featurize, pack and sort, and to pin, real
+     nodes and edge rows against the bucket's 4,096 and 622,592;
+ 37. ar-kernels: K1, K2 and K3 at an AR training batch (622,592 CSR rows
+     into 4,096 nodes; the 4-layer GCP3 stack with silu on scalars and
+     vectors and the vector gate, [E, 420] -> [E, 196]) against their
+     plain versions, fp32 and bf16, with their times, bounds and shares of
+     them, K2's and K3's tiles (K2's weight buffers) and their shared memory;
+ 38. ar-check: one fp32 AR training step on the card against the CPU (2
+     layers, one pair, no dropout), and the bf16 step's gradients against
+     the fp32 step's on the card;
+ 39. ar-fit: the AR path, the full-width, full-depth AR model (4
+     GCPInteractions2 layers with the position update) fitted by the
+     Trainer in bf16 over float32 masters with scan_chunk_size 4 for 2
+     epochs with checkpoints, a resume to a third, and the best
+     checkpoint's test: epoch seconds, train graphs/s, val and test RMSE;
+     the deterministic parity run;
+ 40. ar-profile: one warm eager AR step and one replay of a train and an
+     eval chunk under torch.profiler (K1, K2, K3 a step, no scatter
+     kernel), the host's ms a batch against the step's; the ar-fit's
+     checks;
+ 41. ar-predict: the fitted model refines one decoy of 1,600 residues
+     (two windows of the prediction path, in a bucket of 8,192 nodes that
+     holds a window) through gcpnet_torch.predict_ar: the stitched refined
+     PDB, its scores against the native, ms a decoy, the served window
+     positions against an eager forward's.
 Every profiled training step lists the scatter kernels it ran (none
 allowed; a replay's read from its graph's kernel nodes).  Then the total time, one JSON line with every kernel's numbers (at the NMS,
-RS, PSR, CPD and EQ shapes too), the nvidia-smi line, and the final status
+RS, PSR, CPD, EQ and AR shapes too), the nvidia-smi line, and the final status
 line.  Any failed phase exits non-zero; without a CUDA device
 the script exits non-zero before printing any result.  Full measurements go
 to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
@@ -170,6 +200,7 @@ to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import gc
 import itertools
@@ -186,6 +217,8 @@ import time
 import numpy as np
 import torch
 
+from gcpnet_torch.data.ar import ARDataModule
+from gcpnet_torch.data.ar_synthetic import write_ar_pairs, write_pair
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
 from gcpnet_torch.data.batching import Bucket, batches_from_dataset
 from gcpnet_torch.data.cath import CATHDataModule
@@ -194,6 +227,7 @@ from gcpnet_torch.data.eq import EQDataModule
 from gcpnet_torch.data.eq_synthetic import write_eq_decoys
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
+from gcpnet_torch.models.ar import ar_loss
 from gcpnet_torch.models.cpd import cpd_loss
 from gcpnet_torch.models.cpd_eval import datum_recovery, evaluate_cpd
 from gcpnet_torch.models.eq import eq_loss
@@ -209,13 +243,18 @@ from gcpnet_torch.ops.edge_map import (
     edge_map_backward,
     edge_map_backward_plain,
     edge_map_plain,
-    max_kink_rows,
+    k2_layout,
+    k3_tile,
     kink_margins,
+    max_kink_rows,
 )
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.predict import DTYPES, Predictor, build_model, lba_configs, predict, synthetic_batches
+from gcpnet_torch.predict_ar import refine
 from gcpnet_torch.train.cli import (
     FIT_DEFAULTS,
+    ar_configs,
+    build_ar_trainer,
     build_atom3d_trainer,
     build_cpd_trainer,
     build_eq_trainer,
@@ -325,16 +364,40 @@ NMS_VAL_RTOL = 1e-5
 # float32 masters).  No EQ decoys and no ESM-2 checkpoint are on the card's
 # machine: the decoy/native pairs are synthetic (write_eq_decoys: natives
 # of 100-700 residues, about 8.5 heavy atoms each, decoys with 0.3-4 A of
-# noise, a seeded ESM cache file a sequence), cut to 8 / 2 / 2 targets of 8
+# noise, a seeded ESM cache file a sequence), cut to 4 / 2 / 2 targets of 8
 # decoys; the fit runs 2 of its up to 1,000 epochs and a resume for a
 # third; eq-check cuts to 2 layers and one decoy of 60-100 residues in a
 # bucket of 1,024 nodes and 128 residues.
-EQ_TARGETS = {"train": 8, "valid": 2, "test": 2}
+EQ_TARGETS = {"train": 4, "valid": 2, "test": 2}
 EQ_DECOYS = 8
 EQ_RESIDUES = (100, 700)
 EQ_BUCKET, EQ_MAX_RESIDUES = (8192, 8192 * 32), 1100
 EQ_EPOCHS, EQ_RESUME_EPOCHS = 2, 3
 EQ_CHECK_LAYERS, EQ_CHECK_NODES, EQ_CHECK_RESIDUES = 2, 1024, 128
+# AR (configs/model/gcpnet_ar.yaml, the experiment gcpnet_ar): GCP3 with
+# silu on scalars and vectors and the vector gate (1,338 node scalars:
+# residue and atom-name one-hots and ESM-2; 29 edge scalars; hidden
+# 100/32/16/4; 4 GCPInteractions2 layers of 4-layer message stacks with
+# scalar message attention, sums over senders and the position update;
+# dropout 0; Adam at 1e-4 without a scheduler; seed 42; one decoy a batch
+# in the JAX bucket of 4,096 nodes, 622,592 edge rows (k_max 128 + 2 x
+# k_min 12 an atom) and 600 residues; a 250-residue training crop; bf16
+# over float32 masters).  No AF2 decoys, natives or AR split lists and no
+# ESM-2 checkpoint are on the card's machine: the pairs are synthetic
+# (write_ar_pairs: natives of ideal backbones with side chains, about 8.5
+# heavy atoms a residue, decoys with 0.5-3 A of smooth noise, a seeded ESM
+# cache file a sequence), cut to 16 / 4 / 4 pairs; the fit runs 2 of its
+# up to 1,000 epochs and a resume for a third; ar-check cuts to 2 layers
+# and one pair of 60-100 residues in a bucket of 1,024 nodes; ar-predict
+# refines one decoy of AR_PREDICT_RESIDUES residues (over the JAX module's
+# 1,500-residue split, so two windows) in a bucket of 8,192 nodes, which
+# holds a 900-residue window (~7,650 atoms; the training bucket's 4,096
+# does not).
+AR_PAIRS = {"train": 16, "valid": 4, "test": 4}
+AR_BUCKET, AR_MAX_RESIDUES = (4096, 4096 * 152), 600
+AR_EPOCHS, AR_RESUME_EPOCHS = 2, 3
+AR_CHECK_LAYERS, AR_CHECK_NODES, AR_CHECK_RESIDUES = 2, 1024, 128
+AR_PREDICT_RESIDUES, AR_PREDICT_NODES, AR_PREDICT_MAX_RESIDUES = 1600, 8192, 1000
 # determinism: two eager fp32 RS runs of this many steps, without
 # torch.use_deterministic_algorithms, must end with equal parameters
 DETERMINISM_STEPS = 16
@@ -1001,8 +1064,8 @@ def reset_counts() -> None:
 # K1 launches a model runs outside its interaction layers, in the forward:
 # the centring's graph mean, the embedding's node frames, and the head's
 # node frames and pool (LBA, PSR, RS: the graph pool; EQ: the residue
-# mean; CPD: node frames alone; NMS: no head)
-K1_FIXED = {"lba": 4, "psr": 4, "rs": 4, "eq": 4, "nms": 2, "cpd": 3}
+# mean; CPD: node frames alone; NMS and AR: no head)
+K1_FIXED = {"lba": 4, "psr": 4, "rs": 4, "eq": 4, "nms": 2, "cpd": 3, "ar": 2}
 
 
 def k1_steps(task: str, layers: int, decoders: int = 0) -> tuple:
@@ -1771,6 +1834,7 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
     results["resumed_step"] = resumed.state.step
     results["resumed_weights_equal"] = same
     resumed.fit(dm, resume=True)
+    final_step = resumed.state.step  # before the best checkpoint's state replaces it
     best = resumed.restore_best()
     logged = resumed.ckpt.metrics(best)["val/loss"]
     again = resumed.eval_epoch(dm.val_batches())["val/loss"]
@@ -1787,7 +1851,7 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
         "best_val_loss_logged": logged,
         "best_val_loss_again": again,
         "test": test,
-        "final_step": resumed.state.step,
+        "final_step": final_step,
     })
     check(results["final_step"] == steps * NMS_RESUME_EPOCHS // NMS_EPOCHS, "nms-fit: resumed steps")
     results.update(_profile_steps(resumed, dm, nms_loss, layers, k1_steps("nms", layers)))
@@ -2174,6 +2238,8 @@ def phase_psr_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
                     scan_chunk_size=FIT_CHUNK)
     resumed.fit(dm, resume=True)
     results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
+    # the step the fit ended at, before the best checkpoint's state replaces it
+    results["final_step"] = resumed.state.step
     results["best_step"] = resumed.restore_best()
     results["test"] = test = resumed.test(dm)
     torch.cuda.synchronize()
@@ -2184,7 +2250,6 @@ def phase_psr_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
         | {"train_graphs_per_s": line["train/steps_per_sec"] * graphs_per_batch}
         for line in epochs
     ]
-    results["final_step"] = resumed.state.step
     print("phase psr-fit: " + json.dumps(results), flush=True)
     check([line["epoch"] for line in epochs] == list(range(PSR_RESUME_EPOCHS)), "psr-fit: epochs run")
     for line in results["epochs"]:
@@ -2390,6 +2455,8 @@ def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
                     scan_chunk_size=FIT_CHUNK)
     resumed.fit(dm, resume=True)
     results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
+    # the step the fit ended at, before the best checkpoint's state replaces it
+    results["final_step"] = resumed.state.step
     results["best_step"] = resumed.restore_best()
     results["test"] = test = resumed.test(dm)
     torch.cuda.synchronize()
@@ -2400,7 +2467,6 @@ def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
         | {"train_graphs_per_s": line["train/steps_per_sec"] * graphs_per_batch}
         for line in epochs
     ]
-    results["final_step"] = resumed.state.step
     print("phase cpd-fit: " + json.dumps(results), flush=True)
     check([line["epoch"] for line in epochs] == list(range(CPD_RESUME_EPOCHS)), "cpd-fit: epochs run")
     for line in results["epochs"]:
@@ -2669,6 +2735,8 @@ def phase_eq_fit(root: str, ckpt_dir: str):
     resumed = build(max_epochs=EQ_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
                     scan_chunk_size=FIT_CHUNK)
     resumed.fit(dm, resume=True)
+    # the step the fit ended at, before the best checkpoint's state replaces it
+    results["final_step"] = resumed.state.step
     results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
     results["best_step"] = resumed.restore_best()
     results["test"] = test = resumed.test(dm)
@@ -2680,7 +2748,6 @@ def phase_eq_fit(root: str, ckpt_dir: str):
         | {"train_graphs_per_s": line["train/steps_per_sec"]}
         for line in epochs
     ]
-    results["final_step"] = resumed.state.step
     print("phase eq-fit: " + json.dumps(results), flush=True)
     check([line["epoch"] for line in epochs] == list(range(EQ_RESUME_EPOCHS)), "eq-fit: epochs run")
     for line in results["epochs"]:
@@ -2705,6 +2772,270 @@ def phase_eq_profile(trainer, dm, fit: dict) -> dict:
     print("phase eq-profile: " + json.dumps(results), flush=True)
     _fit_checks("eq-fit", {**fit, **results}, layers, None, k1, k3="K3_bf16")
     print("phase eq-profile: ok")
+    return results
+
+
+def ar_datamodule(root: str, max_nodes: int = AR_BUCKET[0], max_residues: int = AR_MAX_RESIDUES, **kw) -> ARDataModule:
+    dm = ARDataModule.from_data_dir(root, batch_size=1, max_nodes_per_batch=max_nodes,
+                                    max_residues_per_batch=max_residues, **kw)
+    dm.prepare_data()
+    dm.setup()
+    return dm
+
+
+def phase_ar_data(root: str):
+    """Synthetic AR pairs written (write_ar_pairs) and read (ARDataModule):
+    each split's first pass (parsing, the ESM cache, the hybrid kNN graph,
+    the pair features and the native's positions; the evaluation graphs
+    then cached, as the JAX module caches its uncropped graphs), then one
+    shuffled training epoch's batches as the Trainer's prefetch thread
+    makes them (each a 250-residue crop featurized anew, packed, sorted
+    and given the sorted indices), and pinned: ms a batch for each; each
+    batch's real nodes and edge rows against the bucket's."""
+    t0 = time.perf_counter()
+    written = write_ar_pairs(root, seed=SEED, pairs=AR_PAIRS)
+    write_seconds = time.perf_counter() - t0
+    dm = ar_datamodule(root)
+    first_pass = {}
+    for split in ("train", "valid", "test"):
+        t0 = time.perf_counter()
+        graphs = sum(1 for _ in dm._graphs(split, split == "train", 0))
+        first_pass[split] = {"graphs": graphs, "seconds": time.perf_counter() - t0}
+    fills, make_ms, pin_ms = _timed_batches(dm.train_batches(seed=0), AR_BUCKET)
+    moves = np.concatenate([np.linalg.norm(b.extras["label"] - b.x, axis=-1)[b.node_pad_mask]
+                            for b in dm.val_batches()])
+    keys = ("real_nodes", "real_edges", "edge_padding_share", "node_padding_share")
+    results = {
+        **written, "write_seconds": write_seconds, "first_pass": first_pass,
+        "featurize_ms_per_decoy": 1e3 * first_pass["train"]["seconds"] / first_pass["train"]["graphs"],
+        "train_batches": len(fills),
+        "host_ms_per_batch": {"mean": float(np.mean(make_ms)), "max": float(np.max(make_ms))},
+        "pin_ms_per_batch": {"mean": float(np.mean(pin_ms)), "max": float(np.max(pin_ms))},
+        "bucket": {"nodes": AR_BUCKET[0], "edges": AR_BUCKET[1], "graphs": 1, "residues": AR_MAX_RESIDUES},
+        "fill_min_mean_max": {k: [float(f(np.asarray([x[k] for x in fills]))) for f in (np.min, np.mean, np.max)]
+                              for k in keys},
+        "val_decoy_to_native_mean_std": [float(moves.mean()), float(moves.std())],
+        "cuts": {"pairs": dict(AR_PAIRS), "epochs": [AR_EPOCHS, AR_RESUME_EPOCHS],
+                 "data": "synthetic pairs and ESM cache, not AR"},
+    }
+    print("phase ar-data: " + json.dumps(results), flush=True)
+    check(written["decoys"] == AR_PAIRS and {k: v["graphs"] for k, v in first_pass.items()} == AR_PAIRS,
+          f"ar-data: pairs written {written['decoys']}, featurized {first_pass}")
+    check(len(fills) == AR_PAIRS["train"] and all(x["in_bucket"] for x in fills),
+          "ar-data: a batch outside the bucket or without its CSR splits")
+    check(0.3 < moves.mean() < 5.0, f"ar-data: decoy to native {results['val_decoy_to_native_mean_std']}")
+    print("phase ar-data: ok")
+    return dm, results
+
+
+def ar_message_passing() -> GCPMessagePassing:
+    """One AR layer's message passing (4 GCP3 layers with silu and the
+    vector gate, hidden 100/32, edges 16/4, the attention and the sum over
+    senders), random weights from the seed."""
+    model_cfg, module_cfg, layer_cfg = ar_configs()
+    node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
+    edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
+    return GCPMessagePassing(
+        node_dims, node_dims, edge_dims, module_cfg, layer_cfg, reduce_function="sum",
+        use_scalar_message_attention=True, aggregate_with_row=True,
+        generator=torch.Generator().manual_seed(SEED), device="cuda",
+    )
+
+
+def phase_ar_kernels(dm) -> dict:
+    """K1, K2 and K3 at the AR step's shape (a training batch: the bucket's
+    622,592 receiver-sorted CSR rows into 4,096 nodes), fp32 and bf16, an
+    AR layer's GCP3 stack with silu (no kink: K3 fp32 is held with every
+    row); K2's and K3's tile rows (K2's weight buffers) with their shared
+    memory.
+    The timed batch's real nodes and edge rows are printed beside them."""
+    batch = next(dm.train_batches(seed=0))
+    fill = _batch_fill(batch)
+    mp = ar_message_passing()
+    tiles = {}
+    for dname, dtype in DTYPES.items():
+        with torch.no_grad():
+            stack = mp.to(dtype).packed_stack()
+        (k2_rows, nbuf, k2_smem), (rows, k3_smem) = k2_layout(stack, dtype), k3_tile(stack, dtype)
+        tiles[dname] = {"K2_tile_rows": k2_rows, "K2_weight_buffers": nbuf, "K2_smem_bytes": k2_smem,
+                        "K3_tile_rows": rows, "K3_smem_bytes": k3_smem}
+    print("phase ar-kernels: tiles " + json.dumps(tiles), flush=True)
+    results = {
+        "K1": phase_k1({1: batch}, d_out=100 + 3 * 32, name="ar-K1"),
+        "K2": phase_k2(batch, mp, name="ar-K2"),
+        "K3": phase_k3(batch, mp, name="ar-K3", full_bound=False),
+    }
+    for kernel, res in results.items():
+        for key, r in res.items():
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print("phase ar-kernels: ok " + json.dumps({"batch": fill, "tiles": tiles} | {
+        k: {d: {key: r[key] for key in ("ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms", "library_ms")}
+            for d, r in res.items()}
+        for k, res in results.items()
+    }))
+    return {"batch": fill, "tiles": tiles, **results}
+
+
+def _ar_model(dev, layers: int, dtype: torch.dtype = torch.float32):
+    """The AR model at full width with ``layers`` layers, weights from
+    SEED, and a train state (Adam at 1e-4) computing in ``dtype``."""
+    trainer = build_ar_trainer(SEED, dev, num_encoder_layers=layers, precision=16 if dtype == torch.bfloat16 else 32)
+    return trainer.model, trainer.state
+
+
+def phase_ar_check(root: str) -> dict:
+    """The AR step at AR_CHECK_LAYERS layers on one pair of 60-100 residues
+    (written under ``root``, apart from the fit's, in a bucket of
+    AR_CHECK_NODES nodes): fp32 on the card against the CPU
+    (card_vs_cpu_step: loss, gradient norm, every gradient, the updated
+    parameters by the share apart, as eq-check), then the bf16 step's
+    gradients against the fp32 step's on the card (BF16_STEP_TOL)."""
+    write_ar_pairs(root, seed=SEED + 1, pairs={"valid": 1}, eval_residues=(60, 100))
+    dm = ar_datamodule(root, AR_CHECK_NODES, AR_CHECK_RESIDUES)
+    batch = next(dm.val_batches())
+    results = {"fp32": card_vs_cpu_step("ar-check", lambda dev: _ar_model(dev, AR_CHECK_LAYERS), batch, ar_loss,
+                                        AR_CHECK_LAYERS, params_by_share=True)}
+    k1 = 2 * k1_steps("ar", AR_CHECK_LAYERS)[0]
+    want = {"K1": k1, "K2": 2 * AR_CHECK_LAYERS, "K3_bf16": AR_CHECK_LAYERS, "K3_fp32": AR_CHECK_LAYERS}
+    results["bf16"] = bf16_vs_fp32_step("ar-check", lambda dev, dtype: _ar_model(dev, AR_CHECK_LAYERS, dtype),
+                                        batch, ar_loss, want)
+    print("phase ar-check: ok")
+    return results
+
+
+def phase_ar_fit(root: str, ckpt_dir: str):
+    """The AR path: the full-width, full-depth AR model with the
+    experiment's defaults (bf16 over float32 masters, dropout 0, Adam at
+    1e-4, seed 42, one decoy a batch) fitted by the Trainer with
+    scan_chunk_size FIT_CHUNK for AR_EPOCHS epochs with checkpoints; a new
+    Trainer resumes from the last checkpoint to epoch AR_RESUME_EPOCHS and
+    tests the best checkpoint: seconds an epoch, train graphs/s, val and
+    test RMSE (A) on the synthetic pairs, peak memory.  Beside it the
+    deterministic parity run (fit_parity).  Every kernel count is set to 0
+    just before the fit and read just after (ar-profile checks them)."""
+    build = lambda seed=42, **kw: build_ar_trainer(seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    parity = fit_parity(build, ar_datamodule(root), ar_loss)
+    dm = ar_datamodule(root)
+    clock = EpochClock()
+    trainer = build(max_epochs=AR_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock], scan_chunk_size=FIT_CHUNK)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    clock.last = time.perf_counter()
+    trainer.fit(dm)
+    torch.cuda.synchronize()
+    results = {"launches": dict(zip(KERNEL_COUNTS, launch_counts())), "held_at_start_gb": held_gb,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "steps": trainer.state.step}
+    results.update(_fit_record(trainer, clock, None, FIT_LR), parity=parity)
+    resumed_clock = EpochClock()
+    resumed = build(max_epochs=AR_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
+                    scan_chunk_size=FIT_CHUNK)
+    resumed.fit(dm, resume=True)
+    # the step the fit ended at, before the best checkpoint's state replaces it
+    results["final_step"] = resumed.state.step
+    results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
+    results["best_step"] = resumed.restore_best()
+    results["test"] = test = resumed.test(dm)
+    torch.cuda.synchronize()
+    epochs = clock.lines + resumed_clock.lines[:-1]
+    results["epochs"] = [
+        {k: line[k] for k in ("epoch", "seconds", "train/loss", "train/steps_per_sec", "val/loss", "val/RMSE")}
+        | {"train_graphs_per_s": line["train/steps_per_sec"]}
+        for line in epochs
+    ]
+    print("phase ar-fit: " + json.dumps(results), flush=True)
+    check([line["epoch"] for line in epochs] == list(range(AR_RESUME_EPOCHS)), "ar-fit: epochs run")
+    for line in results["epochs"]:
+        check(all(math.isfinite(v) for v in line.values()), f"ar-fit: epoch line {line}")
+    check(all(math.isfinite(test[f"test/{m}"]) for m in ("loss", "RMSE")), f"ar-fit: test metrics {test}")
+    check(results["final_step"] == results["steps"] * AR_RESUME_EPOCHS // AR_EPOCHS, "ar-fit: resumed steps")
+    for graphs in (results["graphs"], results["resumed_graphs"]):
+        check(graphs["train_held"] <= 2 and graphs["eval_held"] <= 2, f"ar-fit: CUDA graphs held {graphs}")
+    print("phase ar-fit: ok")
+    return resumed, dm, results
+
+
+def phase_ar_profile(trainer, dm, fit: dict, data: dict) -> dict:
+    """One warm eager AR training step of the fitted model and one replay of
+    its captured train and eval chunks under torch.profiler (busy ms, idle
+    share, kernels: K2 and the bf16 K3 4 times a step, K1 as k1_steps
+    counts it, no scatter kernel); the host's ms to make a training batch
+    (ar-data) against a replayed step's busy ms; then the ar-fit's checks
+    that read them (_fit_checks)."""
+    layers = FIT_DEFAULTS["ar"]["num_encoder_layers"]
+    k1 = k1_steps("ar", layers)
+    results = _profile_steps(trainer, dm, ar_loss, layers, k1)
+    busy = results["profile_captured"]["device_busy_ms"]
+    step_ms = busy / FIT_CHUNK if isinstance(busy, float) else float("nan")
+    results["step_busy_ms"] = step_ms
+    results["host_batch_ms_over_step_busy_ms"] = data["host_ms_per_batch"]["mean"] / step_ms
+    print("phase ar-profile: " + json.dumps(results), flush=True)
+    _fit_checks("ar-fit", {**fit, **results}, layers, None, k1, k3="K3_bf16")
+    print("phase ar-profile: ok")
+    return results
+
+
+def phase_ar_predict(trainer, root: str) -> dict:
+    """The fitted model (fp32 copy of its weights) refines one decoy of
+    AR_PREDICT_RESIDUES residues through predict_ar.refine: its two
+    windows each one batch in a bucket of AR_PREDICT_NODES nodes, served
+    by a CUDA graph (Predictor), stitched into one refined PDB and scored
+    against the native (TM-score, GDT, MaxSub, RMSD, lDDT); ms a decoy
+    (the first decoy captures, a second pass over it replays); K1 and K2
+    launched in the first pass (the first window's eager run and capture;
+    the second window replays); the served positions of a window against
+    an eager forward's (FORWARD_ATOL, relative to their scale; ar-check
+    holds the card against the CPU)."""
+    inputs, natives, out = (os.path.join(root, d) for d in ("in", "native", "out"))
+    write_pair(root, "long", np.random.default_rng(SEED + 3), AR_PREDICT_RESIDUES)
+    for d in (inputs, natives):
+        os.makedirs(d, exist_ok=True)
+    os.replace(os.path.join(root, "AF2_model", "long.pdb"), os.path.join(inputs, "long.pdb"))
+    os.replace(os.path.join(root, "true_model", "long.pdb"), os.path.join(natives, "long.pdb"))
+    model = copy.deepcopy(trainer.model).float().eval()
+    dm = ARDataModule("", "", "", max_nodes_per_batch=AR_PREDICT_NODES, max_residues_per_batch=AR_PREDICT_MAX_RESIDUES,
+                      predict_input_dir=inputs, predict_true_dir=natives,
+                      esm_cache_dir=os.path.join(root, "model_data_cache", "esm"))
+    windows = [_batch_fill(b) for b in dm.predict_batches()]
+    dm._predict_meta.clear()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = refine(model, dm, out)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(zip(KERNEL_COUNTS, launch_counts()))
+    again = refine(model, dm, out)
+    batch = next(dm.predict_batches())
+    dm._predict_meta.clear()
+    served = Predictor(model)
+    with torch.inference_mode():
+        eager = model(batch.to(torch.device("cuda"))).float().cpu().numpy()
+        replayed = served(batch).float().cpu().numpy()
+        replayed = served(batch).float().cpu().numpy()
+    real = batch.node_pad_mask
+    err = float(np.abs(replayed[real] - eager[real]).max())
+    scale = float(np.abs(eager[real]).max())
+    results = {"windows": windows, "rows": rows, "ms_first_decoy": first_ms, "ms_per_decoy": again[0]["ms"],
+               "launches_first": launches, "served_vs_eager_max_abs": err, "position_scale": scale,
+               "bucket": {"nodes": AR_PREDICT_NODES, "edges": AR_PREDICT_NODES * 152}}
+    print("phase ar-predict: " + json.dumps(results), flush=True)
+    check(len(windows) == 2 and all(w["real_nodes"] <= AR_PREDICT_NODES for w in windows),
+          f"ar-predict: windows {windows}")
+    check(len(rows) == 1 and os.path.exists(rows[0]["refined_pdb"]), f"ar-predict: rows {rows}")
+    for key in ("TM-score", "GDT-TS", "GDT-HA", "MaxSub", "RMSD", "lDDT"):
+        check(math.isfinite(rows[0].get(key, float("nan"))), f"ar-predict: score {key} {rows[0]}")
+    with open(rows[0]["refined_pdb"]) as f:
+        atoms = sum(line.startswith("ATOM") for line in f)
+    check(atoms == sum(int(b.extras["overlap_keep_mask"].sum()) for b in dm.predict_batches()),
+          f"ar-predict: {atoms} atoms written")
+    dm._predict_meta.clear()
+    layers = FIT_DEFAULTS["ar"]["num_encoder_layers"]
+    want = {"K1": 2 * k1_steps("ar", layers)[1], "K2": 2 * layers, "K3_bf16": 0, "K3_fp32": 0}
+    check(launches == want, f"ar-predict: launches {launches}, want {want} (one window eager and captured)")
+    check(err <= FORWARD_ATOL * max(1.0, scale), f"ar-predict: served vs eager {err} at scale {scale}")
+    print("phase ar-predict: ok")
     return results
 
 
@@ -2735,7 +3066,8 @@ def kernel_line(report) -> dict:
     fit; under "psr" at the PSR step's shape and the PSR fit (bf16, so the
     fp32 K3's count is 0); under "cpd" at the CPD step's shape and the CPD
     fit (bf16; K1 a step as k1_steps counts it); under "eq" at the EQ
-    step's shape and the EQ fit (bf16)."""
+    step's shape and the EQ fit (bf16); under "ar" at the AR step's shape
+    (the silu stack) and the AR fit (bf16)."""
     k1, k2, k3 = report["K1"], report["K2"], report["K3"]
     forward, train, train_fp32 = report["forward"], report["train"], report["train_fp32"]
     nk, rk, pk = report["nms_kernels"], report["rs_kernels"], report["psr_kernels"]
@@ -2750,6 +3082,7 @@ def kernel_line(report) -> dict:
     psr_steps = per_step(report["psr_profile"])
     ck, cpd_steps = report["cpd_kernels"], per_step(report["cpd_profile"])
     ek, eq_steps = report["eq_kernels"], per_step(report["eq_profile"])
+    ak, ar_steps = report["ar_kernels"], per_step(report["ar_profile"])
 
     def row(name, source, replaces, run, count, main, dtype, **extra):
         return {
@@ -2777,7 +3110,8 @@ def kernel_line(report) -> dict:
                 rs=nms(rk["K1"], rs_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
                 psr=nms(pk["K1"], psr_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
                 cpd=nms(ck["K1"], cpd_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
-                eq=nms(ek["K1"], eq_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
+                eq=nms(ek["K1"], eq_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
+                ar=nms(ak["K1"], ar_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
             row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train, "K2",
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
                 bound_rate=k2["bf16"]["bound_rate"],
@@ -2786,14 +3120,16 @@ def kernel_line(report) -> dict:
                 rs=nms(rk["K2"], rs_steps["K2"], fp32="fp32", bf16="bf16"),
                 psr=nms(pk["K2"], psr_steps["K2"], fp32="fp32", bf16="bf16"),
                 cpd=nms(ck["K2"], cpd_steps["K2"], fp32="fp32", bf16="bf16"),
-                eq=nms(ek["K2"], eq_steps["K2"], fp32="fp32", bf16="bf16")),
+                eq=nms(ek["K2"], eq_steps["K2"], fp32="fp32", bf16="bf16"),
+                ar=nms(ak["K2"], ar_steps["K2"], fp32="fp32", bf16="bf16")),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train, "K3_bf16",
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3_bf16"],
                 bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps["K3_bf16"], bf16="bf16"),
                 rs=nms(rk["K3"], rs_steps["K3_bf16"], bf16="bf16"),
                 psr=nms(pk["K3"], psr_steps["K3_bf16"], bf16="bf16"),
                 cpd=nms(ck["K3"], cpd_steps["K3_bf16"], bf16="bf16"),
-                eq=nms(ek["K3"], eq_steps["K3_bf16"], bf16="bf16")),
+                eq=nms(ek["K3"], eq_steps["K3_bf16"], bf16="bf16"),
+                ar=nms(ak["K3"], ar_steps["K3_bf16"], bf16="bf16")),
             row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32, "K3_fp32",
                 k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"],
                 bound_ms_cuda_cores=k3["fp32"]["bound_ms_cuda_cores"],
@@ -2801,7 +3137,8 @@ def kernel_line(report) -> dict:
                 rs=nms(rk["K3"], rs_steps["K3_fp32"], fp32="fp32"),
                 psr=nms(pk["K3"], psr_steps["K3_fp32"], fp32="fp32"),
                 cpd=nms(ck["K3"], cpd_steps["K3_fp32"], fp32="fp32"),
-                eq=nms(ek["K3"], eq_steps["K3_fp32"], fp32="fp32")),
+                eq=nms(ek["K3"], eq_steps["K3_fp32"], fp32="fp32"),
+                ar=nms(ak["K3"], ar_steps["K3_fp32"], fp32="fp32")),
         ]
     }
 
@@ -2831,7 +3168,8 @@ def main() -> int:
     psr_root, psr_ckpt_dir = os.path.join(work, "atom3d"), os.path.join(args.out_dir, "psr_checkpoints")
     cpd_root, cpd_ckpt_dir = os.path.join(work, "cath"), os.path.join(args.out_dir, "cpd_checkpoints")
     eq_root, eq_ckpt_dir = os.path.join(work, "eq"), os.path.join(args.out_dir, "eq_checkpoints")
-    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir):
+    ar_root, ar_ckpt_dir = os.path.join(work, "ar"), os.path.join(args.out_dir, "ar_checkpoints")
+    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir):
         shutil.rmtree(path, ignore_errors=True)
     report = {}
     try:
@@ -2856,6 +3194,9 @@ def main() -> int:
         eq_dm, report["eq_data"] = phase_eq_data(eq_root)
         report["eq_kernels"] = phase_eq_kernels(eq_dm)
         del eq_dm
+        ar_dm, report["ar_data"] = phase_ar_data(ar_root)
+        report["ar_kernels"] = phase_ar_kernels(ar_dm)
+        del ar_dm
         report["forward"] = phase_forward(batches)
         report["train"] = phase_train(batches[0])
         report["train_fp32"] = phase_train(batches[0], torch.float32)
@@ -2887,11 +3228,17 @@ def main() -> int:
         report["eq_check"] = phase_eq_check(os.path.join(work, "eq_check"))
         eq_trainer, eq_dm, report["eq_fit"] = phase_eq_fit(eq_root, eq_ckpt_dir)
         report["eq_profile"] = phase_eq_profile(eq_trainer, eq_dm, report["eq_fit"])
+        del eq_trainer, eq_dm
+        report["ar_check"] = phase_ar_check(os.path.join(work, "ar_check"))
+        ar_trainer, ar_dm, report["ar_fit"] = phase_ar_fit(ar_root, ar_ckpt_dir)
+        report["ar_profile"] = phase_ar_profile(ar_trainer, ar_dm, report["ar_fit"], report["ar_data"])
+        report["ar_predict"] = phase_ar_predict(ar_trainer, os.path.join(work, "ar_predict"))
+        del ar_trainer, ar_dm
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
-        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir):
+        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir):
             shutil.rmtree(path, ignore_errors=True)
         report["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:

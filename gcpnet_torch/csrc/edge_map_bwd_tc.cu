@@ -15,7 +15,7 @@
 //
 // Per layer (K2's math, edge_map_tc.cu), with cotangents dY of the scalars
 // and dV of the vectors after it:
-// (act_s, act_v: the identity, relu or leaky relu, act' their derivatives)
+// (act_s, act_v: the identity, relu, leaky relu or silu, act' their derivatives)
 //   vector gate: dG = sigmoid'(G) (dV . vu) (G the gate logits), dvu = dV g
 //   norm gate:   dvu = dV g + act_v'(n) (dV . vu) vu / sqrt(|vu|^2 + eps)
 //   dS = dY act_s'(S) (+ (dG Wg^T) act_v'(S)),  dWg = act_v(S)^T dG
@@ -32,7 +32,8 @@
 // 0.21 ms).
 //
 // Design:
-// - Tiles of R rows (bf16 64, float32 32), 512 threads, one block per SM.
+// - Tiles of R rows (bf16 64, float32 32; half as many for a stack too wide
+//   for them, tile_rows), 512 threads, one block per SM.
 //   The tile's activations, one layer's staged weights (layer 0's Wso is
 //   the largest: [256][104] in bf16, two chunks of [104][128] in float32,
 //   one in shared memory at a time), the float32 cotangents of the state
@@ -76,7 +77,8 @@
 namespace {
 
 using gcp::act;
-using gcp::ActGrad;
+using gcp::sigmoid;
+using gcp::with_act_grad;
 using gcp::kEps;
 using gcp::kFrameLd;
 using gcp::Layer;
@@ -99,12 +101,32 @@ constexpr int kCut = K3_CUT;
 template <typename T>
 constexpr int kRows = sizeof(T) == 2 ? kTile : kTile / 2;
 
+// Shared-memory bytes of a tile of R rows.
+template <typename T, int R>
+size_t tile_smem(const Geom& g) {
+  Smem<T> unused;
+  return carve<T, R>(nullptr, g, &unused, 1, true);
+}
+
+// The tile height a stack takes: kRows<T>, or half as many rows where
+// kRows<T>'s tile does not fit a block's shared memory (wide stacks, such
+// as AR's: 68 vector channels in, 32 out); 0 where neither fits.  *smem
+// gets the chosen tile's bytes.
+template <typename T>
+int tile_rows(const Geom& g, size_t* smem) {
+  *smem = tile_smem<T, kRows<T>>(g);
+  if (*smem <= static_cast<size_t>(kMaxSmem)) return kRows<T>;
+  *smem = tile_smem<T, kRows<T> / 2>(g);
+  if (*smem <= static_cast<size_t>(kMaxSmem)) return kRows<T> / 2;
+  return 0;
+}
+
 // P[m * N + n] += sum over rows r < rows_red of A(r, m) G(r, n), for m < M,
 // n < N: one tile's contribution to a weight gradient, added to the block's
 // float32 partial (no other block writes it).  A [rows_red][lda] and
 // G [rows_red][ldg] are tile arrays; with kActA, A goes through the
 // activation act_a (gemm's).
-template <bool kActA = false, typename T>
+template <int kActA = 0, typename T>
 __device__ __forceinline__ void wgrad(const T* A, int lda, int M, Act act_a, const T* G, int ldg, int N,
                                       int rows_red, float* P) {
   if constexpr (kCut == kNoWeightGrads) return;
@@ -139,49 +161,53 @@ __device__ __forceinline__ void bias_grad(const T* G, int ldg, int N, float* P) 
 // pass_through: ResGCP), or, for layer 0 (dmsg != nullptr), into d msg's
 // rows.  s.wso holds Wso's last chunk; the others (float32) are copied
 // from image.
-template <typename T, int R>
+template <typename T, int R, bool kSilu>
 __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, const char* image, float* P,
                                bool pass_through, T* dmsg, int rows) {
   constexpr bool kWT = kWeightsT<T>;
   const int tid = threadIdx.x;
   const int h = L.h, hk = h + 9, K = L.s_in + hk;
   const int in_dim = L.s_in + 3 * L.v_in;
-  // the gates, elementwise: dG over G, dU over U
-  for (int i = tid; i < R * L.v_out; i += kThreads) {
-    const int r = i / L.v_out, o = i - r * L.v_out;
-    float u[3], dv[3];
+  // the gates, elementwise: dG over G, dU over U (a copy for silu's
+  // derivative in the norm gate)
+  with_act_grad<kSilu>(L.vgate ? 0 : L.act_v, L.slope, [&](auto act_v_grad) {
+    for (int i = tid; i < R * L.v_out; i += kThreads) {
+      const int r = i / L.v_out, o = i - r * L.v_out;
+      float u[3], dv[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      u[c] = f(s.U[(r * 3 + c) * g.ldv + o]) + (L.vres ? f(s.X[(r * 3 + c) * g.ldx + o]) : 0.f);
-      dv[c] = s.dV[(r * 3 + c) * g.ldvf + o];
+      for (int c = 0; c < 3; ++c) {
+        u[c] = f(s.U[(r * 3 + c) * g.ldv + o]) + (L.vres ? f(s.X[(r * 3 + c) * g.ldx + o]) : 0.f);
+        dv[c] = s.dV[(r * 3 + c) * g.ldvf + o];
+      }
+      const float dg = dv[0] * u[0] + dv[1] * u[1] + dv[2] * u[2];
+      float du[3];
+      if (L.vgate) {
+        const float gt = sigmoid(f(s.G[r * g.ldv + o]));
+        store_f(s.G + r * g.ldv + o, dg * gt * (1.f - gt));
+#pragma unroll
+        for (int c = 0; c < 3; ++c) du[c] = dv[c] * gt;
+      } else if (L.act_v) {
+        const float rt = sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps);
+        const float n = rt + kEps;
+        const float gt = act<kSilu>(n, L.act_v, L.slope);
+        const float dn = dg * act_v_grad(n) / rt;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) du[c] = dv[c] * gt + dn * u[c];
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) du[c] = dv[c];
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) store_f(s.U + (r * 3 + c) * g.ldv + o, du[c]);
     }
-    const float dg = dv[0] * u[0] + dv[1] * u[1] + dv[2] * u[2];
-    float du[3];
-    if (L.vgate) {
-      const float gt = 1.f / (1.f + expf(-f(s.G[r * g.ldv + o])));
-      store_f(s.G + r * g.ldv + o, dg * gt * (1.f - gt));
-#pragma unroll
-      for (int c = 0; c < 3; ++c) du[c] = dv[c] * gt;
-    } else if (L.act_v) {
-      const float rt = sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps);
-      const float n = rt + kEps;
-      const float gt = act(n, L.act_v, L.slope);
-      const float dn = dg * ActGrad(L.act_v, L.slope)(n) / rt;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) du[c] = dv[c] * gt + dn * u[c];
-    } else {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) du[c] = dv[c];
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) store_f(s.U + (r * 3 + c) * g.ldv + o, du[c]);
-  }
-  const ActGrad act_s_grad(L.act_s, L.slope);
+  });
   if (!L.vgate) {
-    for (int i = tid; i < R * L.s_out; i += kThreads) {
-      const int r = i / L.s_out, o = i - r * L.s_out;
-      store_f(s.dS + r * g.lds + o, s.dY[r * g.ldy + o] * act_s_grad(f(s.S[r * g.lds + o])));
-    }
+    with_act_grad<kSilu>(L.act_s, L.slope, [&](auto act_s_grad) {
+      for (int i = tid; i < R * L.s_out; i += kThreads) {
+        const int r = i / L.s_out, o = i - r * L.s_out;
+        store_f(s.dS + r * g.lds + o, s.dY[r * g.ldy + o] * act_s_grad(f(s.S[r * g.lds + o])));
+      }
+    });
   }
   __syncthreads();
   const T* dG = s.G;
@@ -189,21 +215,25 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
   if (L.vgate) {
     // dS = dY act_s'(S) + (dG Wg^T) act_v'(S);  dWg += act_v(S)^T dG;  dbg
     if constexpr (kCut != kNoBackwardProducts) {
-      const ActGrad act_v_grad(L.act_v, L.slope);
-      gemm<T, false, !kWT>(dG, g.ldv, s.wg, g.ld_wg, R, pad8(L.s_out), padk<T>(L.v_out), Act{},
-                           ZeroInit{}, [&](int m, int n, float v0, float v1) {
-                             const float v[2] = {v0, v1};
+      // one copy of the product a pair of derivatives (ActGrad or SiluGrad)
+      with_act_grad<kSilu>(L.act_s, L.slope, [&](auto act_s_grad) {
+        with_act_grad<kSilu>(L.act_v, L.slope, [&](auto act_v_grad) {
+          gemm<T, false, !kWT>(dG, g.ldv, s.wg, g.ld_wg, R, pad8(L.s_out), padk<T>(L.v_out), Act{}, ZeroInit{},
+                               [&](int m, int n, float v0, float v1) {
+                                 const float v[2] = {v0, v1};
 #pragma unroll
-                             for (int j = 0; j < 2; ++j) {
-                               if (n + j >= L.s_out) break;
-                               const float sv = f(s.S[m * g.lds + n + j]);
-                               store_f(s.dS + m * g.lds + n + j,
-                                       s.dY[m * g.ldy + n + j] * act_s_grad(sv) + v[j] * act_v_grad(sv));
-                             }
-                           });
+                                 for (int j = 0; j < 2; ++j) {
+                                   if (n + j >= L.s_out) break;
+                                   const float sv = f(s.S[m * g.lds + n + j]);
+                                   store_f(s.dS + m * g.lds + n + j,
+                                           s.dY[m * g.ldy + n + j] * act_s_grad(sv) + v[j] * act_v_grad(sv));
+                                 }
+                               });
+        });
+      });
     }
     if (L.act_v) {
-      wgrad<true>(s.S, g.lds, L.s_out, Act{L.act_v, L.slope}, dG, g.ldv, L.v_out, R, P + L.off_wg);
+      wgrad<kSilu ? 2 : 1>(s.S, g.lds, L.s_out, Act{L.act_v, L.slope}, dG, g.ldv, L.v_out, R, P + L.off_wg);
     } else {
       wgrad(s.S, g.lds, L.s_out, Act{}, dG, g.ldv, L.v_out, R, P + L.off_wg);
     }
@@ -325,13 +355,12 @@ __host__ __device__ inline long long slot_offset(const Stack& st, int l) {
   return off;
 }
 
-template <typename T>
+template <typename T, int R, bool kSilu>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_map_bwd_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, const T* __restrict__ gout,
                        const char* __restrict__ images, const Stack st, const Geom g, T* __restrict__ dmsg,
                        float* __restrict__ partials, T* __restrict__ scratch, long long w_len,
                        long long stash_len, long long num_edges) {
-  constexpr int R = kRows<T>;
   extern __shared__ float4 smem4[];
   Smem<T> s;
   const size_t smem_bytes = carve<T, R>(reinterpret_cast<char*>(smem4), g, &s, 1, true);
@@ -371,9 +400,9 @@ edge_map_bwd_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, 
       const char* image = images + l * g.img_bytes;
       load_weights(s, g, L, image);
       __syncthreads();
-      layer_forward<T, R>(s, g, L, image, NoHook{});
+      layer_forward<T, R, kSilu>(s, g, L, image, NoHook{});
       if (l < nl - 1)
-        layer_output<T, R>(s, g, L, st.residual && l > 0,
+        layer_output<T, R, kSilu>(s, g, L, st.residual && l > 0,
                            kCut == kNoScratch ? nullptr : stash + slot_offset<R>(st, l + 1));
     }
     // the reverse sweep
@@ -388,9 +417,9 @@ edge_map_bwd_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, 
         }
         load_weights(s, g, L, image);
         __syncthreads();
-        if (kCut != kNoRecompute) layer_forward<T, R>(s, g, L, image, NoHook{});
+        if (kCut != kNoRecompute) layer_forward<T, R, kSilu>(s, g, L, image, NoHook{});
       }
-      layer_backward<T, R>(s, g, L, kWeightsT<T> ? images + l * g.img_bytes : nullptr, P, st.residual && l > 0,
+      layer_backward<T, R, kSilu>(s, g, L, kWeightsT<T> ? images + l * g.img_bytes : nullptr, P, st.residual && l > 0,
                            l == 0 ? dmsg + e0 * in_dim : nullptr, rows);
     }
   }
@@ -403,30 +432,49 @@ edge_map_bwd_tc_images(const float* __restrict__ W, const Stack st, const Geom g
   build_image<T>(W, st.l[blockIdx.x], g, images + static_cast<size_t>(blockIdx.x) * g.img_bytes);
 }
 
-template <typename T>
-int launch(const void* msg, const void* frames, const void* grad_out, const float* weights, const Stack& st,
-           void* d_msg, float* d_weights, void* images, float* partials, void* scratch, long long weights_len,
-           long long stash_len, long long num_edges, int grid, cudaStream_t s) {
-  constexpr int R = kRows<T>;
+template <typename T, int R, bool kSilu>
+int launch_rows(const void* msg, const void* frames, const void* grad_out, const float* weights, const Stack& st,
+                const Geom& g, size_t smem, void* d_msg, float* d_weights, void* images, float* partials,
+                void* scratch, long long weights_len, long long stash_len, long long num_edges, int grid,
+                cudaStream_t s) {
   if (stash_len < slot_offset<R>(st, st.n_layers)) return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g = geometry<T>(st);
-  Smem<T> unused;
-  const size_t smem = carve<T, R>(nullptr, g, &unused, 1, true);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (num_edges <= 0) return 0;
   char* img = static_cast<char*>(images);
   edge_map_bwd_tc_images<T><<<st.n_layers, kThreads, 0, s>>>(weights, st, g, img);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(edge_map_bwd_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(edge_map_bwd_tc_kernel<T, R, kSilu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  edge_map_bwd_tc_kernel<T><<<grid, kThreads, smem, s>>>(
+  edge_map_bwd_tc_kernel<T, R, kSilu><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(msg), static_cast<const T*>(frames), static_cast<const T*>(grad_out), img, st, g,
       static_cast<T*>(d_msg), partials, static_cast<T*>(scratch), weights_len, stash_len, num_edges);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return gcp::launch_sum_partials(partials, grid, weights_len, d_weights, s);
+}
+
+template <typename T>
+int launch(const void* msg, const void* frames, const void* grad_out, const float* weights, const Stack& st,
+           void* d_msg, float* d_weights, void* images, float* partials, void* scratch, long long weights_len,
+           long long stash_len, long long num_edges, int grid, cudaStream_t s) {
+  const Geom g = geometry<T>(st);
+  size_t smem;
+  const int rows = tile_rows<T>(g, &smem);
+  const bool silu = gcp::uses_silu(st);
+  if (rows == kRows<T> && silu)
+    return launch_rows<T, kRows<T>, true>(msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights, images,
+                                          partials, scratch, weights_len, stash_len, num_edges, grid, s);
+  if (rows == kRows<T>)
+    return launch_rows<T, kRows<T>, false>(msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights, images,
+                                           partials, scratch, weights_len, stash_len, num_edges, grid, s);
+  if (rows == kRows<T> / 2 && silu)
+    return launch_rows<T, kRows<T> / 2, true>(msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights, images,
+                                              partials, scratch, weights_len, stash_len, num_edges, grid, s);
+  if (rows == kRows<T> / 2)
+    return launch_rows<T, kRows<T> / 2, false>(msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights, images,
+                                               partials, scratch, weights_len, stash_len, num_edges, grid, s);
+  return static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
 }  // namespace
@@ -442,12 +490,19 @@ extern "C" long long gcp_edge_map_bwd_tc_image_bytes(const int* meta, int meta_l
   return -1;
 }
 
-// Edge rows per tile of gcp_edge_map_bwd_tc for dtype (gcp::DType); -1 for
-// a malformed dtype.
-extern "C" int gcp_edge_map_bwd_tc_tile(int dtype) {
-  if (dtype == gcp::kF32) return kRows<float>;
-  if (dtype == gcp::kBF16) return kRows<bf16>;
-  return -1;
+// Edge rows per tile of gcp_edge_map_bwd_tc for the layer table meta and
+// dtype (gcp::DType): kRows, or half of it for a stack too wide for
+// kRows' tile (tile_rows); 0 when no tile fits, -1 for a malformed table or
+// dtype.  With smem_bytes not null, the tile's shared memory goes there.
+extern "C" int gcp_edge_map_bwd_tc_tile(const int* meta, int meta_len, int dtype, long long* smem_bytes) {
+  Stack st;
+  if (!gcp::parse_stack(meta, meta_len, st)) return -1;
+  size_t smem = 0;
+  int rows = -1;
+  if (dtype == gcp::kF32) rows = tile_rows<float>(geometry<float>(st), &smem);
+  if (dtype == gcp::kBF16) rows = tile_rows<bf16>(geometry<bf16>(st), &smem);
+  if (smem_bytes) *smem_bytes = static_cast<long long>(smem);
+  return rows;
 }
 
 // message [E, s_in + 3 v_in], frames [E, 9] (masked) and grad_out

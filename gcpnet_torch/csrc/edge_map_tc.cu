@@ -18,8 +18,9 @@
 //   vu_c *= sigmoid(act_v(s_new) @ Wg + bg)              (vector gate), or
 //   vu_c *= act_v(sqrt(sum_c vu_c^2 + 1e-8) + 1e-8)      (norm gate)
 //   (s, v) = (act_s(s_new), vu), summed over layers for ResGCP.
-// act_s and act_v are the identity, relu or leaky relu (x >= 0 ? x : slope x,
-// the slope per layer) here; the wrapper raises for any other setting.
+// act_s and act_v are the identity, relu, leaky relu (x >= 0 ? x : slope x,
+// the slope per layer) or silu (x sigmoid(x)) here; the wrapper raises for
+// any other setting.
 //
 // Bound on the H100: operations.  About 245 kFLOP per edge row against
 // about 1 KB of traffic: ~51 GFLOP and ~208 MB (bf16) per call at the main
@@ -28,7 +29,8 @@
 // each, 0.31 ms at the TF32 peak.
 //
 // Design (edge_stack_mma.cuh holds the layer body, shared with K3):
-// - A persistent grid (one block per SM, 512 threads) walks 64-row tiles.
+// - A persistent grid (one block per SM, 512 threads) walks 64-row tiles
+//   (32-row ones for a stack too wide for them, layout()).
 //   A tile's activations stay in shared memory through all the layers; each
 //   input row is read once (16-byte vectors) and each output row written
 //   once.  The TPU kernel's MM-form weights (block-diagonal and 0/1
@@ -59,12 +61,10 @@ using gcp::Layer;
 using gcp::Stack;
 using namespace gcp::tc;
 
-constexpr int R = kTile;
-
 // The state's rows (M[:, :s_out] scalars, then X[:, :v_out] per component)
 // into the tile's rows r < rows of out, as 16-byte vectors where out is
 // 16-byte aligned.
-template <typename T>
+template <typename T, int R>
 __device__ inline void store_output(const Smem<T>& s, const Geom& g, const Layer& L, T* __restrict__ out,
                                     int rows) {
   constexpr int u = 16 / sizeof(T);
@@ -94,7 +94,7 @@ __device__ inline void store_output(const Smem<T>& s, const Geom& g, const Layer
   }
 }
 
-template <typename T>
+template <typename T, int R, bool kSilu>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, const char* __restrict__ images,
                    const Stack st, const Geom g, int nbuf, T* __restrict__ out, long long num_edges) {
@@ -128,10 +128,10 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
       __syncthreads();  // this layer's weights are in; the previous layer is done with the other buffer
       carve_weights(buf, g, &s);
       if (nbuf == 2 && more) copy_async(other, image(ln), layer_bytes<T>(g, N));
-      layer_forward<T, R>(s, g, L, image(l), [&] {
+      layer_forward<T, R, kSilu>(s, g, L, image(l), [&] {
         if (nbuf == 1 && more) copy_async(buf + g.w_off_wso, image(ln) + g.w_off_wso, wso_first_bytes<T>(g, N));
       });
-      layer_output<T, R>(s, g, L, st.residual && l > 0, nullptr);
+      layer_output<T, R, kSilu>(s, g, L, st.residual && l > 0, nullptr);
       if (nbuf == 2) {
         char* t = buf;
         buf = other;
@@ -140,7 +140,7 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
         copy_async(buf, image(ln), g.w_off_wso);
       }
     }
-    store_output(s, g, last, out + e0 * out_dim, rows);
+    store_output<T, R>(s, g, last, out + e0 * out_dim, rows);
     __syncthreads();  // the state is stored before the next tile's input lands
   }
   cp_async_wait();
@@ -153,39 +153,66 @@ edge_map_tc_images(const float* __restrict__ W, const Stack st, const Geom g, ch
   build_image<T>(W, st.l[blockIdx.x], g, images + static_cast<size_t>(blockIdx.x) * g.img_bytes);
 }
 
-// The layout gcp_edge_map_tc launches: weight buffers (2 where they fit, else
-// 1; 0: too wide) and shared-memory bytes.
-template <typename T>
-int layout(const Stack& st, const Geom& g, size_t* smem) {
+// The tile gcp_edge_map_tc launches: its rows (kTile, or half as many for a
+// stack too wide for kTile's: AR's in float32), its weight buffers (2 where
+// they fit, else 1) and its shared-memory bytes; rows 0: too wide for
+// either.
+struct Layout {
+  int rows, nbuf;
+  size_t smem;
+};
+
+template <typename T, int R>
+bool fits(const Geom& g, Layout* out) {
   Smem<T> unused;
   for (int nbuf = 2; nbuf >= 1; --nbuf) {
-    *smem = carve<T, R>(nullptr, g, &unused, nbuf, false);
-    if (*smem <= static_cast<size_t>(kMaxSmem)) return nbuf;
+    const size_t smem = carve<T, R>(nullptr, g, &unused, nbuf, false);
+    if (smem <= static_cast<size_t>(kMaxSmem)) {
+      *out = Layout{R, nbuf, smem};
+      return true;
+    }
   }
-  return 0;
+  return false;
+}
+
+template <typename T>
+Layout layout(const Geom& g) {
+  Layout out{0, 0, 0};
+  if (!fits<T, kTile>(g, &out)) fits<T, kTile / 2>(g, &out);
+  return out;
+}
+
+template <typename T, int R, bool kSilu>
+int launch_rows(const void* msg, const void* frames, const void* images, const Stack& st, const Geom& g,
+                const Layout& lay, void* out, long long num_edges, cudaStream_t stream) {
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(edge_map_tc_kernel<T, R, kSilu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(lay.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (num_edges + R - 1) / R;
+  const unsigned grid = static_cast<unsigned>(std::min<long long>(tiles, sms));
+  edge_map_tc_kernel<T, R, kSilu><<<grid, kThreads, lay.smem, stream>>>(
+      static_cast<const T*>(msg), static_cast<const T*>(frames), static_cast<const char*>(images), st, g, lay.nbuf,
+      static_cast<T*>(out), num_edges);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* msg, const void* frames, const void* images, const Stack& st, void* out,
            long long num_edges, cudaStream_t stream) {
   const Geom g = geometry<T>(st);
-  size_t smem;
-  const int nbuf = layout<T>(st, g, &smem);
-  if (nbuf == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Layout lay = layout<T>(g);
+  if (lay.rows == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (num_edges <= 0) return 0;
-  int dev, sms;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(edge_map_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (num_edges + R - 1) / R;
-  const unsigned grid = static_cast<unsigned>(std::min<long long>(tiles, sms));
-  edge_map_tc_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(msg), static_cast<const T*>(frames), static_cast<const char*>(images), st, g, nbuf,
-      static_cast<T*>(out), num_edges);
-  return static_cast<int>(cudaGetLastError());
+  const bool silu = gcp::uses_silu(st);
+  if (lay.rows == kTile)
+    return silu ? launch_rows<T, kTile, true>(msg, frames, images, st, g, lay, out, num_edges, stream)
+                : launch_rows<T, kTile, false>(msg, frames, images, st, g, lay, out, num_edges, stream);
+  return silu ? launch_rows<T, kTile / 2, true>(msg, frames, images, st, g, lay, out, num_edges, stream)
+              : launch_rows<T, kTile / 2, false>(msg, frames, images, st, g, lay, out, num_edges, stream);
 }
 
 }  // namespace
@@ -220,8 +247,27 @@ extern "C" int gcp_edge_map_tc_images(const float* weights, const int* meta, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// message [E, s_in + 3 v_in] and frames [E, 9] (masked) in, out
-// [E, s_out + 3 v_out], all of dtype on the device; images from
+// The tile gcp_edge_map_tc launches for the layer table meta and dtype
+// (gcp::DType), into out[3]: its rows (0 for a stack too wide for any), its
+// weight buffers and its shared-memory bytes.  Returns 0, or -1 for a
+// malformed table or dtype.
+extern "C" int gcp_edge_map_tc_layout(const int* meta, int meta_len, int dtype, long long* out) {
+  Stack st;
+  if (!gcp::parse_stack(meta, meta_len, st)) return -1;
+  Layout lay;
+  if (dtype == gcp::kF32) {
+    lay = layout<float>(geometry<float>(st));
+  } else if (dtype == gcp::kBF16) {
+    lay = layout<bf16>(geometry<bf16>(st));
+  } else {
+    return -1;
+  }
+  out[0] = lay.rows;
+  out[1] = lay.nbuf;
+  out[2] = static_cast<long long>(lay.smem);
+  return 0;
+}
+
 // gcp_edge_map_tc_images for the same table and dtype; meta is a HOST int32
 // array (edge_stack.cuh parse_stack).  Returns cudaErrorInvalidValue for a
 // malformed table or dtype, cudaErrorInvalidConfiguration when the widths

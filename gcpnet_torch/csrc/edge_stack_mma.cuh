@@ -310,7 +310,8 @@ __device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[
 }
 
 // An activation a product applies to its A operand (gemm's kActA): a layer
-// table code (1 relu, 2 leaky relu) and leaky relu's slope.
+// table code (1 relu, 2 leaky relu, 3 silu) and leaky relu's slope.  kActA
+// is 0 (none), 1 (relu or leaky relu) or 2 (silu too).
 struct Act {
   int code;
   float slope;
@@ -318,13 +319,16 @@ struct Act {
 
 // The activation a of one A-operand word: a bf16 pair, or a float32 value
 // (its bits).  A NaN stays a NaN.  relu of a bf16 pair is exact in bf16;
-// leaky relu's product slope x is taken in float32 and rounded to bf16, as
-// the plain version computes it (a bf16 multiply by a bf16 slope would
+// leaky relu and silu (kSilu) are taken in float32 and rounded to bf16, as
+// the plain version computes them (a bf16 multiply by a bf16 slope would
 // round twice differently).
-template <typename T>
+template <typename T, bool kSilu>
 __device__ __forceinline__ uint32_t act_word(uint32_t x, Act a) {
   if constexpr (sizeof(T) == 4) {
     const float v = __uint_as_float(x);
+    if constexpr (kSilu) {
+      if (a.code == 3) return __float_as_uint(silu(v));
+    }
     return __float_as_uint(a.code == 1 ? relu(v) : leaky_relu(v, a.slope));
   } else {
     __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
@@ -332,7 +336,11 @@ __device__ __forceinline__ uint32_t act_word(uint32_t x, Act a) {
       v = __hmax2_nan(v, __float2bfloat162_rn(0.f));
     } else {
       const float2 p = __bfloat1622float2(v);
-      v = __floats2bfloat162_rn(leaky_relu(p.x, a.slope), leaky_relu(p.y, a.slope));
+      if (kSilu && a.code == 3) {
+        v = __floats2bfloat162_rn(silu(p.x), silu(p.y));
+      } else {
+        v = __floats2bfloat162_rn(leaky_relu(p.x, a.slope), leaky_relu(p.y, a.slope));
+      }
     }
     return *reinterpret_cast<uint32_t*>(&v);
   }
@@ -425,7 +433,7 @@ struct AFrag<float> {
 // one, so that loads there (the weight-gradient partials, in global memory)
 // overlap them.  The ldmatrix lane addresses are the same in bytes for both
 // types: a k step is 32 bytes, an 8x8 ldmatrix tile 16 bytes a row.
-template <typename T, bool kAT, bool kBT, bool kActA = false, typename Init, typename Epi>
+template <typename T, bool kAT, bool kBT, int kActA = 0, typename Init, typename Epi>
 __device__ __forceinline__ void gemm(const T* A, int lda, const T* B, int ldb, int Mp, int Np, int Kp,
                                      Act act_a, Init init, Epi epi) {
   constexpr bool kWordA = sizeof(T) == 4 && kAT;   // A loaded a word a lane
@@ -486,9 +494,9 @@ __device__ __forceinline__ void gemm(const T* A, int lda, const T* B, int ldb, i
       } else {
         ldsm_x4<kAT>(a, pa);
       }
-      if constexpr (kActA) {
+      if constexpr (kActA != 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = act_word<T>(a[i], act_a);
+        for (int i = 0; i < 4; ++i) a[i] = act_word<T, kActA == 2>(a[i], act_a);
       }
       const AFrag<T> af(a);
       if (two) {
@@ -651,9 +659,9 @@ __device__ inline void load_input(const Smem<T>& s, const Geom& g, const Layer& 
   if (frames) load_rows<R>(frames, 9, rows, [&](int r, int col, T x) { s.F[r * kFrameLd + col] = f(x); });
 }
 
-// G = act_v(S) @ Wg + bg for layer L's vector gate (kActA: act_v is not
-// the identity).
-template <bool kActA, typename T, int R>
+// G = act_v(S) @ Wg + bg for layer L's vector gate (kActA: gemm's, 0 where
+// act_v is the identity).
+template <int kActA, typename T, int R>
 __device__ __forceinline__ void gate_logits(const Smem<T>& s, const Geom& g, const Layer& L) {
   gemm<T, false, kWeightsT<T>, kActA>(s.S, g.lds, s.wg, g.ld_wg, R, pad8(L.v_out), padk<T>(L.s_out),
                                       Act{L.act_v, L.slope}, ZeroInit{}, [&](int m, int n, float v0, float v1) {
@@ -666,8 +674,9 @@ __device__ __forceinline__ void gate_logits(const Smem<T>& s, const Geom& g, con
 // s.wso (the first Wso chunk; the further ones, for float32 layers with
 // K > kChunkK, are copied here from the layer's image, and the last stays
 // in s.wso).  wso_free() runs once Wso's buffer is no longer read (it may
-// start copying the next layer's Wso there).
-template <typename T, int R, typename Hook>
+// start copying the next layer's Wso there).  kSilu: the stack uses silu
+// (edge_stack.cuh uses_silu).
+template <typename T, int R, bool kSilu, typename Hook>
 __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Layer& L, const char* image,
                                      Hook wso_free) {
   constexpr bool kWT = kWeightsT<T>;
@@ -723,9 +732,9 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   if (L.vgate) {
     // G = act_v(S) @ Wg + bg
     if (L.act_v) {
-      gate_logits<true, T, R>(s, g, L);
+      gate_logits<kSilu ? 2 : 1, T, R>(s, g, L);
     } else {
-      gate_logits<false, T, R>(s, g, L);
+      gate_logits<0, T, R>(s, g, L);
     }
     __syncthreads();
   }
@@ -750,8 +759,8 @@ __device__ __forceinline__ void scalar_output(const Smem<T>& s, const Geom& g, c
 
 // Layer L's output written over (ResGCP: added to) the state in M and X
 // (rounded to T), and, unless slot is null, copied to slot ([R][s_out]
-// scalars, then [3R][v_out] vectors).
-template <typename T, int R>
+// scalars, then [3R][v_out] vectors).  kSilu as layer_forward's.
+template <typename T, int R, bool kSilu>
 __device__ inline void layer_output(const Smem<T>& s, const Geom& g, const Layer& L, bool add, T* slot) {
   T* slot_v = slot ? slot + R * L.s_out : nullptr;
   for (int i = threadIdx.x; i < R * L.v_out; i += kThreads) {
@@ -762,9 +771,9 @@ __device__ inline void layer_output(const Smem<T>& s, const Geom& g, const Layer
       u[c] = f(s.U[(r * 3 + c) * g.ldv + o]) + (L.vres ? f(s.X[(r * 3 + c) * g.ldx + o]) : 0.f);
     float gt = 1.f;
     if (L.vgate) {
-      gt = 1.f / (1.f + expf(-f(s.G[r * g.ldv + o])));
+      gt = sigmoid(f(s.G[r * g.ldv + o]));
     } else if (L.act_v) {
-      gt = act(sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps) + kEps, L.act_v, L.slope);
+      gt = act<kSilu>(sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps) + kEps, L.act_v, L.slope);
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -777,6 +786,8 @@ __device__ inline void layer_output(const Smem<T>& s, const Geom& g, const Layer
     scalar_output<1, T, R>(s, g, L, add, slot);
   } else if (L.act_s == 2) {
     scalar_output<2, T, R>(s, g, L, add, slot);
+  } else if (kSilu && L.act_s == 3) {
+    scalar_output<3, T, R>(s, g, L, add, slot);
   } else {
     scalar_output<0, T, R>(s, g, L, add, slot);
   }

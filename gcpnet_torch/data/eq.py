@@ -150,7 +150,8 @@ def _per_residue_lddt(decoy_path: str, native_path: str, num_res: int) -> Option
 
 
 def _save_graph(path: str, g: GraphData) -> None:
-    arrays = {k: getattr(g, k) for k in ("h", "chi", "e", "xi", "x", "senders", "receivers", "node_mask")}
+    arrays = {k: getattr(g, k) for k in ("h", "chi", "e", "xi", "x", "senders", "receivers", "node_mask")
+              if getattr(g, k) is not None}
     arrays.update({f"extras.{k}": v for k, v in g.extras.items()})
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)

@@ -1,5 +1,5 @@
 """The GCP interaction layers: ``GCPInteractions`` (LBA, PSR, CPD, NMS,
-RS) and ``GCPInteractions2`` (EQ).
+RS) and ``GCPInteractions2`` (EQ, and with its position update AR).
 
 Port of ``gcpnet_tpu/nn/interactions.py:GCPInteractions``: message
 passing, dropout + residual + norm, a feed-forward GCP stack, dropout +
@@ -243,8 +243,12 @@ class GCPInteractions2(nn.Module):
     node)`` into the feed-forward stack (GCP3 with ``feedforward_out`` on
     its last GCP), one dropout + residual + norm, and the multiplicative
     node mask.  The feed-forward runs on every real edge's frames, with
-    node-masked numerators.  The position update (AR's) is not ported yet
-    and raises."""
+    node-masked numerators.  With ``updating_node_positions`` (AR) a GCP on
+    the new node rep (``node_position_update_gcp``: one vector channel, the
+    module config's nonlinearities, no vector residual, on the
+    feed-forward's node frames) moves each node by its vector times
+    ``node_positions_weight``, and the node mask zeroes the positions of
+    padding nodes (``interactions.py:509-534``)."""
 
     def __init__(
         self,
@@ -259,10 +263,10 @@ class GCPInteractions2(nn.Module):
         device,
     ):
         super().__init__()
-        if updating_node_positions:
-            raise NotImplementedError("GCPInteractions2: the position update (AR) is not ported yet")
         kw = dict(generator=generator, device=device)
         self.pre_norm = layer_cfg.pre_norm
+        self.updating_node_positions = updating_node_positions
+        self.node_positions_weight = cfg.node_positions_weight
         self.interaction = GCPMessagePassing(
             node_dims, node_dims, edge_dims, cfg, layer_cfg, reduce_function="sum",
             use_scalar_message_attention=layer_cfg.use_scalar_message_attention,
@@ -290,6 +294,10 @@ class GCPInteractions2(nn.Module):
         for i, module in enumerate(ff):
             self.add_module(f"feedforward_{i}", module)
         self.num_ff = num_ff
+        if updating_node_positions:
+            self.node_position_update_gcp = make_gcp(
+                node_dims, (node_dims[0], 1), cfg, nonlinearities=cfg.nonlinearities, vector_residual=False, **kw
+            )
 
     def forward(
         self,
@@ -304,9 +312,11 @@ class GCPInteractions2(nn.Module):
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
         node_pos: Optional[Tensor] = None,
-    ) -> ScalarVector:
-        """The new node representation.  ``senders`` and ``receivers`` each
-        in its sorted form where the batch has one."""
+    ):
+        """The new node representation; with ``updating_node_positions``,
+        ``(node_rep, node_pos + x_update)`` for positions ``node_pos [N, 3]``.
+        ``senders`` and ``receivers`` each in its sorted form where the
+        batch has one."""
         frame_mask = _frame_mask(senders, receivers, node_mask, edge_mask)
         agg_mask = count_mask if count_mask is not None else edge_mask
 
@@ -326,7 +336,13 @@ class GCPInteractions2(nn.Module):
         if node_mask is not None:
             m = node_mask[:, None].to(node_rep.scalar.dtype)
             node_rep = ScalarVector(node_rep.scalar * m, node_rep.vector * m)
-        return node_rep
+        if not self.updating_node_positions:
+            return node_rep
+        update = self.node_position_update_gcp(node_rep, nf)
+        node_pos = node_pos + vec_at(update.vector, 0).to(node_pos.dtype) * self.node_positions_weight
+        if node_mask is not None:
+            node_pos = node_pos * node_mask[:, None].to(node_pos.dtype)
+        return node_rep, node_pos
 
 
 LAYER_CLASSES = {"GCPInteractions": GCPInteractions, "GCPInteractions2": GCPInteractions2}

@@ -37,11 +37,12 @@ SIGNATURES = {
         "gcp_edge_map_tc": [_P, _P, _P, _P, _I, _P, _LL, _I, _P],
         "gcp_edge_map_tc_images": [_P, _P, _I, _P, _I, _P],
         "gcp_edge_map_tc_image_bytes": [_P, _I, _I],
+        "gcp_edge_map_tc_layout": [_P, _I, _I, _P],
     },
     "edge_map_bwd_tc": {
         "gcp_edge_map_bwd_tc": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
         "gcp_edge_map_bwd_tc_image_bytes": [_P, _I, _I],
-        "gcp_edge_map_bwd_tc_tile": [_I],
+        "gcp_edge_map_bwd_tc_tile": [_P, _I, _I, _P],
     },
 }
 RESTYPES = {"gcp_edge_map_bwd_tc_image_bytes": _LL, "gcp_edge_map_tc_image_bytes": _LL}
@@ -96,8 +97,12 @@ def build(names: Iterable[str] = tuple(SIGNATURES), ptxas_verbose: bool = False)
 
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """Set the argument and result types of kernel library ``name``'s entry
-    points on ``lib`` (a build of its source)."""
+    points on ``lib`` (a build of its source).  An entry point the build
+    lacks is left out: an older version of the source, as ``k2_versions.py``
+    times, predates it (a call to it then raises ``AttributeError``)."""
     for fn, argtypes in SIGNATURES[name].items():
+        if not hasattr(lib, fn):
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = RESTYPES.get(fn, _I)
     return lib

@@ -29,6 +29,7 @@ tensors, so that autograd carries the buffer's gradient back to each of them.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
@@ -44,7 +45,10 @@ from gcpnet_torch.ops.segment_sorted import DTYPE_CODES
 EPS = 1e-8
 MAX_LAYERS = 16  # csrc/edge_stack.cuh kMaxLayers
 CUDA_ERROR_INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
-KERNEL_ACTIVATIONS = {None: 0, "relu": 1, "leakyrelu": 2}  # csrc/edge_stack.cuh act codes
+# the activations the kernels implement, by their code in the layer table
+# (csrc/edge_stack.cuh act and act_grad); silu is x sigmoid(x), as
+# jax.nn.silu, and "swish" its other name
+KERNEL_ACTIVATIONS = {None: 0, "relu": 1, "leakyrelu": 2, "silu": 3, "swish": 3}
 KINKED_ACTIVATIONS = ("relu", "leakyrelu")  # a kink at 0: the gradient steps there
 WEIGHT_NAMES = ("w_down", "w_so", "b_so", "w_up", "w_gate", "b_gate")
 
@@ -300,8 +304,9 @@ def _check_kernel_supported(stack: PackedStack) -> None:
         for name in (layer.act_s, layer.act_v):
             if _act_name(name) not in KERNEL_ACTIVATIONS:
                 raise NotImplementedError(
-                    f"edge_map kernel: layer {i} uses activation {name!r}; the CUDA "
-                    "kernels implement the identity, relu and leaky relu only"
+                    f"edge_map kernel: layer {i} uses activation {name!r}; the CUDA kernels "
+                    f"implement {sorted(k for k in KERNEL_ACTIVATIONS if k)} and the identity "
+                    "(ops.edge_map.KERNEL_ACTIVATIONS)"
                 )
 
 
@@ -366,12 +371,41 @@ def _persistent_grid(rows: int, tile: int, dev) -> int:
     return min(-(-rows // tile), torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
+def k2_layout(stack: PackedStack, dtype: torch.dtype, lib=None) -> Tuple[int, int, int]:
+    """K2's ``(tile rows, weight buffers, shared-memory bytes)`` for
+    ``stack`` in ``dtype``: 64 rows, or 32 for a stack too wide for them
+    (AR's in float32); 2 buffers where they fit, else 1; rows 0 for a stack
+    too wide for either."""
+    lib = lib or library("edge_map_tc")
+    out = (ctypes.c_longlong * 3)()
+    if lib.gcp_edge_map_tc_layout(stack.meta.ctypes.data, stack.meta.size, DTYPE_CODES[dtype], out) != 0:
+        raise ValueError("edge_map: malformed layer table")
+    return out[0], out[1], out[2]
+
+
+def k3_tile(stack: PackedStack, dtype: torch.dtype, lib=None) -> Tuple[int, int]:
+    """K3's ``(tile rows, shared-memory bytes)`` for ``stack`` in ``dtype``:
+    64 bf16 or 32 float32 rows, half as many for a stack too wide for them
+    (AR's); raises for a stack too wide for either."""
+    lib = lib or library("edge_map_bwd_tc")
+    smem = ctypes.c_longlong(0)
+    rows = lib.gcp_edge_map_bwd_tc_tile(stack.meta.ctypes.data, stack.meta.size, DTYPE_CODES[dtype], ctypes.byref(smem))
+    if rows < 0:
+        raise ValueError("edge_map_backward: malformed layer table")
+    if rows == 0:
+        raise NotImplementedError(
+            "edge_map_backward: the stack's widths need more shared memory than the kernel's tile has"
+        )
+    return rows, smem.value
+
+
 def launch_backward(message: Tensor, frames: Tensor, stack: PackedStack, grad_out: Tensor, lib=None):
     """Launch K3 (``csrc/edge_map_bwd_tc.cu``, or the build ``lib`` of it)
     on checked CUDA tensors: ``(d message, d weights)``.  Each persistent
     block has its own float32 weight-gradient partial and a scratch, in the
     input dtype, for each layer's input state; the weights go to the kernel
-    once per call as per-layer images (bf16, or float32 transposed)."""
+    once per call as per-layer images (bf16, or float32 transposed); the tile
+height is :func:`k3_tile`'s."""
     e = message.shape[0]
     dev = message.device
     d_message = torch.empty_like(message)
@@ -380,7 +414,7 @@ def launch_backward(message: Tensor, frames: Tensor, stack: PackedStack, grad_ou
     lib = lib or library("edge_map_bwd_tc")
     d_weights = torch.empty(stack.weights.shape, dtype=torch.float32, device=dev)
     code = DTYPE_CODES[message.dtype]
-    tile = lib.gcp_edge_map_bwd_tc_tile(code)
+    tile, _ = k3_tile(stack, message.dtype, lib)
     grid = _persistent_grid(e, tile, dev)
     w_len = stack.weights.numel()
     stash_len = tile * sum(s_in + 3 * v_in for s_in, v_in, *_ in (layer.dims for layer in stack.layers[1:]))

@@ -2,7 +2,7 @@
 
 The port's copy of the collect and metric functions of
 ``gcpnet_tpu/tasks.py`` for the task models ported so far (LBA, PSR, NMS,
-RS, CPD and EQ).
+RS, CPD, EQ and AR).
 A collect function (:class:`Collect`) keeps what it reads of a batch and
 adds the batch's host predictions and labels to a
 :class:`~gcpnet_torch.train.metrics.Collector`; the metric functions run on
@@ -18,7 +18,8 @@ import numpy as np
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.train import metrics as M
 
-TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetPSR": "psr", "GCPNetNMS": "nms", "GCPNetRS": "rs", "GCPNetCPD": "cpd", "GCPNetEQ": "eq"}
+TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetPSR": "psr", "GCPNetNMS": "nms", "GCPNetRS": "rs", "GCPNetCPD": "cpd", "GCPNetEQ": "eq",
+                 "GCPNetAR": "ar"}
 
 
 def _task(model_name: str) -> str:
@@ -81,7 +82,8 @@ def build_collect(model_name: str) -> Collect:
     task = _task(model_name)
     if task == "cpd":
         return Collect(_residue_keep, _add_argmax)
-    keep = {"lba": _graph_keep, "psr": _graph_keep, "nms": _node_pos_keep, "rs": _graph_keep, "eq": _eq_keep}[task]
+    keep = {"lba": _graph_keep, "psr": _graph_keep, "nms": _node_pos_keep, "rs": _graph_keep, "eq": _eq_keep,
+            "ar": _node_pos_keep}[task]
     return Collect(keep, _add)
 
 
@@ -97,4 +99,5 @@ def build_metric_fns(model_name: str) -> Dict[str, Callable]:
         "rs": {"Accuracy": M.accuracy, "F1": M.f1},
         "cpd": {"recovery_argmax": _recovery},
         "eq": {"RMSE": M.rmse, "PearsonCorrCoef": M.pearson},
+        "ar": {"RMSE": M.rmse},
     }[_task(model_name)]

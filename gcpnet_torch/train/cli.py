@@ -1,4 +1,4 @@
-"""Train with the port: ``python -m gcpnet_torch.train [--task lba|psr|nms|rs|cpd|eq]``.
+"""Train with the port: ``python -m gcpnet_torch.train [--task lba|psr|nms|rs|cpd|eq|ar]``.
 
 ``--task lba`` (the default) without ``--data-dir``: builds the LBA model
 at the width of the JAX package's benchmark (``predict.lba_configs``:
@@ -81,6 +81,22 @@ with scalar message attention and sender-keyed sums, dropout 0.1, Adam at
 ``val/loss``, the best 30 checkpoints, bf16 over float32 masters); its
 metrics are RMSE and Pearson over the residues.
 
+``--task ar``: fits the AR all-atom refinement model on AF2 decoy and
+native PDB pairs (``data.ar``: ``splits/``, ``AF2_model/``,
+``true_model/`` and the ESM cache ``model_data_cache/esm/`` under
+``--data-dir``, by default ``data/AR``; ``data.ar_synthetic`` writes a
+synthetic set in that layout) with the defaults of the JAX package's
+experiment ``gcpnet_ar`` (hidden 100/32/16/4, 1,338 node scalars and 29
+edge scalars, 4 ``GCPInteractions2`` layers with the position update, of
+4-layer message stacks of GCP3 with silu on scalars and vectors, scalar
+message attention and sender-keyed sums, dropout 0, Adam at 1e-4 without a
+scheduler, seed 42, one decoy a batch in a bucket of 4,096 nodes, 622,592
+edge rows and 600 residues, a 250-residue training crop, at least 1 and
+at most 1,000 epochs, early stopping after 10 epochs without a better
+``val/loss``, the best 30 checkpoints, bf16 over float32 masters); its
+metric is the RMSE of the atom positions.  ``python -m
+gcpnet_torch.predict_ar`` refines decoys with a trained model.
+
 The batches are receiver-sorted, so on the card every step runs the sorted
 segment sum (K1) and the edge map (K2) forward and the edge map's backward
 (K3).  It runs on the card unless ``--device cpu`` is given.
@@ -98,12 +114,14 @@ import torch
 
 from gcpnet_torch import tasks
 from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg, MPCfg
+from gcpnet_torch.data.ar import ARDataModule
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
 from gcpnet_torch.data.cath import CATHDataModule
 from gcpnet_torch.data.eq import EQDataModule
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
 from gcpnet_torch.device import DeviceLike, resolve_device
+from gcpnet_torch.models.ar import GCPNetAR, ar_loss
 from gcpnet_torch.models.cpd import GCPNetCPD, cpd_loss
 from gcpnet_torch.models.cpd_eval import evaluate_cpd
 from gcpnet_torch.models.eq import GCPNetEQ, eq_loss
@@ -197,6 +215,26 @@ def eq_configs(num_encoder_layers: int = 5, dropout: float = 0.1):
         aggregate_with_row=True, mp_cfg=MPCfg(num_message_layers=8),
     )
     return model_cfg, ModuleCfg(selected_gcp="GCP3"), layer_cfg
+
+
+def ar_configs(num_encoder_layers: int = 4, dropout: float = 0.0):
+    """(ModelCfg, ModuleCfg, LayerCfg) of the AR model
+    (``configs/model/{model_cfg,module_cfg,layer_cfg}/*_ar.yaml``): GCP3,
+    1,338 node scalars (residue and atom-name one-hots, ESM-2), 29 edge
+    scalars, hidden 100/32/16/4, silu on scalars and vectors with the
+    vector gate, scalar message attention, sums over senders, one
+    feed-forward GCP, 4-layer message stacks."""
+    model_cfg = ModelCfg(
+        h_input_dim=1338, chi_input_dim=2, e_input_dim=29, xi_input_dim=1,
+        h_hidden_dim=100, chi_hidden_dim=32, e_hidden_dim=16, xi_hidden_dim=4,
+        num_encoder_layers=num_encoder_layers, dropout=dropout,
+    )
+    layer_cfg = LayerCfg(
+        pre_norm=False, num_feedforward_layers=1, dropout=dropout, use_scalar_message_attention=True,
+        aggregate_with_row=True, mp_cfg=MPCfg(num_message_layers=4),
+    )
+    module_cfg = ModuleCfg(selected_gcp="GCP3", scalar_nonlinearity="silu", vector_nonlinearity="silu")
+    return model_cfg, module_cfg, layer_cfg
 
 
 # the CPD experiment's optimizer (configs/model/gcpnet_cpd.yaml) and its
@@ -315,6 +353,23 @@ def build_eq_trainer(
     return _task_trainer(model, eq_loss, "GCPNetEQ", seed, lr, trainer_kw)
 
 
+def build_ar_trainer(
+    seed: int = 42,
+    device: DeviceLike = None,
+    num_encoder_layers: int = 4,
+    lr: float = 1e-4,
+    dropout: float = 0.0,
+    **trainer_kw,
+) -> Trainer:
+    """The AR model of the experiment ``gcpnet_ar`` (:func:`ar_configs`) with
+    weights drawn from ``seed`` on ``device`` (``None``: the card), in a
+    :class:`Trainer` (:func:`_task_trainer`) with Adam at ``lr``."""
+    model = GCPNetAR(
+        *ar_configs(num_encoder_layers, dropout), generator=torch.Generator().manual_seed(seed), device=device,
+    )
+    return _task_trainer(model, ar_loss, "GCPNetAR", seed, lr, trainer_kw)
+
+
 class JsonLines:
     """A trainer logger: one JSON line of metrics on standard output."""
 
@@ -331,6 +386,7 @@ FIT_DEFAULTS = {
     "lba": dict(batch_size=16, num_encoder_layers=8, min_epochs=1, max_epochs=1000, precision=16),
     "cpd": dict(batch_size=8, num_encoder_layers=9, min_epochs=1, max_epochs=1000, precision=16),
     "eq": dict(batch_size=1, num_encoder_layers=5, min_epochs=1, max_epochs=1000, precision=16),
+    "ar": dict(batch_size=1, num_encoder_layers=4, min_epochs=1, max_epochs=1000, precision=16),
 }
 
 
@@ -354,6 +410,9 @@ def _main_fit(args) -> None:
     elif args.task == "eq":
         dm = EQDataModule.from_data_dir(args.data_dir or "data/EQ", batch_size=args.batch_size)
         build = build_eq_trainer
+    elif args.task == "ar":
+        dm = ARDataModule.from_data_dir(args.data_dir or "data/AR", batch_size=args.batch_size)
+        build = build_ar_trainer
     else:
         sizes = {"train": args.num_train or 4096, "valid": args.num_valid or 512, "test": args.num_test or 512}
         dm = RSDataModule(seed=args.seed, batch_size=args.batch_size, synthetic_sizes=sizes)
@@ -402,7 +461,7 @@ def _main_lba(args) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--task", choices=("lba", "psr", "nms", "rs", "cpd", "eq"), default="lba")
+    parser.add_argument("--task", choices=("lba", "psr", "nms", "rs", "cpd", "eq", "ar"), default="lba")
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--adaptive-clip", action="store_true")
     parser.add_argument("--seed", type=int, default=None, help="default: 0 (lba's bench steps), 42 (the fits)")
@@ -417,30 +476,30 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     nms = parser.add_argument_group("--task nms")
     nms.add_argument("--data-root", default="data/NMS")
     nms.add_argument("--data-mode", default="small_20body")
-    atom3d = parser.add_argument_group("--task psr, cpd and eq, and --task lba with --data-dir")
+    atom3d = parser.add_argument_group("--task psr, cpd, eq and ar, and --task lba with --data-dir")
     atom3d.add_argument("--data-dir", default=None,
                         help="the ATOM3D npz records (psr: default data/ATOM3D), the CATH files (cpd: data/CATH), "
-                             "or the EQ directories (eq: data/EQ)")
+                             "the EQ directories (eq: data/EQ), or the AR directories (ar: data/AR)")
     atom3d.add_argument("--lba-split", type=int, default=30, help="LBA's sequence-identity split")
     cpd = parser.add_argument_group("--task cpd")
     cpd.add_argument("--autoregressive", action=argparse.BooleanOptionalAction, default=True,
                      help="the autoregressive decoder (the experiment's), or the direct-shot MLP head")
     cpd.add_argument("--num-samples", type=int, default=100, help="sequences sampled a test chain for its recovery")
-    fit = parser.add_argument_group("the fits: --task nms, rs, psr, cpd, eq, and lba with --data-dir")
+    fit = parser.add_argument_group("the fits: --task nms, rs, psr, cpd, eq, ar, and lba with --data-dir")
     fit.add_argument("--batch-size", type=int, default=None,
-                     help="default: 100 (nms), 64 anchors (rs), 16 (psr, lba), 8 (cpd), 1 (eq)")
+                     help="default: 100 (nms), 64 anchors (rs), 16 (psr, lba), 8 (cpd), 1 (eq, ar)")
     fit.add_argument("--num-train", type=int, default=None, help="default: 10,000 (nms), 4,096 (rs)")
     fit.add_argument("--num-valid", type=int, default=None, help="default: 2,000 (nms), 512 (rs)")
     fit.add_argument("--num-test", type=int, default=None, help="default: 2,000 (nms), 512 (rs)")
     fit.add_argument("--num-encoder-layers", type=int, default=None,
-                     help="default: 4 (nms), 8 (rs, lba), 5 (psr, eq), 9 (cpd)")
+                     help="default: 4 (nms, ar), 8 (rs, lba), 5 (psr, eq), 9 (cpd)")
     fit.add_argument("--max-epochs", type=int, default=None,
-                     help="default: 12,000 (nms), 1,000 (rs, psr, lba, cpd, eq)")
-    fit.add_argument("--min-epochs", type=int, default=None, help="default: 100 (nms), 1 (rs, psr, lba, cpd, eq)")
+                     help="default: 12,000 (nms), 1,000 (rs, psr, lba, cpd, eq, ar)")
+    fit.add_argument("--min-epochs", type=int, default=None, help="default: 100 (nms), 1 (rs, psr, lba, cpd, eq, ar)")
     fit.add_argument("--checkpoint-dir", default=None)
     fit.add_argument("--resume", action="store_true", help="go on from --checkpoint-dir's last checkpoint")
     fit.add_argument("--precision", type=int, choices=(32, 16), default=None,
-                     help="default: 32 (nms, rs), 16 (psr, lba, cpd, eq): bf16 over float32 masters")
+                     help="default: 32 (nms, rs), 16 (psr, lba, cpd, eq, ar): bf16 over float32 masters")
     fit.add_argument("--scan-chunk-size", type=int, default=1,
                      help="training and validation batches a dispatch (the JAX trainer.scan_chunk_size)")
     args = parser.parse_args(argv)

@@ -12,7 +12,8 @@ each: CPD's ``gcp_embedding``, ``encoder_{i}``, ``seq_embedding``,
 message_fusion_{j}``, ``interaction/scalar_message_attention``,
 ``gcp_norm_0``, ``feedforward_0/scalar_out_0`` and ``scalar_out_1``),
 ``projection_norm``, ``invariant_node_projection``, ``dense_0`` and
-``dense_1``.
+``dense_1``; AR's ``encoder/interaction_{i}`` with its position update
+``node_position_update_gcp``.
 Layouts, identical on both sides (no transposes):
 
 - ``Dense`` / ``VecDense`` ``kernel``: ``[in, out]`` (the port computes

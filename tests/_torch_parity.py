@@ -9,8 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from gcpnet_torch.data.batching import sort_edges_by_receiver
+from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg, MPCfg
+from gcpnet_torch.data.batching import Bucket, collate_shards, sort_edges_by_receiver
 from gcpnet_torch.graph import GraphData, batch_graphs
+from gcpnet_torch.models.lba import GCPNetLBA
 from gcpnet_torch.weights import from_jax_params
 
 # The small LBA configuration of the parity tests: 2 interaction layers of
@@ -78,3 +80,27 @@ def np_(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, dtype=np.float32)
+
+
+def lba_graphs():
+    """Two random LBA graphs of 20 nodes and 70 edges, from a fixed seed."""
+    return random_graphs(np.random.default_rng(3), num_graphs=2, nodes=20, edges=70)
+
+
+def port_lba(params=None, **model_kw):
+    """The port's small LBA model (``LBA_MODEL``) on the CPU, with the flax
+    ``params`` where given."""
+    model = GCPNetLBA(
+        ModelCfg(**{**LBA_MODEL, **model_kw}), ModuleCfg(),
+        LayerCfg(mp_cfg=MPCfg(num_message_layers=LBA_MESSAGE_LAYERS)),
+        generator=torch.Generator().manual_seed(0), device="cpu",
+    )
+    return model if params is None else load_jax_params(model, params)
+
+
+def port_batch(graphs, sort_tile=128):
+    """``graphs`` as one receiver-sorted port batch of ``LBA_BUCKET``."""
+    return collate_shards(
+        [[GraphData(**g) for g in graphs]], Bucket(*LBA_BUCKET),
+        extra_graph_keys=("label",), sort_edges=True, sort_tile=sort_tile,
+    )

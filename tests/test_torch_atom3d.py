@@ -39,6 +39,7 @@ import sys
 import weakref
 from pathlib import Path
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

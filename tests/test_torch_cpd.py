@@ -28,6 +28,7 @@ import json
 import os
 import shutil
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -25,6 +25,7 @@ autoregressive sampler, the test-time evaluation, the task wiring and the
 import functools
 import json
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import jax
 import numpy as np
 import pytest

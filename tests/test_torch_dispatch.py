@@ -20,6 +20,7 @@ against the JAX ``Trainer``.
 - The captured step and eval step refuse a model on the CPU.
 """
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ The JAX radius graph runs on its scipy path, the port's reference.
 
 import os
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import numpy as np
 import pytest
 

@@ -23,6 +23,7 @@ import os
 import sys
 from pathlib import Path
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import jax
 import numpy as np
 import pytest

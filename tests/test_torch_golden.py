@@ -10,15 +10,16 @@ residual, scalar output, self gate), GCP3 with ``feedforward_out``, the
 message passing (mean ResGCP, without residual, and the sum with scalar
 message attention keyed by sender), the pre-norm embedding, the
 ``GCPInteractions`` layer (node mask, post-norm), ``GCPInteractions2``
-(default, GCP3, node mask), the layer norm, and the geometry (centring,
-frames, scalarize and vectorize on node and edge rows, node-masked means).
-``interactions2_attention_posupdate`` waits for the position update of
-``GCPInteractions2`` (AR's); the geometry's E(3) outputs wait for E(3) mode.
+(default, GCP3, node mask, and pre-norm with scalar message attention,
+sums over senders and AR's position update), the layer norm, and the
+geometry (centring, frames, scalarize and vectorize on node and edge rows,
+node-masked means).  The geometry's E(3) outputs wait for E(3) mode.
 """
 
 import json
 import os
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import numpy as np
 import pytest
 import torch
@@ -40,7 +41,7 @@ CASES = [
     "gcp2_default_edge", "gcp2_default_node", "gcp2_bottleneck_residual", "gcp2_scalar_out", "gcp2_self_gate",
     "gcp3_feedforward", "mp_mean_resgcp", "mp_no_residual", "mp_sum_attention_row", "embedding_prenorm",
     "interactions_node_mask", "interactions_postnorm", "interactions2_default", "interactions2_gcp3",
-    "interactions2_node_mask", "gcp_layer_norm", "geometry",
+    "interactions2_node_mask", "interactions2_attention_posupdate", "gcp_layer_norm", "geometry",
 ]
 GEN = dict(generator=torch.Generator().manual_seed(0), device="cpu")
 
@@ -121,10 +122,11 @@ def _message_passing(meta, ins, sd, outs):
 
 def _interactions(meta, ins, sd, outs):
     cls = GCPInteractions if meta["cls"] == "GCPInteractions" else GCPInteractions2
-    assert not meta["autoregressive"] and not meta["updating_node_positions"]
+    moves = meta["updating_node_positions"]
+    assert not meta["autoregressive"] and not (moves and cls is GCPInteractions)
     module = _loaded(cls(
         tuple(meta["node_dims"]), tuple(meta["edge_dims"]), ModuleCfg.from_dict(meta["cfg"]),
-        LayerCfg.from_dict(meta["layer_cfg"]), dropout=0.0, **GEN,
+        LayerCfg.from_dict(meta["layer_cfg"]), dropout=0.0, updating_node_positions=moves, **GEN,
     ), sd)
     senders, receivers = _edges(ins)
     kw = {}
@@ -133,8 +135,13 @@ def _interactions(meta, ins, sd, outs):
         edges = senders.shape[0]
         kw = dict(node_mask=torch.from_numpy(ins["node_mask"]), edge_mask=torch.ones(edges, dtype=torch.bool),
                   count_mask=torch.ones(edges, dtype=torch.bool))
+    if moves:
+        kw["node_pos"] = _t(ins["x"])
     out = module(_sv(ins["hs"], ins["hv"]), _sv(ins["es"], ins["ev"]), senders, receivers,
                  _t(ins["frames"]).reshape(-1, 9), **kw)
+    if moves:
+        out, pos = out
+        _check(pos, outs["pos"], "pos")
     _check(out.scalar, outs["scalar"], "scalar")
     _check_vec(out.vector, outs["vector"], "vector")
 

@@ -18,7 +18,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from gcpnet_torch import predict as port_predict
-from gcpnet_torch.config.schema import LayerCfg, ModuleCfg, MPCfg
+from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg, MPCfg
+from gcpnet_torch.data.ar import ARDataModule
+from gcpnet_torch.data.ar_synthetic import write_ar_pairs
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
 from gcpnet_torch.data.batching import Bucket, batches_from_dataset, sorted_index
 from gcpnet_torch.data.cath import CATHDataModule
@@ -26,12 +28,14 @@ from gcpnet_torch.data.cath_synthetic import write_cath_chains
 from gcpnet_torch.data.eq import EQDataModule
 from gcpnet_torch.data.eq_synthetic import write_eq_decoys
 from gcpnet_torch.data.nms import NMSDataModule
+from gcpnet_torch.models.ar import GCPNetAR, ar_loss
 from gcpnet_torch.models.cpd import GCPNetCPD, cpd_loss
 from gcpnet_torch.models.eq import GCPNetEQ, eq_loss
 from gcpnet_torch.models.lba import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
 from gcpnet_torch.data.rs import RSDataModule
+from gcpnet_torch.graph import GraphData
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.ops.build import library
 from gcpnet_torch.ops.edge_map import (
@@ -40,9 +44,11 @@ from gcpnet_torch.ops.edge_map import (
     edge_map_backward,
     edge_map_backward_plain,
     edge_map_plain,
+    k2_layout,
+    k3_tile,
+    kink_margins,
     max_kink_rows,
     pack_stack,
-    kink_margins,
 )
 from gcpnet_torch.ops.segment import SortedIndex, gather_rows, segment_count, segment_sum
 from gcpnet_torch.ops.segment_sorted import DTYPE_CODES, segment_sum_sorted, segment_sum_sorted_plain
@@ -63,6 +69,7 @@ pytestmark = pytest.mark.gpu
 K1_POOLED_STEP = 4 + 2 * 2 + 2 * 2  # LBA, PSR, RS, EQ
 K1_NMS_STEP = 2 + 2 * 2 + 2 * 2
 K1_CPD_STEP = (3 + 2 * 2 + 1) + (2 * 2 + 4 + 1)
+K1_AR_STEP = 2 + 2 * 2 + 2 * 2  # AR: the centring and the embedding's node frames outside the layers
 
 
 @pytest.fixture
@@ -143,6 +150,12 @@ ACTIVATION_SETTINGS = {
     "leaky": ModuleCfg(scalar_nonlinearity="leakyrelu"),
     "leaky_gate": ModuleCfg(scalar_nonlinearity="leakyrelu", vector_nonlinearity="leakyrelu"),
 }
+# silu (act code 3) on scalars and vectors: in the vector gate (AR's GCP3
+# stack), and in the norm gate without one
+SILU_SETTINGS = {
+    "silu_gate": ModuleCfg(selected_gcp="GCP3", scalar_nonlinearity="silu", vector_nonlinearity="silu"),
+    "silu_norm": ModuleCfg(scalar_nonlinearity="silu", vector_nonlinearity="silu", vector_gate=False),
+}
 
 
 def _message_passing(
@@ -208,10 +221,11 @@ def test_k2_is_deterministic(rng, cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_rejects_a_stack_too_wide_for_its_tile(rng, cuda, dtype):
-    """A first layer of 1,200 input scalars: its row of the tile alone
-    exceeds the block's shared memory."""
+    """A first layer of 4,808 input scalars: its rows of the tile alone
+    exceed the block's shared memory, at 64 rows as at the 32 that K2 takes
+    for a stack too wide for 64."""
     with torch.no_grad():
-        stack = _message_passing(ModuleCfg(), node_dims=(600, 4)).to(cuda, dtype).packed_stack()
+        stack = _message_passing(ModuleCfg(), node_dims=(2400, 4)).to(cuda, dtype).packed_stack()
     msg, frames = _stack_inputs(rng, stack, 100, dtype, cuda)
     before = edge_map.launches
     with pytest.raises(NotImplementedError, match="shared memory"), torch.no_grad():
@@ -236,7 +250,7 @@ def test_k2_builds_images_once_per_cached_stack(rng, cuda):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("residual", [True, False])
-@pytest.mark.parametrize("settings", ["production", "leaky_gate"])
+@pytest.mark.parametrize("settings", ["production", "leaky_gate", "silu_gate"])
 def test_k2_bf16_is_the_state_k3_recomputes(rng, cuda, settings, residual, dtype):
     """K2 and K3's forward sweep run the same layer body, in bf16 and in
     float32 (split TF32): the state K3 keeps in its scratch before each
@@ -244,10 +258,11 @@ def test_k2_bf16_is_the_state_k3_recomputes(rng, cuda, settings, residual, dtype
     layers.  K3 is launched with one block per tile, so that each block's
     scratch holds its own tile."""
     with torch.no_grad():
-        stack = _message_passing(ACTIVATION_SETTINGS[settings], residual=residual).to(cuda, dtype).packed_stack()
+        cfg = {**ACTIVATION_SETTINGS, **SILU_SETTINGS}[settings]
+        stack = _message_passing(cfg, residual=residual).to(cuda, dtype).packed_stack()
     lib = library("edge_map_bwd_tc")
     code = DTYPE_CODES[dtype]
-    tiles, tile = 5, lib.gcp_edge_map_bwd_tc_tile(code)
+    tiles, tile = 5, k3_tile(stack, dtype)[0]
     assert tile == (64 if dtype == torch.bfloat16 else 32)
     e = tiles * tile
     msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
@@ -549,11 +564,12 @@ def test_k3_bf16_makes_no_transposed_copy(rng, cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_rejects_a_stack_too_wide_for_its_tile(rng, cuda, dtype):
-    """A first layer of 2,408 input scalars: its rows of the tile alone
-    exceed the block's shared memory, for float32's 32-row tile as for
-    bf16's 64 (1,208 fit float32's)."""
+    """A first layer of 4,808 input scalars: its rows of the tile alone
+    exceed the block's shared memory, for float32's 32-row tile and its
+    16-row half as for bf16's 64 and 32 (K3 halves its tile for a stack too
+    wide for the full one; 1,208 fit float32's 32 rows)."""
     with torch.no_grad():
-        stack = _message_passing(ModuleCfg(), node_dims=(1200, 4)).to(cuda, dtype).packed_stack()
+        stack = _message_passing(ModuleCfg(), node_dims=(2400, 4)).to(cuda, dtype).packed_stack()
     msg, frames = _stack_inputs(rng, stack, 100, dtype, cuda)
     grad_out = torch.zeros((100, stack.out_dim), dtype=dtype, device=cuda)
     before = edge_map_backward.launches
@@ -804,9 +820,10 @@ def test_k1_k2_k3_match_plain_at_a_psr_batch(rng, cuda, tmp_path, dtype):
 
 
 def test_k2_cuda_rejects_unsupported_activation(cuda):
-    stack = _message_passing(ModuleCfg(scalar_nonlinearity="silu")).to(cuda).packed_stack()
+    """gelu is outside the kernels' table (silu joined it with AR)."""
+    stack = _message_passing(ModuleCfg(scalar_nonlinearity="gelu")).to(cuda).packed_stack()
     msg = torch.zeros((8, stack.in_dim), device=cuda)
-    with pytest.raises(NotImplementedError, match="silu"):
+    with pytest.raises(NotImplementedError, match="gelu.*silu"):
         edge_map(msg, torch.zeros((8, 9), device=cuda), stack)
 
 
@@ -1220,3 +1237,180 @@ def test_eq_output_is_invariant_on_card(rng, cuda, tmp_path, dtype):
     scale = out.abs().max().item()
     assert scale > 1e-3
     assert (again - out).abs().max().item() <= EQ_INVARIANCE_TOL[dtype] * max(1.0, scale)
+
+
+# --- AR ---------------------------------------------------------------------------
+
+
+def _ar_message_passing() -> GCPMessagePassing:
+    """One AR layer's message passing at full width: hidden 100/32, edges
+    16/4, 4 ResGCP3 layers with silu on scalars and vectors and the vector
+    gate, the attention and the sum over senders: [E, 420] -> [E, 196]."""
+    model_cfg, module_cfg, layer_cfg = train_cli.ar_configs()
+    return GCPMessagePassing(
+        (100, 32), (100, 32), (16, 4), module_cfg, layer_cfg, reduce_function="sum",
+        use_scalar_message_attention=True, aggregate_with_row=True,
+        generator=torch.Generator().manual_seed(0), device="cpu",
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_silu_match_plain_at_ar_widths(rng, cuda, dtype):
+    """K2 and K3 with silu (act code 3) at AR's widths on 20,000 rows against
+    their plain versions: K2 at the bounds of test_k2_cuda_matches_plain, K3
+    under the kink rule, where silu's rows take margin inf (no kink), so
+    every row must match.  K3's tile: 64 bf16 or 32 float32 rows, or half
+    as many where the 68 input vector channels and 32 output ones do not
+    fit them; K2's tile the same way (64 rows, or 32)."""
+    with torch.no_grad():
+        stack = _ar_message_passing().to(cuda, dtype).packed_stack()
+    assert stack.in_dim == 420 and stack.out_dim == 196
+    assert {(layer.act_s, layer.act_v) for layer in stack.layers} == {("silu", "silu"), (None, None)}
+    rows, nbuf, smem = k2_layout(stack, dtype)
+    assert rows in (64, 32) and nbuf in (1, 2) and smem <= 232448
+    rows, smem = k3_tile(stack, dtype)
+    assert rows in ((64, 32) if dtype == torch.bfloat16 else (32, 16)) and smem <= 232448
+    e = 20000
+    msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
+    assert bool(torch.isinf(kink_margins(msg[:100], frames[:100], stack)).all())
+    with torch.no_grad():
+        got = edge_map(msg, frames, stack)
+        want = edge_map_plain(msg, frames, stack)
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel_err(got, want) <= (1e-4 if dtype == torch.float32 else K2_BF16_TOL)
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    _k3_check_with_kink_rule(msg, frames, stack, grad_out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_silu_norm_gate_match_plain(rng, cuda, dtype):
+    """silu in the norm gate (no vector gate) and on the scalars, at the
+    small widths of test_k2_cuda_matches_plain, on 1,000 rows."""
+    with torch.no_grad():
+        stack = _message_passing(SILU_SETTINGS["silu_norm"]).to(cuda, dtype).packed_stack()
+    assert all(layer.w_gate is None for layer in stack.layers)
+    e = 1000
+    msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
+    with torch.no_grad():
+        got = edge_map(msg, frames, stack)
+        want = edge_map_plain(msg, frames, stack)
+    assert _max_rel_err(got, want) <= (1e-4 if dtype == torch.float32 else K2_BF16_TOL)
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    _k3_check_with_kink_rule(msg, frames, stack, grad_out)
+
+
+def _ar_batch(root, max_nodes: int = 1536):
+    """A validation batch of AR on synthetic pairs (data.ar_synthetic) of
+    40-90 residues, the JAX k_max of 128."""
+    write_ar_pairs(str(root), pairs={"train": 1, "valid": 1, "test": 1}, train_residues=(40, 90),
+                   eval_residues=(40, 90))
+    dm = ARDataModule.from_data_dir(str(root), max_nodes_per_batch=max_nodes, max_residues_per_batch=128)
+    dm.setup()
+    return next(dm.val_batches())
+
+
+def _ar_model(dev, layers: int = 2) -> GCPNetAR:
+    return GCPNetAR(*train_cli.ar_configs(layers), generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def test_ar_gradients_on_card_match_cpu(cuda, tmp_path):
+    """The AR model at full width (2 of its 4 layers) on a synthetic pair:
+    the positions, the loss and every parameter's gradient on the card
+    against the CPU, through K1 (the sums over senders, the node frames,
+    the centring and the gathers' backward), K2 and the fp32 K3, both with
+    silu."""
+    batch = _ar_batch(tmp_path)
+    grads, out = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = _ar_model(dev)
+        launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+        b = batch.to(torch.device(dev))
+        pred = model(b)
+        loss, _ = ar_loss(pred, b)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+            assert tuple(a - b for a, b in zip(now, launches)) == (K1_AR_STEP, 2, 2)
+        out[dev] = (pred.detach().cpu().numpy(), loss.item())
+        grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+    real = np.asarray(batch.node_pad_mask)
+    np.testing.assert_allclose(out["cuda"][0][real], out["cpu"][0][real], atol=1e-3, rtol=1e-4)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-4 * max(1.0, out["cpu"][1])
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+# AR's positions under a rotation, relative to their scale: fp32 (split
+# TF32 in K2) as EQ_INVARIANCE_TOL; bf16 holds positions of ~50 A to 8
+# bits, and its output adds a few such roundings (x, ca_x, the move): 8 ulps
+AR_EQUIVARIANCE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ar_positions_are_equivariant_on_card(rng, cuda, tmp_path, dtype):
+    """AR's predicted positions through K1-K3 (2 full-width layers) rotate
+    and move with a random rotation and translation of x, chi, xi and the
+    Ca table."""
+    batch = _ar_batch(tmp_path)
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = (q * np.sign(np.diag(r))).astype(np.float32)
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    shift = rng.normal(scale=10.0, size=3).astype(np.float32)
+    real = np.asarray(batch.node_pad_mask)
+    n_res = int(batch.extras["atom_residue_idx"][real].max()) + 1
+    ca = batch.extras["ca_x"].copy()
+    ca[:n_res] = ca[:n_res] @ q.T + shift
+    turned = batch.replace(x=np.where(real[:, None], batch.x @ q.T + shift, 0.0).astype(np.float32),
+                           chi=batch.chi @ q.T, xi=batch.xi @ q.T, extras={**batch.extras, "ca_x": ca})
+    model = _ar_model(cuda).to(dtype)
+    with torch.no_grad():
+        before = edge_map.launches
+        out = model(batch.to(cuda, dtype)).float().cpu().numpy()[real]
+        again = model(turned.to(cuda, dtype)).float().cpu().numpy()[real]
+        assert edge_map.launches == before + 4
+    scale = np.abs(out).max()
+    assert np.abs(again - (out @ q.T + shift)).max() <= AR_EQUIVARIANCE_TOL[dtype] * max(1.0, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_positions_are_equivariant_on_card(rng, cuda, dtype):
+    """NMS's predicted positions through K1-K3 (2 layers of 2-layer stacks,
+    two complete graphs of 5 bodies) rotate and move with the inputs, as
+    ``tests/test_model_equivariance.py``'s NMS case holds the JAX model."""
+    n = 5
+    s, r = np.nonzero(~np.eye(n, dtype=bool))
+    graphs = [
+        GraphData(
+            h=rng.normal(size=(n, 1)).astype(np.float32), chi=rng.normal(size=(n, 3, 3)).astype(np.float32),
+            e=rng.normal(size=(n * (n - 1), 17)).astype(np.float32),
+            xi=rng.normal(size=(n * (n - 1), 1, 3)).astype(np.float32), x=rng.normal(size=(n, 3)).astype(np.float32),
+            senders=s.astype(np.int32), receivers=r.astype(np.int32),
+            extras={"label": rng.normal(size=(n, 3)).astype(np.float32)},
+        )
+        for _ in range(2)
+    ]
+    batch = next(batches_from_dataset(graphs, Bucket(n * 2, n * (n - 1) * 2 + 1, 2)))
+    model = GCPNetNMS(
+        ModelCfg(h_input_dim=1, chi_input_dim=3, e_input_dim=17, xi_input_dim=1, h_hidden_dim=16, chi_hidden_dim=4,
+                 e_hidden_dim=8, xi_hidden_dim=4, num_encoder_layers=2, dropout=0.0),
+        ModuleCfg(), LayerCfg(mp_cfg=MPCfg(num_message_layers=2)), generator=torch.Generator().manual_seed(0),
+        device=cuda,
+    ).to(dtype)
+    q, rr = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = (q * np.sign(np.diag(rr))).astype(np.float32)
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    shift = rng.normal(scale=10.0, size=3).astype(np.float32)
+    turned = batch.replace(x=batch.x @ q.T + shift, chi=batch.chi @ q.T, xi=batch.xi @ q.T)
+    with torch.no_grad():
+        before = edge_map.launches
+        out = model(batch.to(cuda, dtype)).float().cpu().numpy()
+        got = model(turned.to(cuda, dtype)).float().cpu().numpy()
+        assert edge_map.launches == before + 4
+    scale = np.abs(out).max()
+    assert np.abs(got - (out @ q.T + shift)).max() <= AR_EQUIVARIANCE_TOL[dtype] * max(1.0, scale)

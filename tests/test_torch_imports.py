@@ -4,14 +4,17 @@ every module of the package, the chip scripts (``chip_smoke.py``,
 tests (``test_torch_gpu.py``, which run where JAX is absent), a CPU
 prediction, a CPU LBA training run, a CPU NMS fit with its simulated data,
 a CPU RS fit on synthetic enantiomers, a CPU PSR fit on synthetic ATOM3D
-records, a CPU CPD fit with its design metrics on synthetic CATH chains and
-a CPU EQ fit on synthetic decoys (``python -m gcpnet_torch.train
-[--task nms|rs|psr|cpd|eq]``) in a fresh
+records, a CPU CPD fit with its design metrics on synthetic CATH chains, a
+CPU EQ fit on synthetic decoys and a CPU AR fit on synthetic pairs with its
+refinement of their decoys (``python -m gcpnet_torch.train
+[--task nms|rs|psr|cpd|eq|ar]``, ``python -m gcpnet_torch.predict_ar``) in a fresh
 interpreter whose import system refuses those packages."""
 
 import subprocess
 import sys
 from pathlib import Path
+
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -100,11 +103,29 @@ with tempfile.TemporaryDirectory() as root:
     sys.argv = ["gcpnet_torch.train", "--task", "eq", "--device", "cpu", "--data-dir", root,
                 "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0"]
     runpy.run_module("gcpnet_torch.train", run_name="__main__")
+from gcpnet_torch.data import ar
+from gcpnet_torch.data.ar_synthetic import write_ar_pairs
+
+with tempfile.TemporaryDirectory() as root:
+    write_ar_pairs(root, pairs={"train": 2, "valid": 1, "test": 1}, train_residues=(10, 20), eval_residues=(10, 20))
+    cli.ARDataModule.from_data_dir = functools.partial(
+        ar.ARDataModule.from_data_dir.__func__, ar.ARDataModule, k_max=16, max_nodes_per_batch=256,
+        max_residues_per_batch=32,
+    )
+    sys.argv = ["gcpnet_torch.train", "--task", "ar", "--device", "cpu", "--data-dir", root,
+                "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0", "--checkpoint-dir", root + "/ckpt"]
+    runpy.run_module("gcpnet_torch.train", run_name="__main__")
+    sys.argv = ["gcpnet_torch.predict_ar", "--input-dir", root + "/AF2_model", "--true-dir", root + "/true_model",
+                "--output-dir", root + "/refined", "--checkpoint-dir", root + "/ckpt", "--num-encoder-layers", "1",
+                "--k-max", "16", "--max-nodes-per-batch", "256", "--max-residues-per-batch", "32", "--device", "cpu"]
+    runpy.run_module("gcpnet_torch.predict_ar", run_name="__main__")
 for name in ("gcpnet_torch.data.atom3d", "gcpnet_torch.data.cath", "gcpnet_torch.data.cath_synthetic",
              "gcpnet_torch.data.protein_graph",
              "gcpnet_torch.models.cpd", "gcpnet_torch.models.cpd_eval", "gcpnet_torch.nn.decoder",
              "gcpnet_torch.data.eq", "gcpnet_torch.data.eq_synthetic", "gcpnet_torch.data.esm",
-             "gcpnet_torch.data.pdb", "gcpnet_torch.models.eq", "gcpnet_torch.utils.structure_metrics"):
+             "gcpnet_torch.data.pdb", "gcpnet_torch.models.eq", "gcpnet_torch.utils.structure_metrics",
+             "gcpnet_torch.data.ar", "gcpnet_torch.data.ar_synthetic", "gcpnet_torch.models.ar",
+             "gcpnet_torch.predict_ar"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

@@ -9,6 +9,7 @@ the same float32 math in another order (a misplaced norm eps shows as
 ~3e-5 on rows with zero vectors); 1e-4 through the whole message passing.
 """
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import numpy as np
 import pytest
 import torch

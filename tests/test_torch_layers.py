@@ -3,6 +3,7 @@ ops, frames, GCP2 (edge and node mode), GCPEmbedding and one
 GCPInteractions, all at fp32 with atol 1e-5 (1e-4 through whole layers):
 the same float32 math, summed in another order."""
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ the ``predict`` entry point."""
 
 import json
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import jax
 import numpy as np
 import pytest

@@ -20,6 +20,7 @@
 import json
 import os
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import jax
 import numpy as np
 import pytest

@@ -19,6 +19,7 @@
 
 import json
 
+import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np
