@@ -41,7 +41,7 @@ Phases, one line each:
  11. psr-kernels: K1, K2 and K3 at a PSR training batch (524,288 CSR rows
      into 16,384 nodes) against their plain versions, fp32 and bf16, with
      their times, bounds and shares of them;
- 11a. cpd-data: synthetic CATH chains (write_cath_chains: 1,000 / 100 /
+ 11a. cpd-data: synthetic CATH chains (write_cath_chains: 600 / 100 /
      100 chains of 40-500 residues with ideal backbone geometry from
      (phi, psi) in helix, strand and coil segments, each residue drawn by
      its region and burial) in the chain_set.jsonl format, read by
@@ -84,7 +84,8 @@ Phases, one line each:
  18. nms-check: one fp32 NMS training step on the card against the CPU (2
      interaction layers, 10 graphs, no dropout);
  19. nms-fit: the NMS path, the full-width NMS model fitted by the Trainer
-     (fp32, the experiment's defaults) with scan_chunk_size 4 (4 batches a
+     the training entry point builds (entry.build_trainer of the composed
+     experiment, its defaults but fp32: trainer.precision=32) with scan_chunk_size 4 (4 batches a
      replay of a CUDA graph) for 3 epochs with checkpoints, then a new
      Trainer resumes to epoch 4 and tests the best checkpoint: the
      wrappers' launches (only the graphs' first calls run them),
@@ -98,7 +99,7 @@ Phases, one line each:
  20. rs-check: one fp32 RS training step on the card against the CPU (2
      interaction layers, a paired batch, no dropout);
  21. rs-fit: the RS path, the full-width RS model fitted by the Trainer
-     (fp32, the experiment's defaults) with scan_chunk_size 4 for 3 epochs
+     (entry.build_trainer, the experiment's defaults but fp32) with scan_chunk_size 4 for 3 epochs
      with checkpoints, then the best checkpoint's test: the wrappers'
      launches, per-epoch seconds, train graphs/s, val/loss, val/Accuracy
      and val/F1, peak memory; the first epoch run eagerly beside it, and
@@ -152,7 +153,8 @@ Phases, one line each:
      the fp32 step's on the card;
  34. eq-fit: the EQ path, the full-width, full-depth EQ model (5
      GCPInteractions2 layers, message attention, sums over senders) fitted
-     by the Trainer in bf16 over float32 masters with scan_chunk_size 4 for
+     by the Trainer in bf16 over float32 masters with the experiment's
+     adaptive gradient clip and scan_chunk_size 4 for
      2 epochs with checkpoints, a resume to a third, and the best
      checkpoint's test: epoch seconds, train graphs/s, val and test RMSE
      and Pearson, peak memory; the deterministic parity run;
@@ -176,7 +178,8 @@ Phases, one line each:
      the fp32 step's on the card;
  39. ar-fit: the AR path, the full-width, full-depth AR model (4
      GCPInteractions2 layers with the position update) fitted by the
-     Trainer in bf16 over float32 masters with scan_chunk_size 4 for 2
+     Trainer in bf16 over float32 masters with the experiment's adaptive
+     gradient clip and scan_chunk_size 4 for 2
      epochs with checkpoints, a resume to a third, and the best
      checkpoint's test: epoch seconds, train graphs/s, val and test RMSE;
      the deterministic parity run;
@@ -186,9 +189,25 @@ Phases, one line each:
      checks;
  41. ar-predict: the fitted model refines one decoy of 1,600 residues
      (two windows of the prediction path, in a bucket of 8,192 nodes that
-     holds a window) through gcpnet_torch.predict_ar: the stitched refined
+     holds a window) through gcpnet_torch.predict.serve: the stitched refined
      PDB, its scores against the native, ms a decoy, the served window
-     positions against an eager forward's.
+     positions against an eager forward's;
+ 42. cfg-train: the config-driven entry point (gcpnet_torch.train's main,
+     experiment=gcpnet_lba, the experiment's widths: 8 x 8 layers,
+     100/16/32/4, bf16 over float32 masters, batch 16, the JAX bucket) on
+     synthetic LBA records (write_lba_records: 320 / 64 / 64 pocket and
+     ligand complexes of about 300-600 heavy atoms) for 2 epochs with
+     checkpoints and the CSV logger, then the best checkpoint's test: the
+     composed model against a directly built GCPNetLBA (parameter names
+     and shapes), the wrappers' launches over the run, a replayed chunk's
+     kernels (36 / 8 / 8 a step, no scatter kernel), train graphs/s, the
+     captured step's busy ms, peak memory, the host's ms a batch;
+ 43. cfg-eval: gcpnet_torch.eval's main on cfg-train's checkpoints: its
+     test/loss equal to cfg-train's bit for bit;
+ 44. cfg-predict: gcpnet_torch.predict's main with model=gcpnet_eq
+     datamodule=eq on eq-fit's checkpoints and eq-data's test decoys: a
+     b-factor-annotated PDB and a CSV row a decoy, the served per-residue
+     lDDT against an eager fp32 forward (atol 1e-5).
 Every profiled training step lists the scatter kernels it ran (none
 allowed; a replay's read from its graph's kernel nodes).  Then the total time, one JSON line with every kernel's numbers (at the NMS,
 RS, PSR, CPD, EQ and AR shapes too), the nvidia-smi line, and the final status
@@ -201,6 +220,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import csv
 import dataclasses
 import gc
 import itertools
@@ -249,23 +269,17 @@ from gcpnet_torch.ops.edge_map import (
     max_kink_rows,
 )
 from gcpnet_torch.ops.segment_sorted import segment_sum_sorted, segment_sum_sorted_plain
-from gcpnet_torch.predict import DTYPES, Predictor, build_model, lba_configs, predict, synthetic_batches
-from gcpnet_torch.predict_ar import refine
-from gcpnet_torch.train.cli import (
-    FIT_DEFAULTS,
-    ar_configs,
-    build_ar_trainer,
-    build_atom3d_trainer,
-    build_cpd_trainer,
-    build_eq_trainer,
-    build_lba_training,
-    build_nms_trainer,
-    build_rs_trainer,
-    cpd_configs,
-    eq_configs,
-    nms_configs,
-    rs_configs,
-)
+from gcpnet_torch import eval as eval_entry
+from gcpnet_torch import predict as predict_entry
+from gcpnet_torch import tasks
+from gcpnet_torch.config.loader import CONFIG_DIR, compose
+from gcpnet_torch.data.pdb import parse_pdb
+from gcpnet_torch.data.registry import build_datamodule
+from gcpnet_torch.models.lba import GCPNetLBA
+from gcpnet_torch.predict import DTYPES, Predictor, build_model, lba_configs, predict, serve, synthetic_batches
+from gcpnet_torch.train import entry as train_entry
+from gcpnet_torch.train.checkpoints import CheckpointManager
+from gcpnet_torch.train.cli import build_lba_training, build_task_trainer, task_configs
 from gcpnet_torch.train.graphs import CapturedCall, TrainSteps
 from gcpnet_torch.train.optim import build_optimizer, build_schedule
 from gcpnet_torch.train.state import TrainState
@@ -329,14 +343,15 @@ PSR_CHECK_GRAPHS, PSR_CHECK_LAYERS, PSR_CHECK_NODES = 2, 2, 4096
 # in the JAX bucket of 2,048 nodes and 61,440 edge rows, bf16 over float32
 # masters).  CATH 4.2 is not on the card's machine: the chains are
 # synthetic, in its chain_set.jsonl format (write_cath_chains), cut to
-# 1,000 / 100 / 100 chains of 40-500 residues (CATH 4.2's splits hold
-# 18,024 / 608 / 1,120); the fit runs 2 of its up to 1,000 epochs and a
+# 600 / 100 / 100 chains of 40-500 residues (CATH 4.2's splits hold
+# 18,024 / 608 / 1,120; 600, not 1,000, training chains keep the script's
+# time with the config-driven phases); the fit runs 2 of its up to 1,000 epochs and a
 # resume for a third; the design samples CPD_DESIGN_CHAINS of the 100 test
 # chains, 100 sequences each at temperature 0.1 (the JAX protocol; the
 # sampler runs eagerly, 17-20 ms a residue on one H100 80GB HBM3 at 700 W);
 # cpd-check cuts to 2 encoder and 2 decoder layers and 2 chains in a bucket
 # of 512 nodes.
-CPD_CHAINS = {"train": 1000, "validation": 100, "test": 100}
+CPD_CHAINS = {"train": 600, "validation": 100, "test": 100}
 CPD_LENGTHS = (40, 500)  # residues, log-uniform
 CPD_BUCKET = (2048, 2048 * 30)
 CPD_EPOCHS, CPD_RESUME_EPOCHS = 2, 3
@@ -398,6 +413,16 @@ AR_BUCKET, AR_MAX_RESIDUES = (4096, 4096 * 152), 600
 AR_EPOCHS, AR_RESUME_EPOCHS = 2, 3
 AR_CHECK_LAYERS, AR_CHECK_NODES, AR_CHECK_RESIDUES = 2, 1024, 128
 AR_PREDICT_RESIDUES, AR_PREDICT_NODES, AR_PREDICT_MAX_RESIDUES = 1600, 8192, 1000
+# the config-driven entry points (cfg-train, cfg-eval, cfg-predict):
+# experiment=gcpnet_lba at its own widths (100/16/32/4, 8 x 8 layers, bf16,
+# batch 16, the JAX bucket) on synthetic LBA records; cut to a few hundred
+# complexes and CFG_EPOCHS epochs
+LBA_COMPLEXES = {"train": 320, "val": 64, "test": 64}
+LBA_POCKET_ATOMS = (300, 560)  # heavy atoms of a pocket before the ligand's cavity is cut out, uniform
+LBA_LIGAND_ATOMS = (20, 40)
+CFG_EPOCHS = 2
+# served per-residue lDDT of cfg-predict against an eager fp32 forward of the same weights
+CFG_PREDICT_ATOL = 1e-5
 # determinism: two eager fp32 RS runs of this many steps, without
 # torch.use_deterministic_algorithms, must end with equal parameters
 DETERMINISM_STEPS = 16
@@ -1551,7 +1576,7 @@ def phase_profile(batches) -> dict:
 def nms_message_passing() -> GCPMessagePassing:
     """One message passing layer of the NMS model (8 GCP2 layers, hidden
     64/16, edges 32/4), random weights from the seed."""
-    model_cfg, module_cfg, layer_cfg = nms_configs()
+    model_cfg, module_cfg, layer_cfg = task_configs("nms")
     node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
     edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
     return GCPMessagePassing(
@@ -1611,7 +1636,7 @@ def phase_nms_check(data_root: str) -> dict:
 
     def build(dev):
         model = GCPNetNMS(
-            *nms_configs(NMS_CHECK_LAYERS, dropout=0.0), generator=torch.Generator().manual_seed(SEED), device=dev
+            *task_configs("nms", NMS_CHECK_LAYERS, dropout=0.0), generator=torch.Generator().manual_seed(SEED), device=dev
         )
         return model, TrainState(build_optimizer(model.parameters(), {"_target_": "Adam", "lr": 1e-4}))
 
@@ -1634,6 +1659,34 @@ class EpochClock:
         if self.model is not None and self.first_params is None:
             self.first_params = flat_params(self.model)
         self.last = now
+
+
+class EpochBatches:
+    """A datamodule whose training batches are counted by the epoch (the
+    seed) that asked for them; everything else is the datamodule's."""
+
+    def __init__(self, dm):
+        self.dm, self.counts = dm, {}
+
+    def __getattr__(self, name):
+        return getattr(self.dm, name)
+
+    def train_batches(self, seed: int = 0):
+        self.counts.setdefault(seed, 0)
+        for batch in self.dm.train_batches(seed=seed):
+            self.counts[seed] += 1
+            yield batch
+
+
+def resumed_step(steps: int, counted: EpochBatches, epochs: int, resume_epochs: int) -> int:
+    """The step a fit that stood at ``steps`` after ``epochs`` epochs must
+    reach when resumed to ``resume_epochs``: one step a training batch of
+    each resumed epoch, counted from that epoch's own batches (a packed
+    epoch's batch count varies with its shuffle)."""
+    missing = [e for e in range(epochs, resume_epochs) if e not in counted.counts]
+    if missing:
+        raise PhaseError(f"the resumed fit asked for no training batches of epochs {missing}")
+    return steps + sum(counted.counts[e] for e in range(epochs, resume_epochs))
 
 
 def _eager_epoch(build, dm, loss_fn, graphs_per_batch: int) -> dict:
@@ -1686,7 +1739,7 @@ def fit_parity(build, dm, loss_fn) -> dict:
         eager_train = float(np.average(torch.stack(chunks).cpu().numpy(), weights=[FIT_CHUNK] * len(chunks)))
         val = torch.stack([eval_step(eager.model, b.to(dev), loss_fn)[0] for b in dm.val_batches()])
         eager_val = float(np.mean(val.cpu().numpy(), dtype=np.float64))
-        captured = build(max_epochs=1, scan_chunk_size=FIT_CHUNK, max_steps_per_epoch=FIT_PARITY_STEPS)
+        captured = build(max_epochs=1, scan_chunk_size=FIT_CHUNK, limit_train_batches=FIT_PARITY_STEPS)
         train = captured.train_epoch(dm.train_batches(seed=0), 0)["train/loss"]
         val_loss = [captured.eval_epoch(dm.val_batches())["val/loss"] for _ in range(2)]
         calls = captured.train_graphs.call, captured.eval_graphs.call
@@ -1703,7 +1756,8 @@ def fit_parity(build, dm, loss_fn) -> dict:
     }
 
 
-def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k1: tuple, k3: str = "K3_fp32") -> None:
+def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k1: tuple, k3: str = "K3_fp32",
+                parity_run: bool = True) -> None:
     """What every captured fit must show: the wrappers counted the kernels
     of each graph's first call only (its eager run and the capture's
     records: twice a training step's K1 launches and a layer's K2 and K3
@@ -1715,7 +1769,8 @@ def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k1: tu
     not in evaluation), as the profiled eager step does (its wrappers'
     counts), and no scatter kernel in training; the
     parity run's captured steps equal its eager ones bit for bit
-    (fit_parity), with replays among them; the first epoch's losses are
+    (fit_parity), with replays among them (``parity_run=False``: a fit
+    without a parity run, cfg-train's); the first epoch's losses are
     the eager epoch's within FIT_EAGER_RTOL[name] where the fit ran one
     (``first_epoch``).  ``k3`` is the K3 of the fit's precision (the other
     counts none)."""
@@ -1737,11 +1792,12 @@ def _fit_checks(name: str, results: dict, layers: int, first_epoch: dict, k1: tu
         check(results[key]["launches"] == want, f"{name}: {key} launches {results[key]['launches']}, want {want}")
     for key in ("profile", "profile_captured"):
         check(not results[key]["scatters"], f"{name}: scatter kernels in {key}: {results[key]['scatters']}")
-    parity = results["parity"]
-    check(parity["params_equal"] and parity["generator_equal"] and parity["train_loss"][0] == parity["train_loss"][1]
-          and len(set(parity["val_loss"])) == 1 and parity["train_replays"] > 0
-          and parity["eval_replays"] > 0 and parity["steps"] == FIT_PARITY_STEPS,
-          f"{name}: deterministic parity, captured vs eager: {parity}")
+    if parity_run:
+        parity = results["parity"]
+        check(parity["params_equal"] and parity["generator_equal"] and parity["train_loss"][0] == parity["train_loss"][1]
+              and len(set(parity["val_loss"])) == 1 and parity["train_replays"] > 0
+              and parity["eval_replays"] > 0 and parity["steps"] == FIT_PARITY_STEPS,
+              f"{name}: deterministic parity, captured vs eager: {parity}")
     if first_epoch is None:
         return
     eager = results["eager_epoch"]
@@ -1804,8 +1860,8 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
     step and one replay of a train and an eval chunk under torch.profiler
     (_profile_steps).  Every kernel count is set to 0 just before the fit
     and read just after it (_fit_checks)."""
-    layers = nms_configs()[0].num_encoder_layers
-    build = lambda seed=SEED, **kw: build_nms_trainer(seed, "cuda", lr=FIT_LR, **kw)  # noqa: E731
+    layers = task_configs("nms")[0].num_encoder_layers
+    build = lambda seed=SEED, **kw: build_task_trainer("nms", seed, "cuda", lr=FIT_LR, precision=32, **kw)  # noqa: E731
     eager = _eager_epoch(build, dm, nms_loss, NMS_BATCH)
     parity = fit_parity(build, dm, nms_loss)
     clock = EpochClock()
@@ -1833,7 +1889,8 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
     same = all(torch.equal(p, q) for p, q in zip(trainer.model.parameters(), resumed.model.parameters()))
     results["resumed_step"] = resumed.state.step
     results["resumed_weights_equal"] = same
-    resumed.fit(dm, resume=True)
+    counted = EpochBatches(dm)
+    resumed.fit(counted, resume=True)
     final_step = resumed.state.step  # before the best checkpoint's state replaces it
     best = resumed.restore_best()
     logged = resumed.ckpt.metrics(best)["val/loss"]
@@ -1853,7 +1910,8 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
         "test": test,
         "final_step": final_step,
     })
-    check(results["final_step"] == steps * NMS_RESUME_EPOCHS // NMS_EPOCHS, "nms-fit: resumed steps")
+    check(results["final_step"] == resumed_step(steps, counted, NMS_EPOCHS, NMS_RESUME_EPOCHS),
+          f"nms-fit: resumed steps, {results['final_step']} after {steps} and {counted.counts}")
     results.update(_profile_steps(resumed, dm, nms_loss, layers, k1_steps("nms", layers)))
     print("phase nms-fit: " + json.dumps(results), flush=True)
 
@@ -1875,7 +1933,7 @@ def rs_message_passing() -> GCPMessagePassing:
     """One message passing layer of the RS model (8 GCP2 layers with leaky
     relu, hidden 100/16, edges 32/4: LBA's widths), random weights from the
     seed."""
-    model_cfg, module_cfg, layer_cfg = rs_configs()
+    model_cfg, module_cfg, layer_cfg = task_configs("rs")
     node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
     edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
     return GCPMessagePassing(
@@ -1939,7 +1997,7 @@ def phase_rs_check(dm) -> dict:
 
     def build(dev):
         model = GCPNetRS(
-            *rs_configs(RS_CHECK_LAYERS, dropout=0.0), generator=torch.Generator().manual_seed(SEED), device=dev
+            *task_configs("rs", RS_CHECK_LAYERS, dropout=0.0), generator=torch.Generator().manual_seed(SEED), device=dev
         )
         return model, TrainState(build_optimizer(model.parameters(), {"_target_": "Adam", "lr": 1e-4}))
 
@@ -1954,7 +2012,7 @@ def phase_rs_fit(dm, ckpt_dir: str):
     the best checkpoint's test; beside it the first epoch of the same fit
     run eagerly (_eager_epoch).  Every kernel count is set to 0 just before
     the fit and read just after; rs-profile checks them (_fit_checks)."""
-    build = lambda **kw: build_rs_trainer(42, "cuda", lr=FIT_LR, **kw)  # noqa: E731
+    build = lambda **kw: build_task_trainer("rs", 42, "cuda", lr=FIT_LR, precision=32, **kw)  # noqa: E731
     graphs = dm.bucket().num_graphs
     eager = _eager_epoch(build, dm, rs_loss, graphs)
     parity = fit_parity(build, dm, rs_loss)
@@ -2000,7 +2058,7 @@ def phase_rs_profile(trainer, dm, fit: dict) -> dict:
     """One warm eager RS training step of the fitted model and one replay
     of its captured train and eval chunks under torch.profiler; then the
     rs-fit's checks that read them (_fit_checks)."""
-    layers = rs_configs()[0].num_encoder_layers
+    layers = task_configs("rs")[0].num_encoder_layers
     results = _profile_steps(trainer, dm, rs_loss, layers, k1_steps("rs", layers))
     print("phase rs-profile: " + json.dumps(results), flush=True)
     _fit_checks("rs-fit", {**fit, **results}, layers, fit["epochs"][0], k1_steps("rs", layers))
@@ -2158,7 +2216,7 @@ def _psr_model(dev, layers: int, dtype: torch.dtype = torch.float32):
     """The PSR model at full width with ``layers`` interaction layers, no
     dropout, weights from SEED, and a train state (Adam at 1e-4) computing
     in ``dtype``."""
-    trainer = build_atom3d_trainer(
+    trainer = build_task_trainer(
         "psr", SEED, dev, num_encoder_layers=layers, dropout=0.0, precision=16 if dtype == torch.bfloat16 else 32
     )
     return trainer.model, trainer.state
@@ -2214,8 +2272,8 @@ def phase_psr_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
     read just after (psr-profile checks them); after the fit and after the
     resume each CapturedCall may hold two graphs, a full chunk's and the
     tail's, as every batch has the bucket's shape."""
-    layers = FIT_DEFAULTS["psr"]["num_encoder_layers"]
-    build = lambda seed=42, **kw: build_atom3d_trainer("psr", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    layers = task_configs("psr")[0].num_encoder_layers
+    build = lambda seed=42, **kw: build_task_trainer("psr", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
     parity = fit_parity(build, psr_datamodule(root), graph_regression_loss)
     dm = psr_datamodule(root)
     clock = EpochClock()
@@ -2236,7 +2294,8 @@ def phase_psr_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
     resumed_clock = EpochClock()
     resumed = build(max_epochs=PSR_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
                     scan_chunk_size=FIT_CHUNK)
-    resumed.fit(dm, resume=True)
+    counted = EpochBatches(dm)
+    resumed.fit(counted, resume=True)
     results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
     # the step the fit ended at, before the best checkpoint's state replaces it
     results["final_step"] = resumed.state.step
@@ -2255,7 +2314,8 @@ def phase_psr_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
     for line in results["epochs"]:
         check(all(math.isfinite(v) for v in line.values()), f"psr-fit: epoch line {line}")
     check(all(math.isfinite(test[f"test/{m}"]) for m in PSR_METRICS), f"psr-fit: test metrics {test}")
-    check(results["final_step"] == results["steps"] * PSR_RESUME_EPOCHS // PSR_EPOCHS, "psr-fit: resumed steps")
+    check(results["final_step"] == resumed_step(results["steps"], counted, PSR_EPOCHS, PSR_RESUME_EPOCHS),
+          f"psr-fit: resumed steps, {results['final_step']} after {results['steps']} and {counted.counts}")
     for graphs in (results["graphs"], results["resumed_graphs"]):
         check(graphs["train_held"] <= 2 and graphs["eval_held"] <= 2, f"psr-fit: CUDA graphs held {graphs}")
     print("phase psr-fit: ok")
@@ -2267,7 +2327,7 @@ def phase_psr_profile(trainer, dm, fit: dict) -> dict:
     of its captured train and eval chunks under torch.profiler (busy ms,
     idle share, kernels: K1, K2 and the bf16 K3 5 times a step); then the
     psr-fit's checks that read them (_fit_checks)."""
-    layers = FIT_DEFAULTS["psr"]["num_encoder_layers"]
+    layers = task_configs("psr")[0].num_encoder_layers
     results = _profile_steps(trainer, dm, graph_regression_loss, layers, k1_steps("psr", layers))
     print("phase psr-profile: " + json.dumps(results), flush=True)
     _fit_checks("psr-fit", {**fit, **results}, layers, None, k1_steps("psr", layers), k3="K3_bf16")
@@ -2328,7 +2388,7 @@ def phase_cpd_data(root: str):
 def cpd_message_passing() -> GCPMessagePassing:
     """One encoder layer's message passing of the CPD model (8 GCP2 layers,
     hidden 100/16, edges 32/4), random weights from the seed."""
-    model_cfg, module_cfg, layer_cfg = cpd_configs()
+    model_cfg, module_cfg, layer_cfg = task_configs("cpd")
     node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
     edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
     return GCPMessagePassing(
@@ -2362,8 +2422,8 @@ def _cpd_model(dev, layers: int, dtype: torch.dtype = torch.float32):
     """The CPD model at full width with ``layers`` encoder and decoder
     layers, no dropout, weights from SEED, and a train state (Adam at 1e-4,
     weight decay 1e-8, no accumulation) computing in ``dtype``."""
-    trainer = build_cpd_trainer(
-        SEED, dev, num_encoder_layers=layers, num_decoder_layers=layers, dropout=0.0, accumulate_grad_batches=1,
+    trainer = build_task_trainer(
+        "cpd", SEED, dev, num_encoder_layers=layers, num_decoder_layers=layers, dropout=0.0, accumulate_grad_batches=1,
         precision=16 if dtype == torch.bfloat16 else 32,
     )
     return trainer.model, trainer.state
@@ -2434,7 +2494,7 @@ def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
     tests the best checkpoint.  Beside it the deterministic parity run
     (fit_parity).  Every kernel count is set to 0 just before the fit and
     read just after (cpd-profile checks them)."""
-    build = lambda seed=42, **kw: build_cpd_trainer(seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    build = lambda seed=42, **kw: build_task_trainer("cpd", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
     parity = fit_parity(build, cpd_datamodule(root), cpd_loss)
     dm = cpd_datamodule(root)
     clock = EpochClock()
@@ -2453,7 +2513,8 @@ def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
     resumed_clock = EpochClock()
     resumed = build(max_epochs=CPD_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
                     scan_chunk_size=FIT_CHUNK)
-    resumed.fit(dm, resume=True)
+    counted = EpochBatches(dm)
+    resumed.fit(counted, resume=True)
     results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
     # the step the fit ended at, before the best checkpoint's state replaces it
     results["final_step"] = resumed.state.step
@@ -2472,7 +2533,8 @@ def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
     for line in results["epochs"]:
         check(all(math.isfinite(v) for v in line.values()), f"cpd-fit: epoch line {line}")
     check(all(math.isfinite(test[f"test/{m}"]) for m in CPD_METRICS), f"cpd-fit: test metrics {test}")
-    check(results["final_step"] == results["steps"] * CPD_RESUME_EPOCHS // CPD_EPOCHS, "cpd-fit: resumed steps")
+    check(results["final_step"] == resumed_step(results["steps"], counted, CPD_EPOCHS, CPD_RESUME_EPOCHS),
+          f"cpd-fit: resumed steps, {results['final_step']} after {results['steps']} and {counted.counts}")
     for graphs in (results["graphs"], results["resumed_graphs"]):
         check(graphs["train_held"] <= 2 and graphs["eval_held"] <= 2, f"cpd-fit: CUDA graphs held {graphs}")
     print("phase cpd-fit: ok")
@@ -2485,7 +2547,7 @@ def phase_cpd_profile(trainer, dm, fit: dict) -> dict:
     idle share, kernels: K2 and the bf16 K3 9 times a step, K1 as
     k1_steps counts it for 9 encoder and 3 decoder layers); then the
     cpd-fit's checks that read them (_fit_checks)."""
-    layers = FIT_DEFAULTS["cpd"]["num_encoder_layers"]
+    layers = task_configs("cpd")[0].num_encoder_layers
     k1 = k1_steps("cpd", layers, trainer.model.num_decoder_layers)
     results = _profile_steps(trainer, dm, cpd_loss, layers, k1)
     print("phase cpd-profile: " + json.dumps(results), flush=True)
@@ -2518,7 +2580,7 @@ def phase_cpd_design(trainer, dm) -> dict:
     name, graph = min(chains, key=lambda c: c[1].num_nodes)
     prof = device_profile(lambda: datum_recovery(model, graph, CPD_SAMPLES, CPD_TEMPERATURE))
     card = datum_samples(model, graph, CPD_ARGMAX_SAMPLES)
-    cpu_model = build_cpd_trainer(SEED, "cpu").model
+    cpu_model = build_task_trainer("cpd", SEED, "cpu").model
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu = datum_samples(cpu_model, graph, CPD_ARGMAX_SAMPLES)
     positions = int(graph.num_nodes)
@@ -2546,7 +2608,7 @@ def phase_cpd_design(trainer, dm) -> dict:
     # and node frames a layer), 9 K2 each; and the sampler's decoder steps,
     # a sum a decoder layer at each position with a valid node (the
     # subgraphs carry their indices' sorted forms)
-    layers = FIT_DEFAULTS["cpd"]["num_encoder_layers"]
+    layers = task_configs("cpd")[0].num_encoder_layers
     decoders = model.num_decoder_layers
     k1 = k1_steps("cpd", layers, decoders)[1] + 2 + 2 * layers
     steps = sum(g.num_nodes if g.node_mask is None else int(np.sum(g.node_mask)) for _, g in chains)
@@ -2567,7 +2629,7 @@ def phase_determinism(dm) -> dict:
     must end equal bit for bit; the share of entries apart is printed."""
     runs = []
     for _ in range(2):
-        trainer = build_rs_trainer(42, "cuda", lr=FIT_LR)
+        trainer = build_task_trainer("rs", 42, "cuda", lr=FIT_LR, precision=32)
         for batch in itertools.islice(dm.train_batches(seed=0), DETERMINISM_STEPS):
             train_step(trainer.model, trainer.state, batch.to(torch.device("cuda")), rs_loss, trainer.generator)
         torch.cuda.synchronize()
@@ -2575,7 +2637,7 @@ def phase_determinism(dm) -> dict:
         del trainer
     apart = (runs[0] != runs[1]).double().mean().item()
     results = {"steps": DETERMINISM_STEPS, "params_equal": torch.equal(runs[0], runs[1]), "share_apart": apart,
-               "moved_share": (runs[0] != flat_params(build_rs_trainer(42, "cuda", lr=FIT_LR).model)).double()
+               "moved_share": (runs[0] != flat_params(build_task_trainer("rs", 42, "cuda", lr=FIT_LR, precision=32).model)).double()
                .mean().item()}
     print("phase determinism: " + json.dumps(results), flush=True)
     check(results["params_equal"], f"determinism: two eager fp32 RS runs part in {apart:.3g} of the entries")
@@ -2639,7 +2701,7 @@ def eq_message_passing() -> GCPMessagePassing:
     """One EQ layer's message passing (8 GCP3 layers, hidden 100/16, edges
     32/4, the attention and the sum over senders), random weights from the
     seed."""
-    model_cfg, module_cfg, layer_cfg = eq_configs()
+    model_cfg, module_cfg, layer_cfg = task_configs("eq")
     node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
     edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
     return GCPMessagePassing(
@@ -2675,9 +2737,9 @@ def phase_eq_kernels(dm) -> dict:
 
 def _eq_model(dev, layers: int, dtype: torch.dtype = torch.float32):
     """The EQ model at full width with ``layers`` layers, no dropout,
-    weights from SEED, and a train state (Adam at 1e-4) computing in
-    ``dtype``."""
-    trainer = build_eq_trainer(SEED, dev, num_encoder_layers=layers, dropout=0.0,
+    weights from SEED, and a train state (Adam at 1e-4, the experiment's
+    adaptive clip) computing in ``dtype``."""
+    trainer = build_task_trainer("eq", SEED, dev, num_encoder_layers=layers, dropout=0.0,
                                precision=16 if dtype == torch.bfloat16 else 32)
     return trainer.model, trainer.state
 
@@ -2715,7 +2777,7 @@ def phase_eq_fit(root: str, ckpt_dir: str):
     test RMSE and Pearson on the synthetic labels, peak memory.  Beside it
     the deterministic parity run (fit_parity).  Every kernel count is set to
     0 just before the fit and read just after (eq-profile checks them)."""
-    build = lambda seed=42, **kw: build_eq_trainer(seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    build = lambda seed=42, **kw: build_task_trainer("eq", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
     parity = fit_parity(build, eq_datamodule(root), eq_loss)
     dm = eq_datamodule(root)
     clock = EpochClock()
@@ -2734,7 +2796,8 @@ def phase_eq_fit(root: str, ckpt_dir: str):
     resumed_clock = EpochClock()
     resumed = build(max_epochs=EQ_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
                     scan_chunk_size=FIT_CHUNK)
-    resumed.fit(dm, resume=True)
+    counted = EpochBatches(dm)
+    resumed.fit(counted, resume=True)
     # the step the fit ended at, before the best checkpoint's state replaces it
     results["final_step"] = resumed.state.step
     results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
@@ -2753,7 +2816,8 @@ def phase_eq_fit(root: str, ckpt_dir: str):
     for line in results["epochs"]:
         check(all(math.isfinite(v) for v in line.values()), f"eq-fit: epoch line {line}")
     check(all(math.isfinite(test[f"test/{m}"]) for m in EQ_METRICS), f"eq-fit: test metrics {test}")
-    check(results["final_step"] == results["steps"] * EQ_RESUME_EPOCHS // EQ_EPOCHS, "eq-fit: resumed steps")
+    check(results["final_step"] == resumed_step(results["steps"], counted, EQ_EPOCHS, EQ_RESUME_EPOCHS),
+          f"eq-fit: resumed steps, {results['final_step']} after {results['steps']} and {counted.counts}")
     for graphs in (results["graphs"], results["resumed_graphs"]):
         check(graphs["train_held"] <= 2 and graphs["eval_held"] <= 2, f"eq-fit: CUDA graphs held {graphs}")
     print("phase eq-fit: ok")
@@ -2766,7 +2830,7 @@ def phase_eq_profile(trainer, dm, fit: dict) -> dict:
     share, kernels: K2 and the bf16 K3 5 times a step, K1 as k1_steps counts
     it, no scatter kernel); then the eq-fit's checks that read them
     (_fit_checks)."""
-    layers = FIT_DEFAULTS["eq"]["num_encoder_layers"]
+    layers = task_configs("eq")[0].num_encoder_layers
     k1 = k1_steps("eq", layers)
     results = _profile_steps(trainer, dm, eq_loss, layers, k1)
     print("phase eq-profile: " + json.dumps(results), flush=True)
@@ -2832,7 +2896,7 @@ def ar_message_passing() -> GCPMessagePassing:
     """One AR layer's message passing (4 GCP3 layers with silu and the
     vector gate, hidden 100/32, edges 16/4, the attention and the sum over
     senders), random weights from the seed."""
-    model_cfg, module_cfg, layer_cfg = ar_configs()
+    model_cfg, module_cfg, layer_cfg = task_configs("ar")
     node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
     edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
     return GCPMessagePassing(
@@ -2878,8 +2942,9 @@ def phase_ar_kernels(dm) -> dict:
 
 def _ar_model(dev, layers: int, dtype: torch.dtype = torch.float32):
     """The AR model at full width with ``layers`` layers, weights from
-    SEED, and a train state (Adam at 1e-4) computing in ``dtype``."""
-    trainer = build_ar_trainer(SEED, dev, num_encoder_layers=layers, precision=16 if dtype == torch.bfloat16 else 32)
+    SEED, and a train state (Adam at 1e-4, the experiment's adaptive clip)
+    computing in ``dtype``."""
+    trainer = build_task_trainer("ar", SEED, dev, num_encoder_layers=layers, precision=16 if dtype == torch.bfloat16 else 32)
     return trainer.model, trainer.state
 
 
@@ -2913,7 +2978,7 @@ def phase_ar_fit(root: str, ckpt_dir: str):
     test RMSE (A) on the synthetic pairs, peak memory.  Beside it the
     deterministic parity run (fit_parity).  Every kernel count is set to 0
     just before the fit and read just after (ar-profile checks them)."""
-    build = lambda seed=42, **kw: build_ar_trainer(seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    build = lambda seed=42, **kw: build_task_trainer("ar", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
     parity = fit_parity(build, ar_datamodule(root), ar_loss)
     dm = ar_datamodule(root)
     clock = EpochClock()
@@ -2932,7 +2997,8 @@ def phase_ar_fit(root: str, ckpt_dir: str):
     resumed_clock = EpochClock()
     resumed = build(max_epochs=AR_RESUME_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[resumed_clock],
                     scan_chunk_size=FIT_CHUNK)
-    resumed.fit(dm, resume=True)
+    counted = EpochBatches(dm)
+    resumed.fit(counted, resume=True)
     # the step the fit ended at, before the best checkpoint's state replaces it
     results["final_step"] = resumed.state.step
     results["resumed_graphs"] = _fit_record(resumed, resumed_clock, None, FIT_LR)["graphs"]
@@ -2950,7 +3016,8 @@ def phase_ar_fit(root: str, ckpt_dir: str):
     for line in results["epochs"]:
         check(all(math.isfinite(v) for v in line.values()), f"ar-fit: epoch line {line}")
     check(all(math.isfinite(test[f"test/{m}"]) for m in ("loss", "RMSE")), f"ar-fit: test metrics {test}")
-    check(results["final_step"] == results["steps"] * AR_RESUME_EPOCHS // AR_EPOCHS, "ar-fit: resumed steps")
+    check(results["final_step"] == resumed_step(results["steps"], counted, AR_EPOCHS, AR_RESUME_EPOCHS),
+          f"ar-fit: resumed steps, {results['final_step']} after {results['steps']} and {counted.counts}")
     for graphs in (results["graphs"], results["resumed_graphs"]):
         check(graphs["train_held"] <= 2 and graphs["eval_held"] <= 2, f"ar-fit: CUDA graphs held {graphs}")
     print("phase ar-fit: ok")
@@ -2964,7 +3031,7 @@ def phase_ar_profile(trainer, dm, fit: dict, data: dict) -> dict:
     counts it, no scatter kernel); the host's ms to make a training batch
     (ar-data) against a replayed step's busy ms; then the ar-fit's checks
     that read them (_fit_checks)."""
-    layers = FIT_DEFAULTS["ar"]["num_encoder_layers"]
+    layers = task_configs("ar")[0].num_encoder_layers
     k1 = k1_steps("ar", layers)
     results = _profile_steps(trainer, dm, ar_loss, layers, k1)
     busy = results["profile_captured"]["device_busy_ms"]
@@ -2979,7 +3046,7 @@ def phase_ar_profile(trainer, dm, fit: dict, data: dict) -> dict:
 
 def phase_ar_predict(trainer, root: str) -> dict:
     """The fitted model (fp32 copy of its weights) refines one decoy of
-    AR_PREDICT_RESIDUES residues through predict_ar.refine: its two
+    AR_PREDICT_RESIDUES residues through gcpnet_torch.predict.serve: its two
     windows each one batch in a bucket of AR_PREDICT_NODES nodes, served
     by a CUDA graph (Predictor), stitched into one refined PDB and scored
     against the native (TM-score, GDT, MaxSub, RMSD, lDDT); ms a decoy
@@ -3003,10 +3070,10 @@ def phase_ar_predict(trainer, root: str) -> dict:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rows = refine(model, dm, out)
+    rows, _ = serve(model, dm, out)
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(zip(KERNEL_COUNTS, launch_counts()))
-    again = refine(model, dm, out)
+    _, again_ms = serve(model, dm, out)
     batch = next(dm.predict_batches())
     dm._predict_meta.clear()
     served = Predictor(model)
@@ -3017,7 +3084,7 @@ def phase_ar_predict(trainer, root: str) -> dict:
     real = batch.node_pad_mask
     err = float(np.abs(replayed[real] - eager[real]).max())
     scale = float(np.abs(eager[real]).max())
-    results = {"windows": windows, "rows": rows, "ms_first_decoy": first_ms, "ms_per_decoy": again[0]["ms"],
+    results = {"windows": windows, "rows": rows, "ms_first_decoy": first_ms, "ms_per_decoy": again_ms[0],
                "launches_first": launches, "served_vs_eager_max_abs": err, "position_scale": scale,
                "bucket": {"nodes": AR_PREDICT_NODES, "edges": AR_PREDICT_NODES * 152}}
     print("phase ar-predict: " + json.dumps(results), flush=True)
@@ -3031,11 +3098,237 @@ def phase_ar_predict(trainer, root: str) -> dict:
     check(atoms == sum(int(b.extras["overlap_keep_mask"].sum()) for b in dm.predict_batches()),
           f"ar-predict: {atoms} atoms written")
     dm._predict_meta.clear()
-    layers = FIT_DEFAULTS["ar"]["num_encoder_layers"]
+    layers = task_configs("ar")[0].num_encoder_layers
     want = {"K1": 2 * k1_steps("ar", layers)[1], "K2": 2 * layers, "K3_bf16": 0, "K3_fp32": 0}
     check(launches == want, f"ar-predict: launches {launches}, want {want} (one window eager and captured)")
     check(err <= FORWARD_ATOL * max(1.0, scale), f"ar-predict: served vs eager {err} at scale {scale}")
     print("phase ar-predict: ok")
+    return results
+
+
+def write_lba_records(root: str, seed: int = SEED, complexes=None, pocket_atoms=LBA_POCKET_ATOMS,
+                      ligand_atoms=LBA_LIGAND_ATOMS) -> dict:
+    """Synthetic LBA records in the npz format of
+    scripts/convert_atom3d_to_npz.py under ``root``
+    (``LBA/split-by-sequence-identity-30/data/<split>_npz``; ``complexes``
+    per split, default LBA_COMPLEXES): each a ligand, a compact walk of 1.5
+    A steps from the origin with drug-like elements, inside a pocket, a
+    protein chain at protein packing (_native_chains) with its atoms within
+    2.5 A of the ligand removed; ``lig_flag`` marks the ligand's atoms and
+    ``label`` is a seeded affinity in pK units that grows with the ligand's
+    size.  Returns the complexes per split and their atom counts."""
+    rng = np.random.default_rng(seed)
+    counts, atoms = {}, []
+    for split, n in (complexes or LBA_COMPLEXES).items():
+        out = os.path.join(root, "LBA", "split-by-sequence-identity-30", "data", f"{split}_npz")
+        os.makedirs(out, exist_ok=True)
+        pockets = _native_chains(rng, rng.integers(pocket_atoms[0], pocket_atoms[1] + 1, size=n))
+        for i, pocket in enumerate(pockets):
+            m = int(rng.integers(ligand_atoms[0], ligand_atoms[1] + 1))
+            steps = rng.normal(size=(m, 3))
+            ligand = np.cumsum(1.5 * steps / np.linalg.norm(steps, axis=1, keepdims=True), axis=0)
+            ligand -= ligand.mean(axis=0)
+            gap = np.linalg.norm(pocket[:, None] - ligand[None], axis=-1).min(axis=1)
+            pocket = pocket[gap > 2.5]
+            elements = np.concatenate([
+                rng.choice(np.asarray(["C", "N", "O", "S"]), size=len(pocket), p=[0.62, 0.17, 0.19, 0.02]),
+                rng.choice(np.asarray(["C", "N", "O", "F", "Cl", "P"]), size=m, p=[0.7, 0.12, 0.12, 0.03, 0.02, 0.01]),
+            ])
+            np.savez(
+                os.path.join(out, f"{i:04d}.npz"), coords=np.concatenate([pocket, ligand]).astype(np.float32),
+                elements=elements, lig_flag=np.r_[np.zeros(len(pocket)), np.ones(m)].astype(np.int32),
+                label=np.float32(3.0 + 0.12 * m + rng.normal(0.0, 0.5)),
+            )
+            atoms.append(len(pocket) + m)
+        counts[split] = n
+    return {"complexes": counts, "atoms": [int(min(atoms)), float(np.mean(atoms)), int(max(atoms))]}
+
+
+def cfg_overrides(data_root: str, run_dir: str) -> list:
+    """The overrides of cfg-train and cfg-eval: the LBA experiment on the
+    records under ``data_root/ATOM3D`` (paths.data_dir), CFG_EPOCHS epochs,
+    FIT_CHUNK batches a dispatch, checkpoints and the CSV logger under
+    ``run_dir``; the experiment's widths, precision and batch size, and the
+    default trainer.accelerator (the card)."""
+    return [
+        "experiment=gcpnet_lba", f"paths.data_dir={data_root}/", f"paths.output_dir={run_dir}",
+        f"trainer.max_epochs={CFG_EPOCHS}", f"+trainer.scan_chunk_size={FIT_CHUNK}",
+        f"callbacks.model_checkpoint.dirpath={run_dir}/checkpoints", "logger=csv", "extras.print_config=false",
+    ]
+
+
+def phase_cfg_train(data_root: str, run_dir: str) -> dict:
+    """The config-driven training entry point on the card:
+    ``gcpnet_torch.train.entry.main`` with experiment=gcpnet_lba on
+    synthetic LBA records (write_lba_records) at the experiment's widths
+    (its composed model's parameters named and shaped as a GCPNetLBA built
+    directly at the benchmark's widths), fitted for CFG_EPOCHS epochs and
+    tested with the best checkpoint.  Every kernel count is set to 0 just
+    before main and read just after: K1, K2 and the bf16 K3 ran, as many
+    times as the captured graphs' first calls need (_fit_checks); then one
+    warm eager step and one replay of a train and an eval chunk under
+    torch.profiler (36 / 8 / 8 a step, no scatter kernel); the train
+    graphs/s, the captured step's busy ms, peak memory, and the host's ms
+    to make a batch."""
+    t0 = time.perf_counter()
+    data = write_lba_records(os.path.join(data_root, "ATOM3D"))
+    write_seconds = time.perf_counter() - t0
+    overrides = cfg_overrides(data_root, run_dir)
+    cfg = compose(CONFIG_DIR, "train.yaml", overrides)
+    composed, name = tasks.build_model(cfg["model"], device="cuda")
+    direct = GCPNetLBA(*lba_configs(), num_atom_types=9, generator=torch.Generator().manual_seed(SEED), device="cuda")
+    shapes = [(k, tuple(v.shape)) for k, v in composed.state_dict().items()]
+    same_model = name == "GCPNetLBA" and shapes == [(k, tuple(v.shape)) for k, v in direct.state_dict().items()]
+    layers = composed.encoder.num_layers
+    del composed, direct
+    clock, trainers = EpochClock(), []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    clock.last = t0 = time.perf_counter()
+    metrics = train_entry.main(overrides, loggers=[clock], trainers=trainers)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_COUNTS, launch_counts()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer = trainers[0]
+    dm = build_datamodule(cfg["datamodule"], device="cuda")
+    dm.setup()
+    fills, make_ms, pin_ms = _timed_batches(dm.train_batches(seed=0))
+    k1 = k1_steps("lba", layers)
+    results = {
+        "data": data, "write_seconds": write_seconds, "overrides": overrides, "same_model_as_direct": same_model,
+        "layers": layers, "metrics": metrics, "seconds": seconds, "launches": launches, "peak_mem_gb": peak_gb,
+        "steps": trainer.state.step, "best_step": trainer.ckpt.best_step,
+        "graphs_per_batch": data["complexes"]["train"] / len(fills),
+        "host_ms_per_batch": {"mean": float(np.mean(make_ms[1:])), "max": float(np.max(make_ms[1:]))},
+        "pin_ms_per_batch": float(np.mean(pin_ms)),
+        "fill_mean": {k: float(np.mean([f[k] for f in fills])) for k in ("real_nodes", "real_edges")},
+        "in_bucket": all(f["in_bucket"] for f in fills),
+        "epochs": [{k: line[k] for k in ("epoch", "seconds", "train/loss", "train/steps_per_sec", "val/loss")}
+                   for line in clock.lines if "epoch" in line],
+        **_fit_record(trainer, clock, None, FIT_LR),
+    }
+    results.update(_profile_steps(trainer, dm, graph_regression_loss, layers, k1))
+    busy = results["profile_captured"]["device_busy_ms"]
+    results["step_busy_ms"] = busy / FIT_CHUNK if isinstance(busy, float) else float("nan")
+    results["train_graphs_per_s"] = [line["train/steps_per_sec"] * results["graphs_per_batch"]
+                                     for line in results["epochs"]]
+    print("phase cfg-train: " + json.dumps(results), flush=True)
+    check(same_model, "cfg-train: the composed model is not GCPNetLBA at the benchmark's widths")
+    check(layers == 8, f"cfg-train: {layers} interaction layers, the experiment has 8")
+    check(results["in_bucket"], "cfg-train: a batch outside the JAX bucket or without its CSR splits")
+    check([line["epoch"] for line in results["epochs"]] == list(range(CFG_EPOCHS)), "cfg-train: epochs run")
+    for line in results["epochs"]:
+        check(all(math.isfinite(v) for v in line.values()), f"cfg-train: epoch line {line}")
+    check(all(math.isfinite(metrics[f"test/{m}"]) for m in ("loss", "RMSE", "PearsonCorrCoef")),
+          f"cfg-train: test metrics {metrics}")
+    check(results["profile"]["launches"] == {"K1": 36, "K2": 8, "K3_bf16": 8, "K3_fp32": 0},
+          f"cfg-train: an eager step's launches {results['profile']['launches']}")
+    _fit_checks("cfg-train", results, layers, None, k1, k3="K3_bf16", parity_run=False)
+    check(os.path.exists(os.path.join(run_dir, "csv", "metrics.csv")), "cfg-train: the CSV logger wrote nothing")
+    print("phase cfg-train: ok")
+    return results
+
+
+def phase_cfg_eval(data_root: str, run_dir: str, train: dict) -> dict:
+    """The config-driven evaluation entry point on the card:
+    ``gcpnet_torch.eval.main`` with cfg-train's overrides and
+    ``ckpt_path=<its checkpoints>`` restores the best checkpoint and tests
+    it; its test/loss is cfg-train's (the same checkpoint, batches and
+    kernels), bit for bit.  The counts are set to 0 just before and read
+    just after: K1 and K2 ran, K3 did not."""
+    overrides = [*cfg_overrides(data_root, run_dir), f"ckpt_path={run_dir}/checkpoints"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = eval_entry.main(overrides)
+    torch.cuda.synchronize()
+    results = {"metrics": metrics, "seconds": time.perf_counter() - t0,
+               "launches": dict(zip(KERNEL_COUNTS, launch_counts())), "train_test_loss": train["metrics"]["test/loss"]}
+    print("phase cfg-eval: " + json.dumps(results), flush=True)
+    check(metrics["test/loss"] == train["metrics"]["test/loss"],
+          f"cfg-eval: test/loss {metrics['test/loss']!r}, cfg-train's {train['metrics']['test/loss']!r}")
+    launches = results["launches"]
+    check(launches["K1"] > 0 and launches["K2"] > 0 and launches["K3_bf16"] == launches["K3_fp32"] == 0,
+          f"cfg-eval: launches {launches}")
+    print("phase cfg-eval: ok")
+    return results
+
+
+def phase_cfg_predict(eq_root: str, ckpt_dir: str, work: str) -> dict:
+    """The config-driven prediction entry point on the card:
+    ``gcpnet_torch.predict.main`` with model=gcpnet_eq datamodule=eq and
+    eq-fit's checkpoints serves eq-data's test decoys (each native copied
+    under its decoy's name, so the rows carry the true lDDT): one
+    b-factor-annotated PDB and one CSV row a decoy; the served per-residue
+    lDDT against an eager fp32 forward of the same weights
+    (CFG_PREDICT_ATOL); the counts set to 0 just before main and read just
+    after (one capture: the first decoy eager and captured, the rest
+    replayed)."""
+    inputs, natives, out, run_dir = (os.path.join(work, d) for d in ("in", "native", "out", "run"))
+    for d in (inputs, natives):
+        os.makedirs(d, exist_ok=True)
+    with open(os.path.join(eq_root, "splits", "test.lst")) as f:
+        names = [line.strip() for line in f if line.strip()]
+    for name in names:
+        shutil.copy(os.path.join(eq_root, "decoy_model", f"{name}.pdb"), os.path.join(inputs, f"{name}.pdb"))
+        shutil.copy(os.path.join(eq_root, "true_model", f"{name.split('_')[0]}.pdb"),
+                    os.path.join(natives, f"{name}.pdb"))
+    overrides = [
+        "model=gcpnet_eq", "datamodule=eq", f"ckpt_path={ckpt_dir}", f"datamodule.predict_input_dir={inputs}",
+        f"datamodule.predict_true_dir={natives}", f"datamodule.predict_output_dir={out}",
+        f"datamodule.model_data_cache_dir={eq_root}/model_data_cache", f"paths.output_dir={run_dir}",
+        "extras.print_config=false",
+    ]
+    served = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = predict_entry.main(overrides, served=served)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_COUNTS, launch_counts()))
+    cfg = compose(CONFIG_DIR, "predict.yaml", overrides)
+    model, _ = tasks.build_model(cfg["model"], device="cuda")
+    model.load_state_dict(CheckpointManager(ckpt_dir).restore_best(map_location="cuda")["model"])
+    model.float().eval()
+    errs, bfactor_errs = [], []
+    with open(cfg["predictions_csv_path"]) as f:
+        rows = list(csv.DictReader(f))
+    with torch.inference_mode():
+        for (batch, preds), row in zip(served, rows):
+            mask = np.asarray(batch.extras["res_mask"]) > 0
+            eager = model(batch.to(torch.device("cuda"))).float().cpu().numpy()
+            errs.append(float(np.abs(preds[mask] - eager[mask]).max()))
+            by_residue, seen = [], set()
+            for a in parse_pdb(row["annotated_pdb"], heavy_only=True).atoms:
+                if (a.chain, a.resseq, a.icode) not in seen:
+                    seen.add((a.chain, a.resseq, a.icode))
+                    by_residue.append(a.bfactor)
+            bfactor_errs.append(float(np.abs(np.asarray(by_residue) - preds[mask][: len(by_residue)]).max()))
+            check(len(by_residue) == int(mask.sum()), f"cfg-predict: {row['decoy']} has {len(by_residue)} residues")
+            check(abs(float(row["global_plddt_pred"]) - float(preds[mask].mean())) <= 1e-6,
+                  f"cfg-predict: row {row}")
+    layers = cfg["model"]["model_cfg"]["num_encoder_layers"]
+    want = {"K1": 2 * k1_steps("eq", layers)[1], "K2": 2 * layers, "K3_bf16": 0, "K3_fp32": 0}
+    results = {
+        "metrics": metrics, "decoys": len(names), "seconds": seconds, "ms_per_decoy": seconds * 1e3 / len(names),
+        "launches": launches, "want_launches": want, "served_vs_eager_max_abs": max(errs),
+        "bfactor_vs_served_max_abs": max(bfactor_errs), "rows": rows[:2],
+        "mean_true_lddt": float(np.mean([float(r["global_lddt_true"]) for r in rows])),
+    }
+    print("phase cfg-predict: " + json.dumps(results), flush=True)
+    check(metrics["num_predictions"] == len(names) == len(rows) == len(served), f"cfg-predict: {len(rows)} rows")
+    check(sorted(r["decoy"] for r in rows) == sorted(f"{n}.pdb" for n in names), "cfg-predict: the rows' decoys")
+    check(sorted(rows[0]) == ["annotated_pdb", "decoy", "global_lddt_true", "global_plddt_pred"],
+          f"cfg-predict: CSV columns {sorted(rows[0])}")
+    check(all(os.path.exists(r["annotated_pdb"]) for r in rows), "cfg-predict: a PDB is missing")
+    check(max(bfactor_errs) <= 0.005 + 1e-6, f"cfg-predict: b-factors off the served values by {max(bfactor_errs)}")
+    check(max(errs) <= CFG_PREDICT_ATOL, f"cfg-predict: served vs eager {max(errs)}")
+    check(launches == want, f"cfg-predict: launches {launches}, want {want} (one decoy eager and captured)")
+    print("phase cfg-predict: ok")
     return results
 
 
@@ -3067,7 +3360,8 @@ def kernel_line(report) -> dict:
     fp32 K3's count is 0); under "cpd" at the CPD step's shape and the CPD
     fit (bf16; K1 a step as k1_steps counts it); under "eq" at the EQ
     step's shape and the EQ fit (bf16); under "ar" at the AR step's shape
-    (the silu stack) and the AR fit (bf16)."""
+    (the silu stack) and the AR fit (bf16); under "cfg" the launches of the
+    config-driven LBA fit (cfg-train, bf16), whose shape is psr's."""
     k1, k2, k3 = report["K1"], report["K2"], report["K3"]
     forward, train, train_fp32 = report["forward"], report["train"], report["train_fp32"]
     nk, rk, pk = report["nms_kernels"], report["rs_kernels"], report["psr_kernels"]
@@ -3083,6 +3377,13 @@ def kernel_line(report) -> dict:
     ck, cpd_steps = report["cpd_kernels"], per_step(report["cpd_profile"])
     ek, eq_steps = report["eq_kernels"], per_step(report["eq_profile"])
     ak, ar_steps = report["ar_kernels"], per_step(report["ar_profile"])
+    cfg_run, cfg_steps = report["cfg_train"], per_step(report["cfg_train"])
+
+    def cfg(count):
+        """The config-driven LBA fit's launches (cfg-train) of a kernel: the
+        wrappers' count over the run, and a step of a chunk replay; its
+        shape is psr's (the same bucket and stack)."""
+        return {"launches": cfg_run["launches"][count], "launches_per_step": cfg_steps[count]}
 
     def row(name, source, replaces, run, count, main, dtype, **extra):
         return {
@@ -3111,7 +3412,7 @@ def kernel_line(report) -> dict:
                 psr=nms(pk["K1"], psr_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
                 cpd=nms(ck["K1"], cpd_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
                 eq=nms(ek["K1"], eq_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"),
-                ar=nms(ak["K1"], ar_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16")),
+                ar=nms(ak["K1"], ar_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"), cfg=cfg("K1")),
             row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train, "K2",
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
                 bound_rate=k2["bf16"]["bound_rate"],
@@ -3121,7 +3422,7 @@ def kernel_line(report) -> dict:
                 psr=nms(pk["K2"], psr_steps["K2"], fp32="fp32", bf16="bf16"),
                 cpd=nms(ck["K2"], cpd_steps["K2"], fp32="fp32", bf16="bf16"),
                 eq=nms(ek["K2"], eq_steps["K2"], fp32="fp32", bf16="bf16"),
-                ar=nms(ak["K2"], ar_steps["K2"], fp32="fp32", bf16="bf16")),
+                ar=nms(ak["K2"], ar_steps["K2"], fp32="fp32", bf16="bf16"), cfg=cfg("K2")),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train, "K3_bf16",
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3_bf16"],
                 bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps["K3_bf16"], bf16="bf16"),
@@ -3129,7 +3430,7 @@ def kernel_line(report) -> dict:
                 psr=nms(pk["K3"], psr_steps["K3_bf16"], bf16="bf16"),
                 cpd=nms(ck["K3"], cpd_steps["K3_bf16"], bf16="bf16"),
                 eq=nms(ek["K3"], eq_steps["K3_bf16"], bf16="bf16"),
-                ar=nms(ak["K3"], ar_steps["K3_bf16"], bf16="bf16")),
+                ar=nms(ak["K3"], ar_steps["K3_bf16"], bf16="bf16"), cfg=cfg("K3_bf16")),
             row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32, "K3_fp32",
                 k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"],
                 bound_ms_cuda_cores=k3["fp32"]["bound_ms_cuda_cores"],
@@ -3138,7 +3439,7 @@ def kernel_line(report) -> dict:
                 psr=nms(pk["K3"], psr_steps["K3_fp32"], fp32="fp32"),
                 cpd=nms(ck["K3"], cpd_steps["K3_fp32"], fp32="fp32"),
                 eq=nms(ek["K3"], eq_steps["K3_fp32"], fp32="fp32"),
-                ar=nms(ak["K3"], ar_steps["K3_fp32"], fp32="fp32")),
+                ar=nms(ak["K3"], ar_steps["K3_fp32"], fp32="fp32"), cfg=cfg("K3_fp32")),
         ]
     }
 
@@ -3169,7 +3470,8 @@ def main() -> int:
     cpd_root, cpd_ckpt_dir = os.path.join(work, "cath"), os.path.join(args.out_dir, "cpd_checkpoints")
     eq_root, eq_ckpt_dir = os.path.join(work, "eq"), os.path.join(args.out_dir, "eq_checkpoints")
     ar_root, ar_ckpt_dir = os.path.join(work, "ar"), os.path.join(args.out_dir, "ar_checkpoints")
-    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir):
+    cfg_run_dir = os.path.join(args.out_dir, "cfg_run")
+    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir, cfg_run_dir):
         shutil.rmtree(path, ignore_errors=True)
     report = {}
     try:
@@ -3234,11 +3536,15 @@ def main() -> int:
         report["ar_profile"] = phase_ar_profile(ar_trainer, ar_dm, report["ar_fit"], report["ar_data"])
         report["ar_predict"] = phase_ar_predict(ar_trainer, os.path.join(work, "ar_predict"))
         del ar_trainer, ar_dm
+        gc.collect()
+        report["cfg_train"] = phase_cfg_train(os.path.join(work, "cfg_data"), cfg_run_dir)
+        report["cfg_eval"] = phase_cfg_eval(os.path.join(work, "cfg_data"), cfg_run_dir, report["cfg_train"])
+        report["cfg_predict"] = phase_cfg_predict(eq_root, eq_ckpt_dir, os.path.join(work, "cfg_predict"))
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
-        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir):
+        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir, cfg_run_dir):
             shutil.rmtree(path, ignore_errors=True)
         report["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:

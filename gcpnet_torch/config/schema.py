@@ -13,8 +13,14 @@ from typing import Any, Dict, Optional, Tuple
 
 
 def _filter_kwargs(cls, d: Dict[str, Any]) -> Dict[str, Any]:
-    names = {f.name for f in dataclasses.fields(cls)}
-    return {k: v for k, v in d.items() if k in names}
+    """The keys of ``d`` that ``cls`` has, a string read for a float field
+    made a float (YAML 1.1 reads ``1e-2`` as a string)."""
+    defaults = {f.name: f.default for f in dataclasses.fields(cls)}
+    return {
+        k: float(v) if isinstance(v, str) and isinstance(defaults[k], float) else v
+        for k, v in d.items()
+        if k in defaults
+    }
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,7 +21,9 @@ shuffles the graphs that featurized).  Batches are receiver-sorted with
 CSR row splits and carry the sorted forms of the senders and of the
 atoms' residue index (``residue_perm``, ``residue_inv_perm``,
 ``residue_splits``), so that on the card every sum of EQ runs through K1.
-The CA-only mode, the ``lddt`` binary and the prediction writer are not
+The prediction path (``predict_batches``, ``record_predictions``) gives
+one batch a decoy of ``predict_input_dir`` and writes its b-factor-annotated
+PDB and its CSV row.  The CA-only mode and the ``lddt`` binary are not
 ported yet.
 """
 
@@ -37,7 +39,7 @@ from gcpnet_torch.data.atom3d import radius_graph
 from gcpnet_torch.data.batching import Bucket, batches_from_dataset, made_ahead, shuffled_order, sorted_index
 from gcpnet_torch.data.esm import embed_sequence
 from gcpnet_torch.data.features import edge_geometric_features, orientations
-from gcpnet_torch.data.pdb import Structure, parse_pdb
+from gcpnet_torch.data.pdb import Structure, annotate_pdb_bfactor_column, parse_pdb
 from gcpnet_torch.graph import GraphBatch, GraphData
 from gcpnet_torch.utils.structure_metrics import matched_lddt
 
@@ -187,6 +189,8 @@ class EQDataModule:
         max_nodes_per_batch: int = 8192,
         max_residues_per_batch: int = 1100,
         esm_cache_dir: Optional[str] = None,
+        predict_input_dir: Optional[str] = None,
+        predict_true_dir: Optional[str] = None,
     ):
         self.splits_dir = splits_dir
         self.decoy_dir = decoy_dir
@@ -202,8 +206,11 @@ class EQDataModule:
         self.esm_cache_dir = esm_cache_dir or (
             os.path.join(model_data_cache_dir, "esm") if model_data_cache_dir else None
         )
+        self.predict_input_dir = predict_input_dir
+        self.predict_true_dir = predict_true_dir
         self.splits: Dict[str, List[str]] = {}
         self._featurized: Dict[str, List[int]] = {}
+        self.predict_paths: List[str] = []
 
     @classmethod
     def from_data_dir(cls, data_dir: str, **kw) -> "EQDataModule":
@@ -307,6 +314,55 @@ class EQDataModule:
 
     def test_batches(self) -> Iterator[GraphBatch]:
         return self.batches("test")
+
+    # --- prediction -------------------------------------------------------
+    def predict_batches(self) -> Iterator[GraphBatch]:
+        """One batch a decoy of ``predict_input_dir`` (its ``.pdb`` files in
+        name order), labelled against the native of the same name in
+        ``predict_true_dir`` where there is one; each decoy's path is queued
+        for :meth:`record_predictions`."""
+        if not self.predict_input_dir or not os.path.isdir(self.predict_input_dir):
+            return
+        for name in sorted(f for f in os.listdir(self.predict_input_dir) if f.endswith(".pdb")):
+            decoy = os.path.join(self.predict_input_dir, name)
+            native = os.path.join(self.predict_true_dir, name) if self.predict_true_dir else None
+            g = featurize_decoy(
+                decoy, native if native and os.path.exists(native) else None, esm_cache_dir=self.esm_cache_dir,
+                edge_cutoff=self.edge_cutoff, max_neighbors=self.max_neighbors,
+                rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf,
+            )
+            (batch,) = batches_from_dataset([g], self.bucket())
+            self.predict_paths.append(decoy)
+            yield globalize_residues(batch, self.max_residues_per_batch)
+
+    def record_predictions(self, batch: GraphBatch, preds, output_dir: str, decoy: Optional[str] = None) -> List[dict]:
+        """Write the decoy's PDB to ``output_dir`` with each residue's
+        predicted lDDT in its b-factor column, and return its CSV row:
+        ``decoy``, ``global_plddt_pred`` (the mean over its residues),
+        ``global_lddt_true`` (the labels' mean) and ``annotated_pdb``.
+        ``decoy`` defaults to the oldest one :meth:`predict_batches` queued."""
+        if decoy is None and self.predict_paths:
+            decoy = self.predict_paths.pop(0)
+        if not decoy:
+            return []
+        res_mask = np.asarray(batch.extras["res_mask"]).astype(bool)
+        preds = np.asarray(preds)[res_mask]
+        rid_order, seen = [], set()
+        for a in parse_pdb(decoy, heavy_only=True).atoms:
+            rid = (a.chain, a.resseq, a.icode)
+            if rid not in seen:
+                seen.add(rid)
+                rid_order.append(rid)
+        values = {rid: float(preds[i]) for i, rid in enumerate(rid_order) if i < preds.shape[0]}
+        out_path = os.path.join(output_dir, os.path.basename(decoy))
+        annotate_pdb_bfactor_column(decoy, out_path, values)
+        labels = np.asarray(batch.extras["label"])[res_mask]
+        return [{
+            "decoy": os.path.basename(decoy),
+            "global_plddt_pred": float(preds.mean()),
+            "global_lddt_true": float(labels.mean()),
+            "annotated_pdb": out_path,
+        }]
 
 
 def globalize_residues(batch: GraphBatch, max_residues: int) -> GraphBatch:

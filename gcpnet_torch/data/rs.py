@@ -305,7 +305,9 @@ class RSDataModule:
     ``max_nodes_per_graph`` nodes and twice as many edges each; training
     batches are paired (``iteration_mode``: ``"stereoisomers"``, one anchor
     conformer per stereoisomer, or ``"conformers"``, every conformer), the
-    validation and test splits go in order."""
+    validation and test splits go in order.  ``synthetic_sizes`` sets the
+    synthetic splits' graph counts; a split it leaves out keeps its default
+    (train 4096, valid 512, test 512)."""
 
     SPLIT_OFFSETS = {"train": 0, "valid": 1, "test": 2}
 
@@ -336,7 +338,7 @@ class RSDataModule:
         self.d_max = d_max
         self.num_rbf = num_rbf
         self.batch_size = batch_size
-        self.synthetic_sizes = synthetic_sizes or {"train": 4096, "valid": 512, "test": 512}
+        self.synthetic_sizes = {"train": 4096, "valid": 512, "test": 512, **(synthetic_sizes or {})}
         self.max_nodes_per_graph = max_nodes_per_graph
         self.graphs: dict = {}
         self.meta: dict = {}

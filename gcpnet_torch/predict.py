@@ -1,27 +1,47 @@
-"""Serve LBA predictions with the port: ``python -m gcpnet_torch.predict``.
+"""Serve predictions with the port: ``python -m gcpnet_torch.predict``.
 
-Builds the LBA model at the width of the JAX package's benchmark (hidden
-100/16/32/4, 8 interaction layers of 8-layer message stacks, 9 atom
-types), initialises it from ``--seed`` or loads ``--weights`` (an ``.npz``
-of flax parameter paths, see ``gcpnet_torch.weights``), and answers
-``--batches`` synthetic LBA-shaped batches, printing one JSON line of
-predictions per batch.  The batches are receiver-sorted, so the forward pass
-runs through the edge-map (K2) and sorted segment-sum (K1) kernels on the
-card, where the forward is a CUDA graph captured for the batch shape and
-the model's dtype and replayed for every batch (:class:`Predictor`).  It
-runs on the card unless ``--device cpu`` is given.
+With overrides (``key=value`` words), the port of the root ``predict.py``:
+it composes ``configs/predict.yaml`` with the JAX entry point's grammar
+(as ``gcpnet_torch.train``), builds the datamodule and the model from the
+composed blocks, loads the best checkpoint of ``ckpt_path`` (else its
+last) in float32, and serves every batch of the datamodule's
+``predict_batches`` (:func:`serve`); the datamodule's
+``record_predictions`` writes its outputs to
+``datamodule.predict_output_dir`` (EQ: each decoy's PDB with its
+per-residue lDDT in the b-factor column; AR: each decoy's refined PDB,
+stitched from its windows) and gives a row a decoy, written to
+``predictions_csv_path``::
 
-The synthetic graphs copy the JAX benchmark's generator: ATOM3D-LBA-shaped
-graphs with in-degrees uniform around the mean (24..32 for a mean of 28)
-and random senders.  Real LBA inputs wait for the ATOM3D data.
+    python -m gcpnet_torch.predict model=gcpnet_eq datamodule=eq ckpt_path=... \
+        datamodule.predict_input_dir=... datamodule.predict_output_dir=...
+
+With flags (or none), the benchmark's forward: builds the LBA model at the
+width of the JAX package's benchmark (hidden 100/16/32/4, 8 interaction
+layers of 8-layer message stacks, 9 atom types), initialises it from
+``--seed`` or loads ``--weights`` (an ``.npz`` of flax parameter paths, see
+``gcpnet_torch.weights``), and answers ``--batches`` synthetic LBA-shaped
+batches, printing one JSON line of predictions per batch.  The synthetic
+graphs copy the JAX benchmark's generator: ATOM3D-LBA-shaped graphs with
+in-degrees uniform around the mean (24..32 for a mean of 28) and random
+senders.
+
+The batches are receiver-sorted, so the forward pass runs through the
+edge-map (K2) and sorted segment-sum (K1) kernels on the card, where the
+forward is a CUDA graph captured for the batch shape and the model's dtype
+and replayed for every batch (:class:`Predictor`).  Both run on the card
+unless asked for the CPU (``trainer.accelerator=cpu``, ``--device cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import itertools
 import json
-from typing import List, Optional, Sequence
+import os
+import sys
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -170,7 +190,87 @@ class Predictor:
         return self.graphs([batch.pinned(next(self.model.parameters()).dtype)])[0]
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def serve(model: torch.nn.Module, dm, output_dir: str, served: Optional[list] = None) -> Tuple[List[dict], List[float]]:
+    """Every batch of ``dm.predict_batches()`` through ``model``'s
+    :class:`Predictor`, its predictions handed to ``dm.record_predictions``
+    with ``output_dir``: the rows it gives, and each row's milliseconds
+    from the first batch it reads to the row.  ``(batch, predictions)``
+    pairs go to ``served`` where that is a list."""
+    os.makedirs(output_dir, exist_ok=True)
+    predictor = Predictor(model)
+    rows, ms, batches = [], [], 0
+    t0 = time.perf_counter()
+    for batch in dm.predict_batches():
+        batches += 1
+        preds = predictor(batch).float().cpu().numpy()
+        if served is not None:
+            served.append((batch, preds))
+        for row in dm.record_predictions(batch, preds, output_dir):
+            rows.append(row)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+    if not batches:
+        raise RuntimeError(f"no prediction inputs found in {getattr(dm, 'predict_input_dir', None)}")
+    return rows, ms
+
+
+def write_rows(rows: List[dict], path: str) -> None:
+    """``rows`` as a CSV, columns in sorted order (the JAX writer's)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=sorted(rows[0].keys()))
+        writer.writeheader()
+        writer.writerows(rows)
+
+
+def predict_from_config(cfg: Dict[str, Any], served: Optional[list] = None) -> Dict[str, Any]:
+    """The composed ``predict.yaml`` route: ``{"num_predictions": n}``."""
+    from gcpnet_torch.train.checkpoints import CheckpointManager
+    from gcpnet_torch.train.entry import device_of, setup
+    from gcpnet_torch.utils.loggers import WandbLogger, instantiate_loggers
+    from gcpnet_torch.utils.pylogger import get_pylogger
+
+    log = get_pylogger("gcpnet_torch.predict")
+    device_of(cfg.get("trainer") or {})  # no card and no trainer.accelerator=cpu: raise before anything else
+    ckpt_path = cfg.get("ckpt_path")
+    if not ckpt_path or ckpt_path == "???":
+        raise ValueError("predict requires ckpt_path=<checkpoint dir>")
+    device, dm, model, _ = setup(cfg, stage="predict")
+    mgr = CheckpointManager(ckpt_path, monitor="val/loss")
+    state = mgr.restore_best(map_location=device) or mgr.restore_last(map_location=device)
+    if state is None:
+        raise FileNotFoundError(f"no checkpoint found under {ckpt_path}")
+    model.load_state_dict(state["model"])
+    model.float().eval()
+    out_dir = cfg["datamodule"].get("predict_output_dir") or "predictions"
+    rows, ms = serve(model, dm, out_dir, served)
+    for row, t in zip(rows, ms):
+        log.info(f"{row} in {t:.1f} ms")
+    if rows:
+        csv_path = cfg.get("predictions_csv_path") or os.path.join(out_dir, "predictions.csv")
+        write_rows(rows, csv_path)
+        log.info(f"wrote {len(rows)} prediction rows to {csv_path}")
+    for logger in instantiate_loggers(cfg.get("logger")):
+        if isinstance(logger, WandbLogger):
+            key = "refined_pdb" if any("refined_pdb" in r for r in rows) else "annotated_pdb"
+            logger.log_molecule_table("predictions", rows, pdb_key=key)
+        logger.finalize()
+    return {"num_predictions": len(rows)}
+
+
+def main(argv: Optional[Sequence[str]] = None, served: Optional[list] = None):
+    """Overrides: the composed route (:func:`predict_from_config`, its
+    metrics); flags or none: the benchmark's forward (:func:`bench_main`)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or any(a.startswith("--") for a in argv):
+        return bench_main(argv)
+    from gcpnet_torch.config.loader import CONFIG_DIR, compose
+    from gcpnet_torch.utils.utils import task_wrapper
+
+    return task_wrapper(predict_from_config)(compose(CONFIG_DIR, "predict.yaml", argv), served)
+
+
+def bench_main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--graphs", type=int, default=16)
     parser.add_argument("--nodes", type=int, default=448)

@@ -1,8 +1,9 @@
-"""Task wiring: the metric collection of each task model.
+"""Task wiring: composed config -> (model, loss, metric collection).
 
-The port's copy of the collect and metric functions of
-``gcpnet_tpu/tasks.py`` for the task models ported so far (LBA, PSR, NMS,
-RS, CPD, EQ and AR).
+The port's copy of ``gcpnet_tpu/tasks.py``: ``build_model`` builds a task
+model from the composed ``model:`` block (the four-level schema
+``model_cfg``/``module_cfg``/``layer_cfg{mp_cfg}``), ``build_loss`` gives
+its loss, and the collect and metric functions read its predictions.
 A collect function (:class:`Collect`) keeps what it reads of a batch and
 adds the batch's host predictions and labels to a
 :class:`~gcpnet_torch.train.metrics.Collector`; the metric functions run on
@@ -11,15 +12,70 @@ what it collected at the end of an evaluation epoch.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
+import torch
 
+from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg
+from gcpnet_torch.device import DeviceLike
 from gcpnet_torch.graph import GraphBatch
+from gcpnet_torch.models import LOSS_REGISTRY, MODEL_REGISTRY
 from gcpnet_torch.train import metrics as M
 
-TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetPSR": "psr", "GCPNetNMS": "nms", "GCPNetRS": "rs", "GCPNetCPD": "cpd", "GCPNetEQ": "eq",
-                 "GCPNetAR": "ar"}
+TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetPSR": "psr", "GCPNetCPD": "cpd", "GCPNetNMS": "nms", "GCPNetRS": "rs",
+                 "GCPNetEQ": "eq", "GCPNetAR": "ar"}
+MODEL_OF_TASK = {v: k for k, v in TASK_OF_MODEL.items()}
+# the interaction layer each of the port's models is built with
+LAYER_CLASS_OF_MODEL = {"GCPNetEQ": "GCPInteractions2", "GCPNetAR": "GCPInteractions2"}
+
+
+def model_name_from_target(target: str) -> str:
+    """A config ``_target_``'s registry name (not the class's
+    ``__name__``: GCPNetPSR keeps PSR's metrics)."""
+    short = target.rsplit(".", 1)[-1]
+    if short in TASK_OF_MODEL:
+        return short
+    # the reference's targets: src.models.gcpnet_psr_module.GCPNetPSRLitModule
+    for key in TASK_OF_MODEL:
+        if key.lower().replace("gcpnet", "") in short.lower():
+            return key
+    from gcpnet_torch.config.instantiate import resolve_target
+
+    return resolve_target(target).__name__
+
+
+def build_model(model_block: Dict[str, Any], seed: int = 42, device: DeviceLike = None) -> Tuple[torch.nn.Module, str]:
+    """The task model of the composed ``model:`` block with weights drawn
+    from ``seed`` on ``device`` (``None``: the card), and its registry name.
+    A ``layer_class`` other than the one the port builds the model with
+    raises."""
+    name = model_name_from_target(str(model_block["_target_"]))
+    layer_class = "GCPInteractions"
+    lc = model_block.get("layer_class", {})
+    if isinstance(lc, dict) and "_target_" in lc:
+        layer_class = str(lc["_target_"]).rsplit(".", 1)[-1]
+    built_with = LAYER_CLASS_OF_MODEL.get(name, "GCPInteractions")
+    if layer_class != built_with:
+        raise NotImplementedError(f"{name} is built with {built_with} in the port, not {layer_class}")
+    kwargs: Dict[str, Any] = dict(
+        model_cfg=ModelCfg.from_dict(model_block.get("model_cfg", {})),
+        module_cfg=ModuleCfg.from_dict(model_block.get("module_cfg", {})),
+        layer_cfg=LayerCfg.from_dict(model_block.get("layer_cfg", {})),
+    )
+    if name == "GCPNetCPD":
+        kwargs["autoregressive_decoder"] = bool(model_block.get("autoregressive_decoder", False))
+        for key in ("node_input_dims", "edge_input_dims"):
+            if key in model_block:
+                kwargs[key] = tuple(model_block[key])
+    if name in ("GCPNetLBA", "GCPNetPSR"):
+        kwargs["num_atom_types"] = int(model_block.get("num_atom_types", 9))
+    model = MODEL_REGISTRY[name](**kwargs, generator=torch.Generator().manual_seed(seed), device=device)
+    return model, name
+
+
+def build_loss(model_name: str) -> Callable:
+    return LOSS_REGISTRY[model_name]
 
 
 def _task(model_name: str) -> str:

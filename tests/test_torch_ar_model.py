@@ -23,7 +23,6 @@ the CPU.
 """
 
 import csv
-import functools
 import json
 import os
 import sys
@@ -56,6 +55,7 @@ from gcpnet_torch.models.ar import GCPNetAR, ar_loss
 from gcpnet_torch.models.nms import GCPNetNMS
 from gcpnet_torch.nn.interactions import GCPInteractions2
 from gcpnet_torch.nn.primitives import ScalarVector
+from gcpnet_torch.data import registry
 from gcpnet_torch.train import cli
 from gcpnet_torch.weights import from_jax_params
 
@@ -287,9 +287,7 @@ def _small_ar_module(monkeypatch):
     """``--task ar``'s datamodule at a bucket the CPU takes in seconds (the
     JAX module's 4,096 nodes of 152 rows take minutes a step)."""
     small = dict(k_max=16, max_nodes_per_batch=700, max_residues_per_batch=80)
-    monkeypatch.setattr(cli, "ARDataModule", type("Small", (ar.ARDataModule,), {
-        "from_data_dir": classmethod(functools.partial(
-            lambda cls, d, **kw: ar.ARDataModule.from_data_dir(d, **{**kw, **small})))}))
+    monkeypatch.setitem(registry.DATAMODULES, "ARDataModule", lambda **kw: ar.ARDataModule(**{**kw, **small}))
     return small
 
 
@@ -320,4 +318,5 @@ def test_ar_entry_points(ar_root, tmp_path, monkeypatch, capsys):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--task", "ar", "--data-dir", ar_root])
         with pytest.raises(RuntimeError, match="CUDA"):
-            predict_ar.main(["--input-dir", os.path.join(ar_root, "AF2_model"), "--output-dir", str(out_dir)])
+            predict_ar.main(["--input-dir", os.path.join(ar_root, "AF2_model"), "--output-dir", str(out_dir),
+                             "--checkpoint-dir", str(ckpt)])

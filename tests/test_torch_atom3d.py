@@ -77,6 +77,7 @@ from gcpnet_torch.data.batching import Bucket, batches_from_dataset
 from gcpnet_torch.graph import GraphBatch, GraphData
 from gcpnet_torch.models import GCPNetLBA, GCPNetPSR, graph_regression_loss
 from gcpnet_torch.nn.embedding import GCPEmbedding
+from gcpnet_torch.data import registry
 from gcpnet_torch.train import cli as train_cli
 from gcpnet_torch.train.metrics import Collector
 from gcpnet_torch.train.trainer import Trainer
@@ -519,7 +520,7 @@ def small_bucket(monkeypatch):
     """The entry point's datamodule with the datamodule tests' bucket of
     256 nodes in place of the JAX one (16,384), which would take minutes a
     step on the CPU."""
-    monkeypatch.setattr(train_cli, "ATOM3DDataModule",
+    monkeypatch.setitem(registry.DATAMODULES, "ATOM3DDataModule",
                         functools.partial(atom3d.ATOM3DDataModule, max_nodes_per_batch=DATA["max_nodes_per_batch"]))
 
 

@@ -44,6 +44,7 @@ from gcpnet_torch.data.protein_graph import featurize_protein
 from gcpnet_torch.models import cpd_eval
 from gcpnet_torch.models.cpd import GCPNetCPD, cpd_loss
 from gcpnet_torch.ops import segment
+from gcpnet_torch.data import registry
 from gcpnet_torch.train import cli as train_cli
 from gcpnet_torch.train.metrics import Collector
 from test_torch_cpd import CPD_MESSAGE_LAYERS, CPD_MODEL, cpd_chain, cpd_models, jax_batch, write_cath
@@ -260,7 +261,7 @@ def test_collect_adds_what_jax_adds(tmp_path):
 def small_bucket(monkeypatch):
     """The entry point's datamodule with a bucket of 64 nodes in place of the
     JAX one (2,048), which would take minutes a step on the CPU."""
-    monkeypatch.setattr(train_cli, "CATHDataModule", functools.partial(cath.CATHDataModule, max_nodes_per_batch=64))
+    monkeypatch.setitem(registry.DATAMODULES, "CATHDataModule", functools.partial(cath.CATHDataModule, max_nodes_per_batch=64))
 
 
 def test_train_cpd_cpu_entry_point(tmp_path, small_bucket, capsys):

@@ -43,6 +43,7 @@ from gcpnet_torch.data.batching import Bucket, batches_from_dataset
 from gcpnet_torch.data.eq_synthetic import write_eq_decoys
 from gcpnet_torch.graph import GraphData
 from gcpnet_torch.models.eq import GCPNetEQ, eq_loss
+from gcpnet_torch.data import registry
 from gcpnet_torch.train import cli
 from gcpnet_torch.weights import from_jax_params
 
@@ -204,10 +205,8 @@ def test_eq_entry_point(eq_root, tmp_path, monkeypatch, capsys):
     module's 8,192 nodes take minutes a step on the CPU), one epoch and the
     test of its checkpoint; without ``--device cpu`` and without a card it
     raises."""
-    monkeypatch.setattr(cli, "EQDataModule", type("Small", (eq.EQDataModule,), {
-        "from_data_dir": classmethod(functools.partial(
-            lambda cls, d, **kw: eq.EQDataModule.from_data_dir(d, **{**kw, "max_nodes_per_batch": 320,
-                                                                    "max_residues_per_batch": 40})))}))
+    monkeypatch.setitem(registry.DATAMODULES, "EQDataModule",
+                        functools.partial(eq.EQDataModule, max_nodes_per_batch=320, max_residues_per_batch=40))
     cli.main(["--task", "eq", "--device", "cpu", "--data-dir", eq_root, "--num-encoder-layers", "1",
               "--max-epochs", "1", "--min-epochs", "0", "--checkpoint-dir", str(tmp_path / "ckpt")])
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]

@@ -623,7 +623,7 @@ def test_nms_gradients_on_card_match_cpu(cuda, tmp_path):
     grads, losses = {}, {}
     for dev in ("cuda", "cpu"):
         model = GCPNetNMS(
-            *train_cli.nms_configs(num_encoder_layers=2, dropout=0.0),
+            *train_cli.task_configs("nms", num_encoder_layers=2, dropout=0.0),
             generator=torch.Generator().manual_seed(0), device=dev,
         )
         launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
@@ -655,7 +655,7 @@ def test_rs_gradients_on_card_match_cpu(cuda):
     grads, losses = {}, {}
     for dev in ("cuda", "cpu"):
         model = GCPNetRS(
-            *train_cli.rs_configs(num_encoder_layers=2, dropout=0.0),
+            *train_cli.task_configs("rs", num_encoder_layers=2, dropout=0.0),
             generator=torch.Generator().manual_seed(0), device=dev,
         )
         launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
@@ -728,7 +728,9 @@ def _cpd_datamodule(root, batch_size: int, max_nodes: int, chains: dict) -> CATH
 
 
 def _cpd_model(dev, encoder_layers: int = 2, decoder_layers: int = 1) -> GCPNetCPD:
-    model_cfg, module_cfg, layer_cfg = train_cli.cpd_configs(encoder_layers, decoder_layers, dropout=0.0)
+    model_cfg, module_cfg, layer_cfg = train_cli.task_configs(
+        "cpd", encoder_layers, dropout=0.0, num_decoder_layers=decoder_layers
+    )
     return GCPNetCPD(model_cfg, module_cfg, layer_cfg, autoregressive_decoder=True,
                      generator=torch.Generator().manual_seed(0), device=dev)
 
@@ -1075,7 +1077,7 @@ def test_resume_through_replays_continues(cuda, tmp_path):
     dm.setup()
 
     def trainer(epochs, ckpt=None):
-        model = GCPNetNMS(*train_cli.nms_configs(num_encoder_layers=2), generator=torch.Generator().manual_seed(0),
+        model = GCPNetNMS(*train_cli.task_configs("nms", num_encoder_layers=2), generator=torch.Generator().manual_seed(0),
                           device=cuda)
         return Trainer(model, nms_loss, optimizer_cfg={"_target_": "Adam", "lr": REPLAY_LR}, max_epochs=epochs,
                        checkpoint_dir=ckpt, early_stopping_patience=None, scan_chunk_size=2)
@@ -1158,7 +1160,7 @@ def test_fp32_runs_are_reproducible(cuda):
     assert len(batches) == 16
     runs = []
     for _ in range(2):
-        trainer = train_cli.build_rs_trainer(42, cuda, num_encoder_layers=2)
+        trainer = train_cli.build_task_trainer("rs", 42, cuda, num_encoder_layers=2, precision=32)
         for b in batches:
             train_step(trainer.model, trainer.state, b, rs_loss, trainer.generator)
         torch.cuda.synchronize()
@@ -1175,7 +1177,7 @@ def _eq_datamodule(root, max_nodes: int = 1024, residues=(40, 90)) -> EQDataModu
 
 
 def _eq_model(dev, layers: int = 2) -> GCPNetEQ:
-    return GCPNetEQ(*train_cli.eq_configs(layers, dropout=0.0), generator=torch.Generator().manual_seed(0), device=dev)
+    return GCPNetEQ(*train_cli.task_configs("eq", layers, dropout=0.0), generator=torch.Generator().manual_seed(0), device=dev)
 
 
 def test_eq_gradients_on_card_match_cpu(cuda, tmp_path):
@@ -1246,7 +1248,7 @@ def _ar_message_passing() -> GCPMessagePassing:
     """One AR layer's message passing at full width: hidden 100/32, edges
     16/4, 4 ResGCP3 layers with silu on scalars and vectors and the vector
     gate, the attention and the sum over senders: [E, 420] -> [E, 196]."""
-    model_cfg, module_cfg, layer_cfg = train_cli.ar_configs()
+    model_cfg, module_cfg, layer_cfg = train_cli.task_configs("ar")
     return GCPMessagePassing(
         (100, 32), (100, 32), (16, 4), module_cfg, layer_cfg, reduce_function="sum",
         use_scalar_message_attention=True, aggregate_with_row=True,
@@ -1310,7 +1312,7 @@ def _ar_batch(root, max_nodes: int = 1536):
 
 
 def _ar_model(dev, layers: int = 2) -> GCPNetAR:
-    return GCPNetAR(*train_cli.ar_configs(layers), generator=torch.Generator().manual_seed(0), device=dev)
+    return GCPNetAR(*train_cli.task_configs("ar", layers), generator=torch.Generator().manual_seed(0), device=dev)
 
 
 def test_ar_gradients_on_card_match_cpu(cuda, tmp_path):
@@ -1414,3 +1416,75 @@ def test_nms_positions_are_equivariant_on_card(rng, cuda, dtype):
         assert edge_map.launches == before + 4
     scale = np.abs(out).max()
     assert np.abs(got - (out @ q.T + shift)).max() <= AR_EQUIVARIANCE_TOL[dtype] * max(1.0, scale)
+
+
+# --- LBA on records and the config-driven entry points ---------------------------
+
+
+def _lba_records_batch(root, complexes: int = 2, max_nodes: int = 1024):
+    """A validation batch of ``complexes`` synthetic LBA complexes
+    (chip_smoke.write_lba_records: pockets of 120-200 heavy atoms)."""
+    from chip_smoke import write_lba_records
+
+    write_lba_records(str(root), complexes={"train": 1, "val": complexes, "test": 1}, pocket_atoms=(120, 200))
+    dm = ATOM3DDataModule(task="LBA", data_dir=str(root), batch_size=complexes, max_nodes_per_batch=max_nodes)
+    dm.setup()
+    return next(dm.val_batches())
+
+
+LBA_INVARIANCE_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lba_affinity_is_invariant_on_card(rng, cuda, tmp_path, dtype):
+    """LBA's affinity through K1 and K2 (2 full-width interaction layers; the
+    fp32 K2 is split TF32) is invariant under a random rotation and
+    translation of x, chi and xi, within LBA_INVARIANCE_TOL of its scale;
+    the ligand flag rides along."""
+    batch = _lba_records_batch(tmp_path)
+    assert batch.extras["lig_flag"].any()
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    q = q.astype(np.float32)
+    turned = batch.replace(x=batch.x @ q.T + rng.normal(scale=10.0, size=3).astype(np.float32),
+                           chi=batch.chi @ q.T, xi=batch.xi @ q.T)
+    model_cfg, module_cfg, layer_cfg = port_predict.lba_configs()
+    model = GCPNetLBA(model_cfg.replace(num_encoder_layers=2), module_cfg, layer_cfg, num_atom_types=9,
+                      generator=torch.Generator().manual_seed(0), device=cuda).to(dtype).eval()
+    real = torch.as_tensor(batch.graph_pad_mask)
+    with torch.no_grad():
+        before = edge_map.launches
+        out = model(batch.to(cuda, dtype)).float().cpu()[real]
+        again = model(turned.to(cuda, dtype)).float().cpu()[real]
+        assert edge_map.launches == before + 4
+    scale = out.abs().max().item()
+    assert scale > 1e-3
+    assert (again - out).abs().max().item() <= LBA_INVARIANCE_TOL[dtype] * max(1.0, scale)
+
+
+def test_config_train_and_eval_round_trip_on_card(cuda, tmp_path):
+    """``python -m gcpnet_torch.train experiment=gcpnet_lba`` on a few
+    synthetic LBA complexes at full width (1 interaction layer, bf16, the
+    default trainer.accelerator: the card) runs K1, K2 and the bf16 K3;
+    ``python -m gcpnet_torch.eval`` on its checkpoints gives its test/loss
+    bit for bit."""
+    from chip_smoke import write_lba_records
+    from gcpnet_torch import eval as eval_entry
+    from gcpnet_torch.train import entry
+
+    write_lba_records(str(tmp_path / "ATOM3D"), complexes={"train": 6, "val": 3, "test": 3}, pocket_atoms=(120, 200))
+    overrides = [
+        "experiment=gcpnet_lba", f"paths.data_dir={tmp_path}/", f"paths.output_dir={tmp_path}/run",
+        "model.model_cfg.num_encoder_layers=1", "datamodule.batch_size=3", "+datamodule.max_nodes_per_batch=1024",
+        "trainer.max_epochs=1", "extras.print_config=false",
+    ]
+    before = _wrapper_launches(), edge_map_backward.dtype_launches[torch.bfloat16]
+    metrics = entry.main(overrides)
+    torch.cuda.synchronize()
+    after = _wrapper_launches(), edge_map_backward.dtype_launches[torch.bfloat16]
+    assert all(a > b for a, b in zip(after[0], before[0])) and after[1] > before[1]
+    assert np.isfinite(metrics["test/loss"])
+    again = eval_entry.main([*overrides, f"ckpt_path={tmp_path}/run/checkpoints"])
+    assert again["test/loss"] == metrics["test/loss"]

@@ -5,10 +5,13 @@ tests (``test_torch_gpu.py``, which run where JAX is absent), a CPU
 prediction, a CPU LBA training run, a CPU NMS fit with its simulated data,
 a CPU RS fit on synthetic enantiomers, a CPU PSR fit on synthetic ATOM3D
 records, a CPU CPD fit with its design metrics on synthetic CATH chains, a
-CPU EQ fit on synthetic decoys and a CPU AR fit on synthetic pairs with its
-refinement of their decoys (``python -m gcpnet_torch.train
-[--task nms|rs|psr|cpd|eq|ar]``, ``python -m gcpnet_torch.predict_ar``) in a fresh
-interpreter whose import system refuses those packages."""
+CPU EQ fit on synthetic decoys with the config-driven prediction of its
+decoys, a CPU AR fit on synthetic pairs with its refinement of their decoys
+(``python -m gcpnet_torch.train [--task nms|rs|psr|cpd|eq|ar]``, ``python -m
+gcpnet_torch.predict``, ``python -m gcpnet_torch.predict_ar``), and the
+config-driven train and eval entry points on NMS (``python -m
+gcpnet_torch.train experiment=...``, ``python -m gcpnet_torch.eval``) in a
+fresh interpreter whose import system refuses those packages."""
 
 import subprocess
 import sys
@@ -65,6 +68,16 @@ with tempfile.TemporaryDirectory() as root:
                 "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0",
                 "--data-root", root + "/data", "--checkpoint-dir", root + "/ckpt"]
     runpy.run_module("gcpnet_torch.train", run_name="__main__")
+with tempfile.TemporaryDirectory() as root:
+    # the config-driven train and eval entry points
+    tiny = ["experiment=gcpnet_nms_small", "trainer.accelerator=cpu", "datamodule.num_train=4",
+            "datamodule.num_valid=2", "datamodule.num_test=2", "datamodule.batch_size=2",
+            "datamodule.data_dir=" + root + "/data", "model.model_cfg.num_encoder_layers=1",
+            "paths.output_dir=" + root + "/run", "trainer.max_epochs=1", "extras.print_config=false"]
+    sys.argv = ["gcpnet_torch.train", *tiny]
+    runpy.run_module("gcpnet_torch.train", run_name="__main__")
+    sys.argv = ["gcpnet_torch.eval", *tiny, "ckpt_path=" + root + "/run/checkpoints"]
+    runpy.run_module("gcpnet_torch.eval", run_name="__main__")
 sys.argv = ["gcpnet_torch.train", "--task", "rs", "--device", "cpu", "--num-train", "8", "--num-valid", "4",
             "--num-test", "4", "--batch-size", "2", "--num-encoder-layers", "1", "--max-epochs", "1",
             "--min-epochs", "0"]
@@ -72,14 +85,13 @@ runpy.run_module("gcpnet_torch.train", run_name="__main__")
 import functools
 
 from chip_smoke import write_psr_records
-from gcpnet_torch.data import atom3d
-from gcpnet_torch.train import cli
+from gcpnet_torch.data import atom3d, registry
 
 with tempfile.TemporaryDirectory() as root:
     write_psr_records(root, targets={"train": 2, "val": 1, "test": 1}, decoys=3, atoms=(20, 40))
     # the entry point with a bucket of 128 nodes (the JAX one's 16,384 take
     # minutes a step on the CPU)
-    cli.ATOM3DDataModule = functools.partial(atom3d.ATOM3DDataModule, max_nodes_per_batch=128)
+    registry.DATAMODULES["ATOM3DDataModule"] = functools.partial(atom3d.ATOM3DDataModule, max_nodes_per_batch=128)
     sys.argv = ["gcpnet_torch.train", "--task", "psr", "--device", "cpu", "--data-dir", root, "--batch-size", "3",
                 "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0"]
     runpy.run_module("gcpnet_torch.train", run_name="__main__")
@@ -88,7 +100,7 @@ from gcpnet_torch.data.cath_synthetic import write_cath_chains
 
 with tempfile.TemporaryDirectory() as root:
     write_cath_chains(root, chains={"train": 3, "validation": 2, "test": 2}, lengths=(20, 40))
-    cli.CATHDataModule = functools.partial(cath.CATHDataModule, max_nodes_per_batch=128)
+    registry.DATAMODULES["CATHDataModule"] = functools.partial(cath.CATHDataModule, max_nodes_per_batch=128)
     sys.argv = ["gcpnet_torch.train", "--task", "cpd", "--device", "cpu", "--data-dir", root, "--batch-size", "2",
                 "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0", "--num-samples", "2"]
     runpy.run_module("gcpnet_torch.train", run_name="__main__")
@@ -97,20 +109,25 @@ from gcpnet_torch.data.eq_synthetic import write_eq_decoys
 
 with tempfile.TemporaryDirectory() as root:
     write_eq_decoys(root, targets={"train": 2, "valid": 1, "test": 1}, decoys=1, residues=(10, 20))
-    cli.EQDataModule.from_data_dir = functools.partial(
-        eq.EQDataModule.from_data_dir.__func__, eq.EQDataModule, max_nodes_per_batch=256, max_residues_per_batch=32
+    registry.DATAMODULES["EQDataModule"] = functools.partial(
+        eq.EQDataModule, max_nodes_per_batch=256, max_residues_per_batch=32
     )
     sys.argv = ["gcpnet_torch.train", "--task", "eq", "--device", "cpu", "--data-dir", root,
-                "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0"]
+                "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0", "--checkpoint-dir", root + "/ckpt"]
     runpy.run_module("gcpnet_torch.train", run_name="__main__")
+    # the config-driven prediction entry point on the EQ checkpoint
+    sys.argv = ["gcpnet_torch.predict", "model=gcpnet_eq", "datamodule=eq", "trainer.accelerator=cpu",
+                "model.model_cfg.num_encoder_layers=1", "ckpt_path=" + root + "/ckpt",
+                "datamodule.predict_input_dir=" + root + "/decoy_model", "datamodule.predict_output_dir=" + root + "/out",
+                "paths.output_dir=" + root + "/run", "extras.print_config=false"]
+    runpy.run_module("gcpnet_torch.predict", run_name="__main__")
 from gcpnet_torch.data import ar
 from gcpnet_torch.data.ar_synthetic import write_ar_pairs
 
 with tempfile.TemporaryDirectory() as root:
     write_ar_pairs(root, pairs={"train": 2, "valid": 1, "test": 1}, train_residues=(10, 20), eval_residues=(10, 20))
-    cli.ARDataModule.from_data_dir = functools.partial(
-        ar.ARDataModule.from_data_dir.__func__, ar.ARDataModule, k_max=16, max_nodes_per_batch=256,
-        max_residues_per_batch=32,
+    registry.DATAMODULES["ARDataModule"] = lambda **kw: ar.ARDataModule(
+        **{**kw, "k_max": 16, "max_nodes_per_batch": 256, "max_residues_per_batch": 32}
     )
     sys.argv = ["gcpnet_torch.train", "--task", "ar", "--device", "cpu", "--data-dir", root,
                 "--num-encoder-layers", "1", "--max-epochs", "1", "--min-epochs", "0", "--checkpoint-dir", root + "/ckpt"]
@@ -125,7 +142,10 @@ for name in ("gcpnet_torch.data.atom3d", "gcpnet_torch.data.cath", "gcpnet_torch
              "gcpnet_torch.data.eq", "gcpnet_torch.data.eq_synthetic", "gcpnet_torch.data.esm",
              "gcpnet_torch.data.pdb", "gcpnet_torch.models.eq", "gcpnet_torch.utils.structure_metrics",
              "gcpnet_torch.data.ar", "gcpnet_torch.data.ar_synthetic", "gcpnet_torch.models.ar",
-             "gcpnet_torch.predict_ar"):
+             "gcpnet_torch.predict_ar", "gcpnet_torch.config.loader", "gcpnet_torch.config.instantiate",
+             "gcpnet_torch.data.registry", "gcpnet_torch.utils.pylogger", "gcpnet_torch.utils.utils",
+             "gcpnet_torch.utils.loggers", "gcpnet_torch.utils.sweeps", "gcpnet_torch.train.entry",
+             "gcpnet_torch.eval"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
