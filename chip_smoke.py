@@ -131,7 +131,7 @@ Phases, one line each:
      memory, the CUDA graphs held; the deterministic parity run;
  28. cpd-profile: one warm eager CPD step and one replay of a train and an
      eval chunk under torch.profiler; the cpd-fit's checks;
- 29. cpd-design: the fitted model designs 12 test chains (evaluate_cpd: 100
+ 29. cpd-design: the fitted model designs 6 test chains (evaluate_cpd: 100
      sequences each at temperature 0.1): median perplexity and recovery
      for all, short and single_chain, ms a chain, the device's launches a
      position; the argmax samples of one chain, card against CPU;
@@ -207,7 +207,23 @@ Phases, one line each:
  44. cfg-predict: gcpnet_torch.predict's main with model=gcpnet_eq
      datamodule=eq on eq-fit's checkpoints and eq-data's test decoys: a
      b-factor-annotated PDB and a CSV row a decoy, the served per-residue
-     lDDT against an eager fp32 forward (atol 1e-5).
+     lDDT against an eager fp32 forward (atol 1e-5);
+ 45. gcp-family: gcpnet_torch.train's main with
+     experiment=gcpnet_lba_ablations at its full width (8 x 8 layers, bf16,
+     the JAX bucket) on cfg-train's records, once with each of the frame,
+     scalar and vector ablations, GCP v1 with the sigma frame gate and GCP2
+     with the frame gate: 6 training batches (the first captured, 5
+     replays) and the validation; the run's and a replay's launches (K1 only: the
+     message stacks are plain, outside K2/K3's layer table), a replay's busy
+     ms a step and idle share, peak memory; each setting holds in the
+     trained model (an ablated channel is zeros; the frame-ablated model's
+     prediction does not move with the atoms); one fp32 step of the
+     frame-ablated model on the card against the CPU;
+ 46. rs-e3: the full-width RS model with enable_e3_equivariance in fp32:
+     every mirrored pair of a synthetic test batch gets the same logit
+     (the SE(3) model with the same weights tells pairs apart); a captured
+     fit of 6 batches through gcpnet_torch.train's main with its test
+     accuracy, launches, busy ms a step and idle share.
 Every profiled training step lists the scatter kernels it ran (none
 allowed; a replay's read from its graph's kernel nodes).  Then the total time, one JSON line with every kernel's numbers (at the NMS,
 RS, PSR, CPD, EQ and AR shapes too), the nvidia-smi line, and the final status
@@ -233,6 +249,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -356,7 +373,7 @@ CPD_LENGTHS = (40, 500)  # residues, log-uniform
 CPD_BUCKET = (2048, 2048 * 30)
 CPD_EPOCHS, CPD_RESUME_EPOCHS = 2, 3
 CPD_CHECK_GRAPHS, CPD_CHECK_LAYERS, CPD_CHECK_NODES = 2, 2, 512
-CPD_DESIGN_CHAINS, CPD_SAMPLES, CPD_TEMPERATURE = 12, 100, 0.1
+CPD_DESIGN_CHAINS, CPD_SAMPLES, CPD_TEMPERATURE = 6, 100, 0.1
 # the argmax samples (temperature 1e-6) of one chain, card against CPU:
 # CPD_ARGMAX_SAMPLES copies of the shortest design chain
 CPD_ARGMAX_SAMPLES = 4
@@ -425,6 +442,26 @@ CFG_EPOCHS = 2
 CFG_PREDICT_ATOL = 1e-5
 # determinism: two eager fp32 RS runs of this many steps, without
 # torch.use_deterministic_algorithms, must end with equal parameters
+# The rest of the GCP family (gcp-family): experiment=gcpnet_lba_ablations
+# with each setting, one epoch of GCP_FAMILY_STEPS training batches each
+GCP_FAMILY_RUNS = {
+    "ablate_frame_updates": ["model.module_cfg.ablate_frame_updates=true"],
+    "ablate_scalars": ["model.module_cfg.ablate_scalars=true"],
+    "ablate_vectors": ["model.module_cfg.ablate_vectors=true"],
+    "gcp1_sigma_frame_gate": ["model.module_cfg.selected_GCP._target_=gcpnet_tpu.nn.gcp.GCP",
+                              "model.module_cfg.sigma_frame_gate=true", "model.module_cfg.vector_gate=false"],
+    "gcp2_frame_gate": ["model.module_cfg.frame_gate=true", "model.module_cfg.vector_gate=false"],
+}
+GCP_FAMILY_CLASSES = ("GCP", "GCP2", "GCP3")
+# one batch a replay: reading a replay's trace back in Python takes about
+# 0.15 s a thousand kernels, and a plain-stack step runs 10,000-40,000
+FAMILY_CHUNK = 1
+GCP_FAMILY_STEPS = 6  # the first runs eagerly and captures, the rest replay
+GCP_FAMILY_CHECK_LAYERS = 2
+# E(3) RS (rs-e3): a pair's logits agree within RS_PAIR_ATOL of the pair's
+# magnitude (at least 1); the fit's training batches
+RS_PAIR_ATOL = 1e-4
+RS_E3_STEPS = 6
 DETERMINISM_STEPS = 16
 # The published H100 SXM peaks (NVIDIA data sheet, dense): device memory
 # rate, and the operation rate for each input type (bf16 on the tensor
@@ -1330,7 +1367,8 @@ def _step_diffs(a: dict, b: dict) -> dict:
 
 
 def card_vs_cpu_step(
-    name: str, build, batch, loss_fn, layers: int, rounding_draws: int = 0, params_by_share: bool = False
+    name: str, build, batch, loss_fn, layers: int, rounding_draws: int = 0, params_by_share: bool = False,
+    fp32_k3: Optional[int] = None,
 ) -> dict:
     """One float32 training step on the card against the same step on the
     CPU (plain versions): ``build(device) -> (model, state)`` gives both the
@@ -1342,10 +1380,13 @@ def card_vs_cpu_step(
     that many draws): for a step whose gradient float32 rounding alone
     moves by more than TRAIN_CHECK_ATOL.  With ``params_by_share`` the
     updated parameters are held by the share of entries apart alone (the
-    largest distance is printed, not held: see phase_cpd_check)."""
+    largest distance is printed, not held: see phase_cpd_check).  ``fp32_k3``
+    is the fp32 K3 launches the step must make where not one a layer (a
+    model whose message stacks are plain: 0)."""
+    want_k3 = layers if fp32_k3 is None else fp32_k3
     reset_counts()
     card = _step_outcome(build, "cuda", batch, loss_fn)
-    fp32_k3 = launch_counts()[3]
+    card_k3 = launch_counts()[3]
     cpu = _step_outcome(build, "cpu", batch, loss_fn)
     param_diff = (card["params"] - cpu["params"]).abs()
     results = {
@@ -1358,7 +1399,7 @@ def card_vs_cpu_step(
         "params_share_above_1e-6": (param_diff > 1e-6).float().mean().item(),
         "num_params": int(param_diff.numel()),
         "card_seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
-        "launches": {"K3_fp32": fp32_k3},
+        "launches": {"K3_fp32": card_k3},
     }
     bound = {k: TRAIN_CHECK_ATOL[k] for k in ("grads_norm_rel", "params", "params_share_above_1e-6")}
     if rounding_draws:
@@ -1369,7 +1410,7 @@ def card_vs_cpu_step(
         bound = {k: max(v, ROUNDING_SPREAD_FACTOR * spread[k]) for k, v in bound.items()}
         results["bound"] = bound
     print(f"phase {name}: " + json.dumps(results), flush=True)
-    check(fp32_k3 == layers, f"{name}: fp32 K3 launches {fp32_k3}, want {layers}")
+    check(card_k3 == want_k3, f"{name}: fp32 K3 launches {card_k3}, want {want_k3}")
     check(results["loss_abs_diff"] <= TRAIN_CHECK_ATOL["loss"], f"{name}: loss differs")
     check(results["grad_norm_abs_diff"] <= TRAIN_CHECK_ATOL["grad_norm"], f"{name}: grad norm differs")
     check(results["grads_norm_rel_err"] <= bound["grads_norm_rel"], f"{name}: gradients differ")
@@ -3332,6 +3373,219 @@ def phase_cfg_predict(eq_root: str, ckpt_dir: str, work: str) -> dict:
     return results
 
 
+def _gcp_outputs(model, batch) -> list:
+    """Every GCP module's output of one eager fp32 forward of ``model`` on
+    ``batch`` (no dropout), caught by forward hooks: ``(class name, scalars,
+    vectors or None)``."""
+    caught, hooks = [], []
+
+    def hook(module, _args, out):
+        scalar, vector = (out.scalar, out.vector) if isinstance(out, tuple) else (out, None)
+        caught.append((type(module).__name__, scalar.detach(), None if vector is None else vector.detach()))
+
+    for module in model.modules():
+        if type(module).__name__ in GCP_FAMILY_CLASSES:
+            hooks.append(module.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            model(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return caught
+
+
+def _ablated_channel(name: str, model, batch) -> dict:
+    """Whether a run's setting really holds in its trained model, on one
+    eager fp32 forward: ablate_scalars / ablate_vectors: every GCP's output
+    scalars / vectors are zeros; ablate_frame_updates: the prediction does
+    not move when the atoms move (the frames are the model's only use of
+    the positions), bit for bit; the GCP classes of GCP v1's and the frame
+    gate's runs."""
+    model.eval()
+    outs = _gcp_outputs(model, batch)
+    result = {"gcps": len(outs), "classes": sorted({c for c, _, _ in outs})}
+    if name == "ablate_scalars":
+        result["nonzero_scalars"] = sum(int(torch.count_nonzero(s)) for _, s, _ in outs)
+        result["nonzero_vectors"] = sum(int(torch.count_nonzero(v)) for _, _, v in outs if v is not None)
+        result["holds"] = result["nonzero_scalars"] == 0 and result["nonzero_vectors"] > 0
+    elif name == "ablate_vectors":
+        result["nonzero_vectors"] = sum(int(torch.count_nonzero(v)) for _, _, v in outs if v is not None)
+        result["nonzero_scalars"] = sum(int(torch.count_nonzero(s)) for _, s, _ in outs)
+        result["holds"] = result["nonzero_vectors"] == 0 and result["nonzero_scalars"] > 0
+    elif name == "ablate_frame_updates":
+        gen = torch.Generator(device=batch.x.device).manual_seed(SEED)
+        moved = batch.replace(x=batch.x + torch.randn(batch.x.shape, generator=gen, device=batch.x.device))
+        with torch.no_grad():
+            a, b = model(batch), model(moved)
+        result["prediction_moved_by"] = (a - b).abs().max().item()
+        result["holds"] = torch.equal(a, b)
+    elif name == "gcp1_sigma_frame_gate":
+        result["holds"] = result["classes"] == ["GCP"] and all(
+            hasattr(m, "vector_out_scale_sigma_frames") for m in model.modules()
+            if type(m).__name__ == "GCP" and m.output_dims[1] and m.input_dims[1])
+    else:
+        result["holds"] = result["classes"] == ["GCP2"] and any(hasattr(m, "vector_up_frames") for m in model.modules())
+    model.train()
+    return result
+
+
+def _plain_fit(name: str, overrides: list, ckpt_dir: str, train: list) -> dict:
+    """One captured fit through ``gcpnet_torch.train``'s main with
+    ``overrides`` and FAMILY_CHUNK batches a replay (the first runs eagerly
+    and captures, the rest replay), every count set to 0 just before and
+    read just after; then one replay of ``train`` (FAMILY_CHUNK pinned
+    host batches of the fit's shapes; captured first
+    where the test's checkpoint restore dropped the graphs) under
+    torch.profiler: busy ms, idle share, and the K1-K3 launches and scatters
+    read from its graph's kernel nodes.  The run's message stacks are plain
+    (outside K2/K3's layer table), so K2 and K3 must never run."""
+    overrides = [*overrides, f"paths.output_dir={ckpt_dir}", f"callbacks.model_checkpoint.dirpath={ckpt_dir}",
+                 "extras.print_config=false"]
+    trainers = []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = train_entry.main(overrides, trainers=trainers)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_COUNTS, launch_counts()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer = trainers[0]
+    fit_steps, call = trainer.state.step, trainer.train_graphs.call
+    replays = call.replays
+    trainer.train_graphs(train)  # warm, and captured again where the test's restore dropped the graphs
+    captures = call.captures
+    t1 = time.perf_counter()
+    profile = profile_replay(lambda: trainer.train_graphs(train), call, train)
+    profile_seconds = time.perf_counter() - t1
+    steps = profile["launches"]
+    busy = profile["device_busy_ms"]
+    results = {
+        "overrides": overrides, "metrics": metrics, "seconds": seconds, "profile_seconds": profile_seconds,
+        "launches": launches, "peak_mem_gb": peak_gb, "steps": fit_steps, "fit_replays": replays,
+        "step_busy_ms": busy / FAMILY_CHUNK if isinstance(busy, float) else busy,
+        "device_idle_share": profile["device_idle_share"],
+        "launches_per_step": {k: v / FAMILY_CHUNK for k, v in steps.items()},
+        "profile_captured": profile,
+        "model": trainer.model,
+    }
+    # a correlation can be NaN: the scalar ablation's prediction is constant
+    losses = {k: v for k, v in metrics.items() if k.endswith("/loss")}
+    check(len(losses) >= 2 and all(math.isfinite(v) for v in losses.values()), f"{name}: losses {metrics}")
+    check(launches["K1"] > 0 and launches["K2"] == launches["K3_bf16"] == launches["K3_fp32"] == 0,
+          f"{name}: the run's launches {launches}: K1 runs, K2 and K3 never")
+    check(steps["K1"] > 0 and steps["K2"] == steps["K3_bf16"] == steps["K3_fp32"] == 0,
+          f"{name}: a replay's launches {steps}")
+    check(not profile["scatters"], f"{name}: scatter kernels in a replay: {profile['scatters']}")
+    check(replays >= 1 and call.captures == captures,
+          f"{name}: {replays} replayed training chunks in the fit, or the profiled chunk captured anew")
+    return results
+
+
+def _public(results: dict) -> dict:
+    return {k: v for k, v in results.items() if k != "model"}
+
+
+def phase_gcp_family(data_root: str, run_dir: str) -> dict:
+    """The rest of the GCP family through ``gcpnet_torch.train``'s main, at
+    full width: experiment=gcpnet_lba_ablations (8 x 8 layers, 100/16/32/4,
+    bf16 over float32 masters, batch 16, the JAX bucket) on cfg-train's
+    synthetic LBA records, once for each of GCP_FAMILY_RUNS (the frame,
+    scalar and vector ablations, GCP v1 with the sigma frame gate, GCP2
+    with the frame gate), GCP_FAMILY_STEPS training batches and one epoch
+    each (_plain_fit: the losses finite, K2 = K3 = 0 and K1 > 0 a step, no
+    scatter; no test loop); each setting holds in the trained model
+    (_ablated_channel);
+    and one fp32 step of the frame-ablated model (GCP_FAMILY_CHECK_LAYERS
+    layers, the train-check's batch) on the card against the CPU."""
+    base = ["experiment=gcpnet_lba_ablations", f"paths.data_dir={data_root}/", "trainer.max_epochs=1", "test=false",
+            f"+trainer.limit_train_batches={GCP_FAMILY_STEPS}", f"+trainer.scan_chunk_size={FAMILY_CHUNK}"]
+    dm = build_datamodule(compose(CONFIG_DIR, "train.yaml", base)["datamodule"], device="cuda")
+    dm.setup()
+    train = [b.pinned() for b in itertools.islice(dm.train_batches(seed=0), FAMILY_CHUNK)]
+    batch = next(iter(dm.val_batches())).to(torch.device("cuda"))
+    del dm
+    results = {}
+    for name, flags in GCP_FAMILY_RUNS.items():
+        t0 = time.perf_counter()
+        run = _plain_fit(f"gcp-family {name}", [*base, *flags], os.path.join(run_dir, name), train)
+        run["setting"] = _ablated_channel(name, run["model"], batch)
+        run["run_seconds"] = time.perf_counter() - t0
+        results[name] = _public(run)
+        del run
+        print(f"phase gcp-family {name}: " + json.dumps(results[name]), flush=True)
+        check(results[name]["setting"]["holds"], f"gcp-family {name}: the setting does not hold: "
+              f"{results[name]['setting']}")
+        check(results[name]["steps"] == GCP_FAMILY_STEPS, f"gcp-family {name}: {results[name]['steps']} steps")
+
+    def build(dev):
+        model_cfg, module_cfg, layer_cfg = lba_configs()
+        model = GCPNetLBA(
+            model_cfg.replace(dropout=0.0, dense_dropout=0.0, num_encoder_layers=GCP_FAMILY_CHECK_LAYERS),
+            module_cfg.replace(ablate_frame_updates=True), layer_cfg, num_atom_types=9,
+            generator=torch.Generator().manual_seed(SEED), device=dev,
+        ).train()
+        return model, TrainState(build_optimizer(model.parameters(), {"_target_": "Adam", "lr": 1e-4}))
+
+    batch = synthetic_batches(1, TRAIN_CHECK_GRAPHS, NODES, EDGES_PER_NODE, SEED + 5)[0]
+    results["check"] = card_vs_cpu_step("gcp-family-check", build, batch, graph_regression_loss,
+                                        GCP_FAMILY_CHECK_LAYERS, fp32_k3=0)
+    print("phase gcp-family: ok")
+    return results
+
+
+def phase_rs_e3(rs_dm, ckpt_dir: str) -> dict:
+    """E(3) RS at full width (experiment=gcpnet_rs with
+    model.module_cfg.enable_e3_equivariance=true, composed and built as the
+    entry point builds it) in fp32: on the first test batch of rs-data's
+    synthetic splits (in order, so graphs 2k and 2k+1 are an enantiomer
+    pair, one the other's mirror image through x), the E(3) model gives
+    both graphs of every pair the same logit within RS_PAIR_ATOL of the
+    pair's magnitude; the SE(3) model with the same weights tells them
+    apart (the median pair over the bound, the largest ten times over).
+    K2 does not run in the E(3) forward, and does in the SE(3) one.  Then a
+    captured fit in fp32, as rs-fit (_plain_fit: RS_E3_STEPS training
+    batches, its validation and test accuracy)."""
+    flag = "model.module_cfg.enable_e3_equivariance"
+    host = next(rs_dm.batches("test"))
+    real = int(np.asarray(host.graph_pad_mask).sum())
+    batch = host.to(torch.device("cuda"))
+    gaps, k2 = {}, {}
+    for e3 in (True, False):
+        cfg = compose(CONFIG_DIR, "train.yaml", ["experiment=gcpnet_rs", f"{flag}={str(e3).lower()}"])
+        model, _ = tasks.build_model(cfg["model"], seed=42, device="cuda")
+        model.eval()
+        reset_counts()
+        with torch.no_grad():
+            logits = model(batch).float().cpu().numpy()[:real].reshape(-1, 2)
+        k2[e3] = launch_counts()[1]
+        gaps[e3] = np.abs(logits[:, 0] - logits[:, 1]) / np.maximum(np.abs(logits).max(axis=1), 1.0)
+        del model
+    train = [b.pinned() for b in itertools.islice(rs_dm.train_batches(seed=0), FAMILY_CHUNK)]
+    fit = _plain_fit("rs-e3", [
+        "experiment=gcpnet_rs", f"{flag}=true", "trainer.precision=32", "trainer.max_epochs=1",
+        f"+trainer.limit_train_batches={RS_E3_STEPS}", f"+trainer.scan_chunk_size={FAMILY_CHUNK}",
+    ], ckpt_dir, train)
+    results = {
+        "pairs": real // 2, "e3_max_gap": float(gaps[True].max()), "se3_median_gap": float(np.median(gaps[False])),
+        "se3_max_gap": float(gaps[False].max()), "se3_min_gap": float(gaps[False].min()),
+        "k2_launches": {"e3": k2[True], "se3": k2[False]}, "fit": _public(fit),
+    }
+    print("phase rs-e3: " + json.dumps(results), flush=True)
+    check(real == 128, f"rs-e3: {real} graphs in the test batch")
+    check(results["e3_max_gap"] <= RS_PAIR_ATOL, f"rs-e3: E(3) pairs apart by {results['e3_max_gap']}")
+    check(results["se3_median_gap"] > RS_PAIR_ATOL and results["se3_max_gap"] > 10 * RS_PAIR_ATOL,
+          f"rs-e3: SE(3) pairs not told apart: {results}")
+    check(k2[True] == 0 and k2[False] > 0, f"rs-e3: K2 launches {k2}")
+    check(all(math.isfinite(fit["metrics"][f"test/{m}"]) for m in ("loss", "Accuracy")), f"rs-e3: {fit['metrics']}")
+    check(fit["steps"] == RS_E3_STEPS, f"rs-e3: {fit['steps']} steps")
+    print("phase rs-e3: ok")
+    return results
+
+
 def datum_samples(model, graph, copies: int) -> np.ndarray:
     """The argmax samples (temperature 1e-6) of ``copies`` copies of
     ``graph`` on the model's device, ``[copies, n]``."""
@@ -3361,7 +3615,9 @@ def kernel_line(report) -> dict:
     fit (bf16; K1 a step as k1_steps counts it); under "eq" at the EQ
     step's shape and the EQ fit (bf16); under "ar" at the AR step's shape
     (the silu stack) and the AR fit (bf16); under "cfg" the launches of the
-    config-driven LBA fit (cfg-train, bf16), whose shape is psr's."""
+    config-driven LBA fit (cfg-train, bf16), whose shape is psr's; under
+    "gcp_family" a step's launches in each gcp-family run and the rs-e3
+    fit."""
     k1, k2, k3 = report["K1"], report["K2"], report["K3"]
     forward, train, train_fp32 = report["forward"], report["train"], report["train_fp32"]
     nk, rk, pk = report["nms_kernels"], report["rs_kernels"], report["psr_kernels"]
@@ -3385,12 +3641,19 @@ def kernel_line(report) -> dict:
         shape is psr's (the same bucket and stack)."""
         return {"launches": cfg_run["launches"][count], "launches_per_step": cfg_steps[count]}
 
+    def family(count):
+        """A step's launches of a kernel in each gcp-family run and in the
+        E(3) RS fit (rs-e3), read from a replay's graph: the plain stacks
+        launch K1 alone."""
+        runs = {**report["gcp_family"], "rs_e3": report["rs_e3"]["fit"]}
+        return {name: run["launches_per_step"][count] for name, run in runs.items() if name != "check"}
+
     def row(name, source, replaces, run, count, main, dtype, **extra):
         return {
             "name": name, "route": "cuda", "source": f"gcpnet_torch/csrc/{source}", "replaces": replaces,
             "launches": run["launches"][count], **{k: main[k] for k in keys}, "dtype": dtype,
             "replay_launches": run["profile_captured"]["launches"][count], "replays": run["replays"],
-            **extra,
+            "gcp_family": family(count), **extra,
         }
 
     def nms(results, launches_per_step, **by_dtype):
@@ -3471,7 +3734,10 @@ def main() -> int:
     eq_root, eq_ckpt_dir = os.path.join(work, "eq"), os.path.join(args.out_dir, "eq_checkpoints")
     ar_root, ar_ckpt_dir = os.path.join(work, "ar"), os.path.join(args.out_dir, "ar_checkpoints")
     cfg_run_dir = os.path.join(args.out_dir, "cfg_run")
-    for path in (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir, cfg_run_dir):
+    family_dir, rs_e3_dir = os.path.join(args.out_dir, "gcp_family"), os.path.join(args.out_dir, "rs_e3_checkpoints")
+    run_dirs = (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir, cfg_run_dir, family_dir,
+                rs_e3_dir)
+    for path in run_dirs:
         shutil.rmtree(path, ignore_errors=True)
     report = {}
     try:
@@ -3513,7 +3779,6 @@ def main() -> int:
         report["rs_profile"] = phase_rs_profile(rs_trainer, rs_dm, report["rs_fit"])
         del rs_trainer
         report["determinism"] = phase_determinism(rs_dm)
-        del rs_dm
         report["psr_check"] = phase_psr_check(psr_root)
         psr_trainer, psr_dm, report["psr_fit"] = phase_psr_fit(
             psr_root, psr_ckpt_dir, report["psr_data"]["graphs_per_batch"]
@@ -3540,11 +3805,14 @@ def main() -> int:
         report["cfg_train"] = phase_cfg_train(os.path.join(work, "cfg_data"), cfg_run_dir)
         report["cfg_eval"] = phase_cfg_eval(os.path.join(work, "cfg_data"), cfg_run_dir, report["cfg_train"])
         report["cfg_predict"] = phase_cfg_predict(eq_root, eq_ckpt_dir, os.path.join(work, "cfg_predict"))
+        report["gcp_family"] = phase_gcp_family(os.path.join(work, "cfg_data"), family_dir)
+        report["rs_e3"] = phase_rs_e3(rs_dm, rs_e3_dir)
+        del rs_dm
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
-        for path in (work, ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir, cfg_run_dir):
+        for path in (work, *run_dirs):
             shutil.rmtree(path, ignore_errors=True)
         report["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:

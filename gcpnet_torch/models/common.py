@@ -16,7 +16,7 @@ from torch import Tensor, nn
 from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.nn.embedding import GCPEmbedding
-from gcpnet_torch.nn.frames import centralize, localize, node_mean_frames
+from gcpnet_torch.nn.frames import NodeFrames, centralize, localize
 from gcpnet_torch.nn.gcp import Dense, make_gcp
 from gcpnet_torch.nn.interactions import LAYER_CLASSES
 from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector, get_nonlinearity
@@ -84,7 +84,7 @@ class InvariantPooledHead(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tensor:
         out = self.projection_norm(node_rep)
-        nf = node_mean_frames(frames, batch.sender_index(), node_rep.scalar.shape[0], edge_mask, count_mask)
+        nf = NodeFrames(frames, batch.sender_index(), node_rep.scalar.shape[0], edge_mask, count_mask)
         out = self.invariant_node_projection(out, nf)
         pooled = segment_mean(out, batch.graph_index(), batch.num_graphs, mask=batch.valid_node_mask())
         y = self.dense_activation(self.dense_0(pooled))

@@ -37,7 +37,7 @@ from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.models.common import batch_masks, centralize_and_frames
 from gcpnet_torch.nn.decoder import GCPMLPDecoder
 from gcpnet_torch.nn.embedding import Embed, GCPEmbedding, one_hot
-from gcpnet_torch.nn.frames import node_mean_frames
+from gcpnet_torch.nn.frames import NodeFrames
 from gcpnet_torch.nn.gcp import make_gcp
 from gcpnet_torch.nn.interactions import GCPInteractions
 from gcpnet_torch.nn.primitives import ScalarVector
@@ -152,7 +152,7 @@ class GCPNetCPD(nn.Module):
                     node_mask=batch.node_mask, edge_mask=edge_mask, count_mask=count_mask,
                     deterministic=deterministic, generator=generator, node_rep_regressive=encoder_rep,
                 )
-        nf = node_mean_frames(frames, batch.sender_index(), batch.num_nodes, edge_mask, count_mask)
+        nf = NodeFrames(frames, batch.sender_index(), batch.num_nodes, edge_mask, count_mask)
         out = self.invariant_node_projection(node_rep, nf)
         if self.autoregressive_decoder:
             return out
@@ -194,7 +194,8 @@ class GCPNetCPD(nn.Module):
         # the projection's node frames: the JAX step's proj_edge_mask keeps
         # only edges whose both ends are step nodes (one a graph: so
         # self-loops), and a self-loop's frame (x_i - x_i, x_i x x_i) is
-        # zero, so the step nodes' mean frames are zero in every graph
+        # zero, so the step nodes' mean frames are zero in every graph (and
+        # in E(3) mode so is each self-loop's projection, abs included)
         zero_frames = frames.new_zeros((batch.num_nodes, frames.shape[1]))
         cache = [ScalarVector(node_rep.scalar.clone(), node_rep.vector.clone()) for _ in decoders]
         seq = torch.zeros(batch.num_nodes, dtype=torch.long, device=device)

@@ -22,7 +22,7 @@ from gcpnet_torch.device import DeviceLike, resolve_device
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.models.common import GCPNetEncoder, batch_masks, centralize_and_frames
 from gcpnet_torch.nn.embedding import Embed
-from gcpnet_torch.nn.frames import node_mean_frames
+from gcpnet_torch.nn.frames import NodeFrames
 from gcpnet_torch.nn.gcp import Dense, make_gcp
 from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm
 from gcpnet_torch.ops.segment import SortedIndex, masked_mean, segment_mean
@@ -88,7 +88,7 @@ class GCPNetEQ(nn.Module):
         node_rep, _ = self.encoder(batch, frames, deterministic=deterministic, generator=generator)
         edge_mask, count_mask = batch_masks(batch)
         out = self.projection_norm(node_rep)
-        nf = node_mean_frames(frames, batch.sender_index(), batch.num_nodes, edge_mask, count_mask)
+        nf = NodeFrames(frames, batch.sender_index(), batch.num_nodes, edge_mask, count_mask)
         out = self.invariant_node_projection(out, nf)
         num_res = batch.extras["res_mask"].shape[0]
         res_out = segment_mean(out, residue_index(batch), num_res, mask=batch.valid_node_mask())

@@ -7,9 +7,10 @@ it: the node scalars are atom types through an embedding table
 ``cfg.concatenate_lig_flag`` (LBA on ATOM3D records,
 ``batch.extras["lig_flag"]``); one edge GCP and one node GCP, with a
 GCPLayerNorm of their inputs (``pre_norm``) or of their outputs (CPD).
-Inputs without vector channels are options of other task models and are
-not ported yet.  ``nonlinearities`` (EQ's) are the edge GCP's; the node
-GCP has none.
+Nodes or edges without input vector channels (``node_input_dims[1]`` or
+``edge_input_dims[1]`` 0) enter their GCP as scalars alone; an output
+without vector channels leaves with empty vectors.  ``nonlinearities``
+(EQ's) are the edge GCP's; the node GCP has none.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from torch import Tensor, nn
 
 from gcpnet_torch.config.schema import ModuleCfg
 from gcpnet_torch.graph import GraphBatch
-from gcpnet_torch.nn.frames import node_mean_frames
+from gcpnet_torch.nn.frames import NodeFrames
 from gcpnet_torch.nn.gcp import make_gcp
 from gcpnet_torch.nn.primitives import GCPLayerNorm, ScalarVector, pack_vector
 
@@ -67,8 +68,6 @@ class GCPEmbedding(nn.Module):
     ):
         super().__init__()
         self.pre_norm = pre_norm
-        if edge_input_dims[1] <= 0 or node_input_dims[1] <= 0:
-            raise NotImplementedError("GCPEmbedding: only inputs with node and edge vectors are ported")
         kw = dict(generator=generator, device=device)
         self.atom_embedding = Embed(num_atom_types, num_atom_types, **kw) if num_atom_types > 0 else None
         self.lig_flag_embedding = None
@@ -107,9 +106,15 @@ class GCPEmbedding(nn.Module):
             edge_rep = self.edge_normalization(edge_rep)
             node_rep = self.node_normalization(node_rep)
         edge_out = self.edge_embedding(edge_rep, frames, edge_mask)
-        nf = node_mean_frames(frames, batch.sender_index(), batch.h.shape[0], edge_mask, count_mask)
+        nf = NodeFrames(frames, batch.sender_index(), batch.h.shape[0], edge_mask, count_mask)
         node_out = self.node_embedding(node_rep, nf)
         if not self.pre_norm:
             edge_out = self.edge_normalization(edge_out)
             node_out = self.node_normalization(node_out)
-        return node_out, edge_out
+        return _with_vectors(node_out), _with_vectors(edge_out)
+
+
+def _with_vectors(rep) -> ScalarVector:
+    """A GCP's output as a ``ScalarVector`` (empty vectors for an output
+    without vector channels)."""
+    return rep if isinstance(rep, ScalarVector) else ScalarVector(rep, rep.new_zeros(rep.shape[:-1] + (0,)))

@@ -5,23 +5,27 @@ Port of ``gcpnet_tpu/nn/frames.py``.  Frames are PACKED ``[E, 9]``
 (row-major ``[f0x f0y f0z f1x ...]``); vectors are packed ``[*, 3c]``
 (see ``nn.primitives``).  Masked entries are zeros plus explicit masks.
 
-The projections here are row-wise: for edge inputs ``frames`` are the edge
-frames, and for node inputs they are the per-node mean frames from
-:func:`node_mean_frames`.  Scalarize and vectorize are linear in the frame
-for a fixed node feature, so a node input's gather + scatter-mean over its
-outgoing edges equals the row-wise product with its mean frame (the JAX
-package's ``node_frames`` fast path, which its GCPs always take).
+For edge inputs the projections are row-wise over the edge frames.  A
+node input projects onto each of its outgoing edges' frames and takes the
+mean over them (:class:`NodeFrames`).  Scalarize and vectorize are linear
+in the frame for a fixed node feature, so that gather + mean equals the
+row-wise product with the node's mean frame (the JAX package's
+``node_frames`` fast path), which every projection takes but E(3) mode's
+scalarize: its ``abs`` of the cross-product column is not linear, so it
+gathers the node rows by sender, projects them on the edge frames and
+takes the mean over senders (K1 over the sender-sorted rows where the
+senders come in their sorted form).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import Tensor
 
 from gcpnet_torch.nn.primitives import vec_components
-from gcpnet_torch.ops.segment import Index, index_of, segment_mean, sender_mean
+from gcpnet_torch.ops.segment import Index, gather_rows, index_of, segment_mean, sender_mean
 
 
 def centralize(
@@ -96,25 +100,79 @@ def node_mean_frames(
     )
 
 
-def scalarize(vector_rep: Tensor, frames: Tensor, edge_mask: Optional[Tensor] = None) -> Tensor:
-    """Project 3 packed vector channels ``[R, 9]`` onto the row's frame:
-    ``[R, 9]`` invariant scalars, channel-major ``(c0·f0, c0·f1, c0·f2,
-    c1·f0, ...)``.  ``edge_mask`` zeroes masked edge rows."""
+class NodeFrames:
+    """The frames a node-input GCP projects onto: every node's outgoing
+    edges' ``frames [E, 9]`` (``senders`` in their sorted form where the
+    batch has one), ``edge_mask`` gating the mean's numerator and
+    ``count_mask`` (default ``edge_mask``) its denominator.  :attr:`mean`,
+    the per-node mean frame, is computed at its first use (a stack whose
+    GCPs read no frames computes none)."""
+
+    def __init__(
+        self,
+        frames: Tensor,
+        senders: Index,
+        num_nodes: int,
+        edge_mask: Optional[Tensor] = None,
+        count_mask: Optional[Tensor] = None,
+    ):
+        self.frames, self.senders, self.num_nodes = frames, senders, num_nodes
+        self.edge_mask = edge_mask
+        self.count_mask = count_mask if count_mask is not None else edge_mask
+        self._mean: Optional[Tensor] = None
+
+    @property
+    def mean(self) -> Tensor:
+        """``[N, 9]``: :func:`node_mean_frames` of the edge frames."""
+        if self._mean is None:
+            self._mean = node_mean_frames(self.frames, self.senders, self.num_nodes, self.edge_mask, self.count_mask)
+        return self._mean
+
+
+Frames = Union[Tensor, NodeFrames]
+
+
+def _project(vector_rep: Tensor, frames: Tensor, e3: bool) -> Tensor:
+    """Row-wise projection of 3 packed channels on the row's frame,
+    channel-major; with ``e3`` the cross-product column's ``abs``."""
     vx, vy, vz = vec_components(vector_rep)
-    cols = [
-        vx[:, c] * frames[:, 3 * f] + vy[:, c] * frames[:, 3 * f + 1] + vz[:, c] * frames[:, 3 * f + 2]
-        for c in range(3)
-        for f in range(3)
-    ]
-    out = torch.stack(cols, dim=-1)
+    cols = []
+    for c in range(3):
+        for f in range(3):
+            col = vx[:, c] * frames[:, 3 * f] + vy[:, c] * frames[:, 3 * f + 1] + vz[:, c] * frames[:, 3 * f + 2]
+            # x_cross flips its sign under a reflection: abs restores the invariance
+            cols.append(col.abs() if e3 and f == 1 else col)
+    return torch.stack(cols, dim=-1)
+
+
+def scalarize(
+    vector_rep: Tensor, frames: Frames, edge_mask: Optional[Tensor] = None, e3: bool = False
+) -> Tensor:
+    """Project 3 packed vector channels ``[R, 9]`` onto frames: ``[R, 9]``
+    invariant scalars, channel-major ``(c0·f0, c0·f1, c0·f2, c1·f0, ...)``.
+    ``frames`` are the rows' own (edge rows, or node rows' mean frames;
+    ``edge_mask`` zeroes masked rows) or a :class:`NodeFrames`.  ``e3``
+    (``enable_e3_equivariance``) takes the ``abs`` of the cross-product
+    column; for node rows that is a mean over the outgoing edges of each
+    edge's projection, not the projection on the mean frame."""
+    if isinstance(frames, NodeFrames):
+        if not e3:
+            return _project(vector_rep, frames.mean, False)
+        local = _project(gather_rows(vector_rep, frames.senders), frames.frames, True)
+        return sender_mean(local, frames.senders, frames.num_nodes, mask=frames.edge_mask,
+                           count_mask=frames.count_mask)
+    out = _project(vector_rep, frames, e3)
     if edge_mask is not None:
         out = out * edge_mask[:, None].to(out.dtype)
     return out
 
 
-def vectorize(gate: Tensor, frames: Tensor, edge_mask: Optional[Tensor] = None) -> Tensor:
+def vectorize(gate: Tensor, frames: Frames, edge_mask: Optional[Tensor] = None) -> Tensor:
     """Inverse of :func:`scalarize`: 9 channel-major gates combine the
-    row's 3 frame vectors into 3 packed vector channels ``[R, 9]``."""
+    frame vectors into 3 packed vector channels ``[R, 9]`` (linear in the
+    frame: a :class:`NodeFrames` gives its mean frame)."""
+    if isinstance(frames, NodeFrames):
+        frames, edge_mask = frames.mean, None
     comps = []
     for x in range(3):
         comps.append(

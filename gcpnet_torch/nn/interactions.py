@@ -26,7 +26,7 @@ import torch
 from torch import Tensor, nn
 
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg
-from gcpnet_torch.nn.frames import frame_rows, node_mean_frames
+from gcpnet_torch.nn.frames import NodeFrames, frame_rows
 from gcpnet_torch.nn.gcp import Dense, make_gcp, uniform_param
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector, get_nonlinearity, vec_at
@@ -96,7 +96,6 @@ class GCPInteractions(nn.Module):
         for i, module in enumerate(ff):
             self.add_module(f"feedforward_{i}", module)
         self.num_ff = num_ff
-        self.ff_reads_frames = not all(m.settings.ablate_frame_updates for m in ff)
 
         if updating_node_positions:
             s_dim = node_dims[0]
@@ -157,9 +156,7 @@ class GCPInteractions(nn.Module):
             ff_edge_mask = ff_count_mask = frame_mask
         else:
             ff_edge_mask, ff_count_mask = edge_mask, count_mask
-        nf = None
-        if self.ff_reads_frames:
-            nf = node_mean_frames(frames, senders, num_nodes, ff_edge_mask, ff_count_mask)
+        nf = NodeFrames(frames, senders, num_nodes, ff_edge_mask, ff_count_mask)
         hidden = node_rep
         for i in range(self.num_ff):
             hidden = getattr(self, f"feedforward_{i}")(hidden, nf)
@@ -180,7 +177,7 @@ class GCPInteractions(nn.Module):
             nf_pos = nf  # the feed-forward's mask pair is the position head's
         else:
             # the position head keeps the all-real-edges denominator
-            nf_pos = node_mean_frames(frames, senders, num_nodes, frame_mask, count_mask)
+            nf_pos = NodeFrames(frames, senders, num_nodes, frame_mask, count_mask)
         x_update = self._derive_x_update(node_rep, senders, receivers, frames, agg_mask, nf_pos)
         return node_rep, node_pos + x_update
 
@@ -213,7 +210,7 @@ class GCPInteractions(nn.Module):
         receivers: Index,
         frames: Tensor,
         force_mask: Optional[Tensor],
-        node_frames: Tensor,
+        node_frames: NodeFrames,
     ) -> Tensor:
         """The equivariant position update ``[N, 3]``: the position GCP's one
         vector channel, plus (unless ``ablate_x_force_update``) a force term,
@@ -327,7 +324,7 @@ class GCPInteractions2(nn.Module):
             frame_mask=frame_mask,
         )
         hidden = hidden.concat((node_rep,))
-        nf = node_mean_frames(frames, senders, node_rep.scalar.shape[0], frame_mask, count_mask)
+        nf = NodeFrames(frames, senders, node_rep.scalar.shape[0], frame_mask, count_mask)
         for i in range(self.num_ff):
             hidden = getattr(self, f"feedforward_{i}")(hidden, nf)
         node_rep = node_rep + self.gcp_dropout_0(hidden, deterministic, generator)

@@ -7,7 +7,7 @@ the scalar message attention ``sigmoid(Dense(1)(s))`` scales its scalars
 reduces the messages into their receivers, or with ``aggregate_with_row``
 into their senders (EQ, AR).
 
-On the card a stack that the fused edge map covers (``_fast_supported``)
+On the card a stack that the fused edge map covers (``fast_supported``)
 runs as one (``ops.edge_map``, kernels K2 and K3), whatever index it is
 summed by; on the CPU it does so where the receivers come in their sorted
 form (the row splits of a receiver-sorted batch), as the JAX package's
@@ -15,7 +15,11 @@ form (the row splits of a receiver-sorted batch), as the JAX package's
 in its sorted form (``ops.segment.SortedIndex``: ``GraphBatch.
 receiver_index``, ``GraphBatch.sender_index``) is summed through the
 sorted segment sum (kernel K1), and the gathers of the message's node rows
-have K1 as their backward.  The JAX EQ passes no
+have K1 as their backward.  A stack with a setting outside the kernels'
+layer table (:func:`kernel_outside`: GCP v1, the frame gates, E(3) mode,
+the scalar, vector and frame ablations) runs module by module on the card
+too, its sums and gathers' backward still through K1, as the JAX package
+runs such stacks outside its Pallas kernels.  The JAX EQ passes no
 row splits with ``aggregate_with_row`` and so reaches no Pallas kernel;
 running K1-K3 there is the port's choice, with the same math.
 """
@@ -28,36 +32,61 @@ import torch
 from torch import Tensor, nn
 
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg
-from gcpnet_torch.nn.gcp import GCP2, Dense, GCPSettings, make_gcp
+from gcpnet_torch.nn.gcp import GCP2, Dense, make_gcp
 from gcpnet_torch.nn.primitives import ScalarVector
 from gcpnet_torch.ops.edge_map import PackedStack, StackLayer, edge_map, pack_stack
 from gcpnet_torch.ops.segment import Index, SortedIndex, gather_rows, segment_mean, segment_sum
 
 
-def _fast_supported(settings: GCPSettings, input_dims, output_dims) -> bool:
-    """The settings the fused stack covers (the JAX ``_fast_supported``
-    set: GCP2, or GCP3 without ``feedforward_out``, which is GCP2's
-    math)."""
-    st = settings
-    if input_dims[1] <= 0 or output_dims[1] <= 0:
-        return False
-    return not (
-        st.frame_gate
-        or st.sigma_frame_gate
-        or st.enable_e3_equivariance
-        or st.ablate_frame_updates
-        or st.ablate_scalars
-        or st.ablate_vectors
-    )
+# the GCP settings outside K2/K3's layer table: stacks with any of them run
+# module by module, as the JAX ``_fast_supported`` sends them to XLA
+# (``gcpnet_tpu/nn/message_passing.py:111-132``)
+KERNEL_OUTSIDE_FLAGS = (
+    "frame_gate", "sigma_frame_gate", "enable_e3_equivariance", "ablate_frame_updates", "ablate_scalars",
+    "ablate_vectors",
+)
 
 
-def _stack_layer(module: GCP2) -> StackLayer:
+def kernel_outside(module) -> Tuple[str, ...]:
+    """The settings of a message-stack GCP that the fused stack (K2/K3)
+    does not cover: GCP v1 (its two-stage update), GCP3's
+    ``feedforward_out``, inputs or outputs without vector channels, and
+    the flags of ``KERNEL_OUTSIDE_FLAGS``."""
     st = module.settings
-    gate = module.vector_out_scale if st.vector_gate else None
+    out = [] if isinstance(module, GCP2) else ["GCP v1"]
+    if module.input_dims[1] <= 0 or module.output_dims[1] <= 0:
+        out.append("no vector channels")
+    out += [name for name in KERNEL_OUTSIDE_FLAGS if getattr(st, name)]
+    if module.feedforward_out:
+        out.append("feedforward_out")
+    return tuple(out)
+
+
+def _stack_layer(module) -> StackLayer:
+    """A message-stack GCP as a layer of the kernels' table, with the
+    settings it would need that the table lacks in ``outside``
+    (``ops.edge_map._check_kernel_supported`` raises on them).  Where the
+    GCP projects no frames in its first stage (``ablate_frame_updates``,
+    GCP v1) the frame weights are zeros."""
+    st = module.settings
+    outside = kernel_outside(module)
+    if "no vector channels" in outside:
+        raise NotImplementedError(f"edge_map kernel: a stack layer with {list(outside)}")
+    v_in = module.vector_down.kernel.shape[0]
+    reads_frames = isinstance(module, GCP2) and not st.ablate_frame_updates
+    if reads_frames:
+        w_down = torch.cat([module.vector_down.kernel, module.vector_down_frames.kernel], dim=1)
+    else:
+        w_down = torch.cat([module.vector_down.kernel, module.vector_down.kernel.new_zeros(v_in, 3)], dim=1)
+    w_so = module.scalar_out_0.kernel if module.feedforward_out else module.scalar_out.kernel
+    b_so = module.scalar_out_0.bias if module.feedforward_out else module.scalar_out.bias
+    if not reads_frames:
+        w_so = torch.cat([w_so, w_so.new_zeros(9, w_so.shape[1])], dim=0)
+    gate = getattr(module, "vector_out_scale", None) if st.vector_gate else None
     return StackLayer(
-        w_down=torch.cat([module.vector_down.kernel, module.vector_down_frames.kernel], dim=1).float(),
-        w_so=module.scalar_out.kernel.float(),
-        b_so=module.scalar_out.bias.float(),
+        w_down=w_down.float(),
+        w_so=w_so.float(),
+        b_so=b_so.float(),
         w_up=module.vector_up.kernel.float(),
         w_gate=None if gate is None else gate.kernel.float(),
         b_gate=None if gate is None else gate.bias.float(),
@@ -65,6 +94,7 @@ def _stack_layer(module: GCP2) -> StackLayer:
         act_v=st.vector_nonlinearity,
         slope=st.nonlinearity_slope,
         vector_residual=st.vector_residual,
+        outside=outside,
     )
 
 
@@ -111,9 +141,9 @@ class GCPMessagePassing(nn.Module):
                 make_gcp(dims, self.output_dims, cfg, generator=generator, device=device, **spec),
             )
         self.num_message_layers = len(specs)
-        self.fast_supported = all(
-            _fast_supported(m.settings, m.input_dims, m.output_dims) and not m.feedforward_out for m in self.stack
-        )
+        # the JAX ``_fast_supported`` set: GCP2, or GCP3 without
+        # ``feedforward_out`` (GCP2's math), with none of the other settings
+        self.fast_supported = not any(kernel_outside(m) for m in self.stack)
         self.aggregate_with_row = aggregate_with_row
         self.scalar_message_attention = (
             Dense(self.output_dims[0], 1, generator=generator, device=device)

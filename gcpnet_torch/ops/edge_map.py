@@ -67,6 +67,9 @@ class StackLayer:
     act_v: Optional[str]
     slope: float
     vector_residual: bool
+    # the layer's GCP settings that the kernels' table lacks
+    # (nn.message_passing.kernel_outside); _check_kernel_supported raises on them
+    outside: Tuple[str, ...] = ()
 
     @property
     def dims(self) -> Tuple[int, int, int, int, int]:
@@ -301,6 +304,11 @@ def _check_kernel_supported(stack: PackedStack) -> None:
     if len(stack.layers) > MAX_LAYERS:
         raise NotImplementedError(f"edge_map kernel: at most {MAX_LAYERS} layers")
     for i, layer in enumerate(stack.layers):
+        if layer.outside:
+            raise NotImplementedError(
+                f"edge_map kernel: layer {i} has {list(layer.outside)}, which the kernels' layer table lacks; "
+                "such stacks run module by module (nn.message_passing.kernel_outside)"
+            )
         for name in (layer.act_s, layer.act_v):
             if _act_name(name) not in KERNEL_ACTIVATIONS:
                 raise NotImplementedError(

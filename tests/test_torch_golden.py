@@ -9,11 +9,14 @@ Held here: the GCP2 units (edge and node inputs, bottleneck with vector
 residual, scalar output, self gate), GCP3 with ``feedforward_out``, the
 message passing (mean ResGCP, without residual, and the sum with scalar
 message attention keyed by sender), the pre-norm embedding, the
-``GCPInteractions`` layer (node mask, post-norm), ``GCPInteractions2``
+``GCPInteractions`` layer (node mask, post-norm, pre-norm with three
+feed-forward GCPs), ``GCPInteractions2``
 (default, GCP3, node mask, and pre-norm with scalar message attention,
 sums over senders and AR's position update), the layer norm, and the
 geometry (centring, frames, scalarize and vectorize on node and edge rows,
-node-masked means).  The geometry's E(3) outputs wait for E(3) mode.
+node-masked means).  The rest of the GCP family's fixtures (GCP v1, the
+frame gates, E(3) mode, inputs without vectors) and the geometry's E(3)
+outputs are held in ``tests/test_torch_gcp_family.py``.
 """
 
 import json
@@ -28,7 +31,9 @@ from gcpnet_tpu.utils.torch_compat import translate_state_dict
 from gcpnet_torch.config.schema import LayerCfg, ModuleCfg
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.nn.embedding import GCPEmbedding
-from gcpnet_torch.nn.frames import centralize, decentralize, localize, node_mean_frames, scalarize, vectorize
+from gcpnet_torch.nn.frames import (
+    NodeFrames, centralize, decentralize, localize, node_mean_frames, scalarize, vectorize,
+)
 from gcpnet_torch.nn.gcp import GCP_CLASSES, GCPSettings
 from gcpnet_torch.nn.interactions import GCPInteractions, GCPInteractions2
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
@@ -40,8 +45,8 @@ ATOL = RTOL = 1e-4
 CASES = [
     "gcp2_default_edge", "gcp2_default_node", "gcp2_bottleneck_residual", "gcp2_scalar_out", "gcp2_self_gate",
     "gcp3_feedforward", "mp_mean_resgcp", "mp_no_residual", "mp_sum_attention_row", "embedding_prenorm",
-    "interactions_node_mask", "interactions_postnorm", "interactions2_default", "interactions2_gcp3",
-    "interactions2_node_mask", "interactions2_attention_posupdate", "gcp_layer_norm", "geometry",
+    "interactions_node_mask", "interactions_postnorm", "interactions_prenorm_ff3", "interactions2_default",
+    "interactions2_gcp3", "interactions2_node_mask", "interactions2_attention_posupdate", "gcp_layer_norm", "geometry",
 ]
 GEN = dict(generator=torch.Generator().manual_seed(0), device="cpu")
 
@@ -97,7 +102,7 @@ def _gcp(meta, ins, sd, outs):
     senders, _ = _edges(ins)
     frames = _t(ins["frames"]).reshape(-1, 9)
     if meta["node_inputs"]:
-        frames = node_mean_frames(frames, senders, ins["s"].shape[0])
+        frames = NodeFrames(frames, senders, ins["s"].shape[0])
     out = module(_sv(ins["s"], ins["v"]), frames)
     if "vector" in outs:
         _check(out.scalar, outs["scalar"], "scalar")

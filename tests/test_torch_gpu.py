@@ -54,7 +54,8 @@ from gcpnet_torch.ops.segment import SortedIndex, gather_rows, segment_count, se
 from gcpnet_torch.ops.segment_sorted import DTYPE_CODES, segment_sum_sorted, segment_sum_sorted_plain
 from gcpnet_torch.train import cli as train_cli
 from gcpnet_torch.train.graphs import CapturedCall, EvalSteps, TrainSteps
-from gcpnet_torch.train.optim import build_schedule
+from gcpnet_torch.train.optim import build_optimizer, build_schedule
+from gcpnet_torch.train.state import TrainState
 from gcpnet_torch.train.step import train_step
 from gcpnet_torch.train.trainer import Trainer
 
@@ -1488,3 +1489,124 @@ def test_config_train_and_eval_round_trip_on_card(cuda, tmp_path):
     assert np.isfinite(metrics["test/loss"])
     again = eval_entry.main([*overrides, f"ckpt_path={tmp_path}/run/checkpoints"])
     assert again["test/loss"] == metrics["test/loss"]
+
+
+# --- the rest of the GCP family: plain message stacks on the card ------------
+
+# The settings of chip_smoke's gcp-family runs: each puts every message
+# stack outside K2/K3's layer table, so the stacks run module by module and
+# only K1 launches
+FAMILY_SETTINGS = {
+    "ablate_frame_updates": dict(ablate_frame_updates=True),
+    "ablate_scalars": dict(ablate_scalars=True),
+    "ablate_vectors": dict(ablate_vectors=True),
+    "gcp1_sigma_frame_gate": dict(selected_gcp="GCP", sigma_frame_gate=True, vector_gate=False),
+    "gcp2_frame_gate": dict(frame_gate=True, vector_gate=False),
+}
+# scatter kernels by name (a replay's graph must hold none)
+SCATTER_NAMES = ("indexFuncSmallIndex", "indexFuncLargeIndex", "index_add", "indexing_backward", "scatter_add",
+                 "_scatter_gather_elementwise", "embedding_backward", "compute_grad_weight")
+
+
+def _family_lba(setting: str, dev) -> GCPNetLBA:
+    model_cfg, module_cfg, layer_cfg = port_predict.lba_configs()
+    return GCPNetLBA(
+        model_cfg.replace(num_encoder_layers=2, dropout=0.0, dense_dropout=0.0),
+        module_cfg.replace(**FAMILY_SETTINGS[setting]), layer_cfg,
+        generator=torch.Generator().manual_seed(0), device=dev,
+    )
+
+
+def _e3_rs(dev) -> GCPNetRS:
+    model_cfg, module_cfg, layer_cfg = train_cli.task_configs("rs", num_encoder_layers=2, dropout=0.0)
+    return GCPNetRS(model_cfg, module_cfg.replace(enable_e3_equivariance=True), layer_cfg,
+                    generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def _rs_batch():
+    dm = RSDataModule(batch_size=8, synthetic_sizes={"train": 32, "valid": 16, "test": 16})
+    dm.setup()
+    return next(dm.train_batches(seed=0))
+
+
+def _plain_case(case: str):
+    """(a function making the model, host batch, loss) of a card test's model: LBA with a
+    gcp-family setting at full width (2 layers) on a synthetic batch, or
+    E(3) RS at full width (2 layers) on a paired batch."""
+    if case == "rs_e3":
+        return _e3_rs, _rs_batch(), rs_loss
+    return (lambda dev: _family_lba(case, dev)), port_predict.synthetic_batches(1, 2, 40, 28, seed=1)[0], \
+        graph_regression_loss
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_SETTINGS) + ["rs_e3"])
+def test_plain_stack_gradients_on_card_match_cpu(cuda, case):
+    """A model whose message stacks are outside K2/K3's layer table keeps
+    the autograd graph on the card module by module: the loss and every
+    parameter's gradient against the CPU, K1 launched and K2 / K3 not."""
+    build, batch, loss_fn = _plain_case(case)
+    grads, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build(dev)
+        assert not any(m.fast_supported for m in model.modules() if isinstance(m, GCPMessagePassing))
+        launches = _wrapper_launches()
+        b = batch.to(torch.device(dev))
+        loss, _ = loss_fn(model(b), b)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            k1, k2, k3 = (a - c for a, c in zip(_wrapper_launches(), launches))
+            assert k1 > 0 and k2 == k3 == 0, (k1, k2, k3)
+        losses[dev] = loss.item()
+        grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        if want is None:  # an ablated branch
+            assert got is None or torch.count_nonzero(got) == 0, name
+            continue
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["ablate_frame_updates", "rs_e3"])
+def test_plain_stack_replay_runs_no_k2_k3_or_scatter(cuda, monkeypatch, case):
+    """A captured training step of a plain-stack model: a replay's graph
+    holds K1 kernels and no K2, K3 or scatter kernel, and two replays
+    agree with two eager steps."""
+    monkeypatch.setattr(CapturedCall, "keep_graphs", True)
+    build, batch, loss_fn = _plain_case(case)
+    pinned = batch.pinned()
+    losses = {}
+    for mode in ("eager", "replay"):
+        model = build(cuda)
+        state = TrainState(build_optimizer(model.parameters(), {"_target_": "Adam", "lr": 1e-4}))
+        if mode == "eager":
+            losses[mode] = [train_step(model, state, batch.to(cuda), loss_fn).loss.item() for _ in range(3)]
+            continue
+        steps = TrainSteps(model, state, loss_fn, torch.Generator(device=cuda).manual_seed(0))
+        losses[mode] = [steps([pinned]).loss.item() for _ in range(3)]
+        assert (steps.call.captures, steps.call.replays) == (1, 2)
+        k1, k2, k3 = _replayed_launches(steps.call, [pinned])
+        assert k1 > 0 and k2 == k3 == 0, (k1, k2, k3)
+        names = steps.call.kernel_names([pinned])
+        assert not [n for n in names if any(s in n for s in SCATTER_NAMES)], names
+    np.testing.assert_allclose(losses["replay"], losses["eager"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("flip", ["frame_gate", "sigma_frame_gate", "enable_e3_equivariance",
+                                  "ablate_frame_updates", "ablate_scalars", "ablate_vectors", "GCP v1"])
+def test_edge_map_refuses_each_setting_outside_its_layer_table(rng, cuda, flip):
+    """A packed stack that carries a setting outside the kernels' layer
+    table raises on the card, naming the setting, before any launch."""
+    cfg = ModuleCfg(selected_gcp="GCP") if flip == "GCP v1" else ModuleCfg(**{flip: True})
+    mp = GCPMessagePassing((16, 4), (16, 4), (8, 4), cfg, LayerCfg(mp_cfg=MPCfg(num_message_layers=3)),
+                           generator=torch.Generator().manual_seed(0), device=cuda)
+    stack = mp.packed_stack()
+    e = 64
+    message = torch.from_numpy(rng.normal(size=(e, stack.in_dim)).astype(np.float32)).to(cuda)
+    frames = torch.from_numpy(rng.normal(size=(e, 9)).astype(np.float32)).to(cuda)
+    before = edge_map.launches
+    with pytest.raises(NotImplementedError, match=flip):
+        edge_map(message, frames, stack)
+    assert edge_map.launches == before

@@ -3,7 +3,9 @@ every module of the package, the chip scripts (``chip_smoke.py``,
 ``k1_versions.py``, ``k2_versions.py``, ``k3_breakdown.py``), the card's
 tests (``test_torch_gpu.py``, which run where JAX is absent), a CPU
 prediction, a CPU LBA training run, a CPU NMS fit with its simulated data,
-a CPU RS fit on synthetic enantiomers, a CPU PSR fit on synthetic ATOM3D
+a CPU RS fit on synthetic enantiomers (and one of E(3) RS on GCP v1 with
+the sigma frame gate, composed from ``experiment=gcpnet_rs_ablations``), a
+CPU PSR fit on synthetic ATOM3D
 records, a CPU CPD fit with its design metrics on synthetic CATH chains, a
 CPU EQ fit on synthetic decoys with the config-driven prediction of its
 decoys, a CPU AR fit on synthetic pairs with its refinement of their decoys
@@ -82,6 +84,16 @@ sys.argv = ["gcpnet_torch.train", "--task", "rs", "--device", "cpu", "--num-trai
             "--num-test", "4", "--batch-size", "2", "--num-encoder-layers", "1", "--max-epochs", "1",
             "--min-epochs", "0"]
 runpy.run_module("gcpnet_torch.train", run_name="__main__")
+with tempfile.TemporaryDirectory() as root:
+    # the rest of the GCP family through the config-driven entry point: RS
+    # in E(3) mode on GCP v1 with the sigma frame gate
+    sys.argv = ["gcpnet_torch.train", "experiment=gcpnet_rs_ablations", "trainer.accelerator=cpu",
+                "+datamodule.synthetic_sizes={train: 8, valid: 4, test: 4}", "datamodule.batch_size=2",
+                "model.model_cfg.num_encoder_layers=1", "trainer.max_epochs=1", "paths.output_dir=" + root,
+                "extras.print_config=false", "model.module_cfg.enable_e3_equivariance=true",
+                "model.module_cfg.selected_GCP._target_=gcpnet_tpu.nn.gcp.GCP",
+                "model.module_cfg.sigma_frame_gate=true", "model.module_cfg.vector_gate=false"]
+    runpy.run_module("gcpnet_torch.train", run_name="__main__")
 import functools
 
 from chip_smoke import write_psr_records
@@ -145,7 +157,7 @@ for name in ("gcpnet_torch.data.atom3d", "gcpnet_torch.data.cath", "gcpnet_torch
              "gcpnet_torch.predict_ar", "gcpnet_torch.config.loader", "gcpnet_torch.config.instantiate",
              "gcpnet_torch.data.registry", "gcpnet_torch.utils.pylogger", "gcpnet_torch.utils.utils",
              "gcpnet_torch.utils.loggers", "gcpnet_torch.utils.sweeps", "gcpnet_torch.train.entry",
-             "gcpnet_torch.eval"):
+             "gcpnet_torch.eval", "gcpnet_torch.utils.torch_compat"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
