@@ -23,8 +23,8 @@ Phases, one line each:
      as batches of 100 20-body graphs (2,000 nodes, 38,000 CSR edge rows);
   7. nms-kernels: K1, K2 and K3 at the NMS step's shape against their plain
      versions, fp32 and bf16, with their times, bounds and shares of them;
-  8. rs-data: the RS splits, synthetic enantiomer pairs at the JAX module's
-     sizes (4,096 / 512 / 512 graphs), and a paired training batch (64
+  8. rs-data: the RS splits, synthetic enantiomer pairs (2,048 / 512 / 512
+     graphs; the JAX module's hold 4,096 training graphs), and a paired training batch (64
      anchors and their enantiomers: 128 graphs, a bucket of 8,192 nodes and
      16,384 CSR edge rows, about 1,400 and 2,600 of them real);
   9. rs-kernels: K1, K2 and K3 at the RS step's shape against their plain
@@ -111,8 +111,8 @@ Phases, one line each:
      gradients against the fp32 step's on the card;
  24. psr-fit: the PSR path, the full-width PSR model (5 interaction layers)
      fitted by the Trainer in bf16 over float32 masters (the experiment's
-     defaults) with scan_chunk_size 4 for 2 epochs with checkpoints, a
-     resume to a third, and the best checkpoint's test: epoch seconds,
+     defaults) with scan_chunk_size 4 for 1 epoch with checkpoints, a
+     resume to a second, and the best checkpoint's test: epoch seconds,
      train graphs/s, the val and test metrics (local and global Pearson,
      Spearman, Kendall), peak memory and what was allocated as the fit
      began, the CUDA graphs held (at most a full chunk's and the tail's a
@@ -135,10 +135,19 @@ Phases, one line each:
      sequences each at temperature 0.1): median perplexity and recovery
      for all, short and single_chain, ms a chain, the device's launches a
      position; the argmax samples of one chain, card against CPU;
- 30. eq-data (before any CUDA graph, as eq-kernels): synthetic EQ decoys
-     (write_eq_decoys: 4 / 2 / 2 natives of 100-700 residues with side
-     chains, 8 noisy decoys each with a plDDT in the b-factor column, a
-     seeded ESM cache file a sequence), each split's first pass (the
+ 29a. esm (before eq-data): ESM-2 650M with random weights from the seed,
+     written as a fair-esm-shaped checkpoint and loaded back through
+     GCPNET_ESM_CHECKPOINT on the card (gcpnet_torch.data.esm): the
+     weights equal to those written, ms a sequence at 250 residues and at
+     AR's 1,600-residue prediction decoy, peak memory, the card against
+     the CPU at 64 and 250 residues (TF32 off, max abs within 1e-3); then
+     EQ's synthetic decoys written and their sequences embedded on the
+     card through the datamodule (EQDataModule.prepare_embeddings) in
+     place of their seeded cache, a decoy's node scalars its embedding;
+ 30. eq-data (before any CUDA graph, as eq-kernels; with GCPNET_REQUIRE_ESM=1,
+     as eq-fit): the esm phase's EQ decoys (write_eq_decoys: 4 / 2 / 2
+     natives of 100-700 residues with side chains, 8 noisy decoys each
+     with a plDDT in the b-factor column; ESM-2's embeddings), each split's first pass (the
      lDDT labels made and the graphs cached), a shuffled training epoch's
      batches: host ms a batch, real nodes and edge rows against the
      bucket's 8,192 and 262,144;
@@ -195,7 +204,7 @@ Phases, one line each:
  42. cfg-train: the config-driven entry point (gcpnet_torch.train's main,
      experiment=gcpnet_lba, the experiment's widths: 8 x 8 layers,
      100/16/32/4, bf16 over float32 masters, batch 16, the JAX bucket) on
-     synthetic LBA records (write_lba_records: 320 / 64 / 64 pocket and
+     synthetic LBA records (write_lba_records: 160 / 64 / 64 pocket and
      ligand complexes of about 300-600 heavy atoms) for 2 epochs with
      checkpoints and the CSV logger, then the best checkpoint's test: the
      composed model against a directly built GCPNetLBA (parameter names
@@ -223,9 +232,19 @@ Phases, one line each:
      every mirrored pair of a synthetic test batch gets the same logit
      (the SE(3) model with the same weights tells pairs apart); a captured
      fit of 6 batches through gcpnet_torch.train's main with its test
-     accuracy, launches, busy ms a step and idle share.
+     accuracy, launches, busy ms a step and idle share;
+ 47. ddp: data-parallel full-width LBA training (bf16 over float32
+     masters) on a global batch of two LBA batches, one a shard, K1-K3
+     counted from 0 around each run: NCCL world 1 in this process,
+     captured, equal bit for bit to the same steps without a process
+     group (its busy ms a replay, the all-reduce's ms); gloo world 2 on the
+     one card (two processes from gcpnet_torch.parallel.launch), eager,
+     against one process stepping on both shards with the all-reduce's
+     arithmetic; NCCL world 2 where the machine has two GPUs (reported,
+     not run on one).
 Every profiled training step lists the scatter kernels it ran (none
-allowed; a replay's read from its graph's kernel nodes).  Then the total time, one JSON line with every kernel's numbers (at the NMS,
+allowed; a replay's read from its graph's kernel nodes).  Then the seconds
+by phase, the total time, one JSON line with every kernel's numbers (at the NMS,
 RS, PSR, CPD, EQ and AR shapes too), the nvidia-smi line, and the final status
 line.  Any failed phase exits non-zero; without a CUDA device
 the script exits non-zero before printing any result.  Full measurements go
@@ -235,6 +254,7 @@ to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -260,7 +280,8 @@ from gcpnet_torch.data.atom3d import ATOM3DDataModule
 from gcpnet_torch.data.batching import Bucket, batches_from_dataset
 from gcpnet_torch.data.cath import CATHDataModule
 from gcpnet_torch.data.cath_synthetic import write_cath_chains
-from gcpnet_torch.data.eq import EQDataModule
+from gcpnet_torch.data import esm as data_esm
+from gcpnet_torch.data.eq import EQDataModule, featurize_decoy, structure_sequence
 from gcpnet_torch.data.eq_synthetic import write_eq_decoys
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
@@ -271,6 +292,8 @@ from gcpnet_torch.models.eq import eq_loss
 from gcpnet_torch.models.lba import graph_regression_loss
 from gcpnet_torch.models.nms import GCPNetNMS, nms_loss
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
+from gcpnet_torch import parallel
+from gcpnet_torch.nn import esm as nn_esm
 from gcpnet_torch.nn import message_passing
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
 from gcpnet_torch.ops import build as kernel_build
@@ -300,6 +323,7 @@ from gcpnet_torch.train.cli import build_lba_training, build_task_trainer, task_
 from gcpnet_torch.train.graphs import CapturedCall, TrainSteps
 from gcpnet_torch.train.optim import build_optimizer, build_schedule
 from gcpnet_torch.train.state import TrainState
+from gcpnet_torch.train import step as step_module
 from gcpnet_torch.train.step import eval_step, train_step
 from gcpnet_torch.train.trainer import prefetched
 
@@ -331,9 +355,11 @@ NMS_EPOCHS, NMS_RESUME_EPOCHS = 3, 4
 NMS_CHECK_GRAPHS, NMS_CHECK_LAYERS = 10, 2
 # The RS path: the experiment gcpnet_rs at its published widths and batch
 # (64 anchors, each with its opposite enantiomer: 128 graphs in a bucket of
-# 8,192 nodes and 16,384 edge rows), on the synthetic splits at the JAX
-# module's sizes (4,096 / 512 / 512 graphs), fitted for 3 of its up to
-# 1,000 epochs; rs-check cuts to 2 interaction layers for the CPU.
+# 8,192 nodes and 16,384 edge rows), on the synthetic splits of the JAX
+# module's sizes but half its training graphs (RS_SPLITS: 4,096 / 512 / 512
+# until the esm and ddp phases came), fitted for 3 of its up to 1,000
+# epochs; rs-check cuts to 2 interaction layers for the CPU.
+RS_SPLITS = {"train": 2048, "valid": 512, "test": 512}
 RS_EPOCHS = 3
 RS_CHECK_LAYERS = 2
 # The PSR path: the experiment gcpnet_psr at its published widths and depth
@@ -343,15 +369,16 @@ RS_CHECK_LAYERS = 2
 # its trainer's precision 16).  The ATOM3D archives are not on the card's
 # machine: the records are synthetic, at protein size (write_psr_records),
 # and cut to 40 / 8 / 8 targets of 16 decoys, far fewer than ATOM3D PSR's
-# splits hold; the fit runs 2 of its up to 1,000 epochs and a resume for a
-# third; psr-check cuts to 2 interaction layers and 2 decoys.
+# splits hold; the fit runs 1 of its up to 1,000 epochs and a resume for a
+# second (2 and a third until the esm and ddp phases came); psr-check cuts
+# to 2 interaction layers and 2 decoys.
 PSR_TARGETS = {"train": 40, "val": 8, "test": 8}
 PSR_DECOYS = 16
 PSR_ATOMS = (400, 2000)  # heavy atoms of a native chain, uniform
 PSR_DENSITY = 0.045  # heavy atoms per cubic angstrom the chain is folded to
 PSR_NOISE = (0.3, 4.0)  # a decoy's noise scale in angstrom, log-uniform
 PSR_BUCKET = (16384, 16384 * 32)
-PSR_EPOCHS, PSR_RESUME_EPOCHS = 2, 3
+PSR_EPOCHS, PSR_RESUME_EPOCHS = 1, 2
 PSR_CHECK_GRAPHS, PSR_CHECK_LAYERS, PSR_CHECK_NODES = 2, 2, 4096
 # The CPD path: the experiment gcpnet_cpd at its published widths and depth
 # (hidden 100/16/32/4, 9 encoder and 3 autoregressive decoder layers of
@@ -362,7 +389,9 @@ PSR_CHECK_GRAPHS, PSR_CHECK_LAYERS, PSR_CHECK_NODES = 2, 2, 4096
 # synthetic, in its chain_set.jsonl format (write_cath_chains), cut to
 # 600 / 100 / 100 chains of 40-500 residues (CATH 4.2's splits hold
 # 18,024 / 608 / 1,120; 600, not 1,000, training chains keep the script's
-# time with the config-driven phases); the fit runs 2 of its up to 1,000 epochs and a
+# time with the config-driven phases; the chains come from one seeded
+# stream, so fewer training chains would change the test chains the design
+# samples); the fit runs 2 of its up to 1,000 epochs and a
 # resume for a third; the design samples CPD_DESIGN_CHAINS of the 100 test
 # chains, 100 sequences each at temperature 0.1 (the JAX protocol; the
 # sampler runs eagerly, 17-20 ms a residue on one H100 80GB HBM3 at 700 W);
@@ -396,7 +425,8 @@ NMS_VAL_RTOL = 1e-5
 # float32 masters).  No EQ decoys and no ESM-2 checkpoint are on the card's
 # machine: the decoy/native pairs are synthetic (write_eq_decoys: natives
 # of 100-700 residues, about 8.5 heavy atoms each, decoys with 0.3-4 A of
-# noise, a seeded ESM cache file a sequence), cut to 4 / 2 / 2 targets of 8
+# noise), their node scalars the embeddings of ESM-2 650M with random
+# weights (the esm phase), cut to 4 / 2 / 2 targets of 8
 # decoys; the fit runs 2 of its up to 1,000 epochs and a resume for a
 # third; eq-check cuts to 2 layers and one decoy of 60-100 residues in a
 # bucket of 1,024 nodes and 128 residues.
@@ -433,8 +463,9 @@ AR_PREDICT_RESIDUES, AR_PREDICT_NODES, AR_PREDICT_MAX_RESIDUES = 1600, 8192, 100
 # the config-driven entry points (cfg-train, cfg-eval, cfg-predict):
 # experiment=gcpnet_lba at its own widths (100/16/32/4, 8 x 8 layers, bf16,
 # batch 16, the JAX bucket) on synthetic LBA records; cut to a few hundred
-# complexes and CFG_EPOCHS epochs
-LBA_COMPLEXES = {"train": 320, "val": 64, "test": 64}
+# complexes (320 training complexes until the esm and ddp phases came) and
+# CFG_EPOCHS epochs
+LBA_COMPLEXES = {"train": 160, "val": 64, "test": 64}
 LBA_POCKET_ATOMS = (300, 560)  # heavy atoms of a pocket before the ligand's cavity is cut out, uniform
 LBA_LIGAND_ATOMS = (20, 40)
 CFG_EPOCHS = 2
@@ -1988,7 +2019,7 @@ def phase_rs_data():
     a paired training batch: the bucket's rows (what K2 and K3 see) and the
     real ones (what K1 sums)."""
     t0 = time.perf_counter()
-    dm = RSDataModule(seed=42)
+    dm = RSDataModule(seed=42, synthetic_sizes=RS_SPLITS)
     dm.setup()
     seconds = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2004,7 +2035,7 @@ def phase_rs_data():
         "graphs": {split: len(g) for split, g in dm.graphs.items()}, "batch": shape,
         "train_batches_per_epoch": len(dm.sampler("train")),
     }
-    check(results["graphs"] == {"train": 4096, "valid": 512, "test": 512}, f"rs-data: splits {results['graphs']}")
+    check(results["graphs"] == RS_SPLITS, f"rs-data: splits {results['graphs']}")
     check(shape["graphs"] == shape["real_graphs"] == 128 and (shape["nodes"], shape["edges"]) == (8192, 16384),
           f"rs-data: batch shape {shape}")
     print("phase rs-data: ok " + json.dumps(results))
@@ -2694,17 +2725,19 @@ def eq_datamodule(root: str, max_nodes: int = EQ_BUCKET[0], max_residues: int = 
     return dm
 
 
-def phase_eq_data(root: str):
+def phase_eq_data(root: str, written: Optional[dict] = None, write_seconds: float = 0.0):
     """Synthetic EQ decoys written (write_eq_decoys) and read (EQDataModule):
     each split's first pass (parsing, the ESM cache, the radius graph and
     the per-residue lDDT labels, each graph then cached, as the JAX module
     caches its graphs), then one shuffled training epoch's batches as the
     Trainer's prefetch thread makes them from the cache: ms a batch to read,
     pack, sort and attach the sorted indices, and to pin; each batch's real
-    nodes, edge rows and residues against the bucket's."""
-    t0 = time.perf_counter()
-    written = write_eq_decoys(root, seed=SEED, targets=EQ_TARGETS, decoys=EQ_DECOYS, residues=EQ_RESIDUES)
-    write_seconds = time.perf_counter() - t0
+    nodes, edge rows and residues against the bucket's.  Decoys that the
+    esm phase wrote (``written``) are not written again."""
+    if written is None:
+        t0 = time.perf_counter()
+        written = write_eq_decoys(root, seed=SEED, targets=EQ_TARGETS, decoys=EQ_DECOYS, residues=EQ_RESIDUES)
+        write_seconds = time.perf_counter() - t0
     dm = eq_datamodule(root)
     first_pass = {}
     for split in ("train", "valid", "test"):
@@ -2725,7 +2758,8 @@ def phase_eq_data(root: str):
                               for k in keys},
         "val_label_mean_std": [float(labels.mean()), float(labels.std())],
         "cuts": {"targets": dict(EQ_TARGETS), "decoys_per_target": EQ_DECOYS, "residues": list(EQ_RESIDUES),
-                 "epochs": [EQ_EPOCHS, EQ_RESUME_EPOCHS], "data": "synthetic decoys and ESM cache, not EQ"},
+                 "epochs": [EQ_EPOCHS, EQ_RESUME_EPOCHS],
+                 "data": "synthetic decoys, not EQ; ESM-2 650M embeddings of random weights (the esm phase)"},
     }
     print("phase eq-data: " + json.dumps(results), flush=True)
     want = {k: EQ_TARGETS[k] * EQ_DECOYS for k in EQ_TARGETS}
@@ -3586,6 +3620,293 @@ def phase_rs_e3(rs_dm, ckpt_dir: str) -> dict:
     return results
 
 
+# --- ESM-2 ------------------------------------------------------------------------
+
+ESM_SIZE = "t33_650M"
+ESM_TIMED_RESIDUES = 250  # beside AR's prediction decoy (AR_PREDICT_RESIDUES)
+ESM_CHECK_RESIDUES = (64, 250)
+ESM_CARD_CPU_ATOL = 1e-3  # float32 on both, TF32 off: the card's and the CPU's sums in other orders
+
+
+def fairesm_state_dict(model: nn_esm.ESM2) -> dict:
+    """The port's ESM-2 weights as a fair-esm checkpoint's ``model`` holds
+    them: ``encoder.sentence_encoder.`` names, ``[out, in]`` weights."""
+    sd = {}
+    for key, value in model.state_dict().items():
+        *path, leaf = key.replace("layers_", "layers.").split(".")
+        if leaf == "kernel":
+            value = value.t()
+        sd[".".join(["encoder", "sentence_encoder", *path, "bias" if leaf == "bias" else "weight"])] = (
+            value.detach().contiguous().cpu())
+    return sd
+
+
+def _random_sequence(rng: np.random.Generator, n: int) -> str:
+    return "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n))
+
+
+def phase_esm(eq_root: str, work: str) -> dict:
+    """ESM-2 650M (ESM2Config.t33_650M) with random weights from SEED,
+    initialised as the transformers library's ESM-2 is, written as a
+    fair-esm-shaped checkpoint (with its ``args`` Namespace) and loaded
+    back through data.esm's checkpoint tier (GCPNET_ESM_CHECKPOINT) on the
+    card: the weights equal to those written; ms a sequence at
+    ESM_TIMED_RESIDUES residues and at AR's 1,600-residue prediction decoy
+    (its sequence; CUDA events around embed_sequence, the copy to the host
+    included) and peak memory; the card against the CPU on the same weights
+    at ESM_CHECK_RESIDUES residues with TF32 off, within ESM_CARD_CPU_ATOL.
+    Then EQ's synthetic decoys (written here; eq-data featurizes them) get
+    the model's embeddings in place of their seeded cache, through the
+    datamodule's ahead-of-time tier (EQDataModule.prepare_embeddings) on
+    the card, and a decoy's features carry them.  ESM-2 runs no kernel of
+    the port (the JAX package runs it outside any Pallas site)."""
+    cfg = getattr(nn_esm.ESM2Config, ESM_SIZE)()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    built = nn_esm.ESM2(cfg, generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda").eval()
+    torch.cuda.synchronize()
+    build_seconds = time.perf_counter() - t0
+    params = sum(p.numel() for p in built.parameters())
+    path = os.path.join(work, f"esm2_{ESM_SIZE}_random.pt")
+    t0 = time.perf_counter()
+    torch.save({"args": argparse.Namespace(arch="ESM-2", layers=cfg.num_layers, embed_dim=cfg.embed_dim,
+                                           attention_heads=cfg.num_heads),
+                "model": fairesm_state_dict(built)}, path)
+    save_seconds, file_gb = time.perf_counter() - t0, os.path.getsize(path) / 1e9
+    os.environ[data_esm.CHECKPOINT_ENV] = path
+    try:
+        t0 = time.perf_counter()
+        model = data_esm.checkpoint_model("cuda")
+        torch.cuda.synchronize()
+        load_seconds = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(built.state_dict().values(), model.state_dict().values()))
+        del built
+        rng = np.random.default_rng(SEED)
+        ar_dir = os.path.join(work, "esm_ar")
+        write_pair(ar_dir, "long", np.random.default_rng(SEED + 3), AR_PREDICT_RESIDUES)
+        ar_seq = structure_sequence(parse_pdb(os.path.join(ar_dir, "AF2_model", "long.pdb"), heavy_only=True))
+        timed = {ESM_TIMED_RESIDUES: _random_sequence(rng, ESM_TIMED_RESIDUES), len(ar_seq): ar_seq}
+        ms = {n: cuda_ms(lambda s=s: nn_esm.embed_sequence(model, s), iters=5, warmup=1) for n, s in timed.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cpu_model = nn_esm.ESM2(cfg, device="meta")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, assign=True)
+        cpu_model.eval()
+        card_cpu = {}
+        try:
+            for n in ESM_CHECK_RESIDUES:
+                seq = _random_sequence(rng, n)
+                card, cpu = nn_esm.embed_sequence(model, seq), nn_esm.embed_sequence(cpu_model, seq)
+                card_cpu[n] = {"max_abs_err": float(np.abs(card - cpu).max()), "max_abs": float(np.abs(cpu).max()),
+                               "bound": ESM_CARD_CPU_ATOL}
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del cpu_model
+        # EQ's decoys: the model's embeddings replace the seeded cache
+        t0 = time.perf_counter()
+        written = write_eq_decoys(eq_root, seed=SEED, targets=EQ_TARGETS, decoys=EQ_DECOYS, residues=EQ_RESIDUES)
+        write_seconds = time.perf_counter() - t0
+        esm_dir = os.path.join(eq_root, "model_data_cache", "esm")
+        shutil.rmtree(esm_dir)
+        dm = EQDataModule.from_data_dir(eq_root, esm_device="cuda")
+        dm.setup()
+        decoys = [dm._decoy_path(n) for names in dm.splits.values() for n in names]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embedded = dm.prepare_embeddings(decoys)
+        embed_seconds = time.perf_counter() - t0
+        first = dm.splits["train"][0]
+        g = featurize_decoy(dm._decoy_path(first), dm._native_path(first), esm_cache_dir=esm_dir)
+        emb = np.load(os.path.join(esm_dir, data_esm.seq_key(
+            structure_sequence(parse_pdb(dm._decoy_path(first), heavy_only=True))) + ".npy"))
+        features_hold = bool(np.abs(g.h[:, :-1]).max() > 0 and np.array_equal(
+            g.h[:, :-1], emb[g.extras["atom_residue_idx"]]))
+    finally:
+        os.environ.pop(data_esm.CHECKPOINT_ENV, None)
+        data_esm._models.clear()
+        os.remove(path)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = {
+        "size": ESM_SIZE, "params": params, "build_seconds": build_seconds, "checkpoint_gb": file_gb,
+        "save_seconds": save_seconds, "load_seconds": load_seconds, "loaded_equals_written": same,
+        "ms_per_sequence": {str(n): v for n, v in ms.items()}, "peak_gb": peak_gb,
+        "card_vs_cpu": {str(n): v for n, v in card_cpu.items()},
+        "eq": {"sequences_embedded": embedded, "decoys": len(decoys), "seconds": embed_seconds,
+               "ms_per_sequence": 1e3 * embed_seconds / max(embedded, 1), "features_hold": features_hold},
+        "eq_written": written, "eq_write_seconds": write_seconds,
+    }
+    print("phase esm: " + json.dumps(results), flush=True)
+    check(same, "esm: the weights loaded through the checkpoint tier differ from those written")
+    check(params > 6.4e8, f"esm: {params} parameters, not ESM-2 650M's")
+    for n, v in card_cpu.items():
+        check(v["max_abs_err"] <= ESM_CARD_CPU_ATOL, f"esm: card vs CPU at {n} residues: {v}")
+    check(embedded == sum(EQ_TARGETS.values()), f"esm: {embedded} EQ sequences embedded, want one a target")
+    check(features_hold, "esm: an EQ decoy's node scalars are not its ESM-2 embedding")
+    print("phase esm: ok")
+    return results
+
+
+# --- data parallelism -------------------------------------------------------------
+
+DDP_STEPS = 4  # the first runs eagerly and captures, the rest replay
+DDP_GLOO_STEPS = 3
+DDP_SHARDS = 2
+DDP_TIMEOUT = 240  # seconds for the two gloo processes, start-up included
+
+
+def _ddp_shards() -> list:
+    """The global batch of the DP runs: DDP_SHARDS full-width LBA batches
+    from SEED, one a shard."""
+    return synthetic_batches(DDP_SHARDS, GRAPHS, NODES, EDGES_PER_NODE, SEED)
+
+
+def _dp_generator(rank: int) -> torch.Generator:
+    """Rank ``rank``'s dropout stream, as the Trainer seeds it."""
+    return torch.Generator(device="cuda").manual_seed(SEED + (rank << 32))
+
+
+def _captured_dp_run(shard, group) -> dict:
+    """DDP_STEPS captured bf16 steps of _lba_training on ``shard`` in
+    ``group`` (``None``: alone); K1-K3 counted from 0 around them."""
+    model, state, gen = _lba_training(torch.bfloat16)
+    state.group = group
+    start = flat_params(model)
+    steps = TrainSteps(model, state, graph_regression_loss, gen)
+    pinned = shard.pinned()
+    reset_counts()
+    results = [steps([pinned]) for _ in range(DDP_STEPS)]
+    torch.cuda.synchronize()
+    launches = dict(zip(KERNEL_COUNTS, launch_counts()))
+    return {
+        "losses": [r.loss.item() for r in results], "grad_norms": [r.grad_norm.item() for r in results],
+        "ok": all(bool(r.ok.all()) for r in results), "launches": launches,
+        "start": start, "params": flat_params(model), "steps": steps, "pinned": pinned,
+    }
+
+
+def _gloo_worker(steps: int) -> dict:
+    """One rank of the gloo run on the one card: ``steps`` eager bf16
+    steps of _lba_training on its shard (its dropout stream its own)."""
+    group = parallel.init_from_env("cuda", backend="gloo")
+    shard = _ddp_shards()[group.rank].to(torch.device("cuda"))
+    model, state, _ = _lba_training(torch.bfloat16)
+    state.group = group
+    gen = _dp_generator(group.rank)
+    reset_counts()
+    results = [train_step(model, state, shard, graph_regression_loss, gen) for _ in range(steps)]
+    losses = [r.loss.item() for r in results]
+    out = {"losses": losses, "params": flat_params(model).cpu(), "launches": dict(zip(KERNEL_COUNTS, launch_counts())),
+           "ok": all(bool(r.ok) for r in results)}
+    gathered = parallel.all_gather_objects(out["launches"], group)
+    return {**out, "launches_by_rank": gathered}
+
+
+def _two_shard_reference(shards, steps: int) -> dict:
+    """One process on the global batch of two shards: each step takes each
+    shard's loss and gradients (its rank's dropout stream), sums the two
+    flat buffers and halves them, as the all-reduce does, then updates."""
+    model, state, _ = _lba_training(torch.bfloat16)
+    gens = [_dp_generator(r) for r in range(len(shards))]
+    dev = [s.to(torch.device("cuda")) for s in shards]
+    losses = []
+    for _ in range(steps):
+        flat = None
+        for shard, gen in zip(dev, gens):
+            loss, grads = step_module.loss_and_grads(model, state, shard, graph_regression_loss, gen)
+            part = step_module.flatten(loss, grads)
+            flat = part if flat is None else flat + part
+        loss = step_module.unflatten_(flat.div_(len(shards)), grads)
+        state.step += 1
+        losses.append(step_module.update(model, state, loss, grads).loss.item())
+    return {"losses": losses, "params": flat_params(model)}
+
+
+def phase_ddp(work: str) -> dict:
+    """Data-parallel full-width LBA training (bf16 over float32 masters,
+    _lba_training), K1-K3 in every rank's step:
+
+    - world 1 on NCCL in this process, captured: DDP_STEPS steps equal bit
+      for bit to the same steps without a process group (the all-reduce of
+      one process changes no bit), its busy ms a replay beside the plain
+      one's, and the all-reduce of the step's flat buffer timed alone;
+    - world 2 over gloo on the one card (two processes started by
+      parallel.launch, each on its own shard of a global batch of two),
+      eager: DDP_GLOO_STEPS steps against one process stepping on both
+      shards with the all-reduce's arithmetic (_two_shard_reference);
+    - where the machine has two or more GPUs, world 2 on NCCL, captured,
+      against world 1 on the same global batch (reported, not required).
+
+    The launches of K1-K3 are counted from 0 around each run."""
+    shards = _ddp_shards()
+    alone = _captured_dp_run(shards[0], None)
+    alone_prof = profile_replay(lambda: alone["steps"]([alone["pinned"]]), alone["steps"].call, [alone["pinned"]])
+    del alone["steps"], alone["pinned"]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           parallel.group.INIT_METHOD_ENV: "file://" + os.path.join(work, "ddp_store")}
+    os.environ.update(env)
+    try:
+        group = parallel.init_from_env("cuda")
+        world1 = _captured_dp_run(shards[0], group)
+        world1_prof = profile_replay(lambda: world1["steps"]([world1["pinned"]]), world1["steps"].call,
+                                     [world1["pinned"]])
+        names = world1["steps"].call.kernel_names([world1["pinned"]])
+        del world1["steps"], world1["pinned"]
+        flat = torch.zeros(world1["params"].numel() + 1, device="cuda")  # the step's buffer: gradients, loss
+        allreduce_ms = cuda_ms(lambda: parallel.mean_(flat, group), iters=20, warmup=3)
+        backend = group.backend
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for key in env:
+            os.environ.pop(key, None)
+    world1_bits = bool(torch.equal(world1["params"], alone["params"])) and world1["losses"] == alone["losses"] \
+        and world1["grad_norms"] == alone["grad_norms"]
+    # the two processes share the card with this one: hand back its cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    gloo = parallel.launch(_gloo_worker, DDP_SHARDS, DDP_GLOO_STEPS, timeout=DDP_TIMEOUT)
+    ref = _two_shard_reference(shards, DDP_GLOO_STEPS)
+    gloo_gap = param_gap(gloo["params"].cuda(), ref["params"], alone["start"], TRAIN_LR, DDP_GLOO_STEPS)
+    loss_rel = float(np.max(np.abs(np.subtract(gloo["losses"], ref["losses"])) / np.abs(ref["losses"])))
+    nccl2 = "not run: one GPU" if torch.cuda.device_count() < 2 else "not run"
+    results = {
+        "global_batch": {"shards": DDP_SHARDS, "graphs_per_shard": GRAPHS, "atoms_per_graph": NODES},
+        "world1_nccl": {
+            "backend": backend, "losses": world1["losses"], "alone_losses": alone["losses"],
+            "grad_norms": world1["grad_norms"], "equal_bit_for_bit": world1_bits,
+            "params_max_abs_diff": (world1["params"] - alone["params"]).abs().max().item(),
+            "launches": world1["launches"], "alone_launches": alone["launches"],
+            "busy_ms": world1_prof["device_busy_ms"], "idle_share": world1_prof["device_idle_share"],
+            "alone_busy_ms": alone_prof["device_busy_ms"], "replay_launches": world1_prof["launches"],
+            "nccl_kernel_nodes": {k: v for k, v in names.items() if "nccl" in k.lower()},
+            "allreduce_ms": allreduce_ms, "allreduce_bytes": flat.numel() * 4,
+        },
+        "world2_gloo": {
+            "losses": gloo["losses"], "reference_losses": ref["losses"], "loss_max_rel_diff": loss_rel,
+            "params": gloo_gap, "loss_bound_rel": REPLAY_TOL["losses"], "launches_by_rank": gloo["launches_by_rank"],
+        },
+        "world2_nccl": nccl2,
+    }
+    print("phase ddp: " + json.dumps(results), flush=True)
+    for name, run in (("world-1", world1), ("alone", alone)):
+        check(run["ok"] and all(np.isfinite(run["losses"])), f"ddp {name}: losses {run['losses']}")
+        check(all(run["launches"][k] > 0 for k in ("K1", "K2", "K3_bf16")), f"ddp {name}: launches {run['launches']}")
+    check(world1_bits, f"ddp: NCCL world 1 differs from the step alone: {results['world1_nccl']}")
+    check(world1_prof["launches"] == alone_prof["launches"], "ddp: a world-1 replay launches other kernels")
+    check(gloo["ok"], "ddp: a gloo step was not applied")
+    for rank, launches in enumerate(gloo["launches_by_rank"]):
+        check(all(launches[k] > 0 for k in ("K1", "K2", "K3_bf16")), f"ddp gloo rank {rank}: launches {launches}")
+    check(loss_rel <= REPLAY_TOL["losses"], f"ddp: gloo world 2 losses apart from the reference by {loss_rel}")
+    check_param_gap("ddp gloo world 2", gloo_gap)
+    print("phase ddp: ok")
+    return results
+
+
 def datum_samples(model, graph, copies: int) -> np.ndarray:
     """The argmax samples (temperature 1e-6) of ``copies`` copies of
     ``graph`` on the model's device, ``[copies, n]``."""
@@ -3707,6 +4028,33 @@ def kernel_line(report) -> dict:
     }
 
 
+class TimedReport(dict):
+    """The report, which also keeps the seconds since the previous entry
+    for each entry set (``seconds``): a phase's time, its set-up in main
+    included."""
+
+    def __init__(self):
+        super().__init__()
+        self.seconds = {}
+        self._last = time.perf_counter()
+
+    def __setitem__(self, key, value):
+        now = time.perf_counter()
+        self.seconds[key], self._last = now - self._last, now
+        super().__setitem__(key, value)
+
+
+@contextlib.contextmanager
+def required_esm():
+    """GCPNET_REQUIRE_ESM=1 inside: an EQ sequence without its ESM-2
+    embedding raises instead of reading zeros."""
+    os.environ["GCPNET_REQUIRE_ESM"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("GCPNET_REQUIRE_ESM", None)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -3739,7 +4087,7 @@ def main() -> int:
                 rs_e3_dir)
     for path in run_dirs:
         shutil.rmtree(path, ignore_errors=True)
-    report = {}
+    report = TimedReport()
     try:
         report["device"] = phase_device()
         report["build"] = phase_build(args.out_dir)
@@ -3759,7 +4107,10 @@ def main() -> int:
         cpd_dm, report["cpd_data"] = phase_cpd_data(cpd_root)
         report["cpd_kernels"] = phase_cpd_kernels(cpd_dm)
         del cpd_dm
-        eq_dm, report["eq_data"] = phase_eq_data(eq_root)
+        report["esm"] = phase_esm(eq_root, work)
+        with required_esm():
+            eq_dm, report["eq_data"] = phase_eq_data(eq_root, report["esm"]["eq_written"],
+                                                     report["esm"]["eq_write_seconds"])
         report["eq_kernels"] = phase_eq_kernels(eq_dm)
         del eq_dm
         ar_dm, report["ar_data"] = phase_ar_data(ar_root)
@@ -3793,7 +4144,8 @@ def main() -> int:
         report["cpd_design"] = phase_cpd_design(cpd_trainer, cpd_dm)
         del cpd_trainer, cpd_dm
         report["eq_check"] = phase_eq_check(os.path.join(work, "eq_check"))
-        eq_trainer, eq_dm, report["eq_fit"] = phase_eq_fit(eq_root, eq_ckpt_dir)
+        with required_esm():
+            eq_trainer, eq_dm, report["eq_fit"] = phase_eq_fit(eq_root, eq_ckpt_dir)
         report["eq_profile"] = phase_eq_profile(eq_trainer, eq_dm, report["eq_fit"])
         del eq_trainer, eq_dm
         report["ar_check"] = phase_ar_check(os.path.join(work, "ar_check"))
@@ -3808,16 +4160,19 @@ def main() -> int:
         report["gcp_family"] = phase_gcp_family(os.path.join(work, "cfg_data"), family_dir)
         report["rs_e3"] = phase_rs_e3(rs_dm, rs_e3_dir)
         del rs_dm
+        gc.collect()
+        report["ddp"] = phase_ddp(work)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
         for path in (work, *run_dirs):
             shutil.rmtree(path, ignore_errors=True)
-        report["seconds"] = time.perf_counter() - t_start
+        report.seconds["total"] = time.perf_counter() - t_start
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
-            json.dump(report, f, indent=1)
-    print(f"chip_smoke: every phase ok in {report['seconds']:.1f} s")
+            json.dump({**report, "seconds": report.seconds}, f, indent=1)
+    print("chip_smoke: seconds by phase " + json.dumps({k: round(v, 1) for k, v in report.seconds.items()}))
+    print(f"chip_smoke: every phase ok in {report.seconds['total']:.1f} s")
     print(json.dumps(kernel_line(report)))
     print(report["device"]["nvidia_smi"])
     print(json.dumps({

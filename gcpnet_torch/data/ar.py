@@ -42,9 +42,11 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gcpnet_torch.data.batching import Bucket, batches_from_dataset, made_ahead, shuffled_order
+from gcpnet_torch.data import esm
+from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, shuffled_order
 from gcpnet_torch.data.eq import EQ_ATOM_TYPES, _load_graph, _save_graph, structure_sequence
 from gcpnet_torch.data.esm import embed_sequence
+from gcpnet_torch.device import DeviceLike
 from gcpnet_torch.data.features import normalize, orientations, rbf
 from gcpnet_torch.data.pdb import Structure, parse_pdb, write_structure
 from gcpnet_torch.graph import GraphBatch, GraphData
@@ -203,6 +205,24 @@ def _match_native_positions(decoy: Structure, native: Structure):
     return coords, matched
 
 
+def decoy_structure(
+    decoy_path: str, residue_range: Optional[Tuple[int, int]] = None, backbone_only: bool = False
+) -> Structure:
+    """The decoy's heavy atoms (only N, CA and C with ``backbone_only``),
+    cut to its residues ``[lo, hi)`` with ``residue_range``."""
+    s = parse_pdb(decoy_path, heavy_only=True)
+    if not s.atoms:
+        raise ValueError(f"no atoms parsed from {decoy_path}")
+    if backbone_only:
+        s = Structure([a for a in s.atoms if a.name in ("N", "CA", "C")])
+    if residue_range is not None:
+        lo, hi = residue_range
+        res_idx = s.residue_index()
+        keep = (res_idx >= lo) & (res_idx < hi)
+        s = Structure([a for a, k in zip(s.atoms, keep) if k])
+    return s
+
+
 def featurize_refinement_pair(
     decoy_path: str,
     native_path: Optional[str],
@@ -213,22 +233,13 @@ def featurize_refinement_pair(
     num_rbf: int = 16,
     residue_range: Optional[Tuple[int, int]] = None,
     subset_to_backbone_atoms_only: bool = False,
+    esm_device: DeviceLike = None,
 ) -> GraphData:
     """One decoy (its residues ``[lo, hi)`` with ``residue_range``) as a
     graph; the labels are the native's positions (the decoy's without a
-    native)."""
-    s = parse_pdb(decoy_path, heavy_only=True)
-    if not s.atoms:
-        raise ValueError(f"no atoms parsed from {decoy_path}")
-    if subset_to_backbone_atoms_only:
-        s = Structure([a for a in s.atoms if a.name in ("N", "CA", "C")])
+    native).  An ESM-2 checkpoint runs on ``esm_device`` (``data.esm``)."""
+    s = decoy_structure(decoy_path, residue_range, subset_to_backbone_atoms_only)
     res_idx = s.residue_index()
-    if residue_range is not None:
-        lo, hi = residue_range
-        keep = (res_idx >= lo) & (res_idx < hi)
-        s = Structure([a for a, k in zip(s.atoms, keep) if k])
-        res_idx = s.residue_index()
-
     coords = s.coords
     num_res = int(res_idx.max()) + 1
     seq = structure_sequence(s)
@@ -239,7 +250,7 @@ def featurize_refinement_pair(
     for i, a in enumerate(s.atoms):
         if a.name in EQ_ATOM_TYPES:
             atom_onehot[i, EQ_ATOM_TYPES.index(a.name)] = 1.0
-    esm_res = embed_sequence(seq, cache_dir=esm_cache_dir)
+    esm_res = embed_sequence(seq, cache_dir=esm_cache_dir, device=esm_device)
     if esm_res.shape[0] != num_res:
         esm_res = np.zeros((num_res, esm_res.shape[1]), np.float32)
     h = np.concatenate([res_onehot[res_idx], atom_onehot, esm_res[res_idx]], axis=-1).astype(np.float32)
@@ -299,7 +310,11 @@ class ARDataModule:
     bucket of ``max_nodes_per_batch`` nodes, ``k_max + 2 k_min`` edge rows
     a node and ``batch_size`` decoys, and a Ca table of
     ``max_residues_per_batch`` residues.  ``predict_input_dir`` (with
-    ``predict_true_dir`` for the scores) holds the decoys to refine."""
+    ``predict_true_dir`` for the scores) holds the decoys to refine.  An
+    ESM-2 checkpoint (``data.esm``) runs on ``esm_device``, over the
+    sequences of a pass (the epoch's crops) before it starts
+    (:meth:`prepare_embeddings`); ``shards`` is this process's share of
+    each global batch."""
 
     def __init__(
         self,
@@ -319,6 +334,8 @@ class ARDataModule:
         predict_input_dir: Optional[str] = None,
         predict_true_dir: Optional[str] = None,
         esm_cache_dir: Optional[str] = None,
+        esm_device: DeviceLike = None,
+        shards: Shards = Shards(),
     ):
         self.splits_dir = splits_dir
         self.af2_dir = af2_dir
@@ -337,8 +354,11 @@ class ARDataModule:
         self.esm_cache_dir = esm_cache_dir or (
             os.path.join(model_data_cache_dir, "esm") if model_data_cache_dir else None
         )
+        self.esm_device = esm_device
+        self.shards = shards
         self.splits: Dict[str, List[str]] = {}
         self._featurized: Dict[str, List[int]] = {}
+        self._embedded: set = set()
         self._predict_meta: List[dict] = []
         self._window_coords: Dict[str, List[np.ndarray]] = {}
 
@@ -371,6 +391,7 @@ class ARDataModule:
             else:
                 self.splits[split] = []
         self._featurized = {}
+        self._embedded = set()
         log.info("AR splits: " + ", ".join(f"{k}={len(v)}" for k, v in self.splits.items()))
 
     def _paths(self, name: str) -> Tuple[str, str]:
@@ -386,8 +407,58 @@ class ARDataModule:
         return featurize_refinement_pair(
             decoy, native, esm_cache_dir=self.esm_cache_dir, k_min=self.k_min, k_max=self.k_max,
             rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf, residue_range=residue_range,
-            subset_to_backbone_atoms_only=self.backbone_only,
+            subset_to_backbone_atoms_only=self.backbone_only, esm_device=self.esm_device,
         )
+
+    def _graph_cache(self, name: str) -> Optional[str]:
+        suffix = "_bb" if self.backbone_only else ""
+        return os.path.join(self.cache_dir, f"{name}{suffix}.graph.npz") if self.cache_dir else None
+
+    @staticmethod
+    def _crop_range(decoy: str, seed: int) -> Optional[Tuple[int, int]]:
+        """A training crop of TRAINING_SEQUENCE_CROP_LENGTH residues from a
+        start drawn by ``np.random.default_rng(seed)``; ``None`` for a
+        decoy no longer than that."""
+        s = parse_pdb(decoy, heavy_only=True)
+        num_res = int(s.residue_index().max()) + 1 if s.atoms else 0
+        if num_res <= TRAINING_SEQUENCE_CROP_LENGTH:
+            return None
+        lo = int(np.random.default_rng(seed).integers(0, num_res - TRAINING_SEQUENCE_CROP_LENGTH + 1))
+        return lo, lo + TRAINING_SEQUENCE_CROP_LENGTH
+
+    def prepare_embeddings(self, pieces: Sequence[Tuple[str, Optional[Tuple[int, int]]]]) -> int:
+        """Embed, here and now, the sequences of the decoys' pieces
+        ``(path, residue range)`` that no ESM cache holds
+        (``esm.prepare``); the number embedded.  A decoy that fails to
+        parse is left to the featurizer to report."""
+        if not esm.source_available():
+            return 0
+        seqs = []
+        for path, residue_range in pieces:
+            try:
+                seqs.append(structure_sequence(decoy_structure(path, residue_range, self.backbone_only)))
+            except (ValueError, OSError):
+                continue
+        return esm.prepare(seqs, self.esm_cache_dir, self.esm_device)
+
+    def _prepare_split(self, split: str, crop: bool, seed: int) -> None:
+        """Before a pass: embed the split's pieces without a cached graph
+        (every epoch's own crops; the uncropped decoys once)."""
+        if not esm.source_available() or (not crop and split in self._embedded):
+            return
+        self._embedded.add(split)
+        pieces = []
+        for i, name in enumerate(self.splits.get(split, [])):
+            decoy, _ = self._paths(name)
+            cached = self._graph_cache(name)
+            try:
+                if crop:
+                    pieces.append((decoy, self._crop_range(decoy, seed + i)))
+                elif not (cached and os.path.exists(cached)):
+                    pieces.append((decoy, None))
+            except (ValueError, OSError):
+                continue
+        self.prepare_embeddings(pieces)
 
     def featurize(self, name: str, crop: bool = False, seed: int = 0) -> GraphData:
         """A decoy's graph.  With ``crop`` a decoy of more than
@@ -395,20 +466,12 @@ class ARDataModule:
         start drawn by ``np.random.default_rng(seed)``; uncropped graphs
         come from the cache where they were made before."""
         decoy, native = self._paths(name)
-        cache_path = None
-        if self.cache_dir and not crop:
+        cache_path = None if crop else self._graph_cache(name)
+        if cache_path:
             os.makedirs(self.cache_dir, exist_ok=True)
-            suffix = "_bb" if self.backbone_only else ""
-            cache_path = os.path.join(self.cache_dir, f"{name}{suffix}.graph.npz")
             if os.path.exists(cache_path):
                 return _load_graph(cache_path)
-        residue_range = None
-        if crop:
-            s = parse_pdb(decoy, heavy_only=True)
-            num_res = int(s.residue_index().max()) + 1 if s.atoms else 0
-            if num_res > TRAINING_SEQUENCE_CROP_LENGTH:
-                lo = int(np.random.default_rng(seed).integers(0, num_res - TRAINING_SEQUENCE_CROP_LENGTH + 1))
-                residue_range = (lo, lo + TRAINING_SEQUENCE_CROP_LENGTH)
+        residue_range = self._crop_range(decoy, seed) if crop else None
         g = self._pair(decoy, native, residue_range)
         if cache_path:
             _save_graph(cache_path, g)
@@ -444,10 +507,11 @@ class ARDataModule:
         return Bucket(num_nodes=n, num_edges=n * (self.k_max + 2 * self.k_min), num_graphs=self.batch_size)
 
     def batches(self, split: str, shuffle: bool = False, seed: int = 0) -> Iterator[GraphBatch]:
-        """The split's batches; the training split cropped, with ``seed``
-        (see :meth:`_graphs`); shuffled, in the order of
-        ``np.random.default_rng(seed).shuffle`` of the decoys that featurize
-        (the split's first pass learns which)."""
+        """The split's batches (this process's shard of each); the training
+        split cropped, with ``seed`` (see :meth:`_graphs`); shuffled, in the
+        order of ``np.random.default_rng(seed).shuffle`` of the decoys that
+        featurize (the split's first pass learns which), and then an
+        incomplete last group of shards is dropped, as in the JAX module."""
         crop = split == "train"
         index = None
         if shuffle:
@@ -456,16 +520,23 @@ class ARDataModule:
                     pass
             kept = np.asarray(self._featurized[split], dtype=np.int64)
             index = kept[shuffled_order(len(kept), seed)].tolist()
-        for batch in batches_from_dataset(self._graphs(split, crop, seed, index), self.bucket()):
+        for batch in batches_from_dataset(
+            self._graphs(split, crop, seed, index), self.bucket(), shards=self.shards, drop_last=shuffle
+        ):
             yield globalize_ar_residues(batch, self.max_residues_per_batch)
 
+    # each embeds the pass's sequences in the caller's thread before the
+    # batches' generator is handed to the fit's prefetch thread
     def train_batches(self, seed: int = 0) -> Iterator[GraphBatch]:
+        self._prepare_split("train", True, seed)
         return self.batches("train", shuffle=True, seed=seed)
 
     def val_batches(self) -> Iterator[GraphBatch]:
+        self._prepare_split("valid", False, 0)
         return self.batches("valid")
 
     def test_batches(self) -> Iterator[GraphBatch]:
+        self._prepare_split("test", False, 0)
         return self.batches("test")
 
     def predict_batches(self) -> Iterator[GraphBatch]:
@@ -476,16 +547,21 @@ class ARDataModule:
         (the JAX module's generator then has no batch to give)."""
         input_dir = self.predict_input_dir
         if not input_dir or not os.path.isdir(input_dir):
-            return
+            return iter(())
+        windows_of = {}
+        for fname in sorted(f for f in os.listdir(input_dir) if f.endswith(".pdb")):
+            s = parse_pdb(os.path.join(input_dir, fname), heavy_only=True)
+            windows_of[fname] = sliding_windows(int(s.residue_index().max()) + 1 if s.atoms else 0)
+        self.prepare_embeddings([
+            (os.path.join(input_dir, f), (lo, hi)) for f, windows in windows_of.items() for lo, hi, _, _ in windows
+        ])
+        return self._predict_batches(windows_of)
+
+    def _predict_batches(self, windows_of: Dict[str, list]) -> Iterator[GraphBatch]:
         bucket = self.bucket()
-        for fname in sorted(os.listdir(input_dir)):
-            if not fname.endswith(".pdb"):
-                continue
-            decoy = os.path.join(input_dir, fname)
+        for fname, windows in windows_of.items():
+            decoy = os.path.join(self.predict_input_dir, fname)
             native = os.path.join(self.predict_true_dir, fname) if self.predict_true_dir else None
-            s = parse_pdb(decoy, heavy_only=True)
-            num_res = int(s.residue_index().max()) + 1 if s.atoms else 0
-            windows = sliding_windows(num_res)
             for wi, (lo, hi, keep_lo, keep_hi) in enumerate(windows):
                 g = self._pair(decoy, native, (lo, hi))
                 res = g.extras["atom_residue_idx"]

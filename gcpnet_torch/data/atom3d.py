@@ -27,7 +27,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gcpnet_torch.data.batching import Bucket, batches_from_dataset, made_ahead, shuffled_order
+from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, shuffled_order
 from gcpnet_torch.data.features import edge_geometric_features, orientations
 from gcpnet_torch.graph import GraphBatch, GraphData
 
@@ -109,7 +109,9 @@ class ATOM3DDataModule:
         max_neighbors: int = 32,
         batch_size: int = 16,
         max_nodes_per_batch: int = 16384,
+        shards: Shards = Shards(),
     ):
+        """``shards`` is this process's share of each global batch."""
         self.task = task.upper()
         if self.task not in ("LBA", "PSR"):
             raise ValueError(f"ATOM3DDataModule: task {task!r} is not LBA or PSR")
@@ -119,6 +121,7 @@ class ATOM3DDataModule:
         self.max_neighbors = max_neighbors
         self.batch_size = batch_size
         self.max_nodes_per_batch = max_nodes_per_batch
+        self.shards = shards
         self.datasets = {}
         self._target_codes = {}
         self._featurized = {}  # split -> indices of the records that featurize
@@ -216,14 +219,16 @@ class ATOM3DDataModule:
     def batches(self, split: str, shuffle: bool = False, seed: int = 0) -> Iterator[GraphBatch]:
         if shuffle:
             return self._shuffled_batches(split, seed)
-        return batches_from_dataset(self._graphs(split), self._bucket(), ("label", "target_id"))
+        return batches_from_dataset(self._graphs(split), self._bucket(), ("label", "target_id"), self.shards)
 
     def _shuffled_batches(self, split: str, seed: int) -> Iterator[GraphBatch]:
         if split not in self._featurized:
             for _ in self._graphs(split):  # the split's first pass
                 pass
         index = np.asarray(self._featurized[split])[shuffled_order(len(self._featurized[split]), seed)]
-        yield from batches_from_dataset(self._graphs(split, index.tolist()), self._bucket(), ("label", "target_id"))
+        yield from batches_from_dataset(
+            self._graphs(split, index.tolist()), self._bucket(), ("label", "target_id"), self.shards, drop_last=True
+        )
 
     def train_batches(self, seed: int = 0) -> Iterator[GraphBatch]:
         return self.batches("train", shuffle=True, seed=seed)

@@ -2,13 +2,16 @@
 packing a dataset into batches.
 
 Port of the edge-list parts of ``gcpnet_tpu/data/batching.py``.  Host-side
-numpy; the result goes to the card through ``GraphBatch.to``.
+numpy; the result goes to the card through ``GraphBatch.to``.  Under data
+parallelism (``Shards``) each process packs the same groups of shards and
+keeps its own.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import os
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, List, Optional, Sequence
@@ -170,31 +173,62 @@ def collate_shards(
     like: Optional[GraphData] = None,
     sort_edges: bool = False,
     sort_tile: int = 128,
+    index: int = 0,
 ) -> GraphBatch:
-    """Pad one shard's graphs into ``bucket`` and optionally sort its edges
-    by receiver (``sort_tile`` is :func:`sort_edges_by_receiver`'s
-    ``tile``).
+    """Shard ``index`` of a group of shards, padded into ``bucket`` with
+    shard-local indices, and its edges optionally sorted by receiver
+    (``sort_tile`` is :func:`sort_edges_by_receiver`'s ``tile``).
 
-    The JAX package concatenates several shard-local sub-batches for its
-    data-parallel mesh; the port runs on one card, so exactly one shard is
-    accepted until data parallelism is ported.
+    The JAX function (``gcpnet_tpu/data/batching.py:349-405``) concatenates
+    every shard's sub-batch for its data-parallel mesh, which hands device
+    ``i`` sub-batch ``i``; in the port each process takes its own shard, so
+    this is that sub-batch.  An empty shard (the padded tail of an epoch)
+    takes its arrays' shapes from ``like``, by default the first graph of
+    any shard.
     """
-    if len(shard_graphs) != 1:
-        raise ValueError(
-            f"collate_shards: the port takes one shard, got {len(shard_graphs)}"
-        )
-    graphs = shard_graphs[0]
+    if like is None:
+        like = next((graphs[0] for graphs in shard_graphs if graphs), None)
     batch = batch_graphs(
-        graphs,
+        shard_graphs[index],
         num_nodes=bucket.num_nodes,
         num_edges=bucket.num_edges,
         num_graphs=bucket.num_graphs,
         extra_graph_keys=extra_graph_keys,
-        like=like if like is not None else (graphs[0] if graphs else None),
+        like=like,
     )
     if sort_edges:
         batch = sort_edges_by_receiver(batch, tile=sort_tile)
     return batch
+
+
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """The data-parallel layout a process reads its batches in: each global
+    batch is a group of ``count`` self-contained shards (one a process,
+    ``count`` the world size) and this process takes shard ``index`` (its
+    rank); over ``nodes`` machines, the machine of rank ``index`` first
+    takes every ``nodes``-th graph of the epoch's order, as a JAX process
+    of a multi-host run does."""
+
+    count: int = 1
+    index: int = 0
+    nodes: int = 1
+
+    def __post_init__(self):
+        if not 0 <= self.index < self.count or self.nodes < 1 or self.count % self.nodes:
+            raise ValueError(f"Shards: rank {self.index} of {self.count} over {self.nodes} nodes")
+
+    @property
+    def node(self) -> int:
+        return self.index // (self.count // self.nodes)
+
+    def split(self, items: Sequence) -> Sequence:
+        """This process's equal share of ``items`` (whose length ``count``
+        divides): the JAX mesh's slice of a rectangular batch."""
+        if len(items) % self.count:
+            raise ValueError(f"a batch of {len(items)} does not split into {self.count} shards")
+        per = len(items) // self.count
+        return items[self.index * per : (self.index + 1) * per]
 
 
 def shuffled_order(n: int, seed: int) -> np.ndarray:
@@ -210,24 +244,35 @@ def batches_from_dataset(
     graphs: Iterable[GraphData],
     bucket: Bucket,
     extra_graph_keys: Sequence[str] = (),
+    shards: Shards = Shards(),
+    drop_last: bool = False,
 ) -> Iterator[GraphBatch]:
     """Pack host graphs into padded batches of ``bucket``, in order, each
     batch receiver-sorted with plain CSR row splits (``tile=1``), so that on the
     card K1 sums every batch.
 
-    Port of ``gcpnet_tpu/data/batching.py:407-475`` for one shard: graphs
-    are added to the batch until one more would overflow the bucket's
-    nodes, edges or graphs, then the batch is emitted; a graph larger than
-    the bucket is skipped.  The last batch is emitted however full it is:
-    the JAX function's ``drop_last`` drops an incomplete set of *shards*,
-    and one shard is always complete, so with one shard it keeps the last
-    batch too and the port has no such flag.
+    Port of ``gcpnet_tpu/data/batching.py:407-475``: graphs are added to a
+    shard until one more would overflow the bucket's nodes, edges or
+    graphs, then the next shard starts; a graph larger than the bucket is
+    skipped.  Each full group of ``shards.count`` shards gives this
+    process's shard (``shards.index``), so that every process steps the
+    same number of times.  The last, incomplete group is dropped with
+    ``drop_last``, else padded with empty shards (one shard is always a
+    complete group, so with one shard the last batch is always kept).
+    With ``shards.nodes`` above 1, this node packs only every
+    ``shards.nodes``-th graph, from its own.
     """
+    if shards.nodes > 1:
+        graphs = itertools.islice(graphs, shards.node, None, shards.nodes)
+    group: List[List[GraphData]] = []
     shard: List[GraphData] = []
     n_used = e_used = 0
 
     def emit():
-        return collate_shards([shard], bucket, extra_graph_keys, sort_edges=True, sort_tile=1)
+        return collate_shards(
+            group + [[]] * (shards.count - len(group)), bucket, extra_graph_keys,
+            sort_edges=True, sort_tile=1, index=shards.index,
+        )
 
     for g in graphs:
         if g.num_nodes > bucket.num_nodes or g.num_edges > bucket.num_edges:
@@ -237,10 +282,15 @@ def batches_from_dataset(
             or e_used + g.num_edges > bucket.num_edges
             or len(shard) >= bucket.num_graphs
         ):
-            yield emit()
+            group.append(shard)
             shard, n_used, e_used = [], 0, 0
+            if len(group) == shards.count:
+                yield emit()
+                group = []
         shard.append(g)
         n_used += g.num_nodes
         e_used += g.num_edges
     if shard:
+        group.append(shard)
+    if group and (len(group) == shards.count or not drop_last):
         yield emit()

@@ -28,7 +28,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from gcpnet_torch.data.batching import Bucket, batches_from_dataset, made_ahead, shuffled_order
+from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, shuffled_order
 from gcpnet_torch.data.protein_graph import featurize_protein
 from gcpnet_torch.graph import GraphBatch, GraphData
 
@@ -51,7 +51,9 @@ class CATHDataModule:
         top_k: int = 30,
         num_rbf: int = 16,
         max_nodes_per_batch: int = 2048,
+        shards: Shards = Shards(),
     ):
+        """``shards`` is this process's share of each global batch."""
         self.data_dir = data_dir
         self.file_name = file_name
         self.splits_file_name = splits_file_name
@@ -62,6 +64,7 @@ class CATHDataModule:
         self.top_k = int(self.features_cfg.get("top_k", top_k))
         self.num_rbf = num_rbf
         self.max_nodes_per_batch = max_nodes_per_batch
+        self.shards = shards
         self.splits: Dict[str, List[dict]] = {}
         self.custom_splits: Dict[str, set] = {}
         self._featurized: Dict[str, List[int]] = {}  # split -> indices of the records that featurize
@@ -157,7 +160,7 @@ class CATHDataModule:
                     pass
             kept = np.asarray(self._featurized[split], dtype=np.int64)
             index = kept[shuffled_order(len(kept), seed)].tolist()
-        return batches_from_dataset(self._graphs(split, index), self.bucket())
+        return batches_from_dataset(self._graphs(split, index), self.bucket(), shards=self.shards, drop_last=shuffle)
 
     def train_batches(self, seed: int = 0) -> Iterator[GraphBatch]:
         return self.batches("train", shuffle=True, seed=seed)

@@ -36,8 +36,10 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from gcpnet_torch.data.atom3d import radius_graph
-from gcpnet_torch.data.batching import Bucket, batches_from_dataset, made_ahead, shuffled_order, sorted_index
+from gcpnet_torch.data import esm
+from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, shuffled_order, sorted_index
 from gcpnet_torch.data.esm import embed_sequence
+from gcpnet_torch.device import DeviceLike
 from gcpnet_torch.data.features import edge_geometric_features, orientations
 from gcpnet_torch.data.pdb import Structure, annotate_pdb_bfactor_column, parse_pdb
 from gcpnet_torch.graph import GraphBatch, GraphData
@@ -85,9 +87,11 @@ def featurize_decoy(
     max_neighbors: int = 32,
     rbf_edge_dist_cutoff: float = 4.5,
     num_rbf: int = 16,
+    esm_device: DeviceLike = None,
 ) -> GraphData:
     """One decoy (and its native, for the labels) as a graph; the labels are
-    zeros without a native."""
+    zeros without a native.  An ESM-2 checkpoint runs on ``esm_device``
+    (``data.esm``)."""
     s = parse_pdb(decoy_path, heavy_only=True)
     if not s.atoms:
         raise ValueError(f"no atoms parsed from {decoy_path}")
@@ -103,7 +107,7 @@ def featurize_decoy(
         plddt_res[res_idx[i]] = a.bfactor  # AlphaFold keeps plDDT in the b-factor column
     plddt_atom = plddt_res[res_idx]
 
-    esm_res = embed_sequence(structure_sequence(s), cache_dir=esm_cache_dir)
+    esm_res = embed_sequence(structure_sequence(s), cache_dir=esm_cache_dir, device=esm_device)
     if esm_res.shape[0] != num_res:
         esm_res = np.zeros((num_res, esm_res.shape[1]), np.float32)
     esm_atom = esm_res[res_idx]
@@ -173,7 +177,10 @@ class EQDataModule:
     (``true_dir/<name>[.pdb]`` or ``<name up to its first "_">[.pdb]``),
     the ESM cache ``model_data_cache_dir/esm`` (or ``esm_cache_dir``), and
     the bucket of ``max_nodes_per_batch`` nodes, 32 times as many edge
-    rows, ``batch_size`` decoys and ``max_residues_per_batch`` residues."""
+    rows, ``batch_size`` decoys and ``max_residues_per_batch`` residues.
+    An ESM-2 checkpoint (``data.esm``) runs on ``esm_device``, over each
+    split's sequences before its first pass (:meth:`prepare_embeddings`);
+    ``shards`` is this process's share of each global batch."""
 
     def __init__(
         self,
@@ -191,6 +198,8 @@ class EQDataModule:
         esm_cache_dir: Optional[str] = None,
         predict_input_dir: Optional[str] = None,
         predict_true_dir: Optional[str] = None,
+        esm_device: DeviceLike = None,
+        shards: Shards = Shards(),
     ):
         self.splits_dir = splits_dir
         self.decoy_dir = decoy_dir
@@ -208,8 +217,11 @@ class EQDataModule:
         )
         self.predict_input_dir = predict_input_dir
         self.predict_true_dir = predict_true_dir
+        self.esm_device = esm_device
+        self.shards = shards
         self.splits: Dict[str, List[str]] = {}
         self._featurized: Dict[str, List[int]] = {}
+        self._embedded: set = set()
         self.predict_paths: List[str] = []
 
     @classmethod
@@ -234,6 +246,7 @@ class EQDataModule:
             else:
                 self.splits[split] = []
         self._featurized = {}
+        self._embedded = set()
         log.info("EQ splits: " + ", ".join(f"{k}={len(v)}" for k, v in self.splits.items()))
 
     def _decoy_path(self, name: str) -> str:
@@ -251,18 +264,45 @@ class EQDataModule:
                 return path
         return None
 
+    def _graph_cache(self, name: str) -> Optional[str]:
+        return os.path.join(self.cache_dir, f"{name}.graph.npz") if self.cache_dir else None
+
+    def prepare_embeddings(self, paths: Sequence[str]) -> int:
+        """Embed, here and now, the sequences of the decoys ``paths`` that
+        no ESM cache holds (``esm.prepare``); the number embedded.  A decoy
+        that fails to parse is left to the featurizer to report."""
+        if not esm.source_available():
+            return 0
+        seqs = []
+        for path in paths:
+            try:
+                seqs.append(structure_sequence(parse_pdb(path, heavy_only=True)))
+            except (ValueError, OSError):
+                continue
+        return esm.prepare(seqs, self.esm_cache_dir, self.esm_device)
+
+    def _prepare_split(self, split: str) -> None:
+        """Before a split's first pass: embed its decoys without a cached graph."""
+        if split in self._embedded:
+            return
+        self._embedded.add(split)
+        names = self.splits.get(split, [])
+        cached = self._graph_cache
+        self.prepare_embeddings([
+            self._decoy_path(n) for n in names if not (cached(n) and os.path.exists(cached(n)))
+        ])
+
     def featurize(self, name: str) -> GraphData:
         """A decoy's graph, from the cache where it was made before."""
-        cache_path = None
-        if self.cache_dir:
+        cache_path = self._graph_cache(name)
+        if cache_path:
             os.makedirs(self.cache_dir, exist_ok=True)
-            cache_path = os.path.join(self.cache_dir, f"{name}.graph.npz")
             if os.path.exists(cache_path):
                 return _load_graph(cache_path)
         g = featurize_decoy(
             self._decoy_path(name), self._native_path(name), esm_cache_dir=self.esm_cache_dir,
             edge_cutoff=self.edge_cutoff, max_neighbors=self.max_neighbors,
-            rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf,
+            rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf, esm_device=self.esm_device,
         )
         if cache_path:
             _save_graph(cache_path, g)
@@ -293,9 +333,11 @@ class EQDataModule:
         return Bucket(num_nodes=n, num_edges=n * self.max_neighbors, num_graphs=self.batch_size)
 
     def batches(self, split: str, shuffle: bool = False, seed: int = 0) -> Iterator[GraphBatch]:
-        """The split's batches; shuffled, in the order of
-        ``np.random.default_rng(seed).shuffle`` of the decoys that featurize
-        (the split's first pass learns which)."""
+        """The split's batches (this process's shard of each); shuffled, in
+        the order of ``np.random.default_rng(seed).shuffle`` of the decoys
+        that featurize (the split's first pass learns which), and then an
+        incomplete last group of shards is dropped, as in the JAX module.
+        Call :meth:`_prepare_split` first where a checkpoint embeds."""
         index = None
         if shuffle:
             if split not in self._featurized:
@@ -303,16 +345,23 @@ class EQDataModule:
                     pass
             kept = np.asarray(self._featurized[split], dtype=np.int64)
             index = kept[shuffled_order(len(kept), seed)].tolist()
-        for batch in batches_from_dataset(self._graphs(split, index), self.bucket()):
+        for batch in batches_from_dataset(
+            self._graphs(split, index), self.bucket(), shards=self.shards, drop_last=shuffle
+        ):
             yield globalize_residues(batch, self.max_residues_per_batch)
 
+    # each embeds a split's sequences in the caller's thread before the
+    # batches' generator is handed to the fit's prefetch thread
     def train_batches(self, seed: int = 0) -> Iterator[GraphBatch]:
+        self._prepare_split("train")
         return self.batches("train", shuffle=True, seed=seed)
 
     def val_batches(self) -> Iterator[GraphBatch]:
+        self._prepare_split("valid")
         return self.batches("valid")
 
     def test_batches(self) -> Iterator[GraphBatch]:
+        self._prepare_split("test")
         return self.batches("test")
 
     # --- prediction -------------------------------------------------------
@@ -320,16 +369,22 @@ class EQDataModule:
         """One batch a decoy of ``predict_input_dir`` (its ``.pdb`` files in
         name order), labelled against the native of the same name in
         ``predict_true_dir`` where there is one; each decoy's path is queued
-        for :meth:`record_predictions`."""
+        for :meth:`record_predictions`.  The decoys' sequences are embedded
+        at the call."""
         if not self.predict_input_dir or not os.path.isdir(self.predict_input_dir):
-            return
-        for name in sorted(f for f in os.listdir(self.predict_input_dir) if f.endswith(".pdb")):
+            return iter(())
+        names = sorted(f for f in os.listdir(self.predict_input_dir) if f.endswith(".pdb"))
+        self.prepare_embeddings([os.path.join(self.predict_input_dir, n) for n in names])
+        return self._predict_batches(names)
+
+    def _predict_batches(self, names: List[str]) -> Iterator[GraphBatch]:
+        for name in names:
             decoy = os.path.join(self.predict_input_dir, name)
             native = os.path.join(self.predict_true_dir, name) if self.predict_true_dir else None
             g = featurize_decoy(
                 decoy, native if native and os.path.exists(native) else None, esm_cache_dir=self.esm_cache_dir,
                 edge_cutoff=self.edge_cutoff, max_neighbors=self.max_neighbors,
-                rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf,
+                rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf, esm_device=self.esm_device,
             )
             (batch,) = batches_from_dataset([g], self.bucket())
             self.predict_paths.append(decoy)

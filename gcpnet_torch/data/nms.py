@@ -30,7 +30,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from gcpnet_torch.data.batching import with_sorted_indices
+from gcpnet_torch.data.batching import Shards, with_sorted_indices
 from gcpnet_torch.data.features import normalize, rbf
 from gcpnet_torch.data.nms_sim import Mode, generate_split
 from gcpnet_torch.device import DeviceLike
@@ -65,9 +65,15 @@ class NMSDataModule:
         num_valid: Optional[int] = None,
         num_test: Optional[int] = None,
         sim_device: DeviceLike = None,
+        shards: Shards = Shards(),
     ):
         """Missing splits are simulated on ``sim_device`` (``None``: the
-        card) by ``data.nms_sim``'s float64 torch integrator."""
+        card) by ``data.nms_sim``'s float64 torch integrator.  ``shards``
+        is this process's share of each batch: ``batch_size`` counts the
+        global batch's graphs, and ``shards.count`` must divide it."""
+        if batch_size % shards.count:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the {shards.count} shards")
+        self.shards = shards
         self.data_root = data_root
         self.data_mode = data_mode
         self.batch_size = batch_size
@@ -162,14 +168,16 @@ class NMSDataModule:
 
     def batches(self, split: str, shuffle: bool = False, seed: int = 0) -> Iterator[GraphBatch]:
         """Full batches only (the last partial batch is dropped); ``shuffle``
-        permutes the split with ``np.random.default_rng(seed)``."""
+        permutes the split with ``np.random.default_rng(seed)``.  Of each
+        batch this process takes its shard's graphs (``Shards.split``: the
+        JAX module's graphs per shard, with shard-local offsets)."""
         size = self.sizes[split]
         order = np.arange(size)
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
         bs = self.batch_size
         for start in range(0, size - bs + 1, bs):
-            yield self._featurize(split, order[start : start + bs])
+            yield self._featurize(split, self.shards.split(order[start : start + bs]))
 
     def train_batches(self, seed: int = 0) -> Iterator[GraphBatch]:
         return self.batches("train", shuffle=True, seed=seed)

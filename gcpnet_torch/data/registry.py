@@ -2,8 +2,9 @@
 ``gcpnet_tpu/data/registry.py``.
 
 Maps the datamodule blocks of ``configs/datamodule/*.yaml`` onto the port's
-NMS, ATOM3D (LBA and PSR), CATH, RS, EQ and AR datamodules, for one
-device.  The torch loader knobs (``num_workers``, ``pin_memory``) mean
+NMS, ATOM3D (LBA and PSR), CATH, RS, EQ and AR datamodules, each reading
+this process's shard of every global batch (``batching.Shards``, the JAX
+function's ``num_shards``).  The torch loader knobs (``num_workers``, ``pin_memory``) mean
 nothing to the port's host pipeline and are dropped, as the JAX function
 drops them.  A key that switches off a feature of the JAX datamodules that
 the port lacks is taken at that value only.  Any other key must be one the
@@ -17,6 +18,7 @@ from typing import Any, Dict
 
 from gcpnet_torch.data.ar import ARDataModule
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
+from gcpnet_torch.data.batching import Shards
 from gcpnet_torch.data.cath import CATHDataModule
 from gcpnet_torch.data.eq import EQDataModule
 from gcpnet_torch.data.nms import NMSDataModule
@@ -59,9 +61,10 @@ def _typed(value, default):
     return value
 
 
-def build_datamodule(block: Dict[str, Any], seed: int = 42, device: DeviceLike = None):
+def build_datamodule(block: Dict[str, Any], seed: int = 42, device: DeviceLike = None, shards: Shards = Shards()):
     """The port's datamodule of a composed ``datamodule:`` block; ``seed``
-    where the block sets none, ``device`` for NMS's simulator."""
+    where the block sets none, ``device`` for NMS's simulator and the ESM-2
+    of EQ and AR, ``shards`` this process's share of each batch."""
     target = str(block.get("_target_", "")).rsplit(".", 1)[-1]
     if target not in DATAMODULES:
         raise ValueError(f"unknown datamodule target {target!r}")
@@ -83,6 +86,7 @@ def build_datamodule(block: Dict[str, Any], seed: int = 42, device: DeviceLike =
         kwargs[name] = _typed(value, params[name].default) if name in params else value
     if "seed" in params and kwargs.get("seed") is None:
         kwargs["seed"] = seed
-    if "sim_device" in params:
-        kwargs.setdefault("sim_device", device)
-    return cls(**kwargs)
+    for name in ("sim_device", "esm_device"):
+        if name in params:
+            kwargs.setdefault(name, device)
+    return cls(**kwargs, shards=shards)

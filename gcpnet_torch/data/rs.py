@@ -30,7 +30,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
-from gcpnet_torch.data.batching import Bucket, batches_from_dataset
+from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset
 from gcpnet_torch.data.features import normalize, orientations, rbf
 from gcpnet_torch.graph import GraphBatch, GraphData
 
@@ -326,7 +326,9 @@ class RSDataModule:
         batch_size: int = 64,
         synthetic_sizes: Optional[dict] = None,
         max_nodes_per_graph: int = 64,
+        shards: Shards = Shards(),
     ):
+        """``shards`` is this process's share of each global batch."""
         if iteration_mode not in ("stereoisomers", "conformers"):
             raise ValueError(f"RSDataModule: unknown iteration_mode {iteration_mode!r}")
         self.paths = {"train": train_data_filepath, "valid": val_data_filepath, "test": test_data_filepath}
@@ -340,6 +342,7 @@ class RSDataModule:
         self.batch_size = batch_size
         self.synthetic_sizes = {"train": 4096, "valid": 512, "test": 512, **(synthetic_sizes or {})}
         self.max_nodes_per_graph = max_nodes_per_graph
+        self.shards = shards
         self.graphs: dict = {}
         self.meta: dict = {}
 
@@ -426,7 +429,9 @@ class RSDataModule:
             ordered = (graphs[i] for batch_idx in self.sampler(split, seed) for i in batch_idx)
         else:
             ordered = iter(graphs)
-        return batches_from_dataset(ordered, self.bucket(), extra_graph_keys=("label",))
+        return batches_from_dataset(
+            ordered, self.bucket(), extra_graph_keys=("label",), shards=self.shards, drop_last=paired
+        )
 
     def train_batches(self, seed: int = 0) -> Iterator[GraphBatch]:
         return self.batches("train", paired=True, seed=seed)

@@ -7,7 +7,7 @@ from the composed blocks, restores the best checkpoint of ``ckpt_path`` by
 ``val/loss`` (else its last) and runs the test loop.  For CPD it adds the
 design metrics of the test chains (``models.cpd_eval.evaluate_cpd``,
 ``cpd_num_samples`` sequences a chain, 100 by default; recovery only with
-the autoregressive decoder).  It runs on the card unless
+the autoregressive decoder).  It runs on one device, the card unless
 ``trainer.accelerator=cpu``::
 
     python -m gcpnet_torch.eval experiment=gcpnet_lba ckpt_path=logs/train/runs/checkpoints
@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional, Sequence
 
 from gcpnet_torch import tasks
 from gcpnet_torch.config.loader import CONFIG_DIR, compose
-from gcpnet_torch.train.entry import build_trainer, restore, setup
+from gcpnet_torch.train.entry import build_trainer, restore, setup, single_device
 from gcpnet_torch.utils.pylogger import get_pylogger
 from gcpnet_torch.utils.utils import task_wrapper
 
@@ -34,7 +34,8 @@ def evaluate(cfg: Dict[str, Any]):
     ckpt_path = cfg.get("ckpt_path")
     if not ckpt_path or ckpt_path == "???":
         raise ValueError("eval requires ckpt_path=<checkpoint dir>")
-    _, datamodule, model, model_name = setup(cfg)
+    single_device(cfg, "evaluation")
+    _, datamodule, model, model_name, _ = setup(cfg)
     trainer = build_trainer(cfg, model, tasks.build_loss(model_name), model_name, checkpoints=False)
     log.info(f"evaluating step {restore(trainer, ckpt_path, best=True)} of {ckpt_path}")
     metrics = trainer.test(datamodule)

@@ -226,16 +226,17 @@ def write_rows(rows: List[dict], path: str) -> None:
 def predict_from_config(cfg: Dict[str, Any], served: Optional[list] = None) -> Dict[str, Any]:
     """The composed ``predict.yaml`` route: ``{"num_predictions": n}``."""
     from gcpnet_torch.train.checkpoints import CheckpointManager
-    from gcpnet_torch.train.entry import device_of, setup
+    from gcpnet_torch.train.entry import device_of, setup, single_device
     from gcpnet_torch.utils.loggers import WandbLogger, instantiate_loggers
     from gcpnet_torch.utils.pylogger import get_pylogger
 
     log = get_pylogger("gcpnet_torch.predict")
     device_of(cfg.get("trainer") or {})  # no card and no trainer.accelerator=cpu: raise before anything else
+    single_device(cfg, "prediction")
     ckpt_path = cfg.get("ckpt_path")
     if not ckpt_path or ckpt_path == "???":
         raise ValueError("predict requires ckpt_path=<checkpoint dir>")
-    device, dm, model, _ = setup(cfg, stage="predict")
+    device, dm, model, _, _ = setup(cfg, stage="predict")
     mgr = CheckpointManager(ckpt_path, monitor="val/loss")
     state = mgr.restore_best(map_location=device) or mgr.restore_last(map_location=device)
     if state is None:

@@ -48,8 +48,13 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.monitor = monitor
         self.mode = mode
-        path = os.path.join(self.directory, INDEX)
         self._entries: List[dict] = []
+        self.reload()
+
+    def reload(self) -> None:
+        """Read the index from the directory (another process may have
+        saved since this one last did)."""
+        path = os.path.join(self.directory, INDEX)
         if os.path.exists(path):
             with open(path) as f:
                 self._entries = json.load(f)

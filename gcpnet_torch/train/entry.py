@@ -15,8 +15,18 @@ and tests the best checkpoint::
 ``trainer.accelerator=cpu`` runs on the CPU through the kernels' plain
 versions; any other value (``tpu``, the default of
 ``configs/trainer/default.yaml``, ``gpu``, ``auto``) runs on the CUDA card
-and raises where there is none.  ``trainer.devices`` above 1 raises: the
-port trains on one card.
+and raises where there is none.
+
+``trainer.devices=N`` trains data-parallel on N devices of this machine
+(``-1``/``auto``: every GPU; on the CPU, N gloo processes): unless a
+launcher already started this process, ``main`` starts N processes
+(``parallel.launch``), each running the same overrides on its own GPU and
+shard, and returns rank 0's metrics; under ``torchrun --nproc-per-node N``
+each process joins the launcher's group instead.  ``trainer.num_nodes``
+above 1 runs only under such an external launcher, as the JAX entry point
+leaves it to ``jax.distributed``.  One deliberate difference: ``devices``
+above the GPUs present (or the CPU's cores) raises, where the JAX entry
+point quietly takes the devices there are.
 """
 
 from __future__ import annotations
@@ -30,8 +40,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gcpnet_torch import tasks
+from gcpnet_torch import parallel, tasks
 from gcpnet_torch.config.loader import CONFIG_DIR, compose
+from gcpnet_torch.data.batching import Shards
 from gcpnet_torch.data.registry import build_datamodule
 from gcpnet_torch.train.checkpoints import CheckpointManager
 from gcpnet_torch.train.trainer import Trainer
@@ -42,28 +53,71 @@ from gcpnet_torch.utils.utils import get_metric_value, task_wrapper, write_halt_
 log = get_pylogger(__name__)
 
 
-def device_of(trainer_cfg: Dict[str, Any]) -> torch.device:
-    """The device of ``trainer.accelerator``: the CPU for ``cpu``, else the
-    CUDA card, which must be there.  More than one device raises."""
-    accelerator = str(trainer_cfg.get("accelerator", "tpu")).lower()
+def _on_cpu(trainer_cfg: Dict[str, Any]) -> bool:
+    return str(trainer_cfg.get("accelerator", "tpu")).lower() == "cpu"
+
+
+def world_of(trainer_cfg: Dict[str, Any]) -> Tuple[int, int]:
+    """``(devices a machine, machines)`` of ``trainer.devices`` and
+    ``trainer.num_nodes``; ``devices`` ``-1``/``auto`` is every GPU (one
+    process on the CPU).  More devices than this machine has raise."""
     devices = trainer_cfg.get("devices", 1)
-    if str(devices) not in ("1", "-1", "auto", "None") or int(trainer_cfg.get("num_nodes", 1) or 1) > 1:
-        raise NotImplementedError(f"trainer.devices={devices}: the port trains on one device (no DDP yet)")
-    if accelerator == "cpu":
+    nodes = int(trainer_cfg.get("num_nodes", 1) or 1)
+    cpu = _on_cpu(trainer_cfg)
+    present = (os.cpu_count() or 1) if cpu else torch.cuda.device_count()
+    if str(devices) in ("-1", "auto", "None"):
+        return (1 if cpu else max(1, present)), nodes
+    n = int(devices)
+    if n < 1 or (n > 1 and n > present):
+        raise ValueError(
+            f"trainer.devices={n}, but this machine has {present} {'CPU cores' if cpu else 'GPUs'} "
+            "(the JAX entry point would take fewer devices without a word; the port refuses)"
+        )
+    return n, nodes
+
+
+def device_of(trainer_cfg: Dict[str, Any]) -> torch.device:
+    """This process's device of ``trainer.accelerator``: the CPU for
+    ``cpu``, else the CUDA card (``cuda:<LOCAL_RANK>`` under a launcher),
+    which must be there."""
+    world_of(trainer_cfg)
+    if _on_cpu(trainer_cfg):
         return torch.device("cpu")
+    accelerator = trainer_cfg.get("accelerator", "tpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"trainer.accelerator={accelerator} runs on the CUDA card and none is available; "
             "set trainer.accelerator=cpu (device='cpu') to run the plain-PyTorch path"
         )
-    return torch.device("cuda")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if parallel.launched() else torch.device("cuda")
+
+
+def group_of(trainer_cfg: Dict[str, Any], device: torch.device) -> Optional[parallel.Group]:
+    """The data-parallel group this process joins, when a launcher started
+    it (its world must be ``devices x num_nodes``); else ``None``."""
+    if not parallel.launched():
+        return None
+    devices, nodes = world_of(trainer_cfg)
+    if int(os.environ["WORLD_SIZE"]) != devices * nodes:
+        raise ValueError(
+            f"the launcher started {os.environ['WORLD_SIZE']} processes, but trainer.devices={devices} "
+            f"x trainer.num_nodes={nodes} asks for {devices * nodes}"
+        )
+    return parallel.init_from_env(device.type, nodes=nodes)
+
+
+def single_device(cfg: Dict[str, Any], what: str) -> None:
+    """``what`` (evaluation, prediction) runs on one device: more raise."""
+    if world_of(cfg.get("trainer") or {}) != (1, 1) or parallel.launched():
+        raise ValueError(f"{what} runs on one device: set trainer.devices=1 and trainer.num_nodes=1")
 
 
 def build_trainer(cfg: Dict[str, Any], model, loss_fn, model_name: str, checkpoints: bool = True,
-                  loggers: Sequence = ()) -> Trainer:
+                  loggers: Sequence = (), group: Optional[parallel.Group] = None) -> Trainer:
     """The Trainer of the composed ``trainer``, ``callbacks`` and ``model``
     blocks, as the JAX ``build_trainer`` makes it; ``checkpoints=False``
-    writes none (evaluation and prediction)."""
+    writes none (evaluation and prediction).  In a data-parallel ``group``
+    only rank 0 has loggers."""
     trainer_cfg = cfg.get("trainer") or {}
     callbacks = cfg.get("callbacks") or {}
     ckpt_cb = callbacks.get("model_checkpoint") or {}
@@ -103,24 +157,35 @@ def build_trainer(cfg: Dict[str, Any], model, loss_fn, model_name: str, checkpoi
         log_dir=output_dir,
         max_steps_per_epoch=max_steps,
         check_val_every_n_epoch=int(trainer_cfg.get("check_val_every_n_epoch", 1)),
-        loggers=[*instantiate_loggers(cfg.get("logger")), *loggers],
+        loggers=[*instantiate_loggers(cfg.get("logger")), *loggers] if group is None or group.is_main else [],
         precision=int(trainer_cfg.get("precision", 32) or 32),
         scan_chunk_size=int(trainer_cfg.get("scan_chunk_size", 1) or 1),
         checkpoint_every_n_steps=int(n_step) if n_step else None,
+        group=group,
     )
 
 
 def setup(cfg: Dict[str, Any], stage: Optional[str] = None):
-    """The device, the datamodule (prepared and set up) and the model with
-    its registry name, of a composed config."""
+    """The device, the datamodule (prepared and set up; this process's
+    shard of each batch) and the model with its registry name, of a
+    composed config, and the data-parallel group (``None`` alone)."""
     seed = int(cfg.get("seed", 42))
     np.random.seed(seed)
-    device = device_of(cfg.get("trainer") or {})
-    datamodule = build_datamodule(cfg["datamodule"], seed=seed, device=device)
-    datamodule.prepare_data()
+    trainer_cfg = cfg.get("trainer") or {}
+    device = device_of(trainer_cfg)
+    group = group_of(trainer_cfg, device)
+    shards = group.shards if group is not None else Shards()
+    if group is None or group.is_main:
+        datamodule = build_datamodule(cfg["datamodule"], seed=seed, device=device, shards=shards)
+        datamodule.prepare_data()
+    # rank 0 prepares (simulates, writes caches) before the others read
+    parallel.barrier(group)
+    if group is not None and not group.is_main:
+        datamodule = build_datamodule(cfg["datamodule"], seed=seed, device=device, shards=shards)
+        datamodule.prepare_data()
     datamodule.setup() if stage is None else datamodule.setup(stage=stage)
     model, model_name = tasks.build_model(cfg["model"], seed=seed, device=device)
-    return device, datamodule, model, model_name
+    return device, datamodule, model, model_name, group
 
 
 def restore(trainer: Trainer, ckpt_path: str, best: bool) -> int:
@@ -160,8 +225,8 @@ def train(cfg: Dict[str, Any], loggers: Sequence = ()) -> Tuple[Dict[str, float]
     """Fit (unless ``train=false``), then test the best checkpoint (unless
     ``test=false``); ``ckpt_path`` resumes from that directory's last
     checkpoint.  The metrics, the Trainer and the datamodule."""
-    device, datamodule, model, model_name = setup(cfg)
-    trainer = build_trainer(cfg, model, tasks.build_loss(model_name), model_name, loggers=loggers)
+    device, datamodule, model, model_name, group = setup(cfg)
+    trainer = build_trainer(cfg, model, tasks.build_loss(model_name), model_name, loggers=loggers, group=group)
     seed = int(cfg.get("seed", 42))
     for lg in trainer.loggers:
         if hasattr(lg, "log_hyperparams"):
@@ -172,7 +237,8 @@ def train(cfg: Dict[str, Any], loggers: Sequence = ()) -> Tuple[Dict[str, float]
     if cfg.get("train", True):
         with _profiled(cfg.get("trainer") or {}, device):
             metrics.update(trainer.fit(datamodule))
-        write_halt_file(cfg, run_id=f"{cfg.get('task_name', 'train')}_{seed}")
+        if trainer.is_main:
+            write_halt_file(cfg, run_id=f"{cfg.get('task_name', 'train')}_{seed}")
     if cfg.get("test", True):
         best = trainer.restore_best()
         if best is not None:
@@ -202,8 +268,23 @@ def main(argv: Optional[Sequence[str]] = None, loggers: Sequence = (), trainers:
     """Run the overrides ``argv``: the metrics (a list of them for a
     multirun; the best parameters and value for ``-m hparams_search=``).
     ``loggers`` are added to each run's Trainer, which goes to ``trainers``
-    where that is a list."""
+    where that is a list.  With ``trainer.devices`` above 1 and no
+    launcher, this starts a process a device, each running ``argv``, and
+    returns rank 0's result (``loggers`` and ``trainers`` stay in this
+    process, so they must be empty then)."""
     argv = list(sys.argv[1:] if argv is None else argv)
+    if not parallel.launched():
+        composed = compose(CONFIG_DIR, "train.yaml", [ov for ov in argv if ov not in ("-m", "--multirun")])
+        devices, nodes = world_of(composed.get("trainer") or {})
+        if nodes > 1:
+            raise ValueError(
+                f"trainer.num_nodes={nodes} runs under an external launcher (torchrun --nnodes {nodes} "
+                f"--nproc-per-node {devices} -m gcpnet_torch.train ...), which sets RANK and WORLD_SIZE"
+            )
+        if devices > 1:
+            if loggers or trainers is not None:
+                raise ValueError("main: loggers and trainers stay in this process; a data-parallel run takes neither")
+            return parallel.launch(main, devices, argv)
     multirun = any(flag in argv for flag in ("-m", "--multirun"))
     argv = [ov for ov in argv if ov not in ("-m", "--multirun")]
 

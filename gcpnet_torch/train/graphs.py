@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import Tensor
 
+from gcpnet_torch import parallel
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.train.state import TrainState
 from gcpnet_torch.train.step import LossFn, StepResult, apply_step, eval_step
@@ -217,7 +218,12 @@ class TrainSteps:
     a call with k pinned host batches runs k steps of :func:`apply_step` in
     one replay (the JAX trainer's scan over a chunk), advances
     ``state.step`` by k, and returns their losses, gradient norms and
-    ``ok`` flags, each ``[k]`` on the device."""
+    ``ok`` flags, each ``[k]`` on the device.
+
+    Under data parallelism the graph holds the step's NCCL all-reduce: the
+    first call's eager run creates the communicator, which must exist
+    before the capture; a process group of another backend raises here
+    (``parallel.check_capturable``)."""
 
     def __init__(
         self,
@@ -226,6 +232,7 @@ class TrainSteps:
         loss_fn: LossFn,
         generator: Optional[torch.Generator] = None,
     ):
+        parallel.check_capturable(state.group)
         self.state = state
 
         def steps(batches):

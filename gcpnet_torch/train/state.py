@@ -62,7 +62,9 @@ class TrainState:
     ``precision=16`` policy); ``ring`` is ``None`` without the adaptive
     clip; ``scheduler`` an optional LR schedule stepped per update;
     ``lr_scale`` an optional float64 0-d device tensor that scales the
-    rate (the plateau schedule's scale, written between epochs)."""
+    rate (the plateau schedule's scale, written between epochs); ``group``
+    the data-parallel ``parallel.Group`` whose processes average their
+    loss and gradients each step (``None``: this process alone)."""
 
     optimizer: Any
     step: int = 0
@@ -71,3 +73,4 @@ class TrainState:
     clip_std_multiplier: float = 2.0
     scheduler: Any = None
     lr_scale: Optional[Tensor] = None
+    group: Any = None

@@ -2,8 +2,8 @@
 one evaluation step.
 
 Port of ``Trainer._build_train_step`` and ``_build_eval_step``
-(``gcpnet_tpu/train/trainer.py:260-330, 369-386``) for one device, for any
-task: the loss is the task's ``loss_fn(preds, batch) -> (loss, labels)``.
+(``gcpnet_tpu/train/trainer.py:260-330, 369-386``), for any task: the loss
+is the task's ``loss_fn(preds, batch) -> (loss, labels)``.
 
 - the float32 parameters of ``model`` are the masters; with a bfloat16
   ``compute_dtype`` the forward and backward run on bf16 copies of them and
@@ -12,6 +12,17 @@ task: the loss is the task's ``loss_fn(preds, batch) -> (loss, labels)``.
   float32 (every op runs in bf16, as in the JAX package; ``torch.autocast``
   would keep the elementwise work in float32 and is not this policy);
 - the loss is taken in float32 against the float32 labels;
+- under data parallelism (``state.group``) each process has stepped on its
+  own shard, and the loss and the gradients are averaged over the
+  processes before anything reads them, as the JAX step ``pmean``s them:
+  one all-reduce of one flat float32 buffer, divided by the world size.
+  So the loss is the mean of the shards' losses (not the global batch's
+  loss, where a loss does not decompose so), and the norm, the clip,
+  ``ok`` and the update are the same on every process.  The all-reduce is
+  part of the step, so a CUDA graph of the step holds it (NCCL only:
+  ``parallel.check_capturable``); the model is not wrapped in
+  ``DistributedDataParallel``, whose hooks and eager warm-up iterations
+  do not fit a captured step;
 - the global gradient norm, then the optional adaptive clip from the
   ``GradNormRing``, then the update with the learning rate times the
   state's ``lr_scale``;
@@ -34,11 +45,12 @@ scale with it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
 
+from gcpnet_torch import parallel
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.train.state import TrainState
 
@@ -59,16 +71,17 @@ def global_norm(tensors) -> Tensor:
     )
 
 
-def apply_step(
+def loss_and_grads(
     model: torch.nn.Module,
     state: TrainState,
     batch: GraphBatch,
     loss_fn: LossFn,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = False,
-) -> StepResult:
-    """The device work of one training step: :func:`train_step` without
-    counting the step on the host."""
+) -> Tuple[Tensor, list]:
+    """This process's float32 loss on ``batch`` and the gradients of the
+    float32 parameters (zeros where a parameter got none), in
+    ``model.named_parameters()`` order."""
     params = dict(model.named_parameters())
     state.optimizer.zero_grad()
     kwargs = dict(deterministic=deterministic, generator=generator)
@@ -80,8 +93,47 @@ def apply_step(
         preds = torch.func.functional_call(model, apply_params, (apply_batch,), kwargs)
     loss, _ = loss_fn(preds.float(), batch)
     loss.backward()
+    return loss.detach(), [p.grad if p.grad is not None else torch.zeros_like(p) for p in params.values()]
 
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params.values()]
+
+def flatten(loss: Tensor, grads: Sequence[Tensor]) -> Tensor:
+    """One float32 buffer: the gradients, then the loss."""
+    return torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1).float()])
+
+
+def unflatten_(flat: Tensor, grads: Sequence[Tensor]) -> Tensor:
+    """Copy a :func:`flatten` buffer's gradients back into ``grads`` (the
+    tensors themselves, so that what reads them next sees the same
+    storage as without the buffer); its loss."""
+    start = 0
+    for g in grads:
+        g.copy_(flat[start : start + g.numel()].view_as(g))
+        start += g.numel()
+    return flat[start]
+
+
+def apply_step(
+    model: torch.nn.Module,
+    state: TrainState,
+    batch: GraphBatch,
+    loss_fn: LossFn,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = False,
+) -> StepResult:
+    """The device work of one training step: :func:`train_step` without
+    counting the step on the host."""
+    loss, grads = loss_and_grads(model, state, batch, loss_fn, generator, deterministic)
+    if state.group is not None:
+        if loss.is_cuda and torch.cuda.is_current_stream_capturing():
+            parallel.check_capturable(state.group)
+        loss = unflatten_(parallel.mean_(flatten(loss, grads), state.group), grads)
+    return update(model, state, loss, grads)
+
+
+def update(model: torch.nn.Module, state: TrainState, loss: Tensor, grads: list) -> StepResult:
+    """The rest of the step from the (averaged) loss and gradients: the
+    norm, the clip, the device-side finite check and the update."""
+    params = dict(model.named_parameters())
     gnorm = global_norm(grads)
     ok = torch.isfinite(loss) & torch.isfinite(gnorm)
     if state.ring is not None:
@@ -95,7 +147,7 @@ def apply_step(
     applied = state.optimizer.step(ok, state.lr_scale)
     if state.scheduler is not None:
         state.scheduler.step(applied)
-    return StepResult(loss.detach(), gnorm.detach(), ok)
+    return StepResult(loss, gnorm.detach(), ok)
 
 
 def train_step(

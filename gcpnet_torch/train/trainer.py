@@ -1,7 +1,8 @@
 """The training orchestrator: epochs, evaluation, checkpoints, early stopping.
 
-Port of ``gcpnet_tpu/train/trainer.py:137-712`` for one device (the device
-of the model's parameters):
+Port of ``gcpnet_tpu/train/trainer.py:137-712`` on the device of the
+model's parameters, alone or as one process of a data-parallel group
+(``group``, a ``parallel.Group``):
 
 - ``train_epoch`` runs the training step over the batches, in chunks of
   ``scan_chunk_size`` as the JAX loops do (``trainer.py:450-533``): each
@@ -30,6 +31,17 @@ of the model's parameters):
   (``lr_scale``) and stops early after ``min_epochs``;
 - StepLR folds into the optimizer's schedule (``train.optim``), stepped
   once per applied update;
+- under data parallelism every process runs this loop on its own shard of
+  each batch (``data.batching.Shards``) from the same seeded weights: the
+  step averages loss and gradients over the group (``train.step``), so
+  the parameters stay equal; evaluation averages each batch's loss over
+  the group and gathers every process's predictions and kept arrays, so
+  every process computes the metrics of the whole global batch and takes
+  the same early-stopping and plateau decisions (the JAX eval's ``pmean``
+  and ``P("dp")`` outputs); dropout draws from a generator per process
+  (the seed and the rank, as the JAX step folds the shard into its key);
+  only rank 0 writes checkpoints, metrics and loggers, and every process
+  reads them back;
 - ``precision`` 32 computes in float32, 16 in bf16 over float32 masters.
 
 Two differences from the JAX trainer.  A resumed ``fit`` goes on from the
@@ -52,6 +64,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
+from gcpnet_torch import parallel
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.train.checkpoints import CheckpointManager
 from gcpnet_torch.train.graphs import EvalSteps, TrainSteps
@@ -132,10 +145,14 @@ class Trainer:
         precision: int = 32,
         checkpoint_every_n_steps: Optional[int] = None,
         scan_chunk_size: int = 1,
+        group=None,
     ):
         """``scan_chunk_size`` as the JAX trainer's (``trainer.py:164-167``);
-        ``collect_fn`` a task's :class:`~gcpnet_torch.tasks.Collect`."""
+        ``collect_fn`` a task's :class:`~gcpnet_torch.tasks.Collect`;
+        ``group`` the data-parallel ``parallel.Group`` (``None``: alone)."""
         self.model = model
+        self.group = group
+        self.is_main = group is None or group.is_main
         self.device = next(model.parameters()).device
         self.loss_fn = loss_fn
         self.max_epochs = max_epochs
@@ -173,9 +190,12 @@ class Trainer:
             clip_std_multiplier=clip_std_multiplier,
             scheduler=scheduler,
             lr_scale=torch.ones((), dtype=torch.float64, device=self.device),
+            group=group,
         )
-        # dropout masks: one stream from the seed, carried in checkpoints
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 17)
+        # dropout masks: one stream from the seed (and the rank, rank 0's
+        # being the stream of a process alone), carried in checkpoints
+        rank = 0 if group is None else group.rank
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 17 + (rank << 32))
         self.train_graphs = self.eval_graphs = None
         if self.device.type == "cuda":
             self.train_graphs = TrainSteps(model, self.state, loss_fn, self.generator)
@@ -240,7 +260,7 @@ class Trainer:
         if self.ckpt is not None and self.checkpoint_every_n_steps:
             if self.state.step - self._last_step_ckpt >= self.checkpoint_every_n_steps:
                 self._last_step_ckpt = self.state.step
-                self.ckpt.save(self.state.step, self.checkpoint_state(), {"step": float(self.state.step)})
+                self._save({"step": float(self.state.step)})
         # one fetch of the epoch's losses, which also waits for its steps
         mean = float(np.average(torch.stack(losses).cpu().numpy(), weights=weights)) if losses else float("nan")
         dt = time.perf_counter() - t0
@@ -259,6 +279,18 @@ class Trainer:
         keep = self.collect_fn.keep if self.collect_fn is not None else (lambda host: None)
         return losses, list(zip(preds, (keep(host) for host, _ in chunk)))
 
+    def _gathered(self, outs: List[tuple]) -> List[tuple]:
+        """Every process's ``(predictions, kept)`` of each batch, batch by
+        batch in rank order: the global batches' outputs."""
+        if self.group is None:
+            return outs
+        kept_by_rank = parallel.all_gather_objects([kept for _, kept in outs], self.group)
+        gathered = []
+        for b, (preds, _) in enumerate(outs):
+            for rank, p in enumerate(parallel.all_gather(preds, self.group)):
+                gathered.append((p, kept_by_rank[rank][b]))
+        return gathered
+
     def eval_epoch(self, batches: Iterable[GraphBatch], prefix: str = "val") -> Dict[str, float]:
         losses, outs = [], []
         # no chunk outlives its step: the epoch keeps predictions and what
@@ -266,10 +298,13 @@ class Trainer:
         for chunk_losses, kept in map(self._eval_chunk, self._chunks(self._staged(batches))):
             losses.append(chunk_losses)
             outs.extend(kept)
-        metrics = {f"{prefix}/loss": float(np.mean(torch.cat(losses).cpu().numpy(), dtype=np.float64)) if losses else float("nan")}
+        loss = torch.cat(losses).float() if losses else None
+        if loss is not None and self.group is not None:
+            parallel.mean_(loss, self.group)  # each batch's mean over its shards
+        metrics = {f"{prefix}/loss": float(np.mean(loss.cpu().numpy(), dtype=np.float64)) if losses else float("nan")}
         if self.collect_fn is not None and self.metric_fns:
             collector = Collector()
-            for preds, kept in outs:
+            for preds, kept in self._gathered(outs):
                 self.collect_fn.add(collector, preds.float().cpu().numpy(), kept)
             p, labels, groups = collector.cat()
             for name, fn in self.metric_fns.items():
@@ -285,8 +320,11 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def checkpoint_state(self) -> dict:
-        """Everything a resumed fit needs to go on as if never stopped."""
+        """Everything a resumed fit needs to go on as if never stopped
+        (under data parallelism every process's generator: a collective,
+        which every process calls)."""
         ring = self.state.ring
+        generators = None if self.group is None else parallel.all_gather_objects(self.generator.get_state(), self.group)
         return {
             "step": self.state.step,
             "epoch": self.epoch,
@@ -295,6 +333,7 @@ class Trainer:
             "scheduler": None if self.state.scheduler is None else self.state.scheduler.state_dict(),
             "ring": None if ring is None else {"buffer": ring.buffer, "count": ring.count, "head": ring.head},
             "generator": self.generator.get_state(),
+            "generators": generators,
             "best": self.best,
             "bad_epochs": self.bad_epochs,
             "plateau": None if self.plateau is None else dict(vars(self.plateau)),
@@ -313,7 +352,12 @@ class Trainer:
             self.state.ring.buffer.copy_(ring["buffer"])
             self.state.ring.count.copy_(ring["count"])
             self.state.ring.head.copy_(ring["head"])
-        self.generator.set_state(ckpt["generator"].cpu())
+        states = ckpt.get("generators")
+        rank = 0 if self.group is None else self.group.rank
+        if states is not None and rank < len(states):
+            self.generator.set_state(states[rank].cpu())
+        elif rank == 0:
+            self.generator.set_state(ckpt["generator"].cpu())
         if self.plateau is not None:
             vars(self.plateau).update(ckpt["plateau"])
         self.state.step = ckpt["step"]
@@ -324,8 +368,25 @@ class Trainer:
             if graphs is not None:
                 graphs.call.clear()
 
+    def _save(self, metrics: Dict[str, float], finite: bool = True) -> None:
+        """Checkpoint the state (``metrics`` ranks it where ``finite``, else
+        it is only the last): every process gathers, rank 0 writes."""
+        state = self.checkpoint_state()
+        if self.is_main:
+            if finite:
+                self.ckpt.save(self.state.step, state, metrics)
+            else:
+                self.ckpt.write_last(state)
+
+    def _reload_checkpoints(self) -> None:
+        """After rank 0's writes: every process reads the same index."""
+        parallel.barrier(self.group)
+        if self.ckpt is not None:
+            self.ckpt.reload()
+
     def restore_best(self) -> Optional[int]:
         """Load the best checkpoint's state; its step, or None if there is none."""
+        self._reload_checkpoints()
         ckpt = None if self.ckpt is None else self.ckpt.restore_best(map_location=self.device)
         if ckpt is None:
             return None
@@ -335,6 +396,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def fit(self, datamodule, resume: bool = False) -> Dict[str, float]:
         if resume and self.ckpt is not None:
+            self._reload_checkpoints()
             ckpt = self.ckpt.restore_last(map_location=self.device)
             if ckpt is not None:
                 self.load_checkpoint_state(ckpt)
@@ -367,10 +429,7 @@ class Trainer:
                         and self.bad_epochs > self.early_stopping_patience
                     )
             if self.ckpt is not None:
-                if finite:
-                    self.ckpt.save(self.state.step, self.checkpoint_state(), metrics)
-                else:
-                    self.ckpt.write_last(self.checkpoint_state())
+                self._save(metrics, finite)
             if stop:
                 log.info(f"early stopping at epoch {epoch}")
                 break
@@ -382,11 +441,13 @@ class Trainer:
         return metrics
 
     def _log_metrics(self, metrics: Dict[str, float]) -> None:
+        for k, v in metrics.items():
+            self.history.setdefault(k, []).append(v)
+        if not self.is_main:
+            return
         log.info(" | ".join(
             f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}" for k, v in sorted(metrics.items())
         ))
-        for k, v in metrics.items():
-            self.history.setdefault(k, []).append(v)
         for logger in self.loggers:
             try:
                 logger.log_metrics(metrics, step=self.state.step)

@@ -5,7 +5,7 @@
 ``-m hparams_search=`` the best parameters; a run's checkpoints evaluated
 by ``python -m gcpnet_torch.eval`` give its test/loss bit for bit; a run
 resumed through ``ckpt_path`` goes on from its last checkpoint;
-``trainer.devices`` above 1 and ``trainer.profiler`` without a trace
+``trainer.devices`` above the cores there are and ``trainer.profiler`` without a trace
 directory raise; ``--task``'s Trainer is the entry point's."""
 
 import os
@@ -82,7 +82,7 @@ def test_eval_reproduces_the_runs_test_loss(tiny, tmp_path):
     assert resumed[0].history["epoch"] == [2] and resumed[0].state.step == 3 * 2
 
 
-@pytest.mark.parametrize("override,error", [("trainer.devices=2", NotImplementedError),
+@pytest.mark.parametrize("override,error", [("trainer.devices=4096", ValueError),
                                             ("trainer.profiler=torch", ValueError)])
 def test_unported_trainer_settings_raise(tiny, override, error):
     with pytest.raises(error, match=override.split("=")[0].split(".")[1]):
