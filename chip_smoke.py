@@ -83,7 +83,8 @@ Phases, one line each:
      host's CUDA API calls);
  18. nms-check: one fp32 NMS training step on the card against the CPU (2
      interaction layers, 10 graphs, no dropout);
- 19. nms-fit: the NMS path, the full-width NMS model fitted by the Trainer
+ 19. nms-fit: the NMS path, the full-width NMS model (2 of the experiment's
+     4 interaction layers) fitted by the Trainer
      the training entry point builds (entry.build_trainer of the composed
      experiment, its defaults but fp32: trainer.precision=32) with scan_chunk_size 4 (4 batches a
      replay of a CUDA graph) for 3 epochs with checkpoints, then a new
@@ -98,7 +99,8 @@ Phases, one line each:
      the replays' kernels a step read from their graphs' kernel nodes;
  20. rs-check: one fp32 RS training step on the card against the CPU (2
      interaction layers, a paired batch, no dropout);
- 21. rs-fit: the RS path, the full-width RS model fitted by the Trainer
+ 21. rs-fit: the RS path, the full-width RS model (2 of its 8 interaction
+     layers) fitted by the Trainer
      (entry.build_trainer, the experiment's defaults but fp32) with scan_chunk_size 4 for 3 epochs
      with checkpoints, then the best checkpoint's test: the wrappers'
      launches, per-epoch seconds, train graphs/s, val/loss, val/Accuracy
@@ -109,7 +111,7 @@ Phases, one line each:
  23. psr-check: one fp32 PSR training step on the card against the CPU (2
      interaction layers, 2 decoys, no dropout), and the bf16 step's
      gradients against the fp32 step's on the card;
- 24. psr-fit: the PSR path, the full-width PSR model (5 interaction layers)
+ 24. psr-fit: the PSR path, the full-width PSR model (2 of its 5 interaction layers)
      fitted by the Trainer in bf16 over float32 masters (the experiment's
      defaults) with scan_chunk_size 4 for 1 epoch with checkpoints, a
      resume to a second, and the best checkpoint's test: epoch seconds,
@@ -122,8 +124,8 @@ Phases, one line each:
  26. cpd-check: one fp32 CPD training step on the card against the CPU (2
      encoder and 2 decoder layers, 2 chains, no dropout), and the bf16
      step's gradients against the fp32 step's on the card;
- 27. cpd-fit: the CPD path, the full-width, full-depth CPD model (9 encoder
-     and 3 autoregressive decoder layers) fitted by the Trainer in bf16
+ 27. cpd-fit: the CPD path, the full-width CPD model (3 of its 9 encoder
+     and 1 of its 3 autoregressive decoder layers) fitted by the Trainer in bf16
      over float32 masters with the experiment's defaults (gradients
      accumulated over 4 batches) and scan_chunk_size 4 for 2 epochs with
      checkpoints, a resume to a third, and the best checkpoint's test:
@@ -160,7 +162,7 @@ Phases, one line each:
  33. eq-check: one fp32 EQ training step on the card against the CPU (2
      layers, one decoy, no dropout), and the bf16 step's gradients against
      the fp32 step's on the card;
- 34. eq-fit: the EQ path, the full-width, full-depth EQ model (5
+ 34. eq-fit: the EQ path, the full-width EQ model (2 of its 5
      GCPInteractions2 layers, message attention, sums over senders) fitted
      by the Trainer in bf16 over float32 masters with the experiment's
      adaptive gradient clip and scan_chunk_size 4 for
@@ -185,7 +187,7 @@ Phases, one line each:
  38. ar-check: one fp32 AR training step on the card against the CPU (2
      layers, one pair, no dropout), and the bf16 step's gradients against
      the fp32 step's on the card;
- 39. ar-fit: the AR path, the full-width, full-depth AR model (4
+ 39. ar-fit: the AR path, the full-width AR model (2 of its 4
      GCPInteractions2 layers with the position update) fitted by the
      Trainer in bf16 over float32 masters with the experiment's adaptive
      gradient clip and scan_chunk_size 4 for 2
@@ -218,8 +220,9 @@ Phases, one line each:
      b-factor-annotated PDB and a CSV row a decoy, the served per-residue
      lDDT against an eager fp32 forward (atol 1e-5);
  45. gcp-family: gcpnet_torch.train's main with
-     experiment=gcpnet_lba_ablations at its full width (8 x 8 layers, bf16,
-     the JAX bucket) on cfg-train's records, once with each of the frame,
+     experiment=gcpnet_lba_ablations at its full width (2 of its 8
+     interaction layers, each of 8 message layers, bf16, the JAX bucket) on
+     cfg-train's records, once with each of the frame,
      scalar and vector ablations, GCP v1 with the sigma frame gate and GCP2
      with the frame gate: 6 training batches (the first captured, 5
      replays) and the validation; the run's and a replay's launches (K1 only: the
@@ -228,6 +231,15 @@ Phases, one line each:
      trained model (an ablated channel is zeros; the frame-ablated model's
      prediction does not move with the atoms); one fp32 step of the
      frame-ablated model on the card against the CPU;
+ 45a. overrides: short fits (2 training batches and the validation)
+     through gcpnet_torch.train's main at the experiments' widths and
+     depths: PSR on psr-data's records under an edge budget
+     (datamodule.max_units=262144: each batch in make_bucket's shape, its
+     real rows within the budget), EQ's CA-only graphs of eq-data's decoys
+     (datamodule.subset_to_ca_atoms_only=true), LBA on GCPInteractions2 on
+     cfg-train's records and EQ on GCPInteractions (model.layer_class),
+     each through K1-K3; the last two beside one fp32 step at 2 layers on
+     the card against the CPU;
  46. rs-e3: the full-width RS model with enable_e3_equivariance in fp32:
      every mirrored pair of a synthetic test batch gets the same logit
      (the SE(3) model with the same weights tells pairs apart); a captured
@@ -240,11 +252,13 @@ Phases, one line each:
      group (its busy ms a replay, the all-reduce's ms); gloo world 2 on the
      one card (two processes from gcpnet_torch.parallel.launch), eager,
      against one process stepping on both shards with the all-reduce's
-     arithmetic; NCCL world 2 where the machine has two GPUs (reported,
-     not run on one).
+     arithmetic, and each rank's evaluation of its shard (the Trainer's
+     eager eval over the group) against one process evaluating both; NCCL
+     world 2 where the machine has two GPUs (reported, not run on one).
 Every profiled training step lists the scatter kernels it ran (none
-allowed; a replay's read from its graph's kernel nodes).  Then the seconds
-by phase, the total time, one JSON line with every kernel's numbers (at the NMS,
+allowed; a replay's read from its graph's kernel nodes).  Each phase prints
+its seconds and the run's as it ends (``chip_smoke: phase <name> <s> s,
+total <t> s``, flushed).  Then the seconds by phase, the total time, one JSON line with every kernel's numbers (at the NMS,
 RS, PSR, CPD, EQ and AR shapes too), the nvidia-smi line, and the final status
 line.  Any failed phase exits non-zero; without a CUDA device
 the script exits non-zero before printing any result.  Full measurements go
@@ -254,6 +268,7 @@ to <out-dir>/chip_smoke.json (``--out-dir``, default logs/chip_smoke).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import csv
@@ -265,6 +280,7 @@ import math
 import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -277,7 +293,7 @@ import torch
 from gcpnet_torch.data.ar import ARDataModule
 from gcpnet_torch.data.ar_synthetic import write_ar_pairs, write_pair
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
-from gcpnet_torch.data.batching import Bucket, batches_from_dataset
+from gcpnet_torch.data.batching import Bucket, batches_from_dataset, make_bucket
 from gcpnet_torch.data.cath import CATHDataModule
 from gcpnet_torch.data.cath_synthetic import write_cath_chains
 from gcpnet_torch.data import esm as data_esm
@@ -286,7 +302,7 @@ from gcpnet_torch.data.eq_synthetic import write_eq_decoys
 from gcpnet_torch.data.nms import NMSDataModule
 from gcpnet_torch.data.rs import RSDataModule
 from gcpnet_torch.models.ar import ar_loss
-from gcpnet_torch.models.cpd import cpd_loss
+from gcpnet_torch.models.cpd import GCPNetCPD, cpd_loss
 from gcpnet_torch.models.cpd_eval import datum_recovery, evaluate_cpd
 from gcpnet_torch.models.eq import eq_loss
 from gcpnet_torch.models.lba import graph_regression_loss
@@ -314,6 +330,7 @@ from gcpnet_torch import predict as predict_entry
 from gcpnet_torch import tasks
 from gcpnet_torch.config.loader import CONFIG_DIR, compose
 from gcpnet_torch.data.pdb import parse_pdb
+from gcpnet_torch.data import registry as datamodule_registry
 from gcpnet_torch.data.registry import build_datamodule
 from gcpnet_torch.models.lba import GCPNetLBA
 from gcpnet_torch.predict import DTYPES, Predictor, build_model, lba_configs, predict, serve, synthetic_batches
@@ -325,7 +342,7 @@ from gcpnet_torch.train.optim import build_optimizer, build_schedule
 from gcpnet_torch.train.state import TrainState
 from gcpnet_torch.train import step as step_module
 from gcpnet_torch.train.step import eval_step, train_step
-from gcpnet_torch.train.trainer import prefetched
+from gcpnet_torch.train.trainer import Trainer, prefetched
 
 SEED = 0
 GRAPHS, NODES, EDGES_PER_NODE = 16, 448, 28
@@ -337,6 +354,12 @@ TRAIN_SCHEDULE = {"_target_": "StepLR", "step_size": 2, "gamma": 0.9}
 TRAIN_LR = 1e-4
 # the fits' scan_chunk_size: 4 training or validation batches a replay
 FIT_CHUNK = 4
+# the interaction layers each fit runs (its experiment's: NMS small_20body 4,
+# RS 8, PSR 5, CPD 9 encoder and 3 decoder layers, EQ 5, AR 4): every kernel
+# keeps its per-layer shape at full width, only its launches a step fall;
+# the checks read the depth from the fitted model (model_layers)
+FIT_LAYERS = {"nms": 2, "rs": 2, "psr": 2, "cpd": 3, "eq": 2, "ar": 2}
+CPD_FIT_DECODERS = 1
 FIT_LR = 1e-4  # the NMS and RS experiments' Adam rate
 # kernel names by the count they belong to (KERNEL_COUNTS' order, K3 by its
 # instantiation), as a graph's nodes give them (mangled) or demangled
@@ -489,6 +512,7 @@ GCP_FAMILY_CLASSES = ("GCP", "GCP2", "GCP3")
 FAMILY_CHUNK = 1
 GCP_FAMILY_STEPS = 6  # the first runs eagerly and captures, the rest replay
 GCP_FAMILY_CHECK_LAYERS = 2
+GCP_FAMILY_LAYERS = 2  # interaction layers of each run (the experiment's 8), each of 8 message layers
 # E(3) RS (rs-e3): a pair's logits agree within RS_PAIR_ATOL of the pair's
 # magnitude (at least 1); the fit's training batches
 RS_PAIR_ATOL = 1e-4
@@ -775,6 +799,32 @@ def route_bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
     if dtype == torch.float32:
         return (*bound_ms(nbytes, 3 * flops, dtype, PEAK_TF32_OPS_PER_S), "3 x flops at the TF32 tensor-core peak")
     return (*bound_ms(nbytes, flops, dtype), "flops at the bf16 tensor-core peak")
+
+
+class WrittenAhead:
+    """The synthetic data sets, written on one host thread while the kernels
+    build (phase_build waits on nvcc): ``start(key, write, ...)`` begins a
+    write, ``take(key)`` waits for it and gives ``(what it returned, its
+    seconds)``.  Each write draws from its own seeded generator, so the data
+    are those the phase would write itself."""
+
+    def __init__(self):
+        self._pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="chip_smoke_write")
+        self._futures = {}
+
+    def start(self, key: str, write, *args, **kw) -> None:
+        def timed():
+            t0 = time.perf_counter()
+            return write(*args, **kw), time.perf_counter() - t0
+
+        self._futures[key] = self._pool.submit(timed)
+
+    def take(self, key: str) -> tuple:
+        return self._futures.pop(key).result()
+
+    def close(self) -> None:
+        """Wait for the writes still running (their directories are removed next)."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 def phase_device() -> dict:
@@ -1174,6 +1224,11 @@ def k1_steps(task: str, layers: int, decoders: int = 0) -> tuple:
     forward = K1_FIXED[task] + 2 * layers + decoders
     backward = 2 * layers + 4 * decoders + (1 if task == "cpd" else 0)
     return forward + backward, forward
+
+
+def model_layers(model) -> int:
+    """The interaction layers a task model runs (CPD: its encoder's)."""
+    return model.num_encoder_layers if isinstance(model, GCPNetCPD) else model.encoder.num_layers
 
 
 def _lba_training(dtype: torch.dtype):
@@ -1922,7 +1977,7 @@ def _profile_steps(trainer, dm, loss_fn, layers: int, k1: tuple) -> dict:
 
 
 def phase_nms_fit(dm, ckpt_dir: str) -> dict:
-    """The NMS path: the full-width NMS model with the experiment's defaults
+    """The NMS path: the full-width NMS model at FIT_LAYERS["nms"] layers with the experiment's defaults
     (fp32, dropout 0.1, Adam at 1e-4) fitted by the Trainer with
     scan_chunk_size FIT_CHUNK (each full chunk of training or validation
     batches one replay of a CUDA graph) for NMS_EPOCHS epochs with
@@ -1932,12 +1987,13 @@ def phase_nms_fit(dm, ckpt_dir: str) -> dict:
     step and one replay of a train and an eval chunk under torch.profiler
     (_profile_steps).  Every kernel count is set to 0 just before the fit
     and read just after it (_fit_checks)."""
-    layers = task_configs("nms")[0].num_encoder_layers
-    build = lambda seed=SEED, **kw: build_task_trainer("nms", seed, "cuda", lr=FIT_LR, precision=32, **kw)  # noqa: E731
+    build = lambda seed=SEED, **kw: build_task_trainer(  # noqa: E731
+        "nms", seed, "cuda", num_encoder_layers=FIT_LAYERS["nms"], lr=FIT_LR, precision=32, **kw)
     eager = _eager_epoch(build, dm, nms_loss, NMS_BATCH)
     parity = fit_parity(build, dm, nms_loss)
     clock = EpochClock()
     trainer = build(max_epochs=NMS_EPOCHS, checkpoint_dir=ckpt_dir, loggers=[clock], scan_chunk_size=FIT_CHUNK)
+    layers = model_layers(trainer.model)
     clock.model = trainer.model
     gc.collect()  # the eager and parity runs' trainers: their memory is not the fit's
     torch.cuda.synchronize()
@@ -2078,13 +2134,14 @@ def phase_rs_check(dm) -> dict:
 
 
 def phase_rs_fit(dm, ckpt_dir: str):
-    """The RS path: the full-width RS model with the experiment's defaults
+    """The RS path: the full-width RS model at FIT_LAYERS["rs"] layers with the experiment's defaults
     (fp32, dropout 0.1, Adam at 1e-4, seed 42) fitted by the Trainer with
     scan_chunk_size FIT_CHUNK for RS_EPOCHS epochs with checkpoints, then
     the best checkpoint's test; beside it the first epoch of the same fit
     run eagerly (_eager_epoch).  Every kernel count is set to 0 just before
     the fit and read just after; rs-profile checks them (_fit_checks)."""
-    build = lambda **kw: build_task_trainer("rs", 42, "cuda", lr=FIT_LR, precision=32, **kw)  # noqa: E731
+    build = lambda **kw: build_task_trainer(  # noqa: E731
+        "rs", 42, "cuda", num_encoder_layers=FIT_LAYERS["rs"], lr=FIT_LR, precision=32, **kw)
     graphs = dm.bucket().num_graphs
     eager = _eager_epoch(build, dm, rs_loss, graphs)
     parity = fit_parity(build, dm, rs_loss)
@@ -2130,7 +2187,7 @@ def phase_rs_profile(trainer, dm, fit: dict) -> dict:
     """One warm eager RS training step of the fitted model and one replay
     of its captured train and eval chunks under torch.profiler; then the
     rs-fit's checks that read them (_fit_checks)."""
-    layers = task_configs("rs")[0].num_encoder_layers
+    layers = model_layers(trainer.model)
     results = _profile_steps(trainer, dm, rs_loss, layers, k1_steps("rs", layers))
     print("phase rs-profile: " + json.dumps(results), flush=True)
     _fit_checks("rs-fit", {**fit, **results}, layers, fit["epochs"][0], k1_steps("rs", layers))
@@ -2223,17 +2280,16 @@ def _timed_batches(batches, bucket=PSR_BUCKET) -> tuple:
         fills.append({**_batch_fill(batch), "in_bucket": in_bucket})
 
 
-def phase_psr_data(root: str):
-    """Synthetic PSR records written (write_psr_records) and read (setup);
+def phase_psr_data(root: str, ahead: WrittenAhead):
+    """Synthetic PSR records written (write_psr_records, during the build:
+    ``ahead``) and read (setup);
     one shuffled training epoch's batches made as the Trainer's prefetch
     thread makes them: the split's first pass before the first batch
     (which records featurize, the target codes), then each batch
     featurized, packed and sorted (ms a batch, and its pinning, against
     the step it must stay under); each batch's real nodes and edge rows
     against the bucket's."""
-    t0 = time.perf_counter()
-    counts = write_psr_records(root)
-    write_seconds = time.perf_counter() - t0
+    counts, write_seconds = ahead.take("psr")
     t0 = time.perf_counter()
     dm = psr_datamodule(root)
     setup_seconds = time.perf_counter() - t0
@@ -2333,7 +2389,7 @@ PSR_METRICS = ("loss", "RMSE", "local_pearson", "local_spearman", "local_kendall
 
 
 def phase_psr_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
-    """The PSR path: the full-width PSR model with the experiment's defaults
+    """The PSR path: the full-width PSR model at FIT_LAYERS["psr"] layers with the experiment's defaults
     (bf16 over float32 masters, dropout 0.1, Adam at 1e-4, seed 42) fitted
     by the Trainer with scan_chunk_size FIT_CHUNK for PSR_EPOCHS epochs with
     checkpoints, on a datamodule that has not read the records yet (the
@@ -2344,8 +2400,8 @@ def phase_psr_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
     read just after (psr-profile checks them); after the fit and after the
     resume each CapturedCall may hold two graphs, a full chunk's and the
     tail's, as every batch has the bucket's shape."""
-    layers = task_configs("psr")[0].num_encoder_layers
-    build = lambda seed=42, **kw: build_task_trainer("psr", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    build = lambda seed=42, **kw: build_task_trainer(  # noqa: E731
+        "psr", seed, "cuda", num_encoder_layers=FIT_LAYERS["psr"], lr=FIT_LR, precision=16, **kw)
     parity = fit_parity(build, psr_datamodule(root), graph_regression_loss)
     dm = psr_datamodule(root)
     clock = EpochClock()
@@ -2397,9 +2453,9 @@ def phase_psr_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
 def phase_psr_profile(trainer, dm, fit: dict) -> dict:
     """One warm eager PSR training step of the fitted model and one replay
     of its captured train and eval chunks under torch.profiler (busy ms,
-    idle share, kernels: K1, K2 and the bf16 K3 5 times a step); then the
+    idle share, kernels: K1, K2 and the bf16 K3 once a layer a step); then the
     psr-fit's checks that read them (_fit_checks)."""
-    layers = task_configs("psr")[0].num_encoder_layers
+    layers = model_layers(trainer.model)
     results = _profile_steps(trainer, dm, graph_regression_loss, layers, k1_steps("psr", layers))
     print("phase psr-profile: " + json.dumps(results), flush=True)
     _fit_checks("psr-fit", {**fit, **results}, layers, None, k1_steps("psr", layers), k3="K3_bf16")
@@ -2416,15 +2472,14 @@ def cpd_datamodule(root: str, batch_size: int = 8, max_nodes: int = CPD_BUCKET[0
     return dm
 
 
-def phase_cpd_data(root: str):
-    """Synthetic CATH chains written (write_cath_chains) and read
+def phase_cpd_data(root: str, ahead: WrittenAhead):
+    """Synthetic CATH chains written (write_cath_chains, during the build:
+    ``ahead``) and read
     (CATHDataModule); a shuffled training epoch's batches made as the
     Trainer's prefetch thread makes them (featurized on threads, packed,
     receiver-sorted): ms a batch and its pinning, each batch's real nodes
     and edge rows against the bucket's 2,048 and 61,440."""
-    t0 = time.perf_counter()
-    written = write_cath_chains(root, seed=SEED, chains=CPD_CHAINS, lengths=CPD_LENGTHS)
-    write_seconds = time.perf_counter() - t0
+    written, write_seconds = ahead.take("cpd")
     t0 = time.perf_counter()
     dm = cpd_datamodule(root)
     setup_seconds = time.perf_counter() - t0
@@ -2557,7 +2612,8 @@ CPD_METRICS = ("loss", "recovery_argmax")
 
 
 def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
-    """The CPD path: the full-width, full-depth CPD model with the
+    """The CPD path: the full-width CPD model at FIT_LAYERS["cpd"] encoder and
+    CPD_FIT_DECODERS decoder layers with the
     experiment's defaults (autoregressive decoder, bf16 over float32
     masters, dropout 0.2, Adam at 1e-4 with weight decay 1e-8, gradients
     accumulated over 4 batches, seed 42) fitted by the Trainer with
@@ -2566,7 +2622,9 @@ def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
     tests the best checkpoint.  Beside it the deterministic parity run
     (fit_parity).  Every kernel count is set to 0 just before the fit and
     read just after (cpd-profile checks them)."""
-    build = lambda seed=42, **kw: build_task_trainer("cpd", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    build = lambda seed=42, **kw: build_task_trainer(  # noqa: E731
+        "cpd", seed, "cuda", num_encoder_layers=FIT_LAYERS["cpd"], num_decoder_layers=CPD_FIT_DECODERS, lr=FIT_LR,
+        precision=16, **kw)
     parity = fit_parity(build, cpd_datamodule(root), cpd_loss)
     dm = cpd_datamodule(root)
     clock = EpochClock()
@@ -2616,10 +2674,10 @@ def phase_cpd_fit(root: str, ckpt_dir: str, graphs_per_batch: float):
 def phase_cpd_profile(trainer, dm, fit: dict) -> dict:
     """One warm eager CPD training step of the fitted model and one replay
     of its captured train and eval chunks under torch.profiler (busy ms,
-    idle share, kernels: K2 and the bf16 K3 9 times a step, K1 as
-    k1_steps counts it for 9 encoder and 3 decoder layers); then the
+    idle share, kernels: K2 and the bf16 K3 once an encoder layer a step, K1
+    as k1_steps counts it for the model's encoder and decoder layers); then the
     cpd-fit's checks that read them (_fit_checks)."""
-    layers = task_configs("cpd")[0].num_encoder_layers
+    layers = model_layers(trainer.model)
     k1 = k1_steps("cpd", layers, trainer.model.num_decoder_layers)
     results = _profile_steps(trainer, dm, cpd_loss, layers, k1)
     print("phase cpd-profile: " + json.dumps(results), flush=True)
@@ -2652,7 +2710,8 @@ def phase_cpd_design(trainer, dm) -> dict:
     name, graph = min(chains, key=lambda c: c[1].num_nodes)
     prof = device_profile(lambda: datum_recovery(model, graph, CPD_SAMPLES, CPD_TEMPERATURE))
     card = datum_samples(model, graph, CPD_ARGMAX_SAMPLES)
-    cpu_model = build_task_trainer("cpd", SEED, "cpu").model
+    cpu_model = build_task_trainer("cpd", SEED, "cpu", num_encoder_layers=model_layers(model),
+                                   num_decoder_layers=model.num_decoder_layers).model
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu = datum_samples(cpu_model, graph, CPD_ARGMAX_SAMPLES)
     positions = int(graph.num_nodes)
@@ -2680,7 +2739,7 @@ def phase_cpd_design(trainer, dm) -> dict:
     # and node frames a layer), 9 K2 each; and the sampler's decoder steps,
     # a sum a decoder layer at each position with a valid node (the
     # subgraphs carry their indices' sorted forms)
-    layers = task_configs("cpd")[0].num_encoder_layers
+    layers = model_layers(model)
     decoders = model.num_decoder_layers
     k1 = k1_steps("cpd", layers, decoders)[1] + 2 + 2 * layers
     steps = sum(g.num_nodes if g.node_mask is None else int(np.sum(g.node_mask)) for _, g in chains)
@@ -2843,7 +2902,7 @@ EQ_METRICS = ("loss", "RMSE", "PearsonCorrCoef")
 
 
 def phase_eq_fit(root: str, ckpt_dir: str):
-    """The EQ path: the full-width, full-depth EQ model with the
+    """The EQ path: the full-width EQ model at FIT_LAYERS["eq"] layers with the
     experiment's defaults (bf16 over float32 masters, dropout 0.1, Adam at
     1e-4, seed 42, one decoy a batch) fitted by the Trainer with
     scan_chunk_size FIT_CHUNK for EQ_EPOCHS epochs with checkpoints; a new
@@ -2852,7 +2911,8 @@ def phase_eq_fit(root: str, ckpt_dir: str):
     test RMSE and Pearson on the synthetic labels, peak memory.  Beside it
     the deterministic parity run (fit_parity).  Every kernel count is set to
     0 just before the fit and read just after (eq-profile checks them)."""
-    build = lambda seed=42, **kw: build_task_trainer("eq", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    build = lambda seed=42, **kw: build_task_trainer(  # noqa: E731
+        "eq", seed, "cuda", num_encoder_layers=FIT_LAYERS["eq"], lr=FIT_LR, precision=16, **kw)
     parity = fit_parity(build, eq_datamodule(root), eq_loss)
     dm = eq_datamodule(root)
     clock = EpochClock()
@@ -2902,10 +2962,10 @@ def phase_eq_fit(root: str, ckpt_dir: str):
 def phase_eq_profile(trainer, dm, fit: dict) -> dict:
     """One warm eager EQ training step of the fitted model and one replay of
     its captured train and eval chunks under torch.profiler (busy ms, idle
-    share, kernels: K2 and the bf16 K3 5 times a step, K1 as k1_steps counts
+    share, kernels: K2 and the bf16 K3 once a layer a step, K1 as k1_steps counts
     it, no scatter kernel); then the eq-fit's checks that read them
     (_fit_checks)."""
-    layers = task_configs("eq")[0].num_encoder_layers
+    layers = model_layers(trainer.model)
     k1 = k1_steps("eq", layers)
     results = _profile_steps(trainer, dm, eq_loss, layers, k1)
     print("phase eq-profile: " + json.dumps(results), flush=True)
@@ -2922,8 +2982,9 @@ def ar_datamodule(root: str, max_nodes: int = AR_BUCKET[0], max_residues: int = 
     return dm
 
 
-def phase_ar_data(root: str):
-    """Synthetic AR pairs written (write_ar_pairs) and read (ARDataModule):
+def phase_ar_data(root: str, ahead: WrittenAhead):
+    """Synthetic AR pairs written (write_ar_pairs, during the build:
+    ``ahead``) and read (ARDataModule):
     each split's first pass (parsing, the ESM cache, the hybrid kNN graph,
     the pair features and the native's positions; the evaluation graphs
     then cached, as the JAX module caches its uncropped graphs), then one
@@ -2931,9 +2992,7 @@ def phase_ar_data(root: str):
     makes them (each a 250-residue crop featurized anew, packed, sorted
     and given the sorted indices), and pinned: ms a batch for each; each
     batch's real nodes and edge rows against the bucket's."""
-    t0 = time.perf_counter()
-    written = write_ar_pairs(root, seed=SEED, pairs=AR_PAIRS)
-    write_seconds = time.perf_counter() - t0
+    written, write_seconds = ahead.take("ar")
     dm = ar_datamodule(root)
     first_pass = {}
     for split in ("train", "valid", "test"):
@@ -3044,7 +3103,7 @@ def phase_ar_check(root: str) -> dict:
 
 
 def phase_ar_fit(root: str, ckpt_dir: str):
-    """The AR path: the full-width, full-depth AR model with the
+    """The AR path: the full-width AR model at FIT_LAYERS["ar"] layers with the
     experiment's defaults (bf16 over float32 masters, dropout 0, Adam at
     1e-4, seed 42, one decoy a batch) fitted by the Trainer with
     scan_chunk_size FIT_CHUNK for AR_EPOCHS epochs with checkpoints; a new
@@ -3053,7 +3112,8 @@ def phase_ar_fit(root: str, ckpt_dir: str):
     test RMSE (A) on the synthetic pairs, peak memory.  Beside it the
     deterministic parity run (fit_parity).  Every kernel count is set to 0
     just before the fit and read just after (ar-profile checks them)."""
-    build = lambda seed=42, **kw: build_task_trainer("ar", seed, "cuda", lr=FIT_LR, precision=16, **kw)  # noqa: E731
+    build = lambda seed=42, **kw: build_task_trainer(  # noqa: E731
+        "ar", seed, "cuda", num_encoder_layers=FIT_LAYERS["ar"], lr=FIT_LR, precision=16, **kw)
     parity = fit_parity(build, ar_datamodule(root), ar_loss)
     dm = ar_datamodule(root)
     clock = EpochClock()
@@ -3102,11 +3162,11 @@ def phase_ar_fit(root: str, ckpt_dir: str):
 def phase_ar_profile(trainer, dm, fit: dict, data: dict) -> dict:
     """One warm eager AR training step of the fitted model and one replay of
     its captured train and eval chunks under torch.profiler (busy ms, idle
-    share, kernels: K2 and the bf16 K3 4 times a step, K1 as k1_steps
+    share, kernels: K2 and the bf16 K3 once a layer a step, K1 as k1_steps
     counts it, no scatter kernel); the host's ms to make a training batch
     (ar-data) against a replayed step's busy ms; then the ar-fit's checks
     that read them (_fit_checks)."""
-    layers = task_configs("ar")[0].num_encoder_layers
+    layers = model_layers(trainer.model)
     k1 = k1_steps("ar", layers)
     results = _profile_steps(trainer, dm, ar_loss, layers, k1)
     busy = results["profile_captured"]["device_busy_ms"]
@@ -3173,7 +3233,7 @@ def phase_ar_predict(trainer, root: str) -> dict:
     check(atoms == sum(int(b.extras["overlap_keep_mask"].sum()) for b in dm.predict_batches()),
           f"ar-predict: {atoms} atoms written")
     dm._predict_meta.clear()
-    layers = task_configs("ar")[0].num_encoder_layers
+    layers = model_layers(model)
     want = {"K1": 2 * k1_steps("ar", layers)[1], "K2": 2 * layers, "K3_bf16": 0, "K3_fp32": 0}
     check(launches == want, f"ar-predict: launches {launches}, want {want} (one window eager and captured)")
     check(err <= FORWARD_ATOL * max(1.0, scale), f"ar-predict: served vs eager {err} at scale {scale}")
@@ -3232,10 +3292,11 @@ def cfg_overrides(data_root: str, run_dir: str) -> list:
     ]
 
 
-def phase_cfg_train(data_root: str, run_dir: str) -> dict:
+def phase_cfg_train(data_root: str, run_dir: str, ahead: WrittenAhead) -> dict:
     """The config-driven training entry point on the card:
     ``gcpnet_torch.train.entry.main`` with experiment=gcpnet_lba on
-    synthetic LBA records (write_lba_records) at the experiment's widths
+    synthetic LBA records (write_lba_records, during the build: ``ahead``)
+    at the experiment's widths
     (its composed model's parameters named and shaped as a GCPNetLBA built
     directly at the benchmark's widths), fitted for CFG_EPOCHS epochs and
     tested with the best checkpoint.  Every kernel count is set to 0 just
@@ -3245,9 +3306,7 @@ def phase_cfg_train(data_root: str, run_dir: str) -> dict:
     torch.profiler (36 / 8 / 8 a step, no scatter kernel); the train
     graphs/s, the captured step's busy ms, peak memory, and the host's ms
     to make a batch."""
-    t0 = time.perf_counter()
-    data = write_lba_records(os.path.join(data_root, "ATOM3D"))
-    write_seconds = time.perf_counter() - t0
+    data, write_seconds = ahead.take("lba")
     overrides = cfg_overrides(data_root, run_dir)
     cfg = compose(CONFIG_DIR, "train.yaml", overrides)
     composed, name = tasks.build_model(cfg["model"], device="cuda")
@@ -3355,7 +3414,7 @@ def phase_cfg_predict(eq_root: str, ckpt_dir: str, work: str) -> dict:
         "model=gcpnet_eq", "datamodule=eq", f"ckpt_path={ckpt_dir}", f"datamodule.predict_input_dir={inputs}",
         f"datamodule.predict_true_dir={natives}", f"datamodule.predict_output_dir={out}",
         f"datamodule.model_data_cache_dir={eq_root}/model_data_cache", f"paths.output_dir={run_dir}",
-        "extras.print_config=false",
+        f"model.model_cfg.num_encoder_layers={FIT_LAYERS['eq']}", "extras.print_config=false",
     ]
     served = []
     torch.cuda.synchronize()
@@ -3525,7 +3584,8 @@ def _public(results: dict) -> dict:
 
 def phase_gcp_family(data_root: str, run_dir: str) -> dict:
     """The rest of the GCP family through ``gcpnet_torch.train``'s main, at
-    full width: experiment=gcpnet_lba_ablations (8 x 8 layers, 100/16/32/4,
+    full width: experiment=gcpnet_lba_ablations (GCP_FAMILY_LAYERS of its 8
+    interaction layers, each of 8 message layers, 100/16/32/4,
     bf16 over float32 masters, batch 16, the JAX bucket) on cfg-train's
     synthetic LBA records, once for each of GCP_FAMILY_RUNS (the frame,
     scalar and vector ablations, GCP v1 with the sigma frame gate, GCP2
@@ -3536,7 +3596,8 @@ def phase_gcp_family(data_root: str, run_dir: str) -> dict:
     and one fp32 step of the frame-ablated model (GCP_FAMILY_CHECK_LAYERS
     layers, the train-check's batch) on the card against the CPU."""
     base = ["experiment=gcpnet_lba_ablations", f"paths.data_dir={data_root}/", "trainer.max_epochs=1", "test=false",
-            f"+trainer.limit_train_batches={GCP_FAMILY_STEPS}", f"+trainer.scan_chunk_size={FAMILY_CHUNK}"]
+            f"model.model_cfg.num_encoder_layers={GCP_FAMILY_LAYERS}", f"+trainer.limit_train_batches={GCP_FAMILY_STEPS}",
+            f"+trainer.scan_chunk_size={FAMILY_CHUNK}"]
     dm = build_datamodule(compose(CONFIG_DIR, "train.yaml", base)["datamodule"], device="cuda")
     dm.setup()
     train = [b.pinned() for b in itertools.islice(dm.train_batches(seed=0), FAMILY_CHUNK)]
@@ -3568,6 +3629,144 @@ def phase_gcp_family(data_root: str, run_dir: str) -> dict:
     results["check"] = card_vs_cpu_step("gcp-family-check", build, batch, graph_regression_loss,
                                         GCP_FAMILY_CHECK_LAYERS, fp32_k3=0)
     print("phase gcp-family: ok")
+    return results
+
+
+# --- budget batching, CA-only graphs and layer_class overrides -------------------
+
+OVERRIDE_STEPS = 2  # training batches a run: the first runs eagerly and captures, the second replays
+OVERRIDE_CHECK_LAYERS = 2
+PSR_MAX_UNITS = 262144  # datamodule.max_units of the PSR run: edge rows a batch may hold
+
+
+@contextlib.contextmanager
+def recorded_batches(target: str, fills: list):
+    """Inside, the registry's ``target`` datamodule records each batch it
+    makes into ``fills``: _batch_fill, its shape, whether it has CSR
+    splits, and its residues where it has a residue mask."""
+    base = datamodule_registry.DATAMODULES[target]
+
+    class Recording(base):
+        def batches(self, *args, **kw):
+            for b in super().batches(*args, **kw):
+                fill = {**_batch_fill(b), "shape": [b.num_nodes, b.num_edges], "csr": b.edge_row_splits is not None}
+                if "res_mask" in b.extras:
+                    fill["residues"] = int(np.sum(b.extras["res_mask"]))
+                fills.append(fill)
+                yield b
+
+    datamodule_registry.DATAMODULES[target] = Recording
+    try:
+        yield
+    finally:
+        datamodule_registry.DATAMODULES[target] = base
+
+
+def _override_fit(name: str, overrides: list, run_dir: str, target: str, layer_class: str) -> tuple:
+    """A short fit through ``gcpnet_torch.train``'s main with ``overrides``,
+    at the experiment's width and depth: OVERRIDE_STEPS training batches
+    (the first eager and captured, the next replayed) and the validation,
+    no test; every count set to 0 just before main and read just after,
+    every batch the ``target`` datamodule made recorded
+    (recorded_batches).  Held: the losses finite, the trunk built of
+    ``layer_class``, K1, K2 and the bf16 K3 launched, at most two CUDA
+    graphs held a split.  Returns the results and every batch's fill."""
+    overrides = [*overrides, "trainer.max_epochs=1", "trainer.min_epochs=0", "test=false",
+                 f"+trainer.limit_train_batches={OVERRIDE_STEPS}", f"paths.output_dir={run_dir}",
+                 f"callbacks.model_checkpoint.dirpath={run_dir}", "extras.print_config=false"]
+    trainers, fills = [], []
+    gc.collect()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with recorded_batches(target, fills):
+        metrics = train_entry.main(overrides, trainers=trainers)
+    torch.cuda.synchronize()
+    trainer = trainers[0]
+    results = {
+        "overrides": overrides, "metrics": metrics, "seconds": time.perf_counter() - t0,
+        "launches": dict(zip(KERNEL_COUNTS, launch_counts())), "steps": trainer.state.step,
+        "layer_class": type(trainer.model.encoder.interaction_0).__name__, "layers": model_layers(trainer.model),
+        "batches": len(fills), "fills": fills[:4], **_fit_record(trainer, None, None, FIT_LR),
+    }
+    launches, graphs = results["launches"], results["graphs"]
+    print(f"phase overrides {name}: " + json.dumps(results), flush=True)
+    check(all(math.isfinite(metrics.get(k, float("nan"))) for k in ("train/loss", "val/loss")),
+          f"overrides {name}: losses {metrics}")
+    check(results["layer_class"] == layer_class, f"overrides {name}: the trunk is {results['layer_class']}")
+    check(results["steps"] == OVERRIDE_STEPS, f"overrides {name}: {results['steps']} steps")
+    check(launches["K1"] > 0 and launches["K2"] > 0 and launches["K3_bf16"] > 0 and launches["K3_fp32"] == 0,
+          f"overrides {name}: launches {launches}")
+    check(graphs["train_held"] <= 2 and graphs["eval_held"] <= 2, f"overrides {name}: CUDA graphs held {graphs}")
+    check(fills and all(f["csr"] for f in fills), f"overrides {name}: a batch without CSR splits")
+    return results, fills
+
+
+def _layer_class_model(task: str, layer_class: str, dev):
+    """``task``'s experiment on ``layer_class`` at full width and
+    OVERRIDE_CHECK_LAYERS layers, no dropout, float32: (model, state)."""
+    trainer = build_task_trainer(task, SEED, dev, num_encoder_layers=OVERRIDE_CHECK_LAYERS, dropout=0.0,
+                                 precision=32, layer_class=layer_class)
+    return trainer.model, trainer.state
+
+
+def phase_overrides(psr_root: str, eq_root: str, eq_check_root: str, cfg_root: str, run_dir: str) -> dict:
+    """Datamodule and model settings of the config-driven entry point that
+    the experiments leave off, each a short fit through
+    ``gcpnet_torch.train``'s main (_override_fit):
+
+    - PSR on psr-data's records under an edge budget
+      (``datamodule.max_units=PSR_MAX_UNITS``): every batch the datamodule
+      made of the JAX module's ``make_bucket`` shape, its real rows within
+      the budget;
+    - EQ's CA-only graphs (``datamodule.subset_to_ca_atoms_only=true``) of
+      eq-data's decoys: one node a residue, cached as ``<name>_ca``;
+    - LBA on ``GCPInteractions2`` on cfg-train's records, and EQ on
+      ``GCPInteractions`` on eq-data's decoys (``model.layer_class``), each
+      beside one float32 step at OVERRIDE_CHECK_LAYERS layers on the card
+      against the CPU (card_vs_cpu_step, as train-check and eq-check),
+      through K1-K3."""
+    results = {}
+    psr = ["experiment=gcpnet_psr", f"datamodule.data_dir={psr_root}", f"datamodule.max_units={PSR_MAX_UNITS}"]
+    run, fills = _override_fit("psr-budget", psr, os.path.join(run_dir, "psr"), "ATOM3DDataModule", "GCPInteractions")
+    block = compose(CONFIG_DIR, "train.yaml", psr)["datamodule"]
+    bucket = make_bucket(PSR_MAX_UNITS, "edge", int(block["batch_size"]), avg_degree=int(block["max_neighbors"]))
+    check(all(f["shape"] == [bucket.num_nodes, bucket.num_edges] and f["real_edges"] <= PSR_MAX_UNITS
+              for f in fills), f"overrides psr-budget: a batch outside the budget's bucket {bucket}")
+    results["psr_budget"] = {**run, "bucket": [bucket.num_nodes, bucket.num_edges, bucket.num_graphs]}
+
+    eq_dirs = [f"datamodule.{k}={os.path.join(eq_root, d)}" for k, d in (
+        ("splits_dir", "splits"), ("decoy_dir", "decoy_model"), ("true_dir", "true_model"),
+        ("model_data_cache_dir", "model_data_cache"))]
+    with required_esm():
+        run, fills = _override_fit("eq-ca-only", ["experiment=gcpnet_eq", *eq_dirs,
+                                                  "datamodule.subset_to_ca_atoms_only=true"],
+                                   os.path.join(run_dir, "eq_ca"), "EQDataModule", "GCPInteractions2")
+    cached = [n for n in os.listdir(os.path.join(eq_root, "model_data_cache")) if n.endswith("_ca.graph.npz")]
+    check(all(f["real_nodes"] == f["residues"] for f in fills),
+          "overrides eq-ca-only: a batch with other nodes than its residues' CA atoms")
+    check(len(cached) > 0, "overrides eq-ca-only: no CA-only graph cached")
+    results["eq_ca_only"] = {**run, "cached_ca_graphs": len(cached)}
+
+    lba = ["experiment=gcpnet_lba", f"paths.data_dir={cfg_root}/", "model.layer_class._target_=GCPInteractions2"]
+    run, _ = _override_fit("lba-interactions2", lba, os.path.join(run_dir, "lba"), "ATOM3DDataModule",
+                           "GCPInteractions2")
+    batch = synthetic_batches(1, TRAIN_CHECK_GRAPHS, NODES, EDGES_PER_NODE, SEED + 5)[0]
+    run["check"] = card_vs_cpu_step("overrides lba-interactions2-check",
+                                    lambda dev: _layer_class_model("lba", "GCPInteractions2", dev), batch,
+                                    graph_regression_loss, OVERRIDE_CHECK_LAYERS)
+    results["lba_interactions2"] = run
+
+    with required_esm():
+        run, _ = _override_fit("eq-interactions", ["experiment=gcpnet_eq", *eq_dirs,
+                                                   "model.layer_class._target_=GCPInteractions"],
+                               os.path.join(run_dir, "eq"), "EQDataModule", "GCPInteractions")
+    batch = next(eq_datamodule(eq_check_root, EQ_CHECK_NODES, EQ_CHECK_RESIDUES).val_batches())
+    run["check"] = card_vs_cpu_step("overrides eq-interactions-check",
+                                    lambda dev: _layer_class_model("eq", "GCPInteractions", dev), batch, eq_loss,
+                                    OVERRIDE_CHECK_LAYERS, params_by_share=True)
+    results["eq_interactions"] = run
+    print("phase overrides: ok")
     return results
 
 
@@ -3645,7 +3844,7 @@ def _random_sequence(rng: np.random.Generator, n: int) -> str:
     return "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n))
 
 
-def phase_esm(eq_root: str, work: str) -> dict:
+def phase_esm(eq_root: str, work: str, ahead: WrittenAhead) -> dict:
     """ESM-2 650M (ESM2Config.t33_650M) with random weights from SEED,
     initialised as the transformers library's ESM-2 is, written as a
     fair-esm-shaped checkpoint (with its ``args`` Namespace) and loaded
@@ -3655,7 +3854,8 @@ def phase_esm(eq_root: str, work: str) -> dict:
     (its sequence; CUDA events around embed_sequence, the copy to the host
     included) and peak memory; the card against the CPU on the same weights
     at ESM_CHECK_RESIDUES residues with TF32 off, within ESM_CARD_CPU_ATOL.
-    Then EQ's synthetic decoys (written here; eq-data featurizes them) get
+    Then EQ's synthetic decoys (written during the build: ``ahead``;
+    eq-data featurizes them) get
     the model's embeddings in place of their seeded cache, through the
     datamodule's ahead-of-time tier (EQDataModule.prepare_embeddings) on
     the card, and a decoy's features carry them.  ESM-2 runs no kernel of
@@ -3706,9 +3906,7 @@ def phase_esm(eq_root: str, work: str) -> dict:
             torch.backends.cuda.matmul.allow_tf32 = tf32
         del cpu_model
         # EQ's decoys: the model's embeddings replace the seeded cache
-        t0 = time.perf_counter()
-        written = write_eq_decoys(eq_root, seed=SEED, targets=EQ_TARGETS, decoys=EQ_DECOYS, residues=EQ_RESIDUES)
-        write_seconds = time.perf_counter() - t0
+        written, write_seconds = ahead.take("eq")
         esm_dir = os.path.join(eq_root, "model_data_cache", "esm")
         shutil.rmtree(esm_dir)
         dm = EQDataModule.from_data_dir(eq_root, esm_device="cuda")
@@ -3756,7 +3954,13 @@ def phase_esm(eq_root: str, work: str) -> dict:
 DDP_STEPS = 4  # the first runs eagerly and captures, the rest replay
 DDP_GLOO_STEPS = 3
 DDP_SHARDS = 2
-DDP_TIMEOUT = 240  # seconds for the two gloo processes, start-up included
+# seconds for the two gloo processes, start-up included (20 launches on one
+# H100 took 13.3-28.2 s each); a process still running at 0.9 of it prints
+# its stacks, and running over it fails the phase
+DDP_TIMEOUT = 90
+# the evaluation over 2 ranks against one process's: the same float32
+# forwards, the loss's mean taken over the shards in another order
+DDP_EVAL_RTOL = 1e-6
 
 
 def _ddp_shards() -> list:
@@ -3789,12 +3993,25 @@ def _captured_dp_run(shard, group) -> dict:
     }
 
 
+def _lba_evaluator(model, group=None) -> Trainer:
+    """The Trainer that tests LBA's ``model`` (its loss, collect and
+    metrics) alone or in ``group``; over gloo it runs eagerly."""
+    return Trainer(model, graph_regression_loss, group=group, early_stopping_patience=None,
+                   collect_fn=tasks.build_collect("GCPNetLBA"), metric_fns=tasks.build_metric_fns("GCPNetLBA"))
+
+
 def _gloo_worker(steps: int) -> dict:
-    """One rank of the gloo run on the one card: ``steps`` eager bf16
-    steps of _lba_training on its shard (its dropout stream its own)."""
+    """One rank of the gloo run on the one card: its shard of the global
+    batch tested with the starting weights (the Trainer's evaluation over
+    the group: the loss averaged, the predictions gathered), then ``steps``
+    eager bf16 steps of _lba_training on it (its dropout stream its own)."""
     group = parallel.init_from_env("cuda", backend="gloo")
-    shard = _ddp_shards()[group.rank].to(torch.device("cuda"))
+    host = _ddp_shards()[group.rank]
+    shard = host.to(torch.device("cuda"))
     model, state, _ = _lba_training(torch.bfloat16)
+    reset_counts()
+    evaluation = _lba_evaluator(model, group).eval_epoch([host], prefix="test")
+    eval_launches = dict(zip(KERNEL_COUNTS, launch_counts()))
     state.group = group
     gen = _dp_generator(group.rank)
     reset_counts()
@@ -3803,7 +4020,8 @@ def _gloo_worker(steps: int) -> dict:
     out = {"losses": losses, "params": flat_params(model).cpu(), "launches": dict(zip(KERNEL_COUNTS, launch_counts())),
            "ok": all(bool(r.ok) for r in results)}
     gathered = parallel.all_gather_objects(out["launches"], group)
-    return {**out, "launches_by_rank": gathered}
+    return {**out, "launches_by_rank": gathered, "evaluation": evaluation,
+            "eval_launches_by_rank": parallel.all_gather_objects(eval_launches, group)}
 
 
 def _two_shard_reference(shards, steps: int) -> dict:
@@ -3869,7 +4087,13 @@ def phase_ddp(work: str) -> dict:
     # the two processes share the card with this one: hand back its cache
     gc.collect()
     torch.cuda.empty_cache()
+    sigchld = str(signal.getsignal(signal.SIGCHLD))  # how this process's ended children are reaped
+    t0 = time.perf_counter()
     gloo = parallel.launch(_gloo_worker, DDP_SHARDS, DDP_GLOO_STEPS, timeout=DDP_TIMEOUT)
+    gloo_seconds = time.perf_counter() - t0
+    # one process tests both shards with the starting weights
+    evaluation = _lba_evaluator(_lba_training(torch.bfloat16)[0]).eval_epoch(shards, prefix="test")
+    eval_rel = {k: abs(gloo["evaluation"][k] - v) / max(abs(v), 1e-12) for k, v in evaluation.items()}
     ref = _two_shard_reference(shards, DDP_GLOO_STEPS)
     gloo_gap = param_gap(gloo["params"].cuda(), ref["params"], alone["start"], TRAIN_LR, DDP_GLOO_STEPS)
     loss_rel = float(np.max(np.abs(np.subtract(gloo["losses"], ref["losses"])) / np.abs(ref["losses"])))
@@ -3889,6 +4113,9 @@ def phase_ddp(work: str) -> dict:
         "world2_gloo": {
             "losses": gloo["losses"], "reference_losses": ref["losses"], "loss_max_rel_diff": loss_rel,
             "params": gloo_gap, "loss_bound_rel": REPLAY_TOL["losses"], "launches_by_rank": gloo["launches_by_rank"],
+            "launch_seconds": gloo_seconds, "timeout": DDP_TIMEOUT, "sigchld_before_launch": sigchld,
+            "evaluation": gloo["evaluation"], "one_process_evaluation": evaluation, "evaluation_rel_diff": eval_rel,
+            "eval_launches_by_rank": gloo["eval_launches_by_rank"],
         },
         "world2_nccl": nccl2,
     }
@@ -3902,6 +4129,12 @@ def phase_ddp(work: str) -> dict:
     for rank, launches in enumerate(gloo["launches_by_rank"]):
         check(all(launches[k] > 0 for k in ("K1", "K2", "K3_bf16")), f"ddp gloo rank {rank}: launches {launches}")
     check(loss_rel <= REPLAY_TOL["losses"], f"ddp: gloo world 2 losses apart from the reference by {loss_rel}")
+    for rank, launches in enumerate(gloo["eval_launches_by_rank"]):
+        check(launches["K1"] > 0 and launches["K2"] > 0 and launches["K3_bf16"] == launches["K3_fp32"] == 0,
+              f"ddp gloo rank {rank}: evaluation launches {launches}")
+    check(set(eval_rel) == set(gloo["evaluation"]) and "test/RMSE" in eval_rel
+          and all(v <= DDP_EVAL_RTOL for v in eval_rel.values()),
+          f"ddp: gloo world 2's evaluation apart from one process's: {eval_rel}")
     check_param_gap("ddp gloo world 2", gloo_gap)
     print("phase ddp: ok")
     return results
@@ -4031,16 +4264,19 @@ def kernel_line(report) -> dict:
 class TimedReport(dict):
     """The report, which also keeps the seconds since the previous entry
     for each entry set (``seconds``): a phase's time, its set-up in main
-    included."""
+    included.  Each entry prints, flushed, its phase's seconds and the
+    run's so far (``chip_smoke: phase <name> <s> s, total <t> s``), so a
+    run that is cut shows the last phase it finished."""
 
-    def __init__(self):
+    def __init__(self, start: float):
         super().__init__()
         self.seconds = {}
-        self._last = time.perf_counter()
+        self._start = self._last = start
 
     def __setitem__(self, key, value):
         now = time.perf_counter()
         self.seconds[key], self._last = now - self._last, now
+        print(f"chip_smoke: phase {key} {self.seconds[key]:.1f} s, total {now - self._start:.1f} s", flush=True)
         super().__setitem__(key, value)
 
 
@@ -4083,13 +4319,22 @@ def main() -> int:
     ar_root, ar_ckpt_dir = os.path.join(work, "ar"), os.path.join(args.out_dir, "ar_checkpoints")
     cfg_run_dir = os.path.join(args.out_dir, "cfg_run")
     family_dir, rs_e3_dir = os.path.join(args.out_dir, "gcp_family"), os.path.join(args.out_dir, "rs_e3_checkpoints")
+    overrides_dir = os.path.join(args.out_dir, "overrides")
     run_dirs = (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir, cfg_run_dir, family_dir,
-                rs_e3_dir)
+                rs_e3_dir, overrides_dir)
     for path in run_dirs:
         shutil.rmtree(path, ignore_errors=True)
-    report = TimedReport()
+    report = TimedReport(t_start)
+    ahead = WrittenAhead()
     try:
         report["device"] = phase_device()
+        # the data sets' records, written on the host while nvcc builds
+        ahead.start("psr", write_psr_records, psr_root)
+        ahead.start("cpd", write_cath_chains, cpd_root, seed=SEED, chains=CPD_CHAINS, lengths=CPD_LENGTHS)
+        ahead.start("eq", write_eq_decoys, eq_root, seed=SEED, targets=EQ_TARGETS, decoys=EQ_DECOYS,
+                    residues=EQ_RESIDUES)
+        ahead.start("ar", write_ar_pairs, ar_root, seed=SEED, pairs=AR_PAIRS)
+        ahead.start("lba", write_lba_records, os.path.join(work, "cfg_data", "ATOM3D"))
         report["build"] = phase_build(args.out_dir)
         batches = synthetic_batches(FORWARD_BATCHES, GRAPHS, NODES, EDGES_PER_NODE, SEED)
         csr = synthetic_batches(1, GRAPHS, NODES, EDGES_PER_NODE, SEED, sort_tile=1)[0]
@@ -4101,19 +4346,19 @@ def main() -> int:
         report["nms_kernels"] = phase_nms_kernels(dm)
         rs_dm, report["rs_data"] = phase_rs_data()
         report["rs_kernels"] = phase_rs_kernels(rs_dm)
-        psr_dm, report["psr_data"] = phase_psr_data(psr_root)
+        psr_dm, report["psr_data"] = phase_psr_data(psr_root, ahead)
         report["psr_kernels"] = phase_psr_kernels(psr_dm)
         del psr_dm
-        cpd_dm, report["cpd_data"] = phase_cpd_data(cpd_root)
+        cpd_dm, report["cpd_data"] = phase_cpd_data(cpd_root, ahead)
         report["cpd_kernels"] = phase_cpd_kernels(cpd_dm)
         del cpd_dm
-        report["esm"] = phase_esm(eq_root, work)
+        report["esm"] = phase_esm(eq_root, work, ahead)
         with required_esm():
             eq_dm, report["eq_data"] = phase_eq_data(eq_root, report["esm"]["eq_written"],
                                                      report["esm"]["eq_write_seconds"])
         report["eq_kernels"] = phase_eq_kernels(eq_dm)
         del eq_dm
-        ar_dm, report["ar_data"] = phase_ar_data(ar_root)
+        ar_dm, report["ar_data"] = phase_ar_data(ar_root, ahead)
         report["ar_kernels"] = phase_ar_kernels(ar_dm)
         del ar_dm
         report["forward"] = phase_forward(batches)
@@ -4154,10 +4399,12 @@ def main() -> int:
         report["ar_predict"] = phase_ar_predict(ar_trainer, os.path.join(work, "ar_predict"))
         del ar_trainer, ar_dm
         gc.collect()
-        report["cfg_train"] = phase_cfg_train(os.path.join(work, "cfg_data"), cfg_run_dir)
+        report["cfg_train"] = phase_cfg_train(os.path.join(work, "cfg_data"), cfg_run_dir, ahead)
         report["cfg_eval"] = phase_cfg_eval(os.path.join(work, "cfg_data"), cfg_run_dir, report["cfg_train"])
         report["cfg_predict"] = phase_cfg_predict(eq_root, eq_ckpt_dir, os.path.join(work, "cfg_predict"))
         report["gcp_family"] = phase_gcp_family(os.path.join(work, "cfg_data"), family_dir)
+        report["overrides"] = phase_overrides(psr_root, eq_root, os.path.join(work, "eq_check"),
+                                              os.path.join(work, "cfg_data"), overrides_dir)
         report["rs_e3"] = phase_rs_e3(rs_dm, rs_e3_dir)
         del rs_dm
         gc.collect()
@@ -4166,6 +4413,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
+        ahead.close()
         for path in (work, *run_dirs):
             shutil.rmtree(path, ignore_errors=True)
         report.seconds["total"] = time.perf_counter() - t_start

@@ -17,6 +17,8 @@ downloads nothing.
 Batches are receiver-sorted with CSR row splits (``tile=1``), so on the
 card every step runs K1, K2 and K3; the JAX module's default is the dense
 slot-major layout, which the port does not have yet (the math is the same).
+With ``max_units > 0`` the bucket comes from that edge or node budget, as
+the JAX module's does (:meth:`ATOM3DDataModule.bucket`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, shuffled_order
+from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, make_bucket, shuffled_order
 from gcpnet_torch.data.features import edge_geometric_features, orientations
 from gcpnet_torch.graph import GraphBatch, GraphData
 
@@ -109,9 +111,13 @@ class ATOM3DDataModule:
         max_neighbors: int = 32,
         batch_size: int = 16,
         max_nodes_per_batch: int = 16384,
+        max_units: int = 0,
+        unit: str = "edge",
         shards: Shards = Shards(),
     ):
-        """``shards`` is this process's share of each global batch."""
+        """``max_units > 0`` packs under that budget of ``unit`` (``edge``
+        or ``node``) instead of ``max_nodes_per_batch`` (:meth:`bucket`);
+        ``shards`` is this process's share of each global batch."""
         self.task = task.upper()
         if self.task not in ("LBA", "PSR"):
             raise ValueError(f"ATOM3DDataModule: task {task!r} is not LBA or PSR")
@@ -121,6 +127,8 @@ class ATOM3DDataModule:
         self.max_neighbors = max_neighbors
         self.batch_size = batch_size
         self.max_nodes_per_batch = max_nodes_per_batch
+        self.max_units = max_units
+        self.unit = unit
         self.shards = shards
         self.datasets = {}
         self._target_codes = {}
@@ -212,14 +220,23 @@ class ATOM3DDataModule:
         if index is None:
             self._featurized[split] = kept
 
-    def _bucket(self) -> Bucket:
+    def bucket(self) -> Bucket:
+        """The padded shape of every batch: under a unit budget
+        (``max_units > 0``, the reference's edge-budget sampler) the JAX
+        module's ``make_bucket`` with the radius graph's neighbour cap as the
+        mean degree, else ``max_nodes_per_batch`` nodes and that many times
+        ``max_neighbors`` edge rows.  Batches take the CSR layout, which
+        needs no alignment slack, in both modes (the JAX module turns its
+        dense layout off under a budget)."""
+        if self.max_units > 0:
+            return make_bucket(self.max_units, self.unit, self.batch_size, avg_degree=self.max_neighbors)
         n = self.max_nodes_per_batch
         return Bucket(num_nodes=n, num_edges=n * self.max_neighbors, num_graphs=self.batch_size)
 
     def batches(self, split: str, shuffle: bool = False, seed: int = 0) -> Iterator[GraphBatch]:
         if shuffle:
             return self._shuffled_batches(split, seed)
-        return batches_from_dataset(self._graphs(split), self._bucket(), ("label", "target_id"), self.shards)
+        return batches_from_dataset(self._graphs(split), self.bucket(), ("label", "target_id"), self.shards)
 
     def _shuffled_batches(self, split: str, seed: int) -> Iterator[GraphBatch]:
         if split not in self._featurized:
@@ -227,7 +244,7 @@ class ATOM3DDataModule:
                 pass
         index = np.asarray(self._featurized[split])[shuffled_order(len(self._featurized[split]), seed)]
         yield from batches_from_dataset(
-            self._graphs(split, index.tolist()), self._bucket(), ("label", "target_id"), self.shards, drop_last=True
+            self._graphs(split, index.tolist()), self.bucket(), ("label", "target_id"), self.shards, drop_last=True
         )
 
     def train_batches(self, seed: int = 0) -> Iterator[GraphBatch]:

@@ -1,5 +1,5 @@
-"""Padded shape buckets, collation, the receiver-sorted edge layout, and
-packing a dataset into batches.
+"""Padded shape buckets (also from a unit budget), collation, the
+receiver-sorted edge layout, and packing a dataset into batches.
 
 Port of the edge-list parts of ``gcpnet_tpu/data/batching.py``.  Host-side
 numpy; the result goes to the card through ``GraphBatch.to``.  Under data
@@ -14,7 +14,7 @@ import dataclasses
 import itertools
 import os
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, List, Optional, Sequence
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -47,6 +47,45 @@ class Bucket:
     num_nodes: int
     num_edges: int
     num_graphs: int
+
+
+def pack_by_budget(
+    sizes: Sequence[Tuple[int, int]], max_units: int, unit: str = "edge", shuffle_order: Optional[np.ndarray] = None,
+) -> List[List[int]]:
+    """Graph indices packed greedily into batches of at most ``max_units``
+    edges (``unit="edge"``) or nodes (``"node"``), in ``shuffle_order``
+    (default: index order), from per-graph ``(num_nodes, num_edges)``
+    ``sizes``: the reference ``BatchSampler``'s strategy
+    (``gcpnet_tpu/data/batching.py:49-81``).  A graph over the budget alone
+    is dropped, as the reference drops it."""
+    order = shuffle_order if shuffle_order is not None else np.arange(len(sizes))
+    batches: List[List[int]] = []
+    current: List[int] = []
+    used = 0
+    for idx in order:
+        n, e = sizes[idx]
+        u = e if unit == "edge" else n
+        if u > max_units:
+            continue
+        if used + u > max_units and current:
+            batches.append(current)
+            current, used = [], 0
+        current.append(int(idx))
+        used += u
+    if current:
+        batches.append(current)
+    return batches
+
+
+def make_bucket(max_units: int, unit: str, num_graphs: int, avg_degree: float = 32.0) -> Bucket:
+    """The padded bucket of a unit budget (``gcpnet_tpu/data/batching.py:
+    84-98``): an edge budget holds ``max_units`` edge rows and
+    ``max_units / avg_degree x 1.5 + 8`` nodes; a node budget
+    ``max_units`` nodes and ``max_units x avg_degree + 8`` edge rows."""
+    if unit == "edge":
+        return Bucket(num_nodes=int(max_units / max(avg_degree, 1.0) * 1.5) + 8, num_edges=max_units,
+                      num_graphs=num_graphs)
+    return Bucket(num_nodes=max_units, num_edges=int(max_units * avg_degree) + 8, num_graphs=num_graphs)
 
 
 def sorted_index(index: np.ndarray, valid: np.ndarray, num_segments: int):

@@ -8,8 +8,8 @@ Port of ``gcpnet_tpu/data/cath.py``: chain records of ``chain_set.jsonl``
 apart.  Chains become kNN residue graphs (``data.protein_graph``) with
 ``top_k`` neighbours, taken from ``features_cfg`` or 30: ``max_neighbors``
 is accepted and not read, as in the JAX module.  The bucket holds
-``max_nodes_per_batch`` nodes; the JAX module's edge-budget bucket
-(``max_units > 0``), which no experiment config sets, is not ported.
+``max_nodes_per_batch`` nodes, or with ``max_units > 0`` comes from that
+edge or node budget, as the JAX module's does (:meth:`CATHDataModule.bucket`).
 
 Two differences from the JAX module.  ``prepare_data`` downloads nothing:
 the files must be in ``data_dir``, and it raises naming those that are
@@ -28,7 +28,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, shuffled_order
+from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, make_bucket, shuffled_order
 from gcpnet_torch.data.protein_graph import featurize_protein
 from gcpnet_torch.graph import GraphBatch, GraphData
 
@@ -51,9 +51,13 @@ class CATHDataModule:
         top_k: int = 30,
         num_rbf: int = 16,
         max_nodes_per_batch: int = 2048,
+        max_units: int = 0,
+        unit: str = "edge",
         shards: Shards = Shards(),
     ):
-        """``shards`` is this process's share of each global batch."""
+        """``max_units > 0`` packs under that budget of ``unit`` (``edge``
+        or ``node``) instead of ``max_nodes_per_batch`` (:meth:`bucket`);
+        ``shards`` is this process's share of each global batch."""
         self.data_dir = data_dir
         self.file_name = file_name
         self.splits_file_name = splits_file_name
@@ -64,6 +68,8 @@ class CATHDataModule:
         self.top_k = int(self.features_cfg.get("top_k", top_k))
         self.num_rbf = num_rbf
         self.max_nodes_per_batch = max_nodes_per_batch
+        self.max_units = max_units
+        self.unit = unit
         self.shards = shards
         self.splits: Dict[str, List[dict]] = {}
         self.custom_splits: Dict[str, set] = {}
@@ -143,8 +149,13 @@ class CATHDataModule:
         return (g for _, g in self.named_graphs(split, index))
 
     def bucket(self) -> Bucket:
-        """The node-budget bucket: ``max_nodes_per_batch`` nodes, that many
-        times ``top_k`` edge rows, ``batch_size`` graphs."""
+        """The padded shape of every batch: under a unit budget
+        (``max_units > 0``) the JAX module's ``make_bucket`` with ``top_k``
+        as the mean degree, else ``max_nodes_per_batch`` nodes, that many
+        times ``top_k`` edge rows; ``batch_size`` graphs.  The CSR layout
+        needs no alignment slack in either mode."""
+        if self.max_units > 0:
+            return make_bucket(self.max_units, self.unit, self.batch_size, avg_degree=self.top_k)
         n = self.max_nodes_per_batch
         return Bucket(num_nodes=n, num_edges=n * self.top_k, num_graphs=self.batch_size)
 

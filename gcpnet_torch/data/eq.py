@@ -23,8 +23,9 @@ atoms' residue index (``residue_perm``, ``residue_inv_perm``,
 ``residue_splits``), so that on the card every sum of EQ runs through K1.
 The prediction path (``predict_batches``, ``record_predictions``) gives
 one batch a decoy of ``predict_input_dir`` and writes its b-factor-annotated
-PDB and its CSV row.  The CA-only mode and the ``lddt`` binary are not
-ported yet.
+PDB and its CSV row.  ``subset_to_ca_atoms_only`` builds CA-only graphs
+(one node a residue, radius 8 A, at most 128 neighbours), cached apart
+(``<name>_ca.graph.npz``).  The ``lddt`` binary is not ported yet.
 """
 
 from __future__ import annotations
@@ -88,10 +89,13 @@ def featurize_decoy(
     rbf_edge_dist_cutoff: float = 4.5,
     num_rbf: int = 16,
     esm_device: DeviceLike = None,
+    subset_to_ca_atoms_only: bool = False,
 ) -> GraphData:
     """One decoy (and its native, for the labels) as a graph; the labels are
     zeros without a native.  An ESM-2 checkpoint runs on ``esm_device``
-    (``data.esm``)."""
+    (``data.esm``).  ``subset_to_ca_atoms_only`` keeps the CA atoms alone,
+    each its own residue, over a radius graph of 8 A and at most 128
+    neighbours whatever the arguments say (``gcpnet_tpu/data/eq.py:103-112``)."""
     s = parse_pdb(decoy_path, heavy_only=True)
     if not s.atoms:
         raise ValueError(f"no atoms parsed from {decoy_path}")
@@ -111,6 +115,13 @@ def featurize_decoy(
     if esm_res.shape[0] != num_res:
         esm_res = np.zeros((num_res, esm_res.shape[1]), np.float32)
     esm_atom = esm_res[res_idx]
+    ca_idx = s.ca_indices()
+    if subset_to_ca_atoms_only:
+        coords, atom_types, chain_ids = coords[ca_idx], atom_types[ca_idx], chain_ids[ca_idx]
+        plddt_atom, esm_atom = plddt_atom[ca_idx], esm_atom[ca_idx]
+        res_idx = np.arange(ca_idx.shape[0], dtype=np.int32)
+        ca_idx = np.arange(ca_idx.shape[0], dtype=np.int32)
+        edge_cutoff, max_neighbors, rbf_edge_dist_cutoff = 8.0, 128, 8.0
 
     senders, receivers = radius_graph(coords, edge_cutoff, max_neighbors)
     e_rbf, e_vec = edge_geometric_features(coords, senders, receivers, d_max=rbf_edge_dist_cutoff, num_rbf=num_rbf)
@@ -135,7 +146,7 @@ def featurize_decoy(
             "atom_residue_idx": res_idx.astype(np.int32),
             "label": label,
             "res_mask": np.ones(num_res, dtype=np.float32),
-            "ca_atom_idx": s.ca_indices(),
+            "ca_atom_idx": ca_idx,
         },
     )
 
@@ -180,6 +191,8 @@ class EQDataModule:
     rows, ``batch_size`` decoys and ``max_residues_per_batch`` residues.
     An ESM-2 checkpoint (``data.esm``) runs on ``esm_device``, over each
     split's sequences before its first pass (:meth:`prepare_embeddings`);
+    ``subset_to_ca_atoms_only`` featurizes CA-only graphs (the JAX module
+    also turns its dense layout off for them; the port has none);
     ``shards`` is this process's share of each global batch."""
 
     def __init__(
@@ -199,6 +212,7 @@ class EQDataModule:
         predict_input_dir: Optional[str] = None,
         predict_true_dir: Optional[str] = None,
         esm_device: DeviceLike = None,
+        subset_to_ca_atoms_only: bool = False,
         shards: Shards = Shards(),
     ):
         self.splits_dir = splits_dir
@@ -218,6 +232,7 @@ class EQDataModule:
         self.predict_input_dir = predict_input_dir
         self.predict_true_dir = predict_true_dir
         self.esm_device = esm_device
+        self.subset_to_ca = subset_to_ca_atoms_only
         self.shards = shards
         self.splits: Dict[str, List[str]] = {}
         self._featurized: Dict[str, List[int]] = {}
@@ -265,7 +280,8 @@ class EQDataModule:
         return None
 
     def _graph_cache(self, name: str) -> Optional[str]:
-        return os.path.join(self.cache_dir, f"{name}.graph.npz") if self.cache_dir else None
+        suffix = "_ca" if self.subset_to_ca else ""
+        return os.path.join(self.cache_dir, f"{name}{suffix}.graph.npz") if self.cache_dir else None
 
     def prepare_embeddings(self, paths: Sequence[str]) -> int:
         """Embed, here and now, the sequences of the decoys ``paths`` that
@@ -303,6 +319,7 @@ class EQDataModule:
             self._decoy_path(name), self._native_path(name), esm_cache_dir=self.esm_cache_dir,
             edge_cutoff=self.edge_cutoff, max_neighbors=self.max_neighbors,
             rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf, esm_device=self.esm_device,
+            subset_to_ca_atoms_only=self.subset_to_ca,
         )
         if cache_path:
             _save_graph(cache_path, g)
@@ -385,6 +402,7 @@ class EQDataModule:
                 decoy, native if native and os.path.exists(native) else None, esm_cache_dir=self.esm_cache_dir,
                 edge_cutoff=self.edge_cutoff, max_neighbors=self.max_neighbors,
                 rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf, esm_device=self.esm_device,
+                subset_to_ca_atoms_only=self.subset_to_ca,
             )
             (batch,) = batches_from_dataset([g], self.bucket())
             self.predict_paths.append(decoy)

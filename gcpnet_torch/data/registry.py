@@ -40,13 +40,23 @@ RENAMES = {"NMSDataModule": {"data_dir": "data_root", "frame_O": "frame_0"}, "RS
 DROPPED = {"num_workers", "pin_memory", "predict_batch_size", "predict_pin_memory", "predict_output_dir"}
 # keys of the JAX datamodules, at the value that leaves their feature off
 INERT = {
-    "max_units": 0, "python_exec_path": None, "pdbtools_dir": None, "lddt_exec_path": None,
-    "subset_to_ca_atoms_only": False, "force_process_data": False, "load_only_unprocessed_examples": False,
-    "sample_1_conformer": False, "select_N_enantiomers": None, "mask_coordinates": False, "grouping": "none",
-    "stratified": False, "without_replacement": True,
+    "python_exec_path": None, "pdbtools_dir": None, "lddt_exec_path": None, "force_process_data": False,
+    "load_only_unprocessed_examples": False, "select_N_enantiomers": None,
 }
-# taken by the JAX datamodule and read by neither package
-UNREAD = {"max_tmscore_metric_threshold"}
+# keys that neither package reads, taken at any value: AR's
+# ``max_tmscore_metric_threshold``; RS's ``sample_1_conformer`` and
+# ``mask_coordinates`` (the JAX datamodule stores them) and ``grouping``,
+# ``stratified`` and ``without_replacement`` (the JAX registry passes them
+# nowhere): both packages' samplers always draw stratified and without
+# replacement, so ``stratified: false`` in ``configs/datamodule/rs.yaml``
+# takes no effect
+UNREAD = {
+    "max_tmscore_metric_threshold", "sample_1_conformer", "mask_coordinates", "grouping", "stratified",
+    "without_replacement",
+}
+# a datamodule's keys that the JAX registry does not pass on: NMS takes no
+# unit budget
+UNREAD_BY = {"NMSDataModule": {"max_units", "unit"}}
 
 
 def _typed(value, default):
@@ -74,10 +84,10 @@ def build_datamodule(block: Dict[str, Any], seed: int = 42, device: DeviceLike =
     renames = RENAMES.get(target, {})
     kwargs: Dict[str, Any] = {}
     for key, value in block.items():
-        if key.startswith("_") or key in DROPPED or key in UNREAD:
+        if key.startswith("_") or key in DROPPED or key in UNREAD or key in UNREAD_BY.get(target, ()):
             continue
-        if key in INERT or (key == "unit" and not block.get("max_units")):
-            if key != "unit" and value != INERT[key]:
+        if key in INERT:
+            if value != INERT[key]:
                 raise ValueError(f"{target}: {key}={value!r} is not ported (the port takes {key}={INERT[key]!r})")
             continue
         name = renames.get(key, key)

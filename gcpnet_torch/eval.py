@@ -7,10 +7,16 @@ from the composed blocks, restores the best checkpoint of ``ckpt_path`` by
 ``val/loss`` (else its last) and runs the test loop.  For CPD it adds the
 design metrics of the test chains (``models.cpd_eval.evaluate_cpd``,
 ``cpd_num_samples`` sequences a chain, 100 by default; recovery only with
-the autoregressive decoder).  It runs on one device, the card unless
+the autoregressive decoder).  It runs on the card unless
 ``trainer.accelerator=cpu``::
 
     python -m gcpnet_torch.eval experiment=gcpnet_lba ckpt_path=logs/train/runs/checkpoints
+
+``trainer.devices=N`` evaluates on N devices of this machine, as training
+does (``gcpnet_torch.train``): N processes, each testing its shard of every
+global batch (the JAX entry point's ``dp`` mesh), with the losses averaged
+and the predictions gathered, so every process reports the metrics over
+all the batches; CPD's design metrics run on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -18,9 +24,9 @@ from __future__ import annotations
 import sys
 from typing import Any, Dict, Optional, Sequence
 
-from gcpnet_torch import tasks
+from gcpnet_torch import parallel, tasks
 from gcpnet_torch.config.loader import CONFIG_DIR, compose
-from gcpnet_torch.train.entry import build_trainer, restore, setup, single_device
+from gcpnet_torch.train.entry import build_trainer, launch_devices, restore, setup
 from gcpnet_torch.utils.pylogger import get_pylogger
 from gcpnet_torch.utils.utils import task_wrapper
 
@@ -34,12 +40,11 @@ def evaluate(cfg: Dict[str, Any]):
     ckpt_path = cfg.get("ckpt_path")
     if not ckpt_path or ckpt_path == "???":
         raise ValueError("eval requires ckpt_path=<checkpoint dir>")
-    single_device(cfg, "evaluation")
-    _, datamodule, model, model_name, _ = setup(cfg)
-    trainer = build_trainer(cfg, model, tasks.build_loss(model_name), model_name, checkpoints=False)
+    _, datamodule, model, model_name, group = setup(cfg)
+    trainer = build_trainer(cfg, model, tasks.build_loss(model_name), model_name, checkpoints=False, group=group)
     log.info(f"evaluating step {restore(trainer, ckpt_path, best=True)} of {ckpt_path}")
     metrics = trainer.test(datamodule)
-    if model_name == "GCPNetCPD":
+    if model_name == "GCPNetCPD" and trainer.is_main:
         from gcpnet_torch.models.cpd_eval import evaluate_cpd
 
         cpd = evaluate_cpd(
@@ -53,7 +58,13 @@ def evaluate(cfg: Dict[str, Any]):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
-    cfg = compose(CONFIG_DIR, "eval.yaml", list(sys.argv[1:] if argv is None else argv))
+    """The test metrics of the overrides ``argv``; with ``trainer.devices``
+    above 1 and no launcher, rank 0's of the processes this starts."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cfg = compose(CONFIG_DIR, "eval.yaml", argv)
+    devices = launch_devices(cfg)
+    if devices > 1:
+        return parallel.launch(main, devices, argv)
     metrics, _ = evaluate(cfg)
     return metrics
 

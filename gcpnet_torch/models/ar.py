@@ -31,13 +31,15 @@ from gcpnet_torch.ops.segment import index_of
 class GCPNetAR(nn.Module):
     """``device=None`` builds the model on the card (and raises without
     one); weights are drawn from ``generator`` on the CPU and moved.  The
-    parameters keep the flax module's names."""
+    parameters keep the flax module's names.  ``layer_class`` names the
+    trunk's interaction layer."""
 
     def __init__(
         self,
         model_cfg: ModelCfg,
         module_cfg: ModuleCfg,
         layer_cfg: LayerCfg,
+        layer_class: str = "GCPInteractions2",
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -48,7 +50,7 @@ class GCPNetAR(nn.Module):
         self.norm_x_diff = module_cfg.norm_x_diff
         self.encoder = GCPNetEncoder(
             mc, module_cfg, layer_cfg, num_atom_types=0, node_input_dims=(mc.h_input_dim, mc.chi_input_dim),
-            updating_node_positions=True, layer_class="GCPInteractions2",
+            updating_node_positions=True, layer_class=layer_class,
             embedding_nonlinearities=module_cfg.nonlinearities, generator=generator, device=device,
         )
 

@@ -41,13 +41,15 @@ def residue_index(batch: GraphBatch):
 class GCPNetEQ(nn.Module):
     """``device=None`` builds the model on the card (and raises without
     one); weights are drawn from ``generator`` on the CPU and moved.  The
-    parameters keep the flax module's names."""
+    parameters keep the flax module's names.  ``layer_class`` names the
+    trunk's interaction layer."""
 
     def __init__(
         self,
         model_cfg: ModelCfg,
         module_cfg: ModuleCfg,
         layer_cfg: LayerCfg,
+        layer_class: str = "GCPInteractions2",
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -62,7 +64,7 @@ class GCPNetEQ(nn.Module):
         self.encoder = GCPNetEncoder(
             mc, module_cfg, layer_cfg, num_atom_types=0,
             node_input_dims=(mc.h_input_dim + NUM_EQ_ATOM_TYPES, mc.chi_input_dim),
-            layer_class="GCPInteractions2", embedding_nonlinearities=module_cfg.nonlinearities, **kw,
+            layer_class=layer_class, embedding_nonlinearities=module_cfg.nonlinearities, **kw,
         )
         self.projection_norm = GCPLayerNorm(node_dims[0], device=device)
         self.invariant_node_projection = make_gcp(

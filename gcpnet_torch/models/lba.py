@@ -27,7 +27,8 @@ from gcpnet_torch.ops.segment import masked_mean
 
 class GCPNetLBA(nn.Module):
     """``device=None`` builds the model on the card (and raises without
-    one); weights are drawn from ``generator`` on the CPU and moved."""
+    one); weights are drawn from ``generator`` on the CPU and moved.
+    ``layer_class`` names the trunk's interaction layer."""
 
     def __init__(
         self,
@@ -35,6 +36,7 @@ class GCPNetLBA(nn.Module):
         module_cfg: ModuleCfg,
         layer_cfg: LayerCfg,
         num_atom_types: int = 9,
+        layer_class: str = "GCPInteractions",
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -48,6 +50,7 @@ class GCPNetLBA(nn.Module):
             mc, module_cfg, layer_cfg,
             num_atom_types=num_atom_types,
             node_input_dims=(num_atom_types, mc.chi_input_dim),
+            layer_class=layer_class,
             **kw,
         )
         self.head = InvariantPooledHead(

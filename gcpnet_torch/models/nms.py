@@ -26,13 +26,15 @@ from gcpnet_torch.ops.segment import masked_mean
 
 class GCPNetNMS(nn.Module):
     """``device=None`` builds the model on the card (and raises without
-    one); weights are drawn from ``generator`` on the CPU and moved."""
+    one); weights are drawn from ``generator`` on the CPU and moved.
+    ``layer_class`` names the trunk's interaction layer."""
 
     def __init__(
         self,
         model_cfg: ModelCfg,
         module_cfg: ModuleCfg,
         layer_cfg: LayerCfg,
+        layer_class: str = "GCPInteractions",
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -45,6 +47,7 @@ class GCPNetNMS(nn.Module):
             num_atom_types=0,
             node_input_dims=(model_cfg.h_input_dim, model_cfg.chi_input_dim),
             updating_node_positions=True,
+            layer_class=layer_class,
             generator=generator,
             device=device,
         )

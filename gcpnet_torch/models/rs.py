@@ -29,13 +29,15 @@ from gcpnet_torch.ops.segment import masked_mean
 
 class GCPNetRS(nn.Module):
     """``device=None`` builds the model on the card (and raises without
-    one); weights are drawn from ``generator`` on the CPU and moved."""
+    one); weights are drawn from ``generator`` on the CPU and moved.
+    ``layer_class`` names the trunk's interaction layer."""
 
     def __init__(
         self,
         model_cfg: ModelCfg,
         module_cfg: ModuleCfg,
         layer_cfg: LayerCfg,
+        layer_class: str = "GCPInteractions",
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -47,7 +49,7 @@ class GCPNetRS(nn.Module):
         self.norm_x_diff = module_cfg.norm_x_diff
         self.encoder = GCPNetEncoder(
             mc, module_cfg, layer_cfg, num_atom_types=0,
-            node_input_dims=(mc.h_input_dim, mc.chi_input_dim), **kw,
+            node_input_dims=(mc.h_input_dim, mc.chi_input_dim), layer_class=layer_class, **kw,
         )
         self.head = InvariantPooledHead(
             (mc.h_hidden_dim, mc.chi_hidden_dim), module_cfg,

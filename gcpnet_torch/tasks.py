@@ -21,13 +21,12 @@ from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg
 from gcpnet_torch.device import DeviceLike
 from gcpnet_torch.graph import GraphBatch
 from gcpnet_torch.models import LOSS_REGISTRY, MODEL_REGISTRY
+from gcpnet_torch.nn.interactions import LAYER_CLASSES
 from gcpnet_torch.train import metrics as M
 
 TASK_OF_MODEL = {"GCPNetLBA": "lba", "GCPNetPSR": "psr", "GCPNetCPD": "cpd", "GCPNetNMS": "nms", "GCPNetRS": "rs",
                  "GCPNetEQ": "eq", "GCPNetAR": "ar"}
 MODEL_OF_TASK = {v: k for k, v in TASK_OF_MODEL.items()}
-# the interaction layer each of the port's models is built with
-LAYER_CLASS_OF_MODEL = {"GCPNetEQ": "GCPInteractions2", "GCPNetAR": "GCPInteractions2"}
 
 
 def model_name_from_target(target: str) -> str:
@@ -48,16 +47,18 @@ def model_name_from_target(target: str) -> str:
 def build_model(model_block: Dict[str, Any], seed: int = 42, device: DeviceLike = None) -> Tuple[torch.nn.Module, str]:
     """The task model of the composed ``model:`` block with weights drawn
     from ``seed`` on ``device`` (``None``: the card), and its registry name.
-    A ``layer_class`` other than the one the port builds the model with
-    raises."""
+    ``layer_class._target_`` picks the trunk's interaction layer, any task
+    either class (``GCPInteractions`` where the block names none), as in
+    the JAX function.  CPD takes it and builds its encoder of
+    ``GCPInteractions`` whatever it says, as the JAX CPD does
+    (``gcpnet_tpu/models/cpd.py:53, 73-83``)."""
     name = model_name_from_target(str(model_block["_target_"]))
     layer_class = "GCPInteractions"
     lc = model_block.get("layer_class", {})
     if isinstance(lc, dict) and "_target_" in lc:
         layer_class = str(lc["_target_"]).rsplit(".", 1)[-1]
-    built_with = LAYER_CLASS_OF_MODEL.get(name, "GCPInteractions")
-    if layer_class != built_with:
-        raise NotImplementedError(f"{name} is built with {built_with} in the port, not {layer_class}")
+    if layer_class not in LAYER_CLASSES:
+        raise ValueError(f"unknown layer_class {layer_class!r}: the port has {sorted(LAYER_CLASSES)}")
     kwargs: Dict[str, Any] = dict(
         model_cfg=ModelCfg.from_dict(model_block.get("model_cfg", {})),
         module_cfg=ModuleCfg.from_dict(model_block.get("module_cfg", {})),
@@ -68,6 +69,8 @@ def build_model(model_block: Dict[str, Any], seed: int = 42, device: DeviceLike 
         for key in ("node_input_dims", "edge_input_dims"):
             if key in model_block:
                 kwargs[key] = tuple(model_block[key])
+    else:
+        kwargs["layer_class"] = layer_class
     if name in ("GCPNetLBA", "GCPNetPSR"):
         kwargs["num_atom_types"] = int(model_block.get("num_atom_types", 9))
     model = MODEL_REGISTRY[name](**kwargs, generator=torch.Generator().manual_seed(seed), device=device)

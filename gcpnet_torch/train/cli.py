@@ -103,11 +103,13 @@ def build_task_trainer(
     autoregressive: Optional[bool] = None,
     checkpoint_dir: Optional[str] = None,
     loggers: Sequence = (),
+    layer_class: Optional[str] = None,
     **trainer: Any,
 ) -> Trainer:
     """``task``'s experiment as the training entry point builds it
     (``entry.build_trainer`` of the composed config): its model
-    (``tasks.build_model``, the depths and dropout replaced where given)
+    (``tasks.build_model``, the depths, dropout and interaction layer
+    ``layer_class`` replaced where given)
     with weights drawn from ``seed`` on ``device`` (``None``: the card), its
     optimizer (``lr`` where given), precision, gradient clipping,
     scheduler, early stopping and checkpoint settings.  ``trainer`` holds
@@ -121,6 +123,8 @@ def build_task_trainer(
     overrides += [f"trainer.{k}={v}" for k, v in trainer.items()]
     if lr is not None:
         overrides.append(f"model.optimizer.lr={lr}")
+    if layer_class is not None:
+        overrides.append(f"model.layer_class._target_={layer_class}")
     if checkpoint_dir is not None:
         overrides += [f"paths.output_dir={checkpoint_dir}", f"callbacks.model_checkpoint.dirpath={checkpoint_dir}"]
     cfg = experiment(task, overrides)

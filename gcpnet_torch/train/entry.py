@@ -106,8 +106,24 @@ def group_of(trainer_cfg: Dict[str, Any], device: torch.device) -> Optional[para
     return parallel.init_from_env(device.type, nodes=nodes)
 
 
+def launch_devices(cfg: Dict[str, Any]) -> int:
+    """How many processes an entry point starts for the composed ``cfg``:
+    ``trainer.devices`` of this machine, or 1 where a launcher started this
+    process (it is one of them).  ``trainer.num_nodes`` above 1 raises
+    without such a launcher."""
+    if parallel.launched():
+        return 1
+    devices, nodes = world_of(cfg.get("trainer") or {})
+    if nodes > 1:
+        raise ValueError(
+            f"trainer.num_nodes={nodes} runs under an external launcher (torchrun --nnodes {nodes} "
+            f"--nproc-per-node {devices} -m gcpnet_torch.train ...), which sets RANK and WORLD_SIZE"
+        )
+    return devices
+
+
 def single_device(cfg: Dict[str, Any], what: str) -> None:
-    """``what`` (evaluation, prediction) runs on one device: more raise."""
+    """``what`` (prediction) runs on one device: more raise."""
     if world_of(cfg.get("trainer") or {}) != (1, 1) or parallel.launched():
         raise ValueError(f"{what} runs on one device: set trainer.devices=1 and trainer.num_nodes=1")
 
@@ -273,18 +289,11 @@ def main(argv: Optional[Sequence[str]] = None, loggers: Sequence = (), trainers:
     returns rank 0's result (``loggers`` and ``trainers`` stay in this
     process, so they must be empty then)."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not parallel.launched():
-        composed = compose(CONFIG_DIR, "train.yaml", [ov for ov in argv if ov not in ("-m", "--multirun")])
-        devices, nodes = world_of(composed.get("trainer") or {})
-        if nodes > 1:
-            raise ValueError(
-                f"trainer.num_nodes={nodes} runs under an external launcher (torchrun --nnodes {nodes} "
-                f"--nproc-per-node {devices} -m gcpnet_torch.train ...), which sets RANK and WORLD_SIZE"
-            )
-        if devices > 1:
-            if loggers or trainers is not None:
-                raise ValueError("main: loggers and trainers stay in this process; a data-parallel run takes neither")
-            return parallel.launch(main, devices, argv)
+    devices = launch_devices(compose(CONFIG_DIR, "train.yaml", [ov for ov in argv if ov not in ("-m", "--multirun")]))
+    if devices > 1:
+        if loggers or trainers is not None:
+            raise ValueError("main: loggers and trainers stay in this process; a data-parallel run takes neither")
+        return parallel.launch(main, devices, argv)
     multirun = any(flag in argv for flag in ("-m", "--multirun"))
     argv = [ov for ov in argv if ov not in ("-m", "--multirun")]
 

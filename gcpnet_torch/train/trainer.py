@@ -12,9 +12,10 @@ model's parameters, alone or as one process of a data-parallel group
   mean losses weighted by their steps, beside ``train/steps_per_sec``;
 - on the card a dispatch is the replay of a CUDA graph that holds the
   chunk's steps (``train.graphs``; one graph per sequence of batch
-  shapes), and the step reads nothing back to the host; on the CPU a
-  chunk is its steps run eagerly (:func:`train_step`), with the same loop
-  and weighting;
+  shapes), and the step reads nothing back to the host; on the CPU, and
+  on the card in a process group whose collectives a graph cannot hold
+  (gloo), a chunk is its steps run eagerly (:func:`train_step`), with the
+  same loop and weighting;
 - a host thread makes the next batches' tensors ahead of the step, in
   pinned memory, from which a replay's input slots are filled without
   blocking (the eager steps copy them to the device themselves); an
@@ -197,7 +198,7 @@ class Trainer:
         rank = 0 if group is None else group.rank
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 17 + (rank << 32))
         self.train_graphs = self.eval_graphs = None
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and (group is None or group.backend == "nccl"):
             self.train_graphs = TrainSteps(model, self.state, loss_fn, self.generator)
             self.eval_graphs = EvalSteps(model, loss_fn)
 

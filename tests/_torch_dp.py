@@ -120,3 +120,10 @@ def failing_worker():
     if group.rank == 1:
         raise ValueError("rank 1 gives up")
     parallel.barrier(group)
+
+
+def rank_worker() -> int:
+    """This process's rank, without a process group."""
+    import os
+
+    return int(os.environ["RANK"])

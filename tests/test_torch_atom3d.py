@@ -235,7 +235,25 @@ def test_datamodule_matches_jax(records, task, monkeypatch, caplog):
     assert dm._target_codes == jdm._target_codes
     if task == "PSR":
         assert dm._target_codes == {"T0": 0, "T1": 1}
-    assert dm._bucket() == atom3d.Bucket(num_nodes=256, num_edges=256 * 32, num_graphs=3)
+    assert dm.bucket() == atom3d.Bucket(num_nodes=256, num_edges=256 * 32, num_graphs=3)
+
+
+@pytest.mark.parametrize("task", ["LBA", "PSR"])
+@pytest.mark.parametrize("unit,max_units", [("edge", 600), ("node", 60)])
+def test_budget_datamodule_matches_jax(records, task, unit, max_units, monkeypatch):
+    """``max_units > 0``: the JAX module's ``make_bucket`` of the budget
+    (the radius graph's cap the mean degree) and its greedy fill, in the
+    CSR layout (no alignment slack needed), shuffled epochs, their order
+    and the evaluation splits equal to the JAX module's."""
+    _jax_layout(monkeypatch, sort=True)
+    jdm, dm = _datamodules(records, task, max_units=max_units, unit=unit)
+    got, want = dm.bucket(), jdm._bucket()
+    assert (got.num_nodes, got.num_edges, got.num_graphs) == (want.num_nodes, want.num_edges, want.num_graphs)
+    assert got != atom3d.Bucket(num_nodes=256, num_edges=256 * 32, num_graphs=3)
+    for seed in (0, 1):
+        _assert_same_batches(jdm.train_batches(seed=seed), dm.train_batches(seed=seed), f"train {seed}")
+    _assert_same_batches(jdm.val_batches(), dm.val_batches(), "val")
+    _assert_same_batches(jdm.test_batches(), dm.test_batches(), "test")
 
 
 def test_missing_records_raise_and_prepare_data_warns(tmp_path, caplog):

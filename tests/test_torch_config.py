@@ -117,11 +117,11 @@ def test_every_experiments_datamodule_builds(experiment):
 
 @pytest.mark.parametrize("override,match", [
     ("+datamodule.no_such_knob=1", "no_such_knob"),
-    ("datamodule.max_units=4000", "max_units"),
+    ("datamodule.python_exec_path=/usr/bin/python3", "python_exec_path"),
     ("datamodule.lddt_exec_path=/usr/bin/lddt", "lddt_exec_path"),
 ])
 def test_datamodule_refuses_what_the_port_lacks(override, match):
-    experiment = "gcpnet_eq" if "lddt" in override else "gcpnet_lba"
+    experiment = "gcpnet_eq" if "exec_path" in override else "gcpnet_lba"
     cfg = loader.compose(CONFIG_DIR, "train.yaml", [f"experiment={experiment}", override])
     with pytest.raises(ValueError, match=match):
         build_datamodule(cfg["datamodule"])

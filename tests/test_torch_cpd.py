@@ -220,6 +220,20 @@ def test_datamodule_matches_jax(cath_root, monkeypatch, tmp_path):
     assert cath.CATHDataModule(features_cfg={"top_k": 12}, max_neighbors=5).top_k == 12
 
 
+@pytest.mark.parametrize("unit,max_units", [("edge", 600), ("node", 30)])
+def test_budget_datamodule_matches_jax(cath_root, unit, max_units, monkeypatch):
+    """``max_units > 0``: the JAX module's ``make_bucket`` of the budget
+    (``top_k`` the mean degree), its shuffled epochs and their order, and
+    the evaluation splits, equal to the JAX module's."""
+    jdm, dm = _datamodules(cath_root, monkeypatch, max_units=max_units, unit=unit)
+    got, want = dm.bucket(), jdm._bucket()
+    assert (got.num_nodes, got.num_edges, got.num_graphs) == (want.num_nodes, want.num_edges, want.num_graphs)
+    for seed in (0, 1):
+        _assert_same_batches(jdm.train_batches(seed=seed), dm.train_batches(seed=seed), f"train {seed}")
+    _assert_same_batches(jdm.val_batches(), dm.val_batches(), "val")
+    _assert_same_batches(jdm.test_batches(), dm.test_batches(), "test")
+
+
 def test_prepare_data_downloads_nothing(tmp_path):
     (tmp_path / "chain_set.jsonl").write_text("")
     dm = cath.CATHDataModule(data_dir=str(tmp_path))

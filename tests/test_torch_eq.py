@@ -159,10 +159,10 @@ def test_featurize_decoy_matches_jax(eq_root):
         eq.featurize_decoy(os.path.join(eq_root, "decoy_model", "bad_d00.pdb"), None)
 
 
-def _datamodules(eq_root, tmp_path):
+def _datamodules(eq_root, tmp_path, **extra):
     kw = dict(splits_dir=os.path.join(eq_root, "splits"), decoy_dir=os.path.join(eq_root, "decoy_model"),
               true_dir=os.path.join(eq_root, "true_model"), esm_cache_dir=os.path.join(eq_root, "model_data_cache",
-                                                                                       "esm"), **DATA)
+                                                                                       "esm"), **DATA, **extra)
     jdm = jeq.EQDataModule(model_data_cache_dir=str(tmp_path / "jax"), **kw)
     dm = eq.EQDataModule(model_data_cache_dir=str(tmp_path / "port"), **kw)
     jdm.setup()
@@ -211,6 +211,38 @@ def test_datamodule_matches_jax(eq_root, tmp_path):
     for b, c in zip(dm.val_batches(), again.val_batches()):
         for (name, x), y in zip(b.tensors().items(), c.tensors().values()):
             np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+def test_ca_only_graphs_match_jax(eq_root, tmp_path):
+    """``subset_to_ca_atoms_only``: one CA node a residue over the 8 A, 128
+    neighbour radius graph, array for array the JAX featurizer's (floats
+    at atol 1e-5), and the datamodules' batches, cached apart as
+    ``<name>_ca``."""
+    cache = os.path.join(eq_root, "model_data_cache", "esm")
+    for name in ("tr001_d00", "va000_d01"):
+        decoy = os.path.join(eq_root, "decoy_model", f"{name}.pdb")
+        native = os.path.join(eq_root, "true_model", f"{name.split('_')[0]}.pdb")
+        got = eq.featurize_decoy(decoy, native, esm_cache_dir=cache, subset_to_ca_atoms_only=True)
+        want = jeq.featurize_decoy(decoy, native, esm_cache_dir=cache, subset_to_ca_atoms_only=True)
+        for key in ("h", "chi", "e", "xi", "x"):
+            np.testing.assert_allclose(getattr(got, key), getattr(want, key), atol=1e-5, err_msg=f"{name} {key}")
+        for key in ("senders", "receivers", "node_mask"):
+            np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=f"{name} {key}")
+        assert sorted(got.extras) == sorted(want.extras)
+        for key in got.extras:
+            np.testing.assert_allclose(got.extras[key], want.extras[key], atol=1e-5, err_msg=f"{name} {key}")
+        full = eq.featurize_decoy(decoy, native, esm_cache_dir=cache)
+        n_res = full.extras["res_mask"].shape[0]
+        assert got.x.shape[0] == n_res < full.x.shape[0]
+        np.testing.assert_array_equal(got.extras["atom_residue_idx"], np.arange(n_res))
+        lengths = np.linalg.norm(got.x[got.senders] - got.x[got.receivers], axis=-1)
+        assert 4.5 < lengths.max() <= 8.0  # the CA-only radius, not the all-atom 4.5 A
+    jdm, dm = _datamodules(eq_root, tmp_path, subset_to_ca_atoms_only=True)
+    for seed in (0, 1):
+        _assert_same_batches(jdm.train_batches(seed=seed), dm.train_batches(seed=seed), f"train {seed}")
+    _assert_same_batches(jdm.val_batches(), dm.val_batches(), "val")
+    cached = sorted(os.listdir(tmp_path / "port"))
+    assert cached and all(name.endswith("_ca.graph.npz") for name in cached)
 
 
 def test_collect_matches_jax(eq_root, tmp_path):

@@ -1610,3 +1610,112 @@ def test_edge_map_refuses_each_setting_outside_its_layer_table(rng, cuda, flip):
     with pytest.raises(NotImplementedError, match=flip):
         edge_map(message, frames, stack)
     assert edge_map.launches == before
+
+
+# --- budget batches, layer_class overrides, gloo launches ------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_k2_k3_match_plain_at_a_budget_batch(rng, cuda, tmp_path, dtype):
+    """A PSR batch packed under an edge budget (``max_units`` 262,144 rows:
+    ``make_bucket``'s 12,296 nodes), its real rows within the budget and
+    with CSR splits: K1, K2 and K3 on it against their plain versions at
+    test_k1_k2_k3_match_plain_at_a_psr_batch's bounds."""
+    from chip_smoke import write_psr_records
+
+    write_psr_records(str(tmp_path), targets={"train": 2, "val": 1, "test": 1}, decoys=8)
+    dm = ATOM3DDataModule(task="PSR", data_dir=str(tmp_path), batch_size=16, max_units=262144)
+    dm.setup()
+    batch = next(dm.train_batches(seed=0))
+    assert (batch.num_nodes, batch.num_edges) == (12296, 262144) and batch.edge_row_splits is not None
+    assert 0 < int(batch.edge_pad_mask.sum()) <= 262144
+    splits = torch.as_tensor(batch.edge_row_splits).to(cuda)
+    data = torch.from_numpy(rng.normal(size=(batch.num_edges, 148)).astype(np.float32)).to(cuda, dtype)
+    _k1_check(data, splits, batch.num_nodes)
+    with torch.no_grad():
+        stack = _lba_width_message_passing(ModuleCfg()).to(cuda, dtype).packed_stack()
+    msg, frames = _stack_inputs(rng, stack, batch.num_edges, dtype, cuda)
+    frames = frames * torch.as_tensor(batch.edge_pad_mask).to(cuda)[:, None]
+    with torch.no_grad():
+        got = edge_map(msg, frames, stack)
+        want = edge_map_plain(msg, frames, stack)
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel_err(got, want) <= (1e-4 if dtype == torch.float32 else K2_BF16_TOL)
+    grad_out = torch.from_numpy(rng.normal(size=(batch.num_edges, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    _k3_check_with_kink_rule(msg, frames, stack, grad_out)
+
+
+def test_lba_on_interactions2_step_on_card_matches_cpu(cuda):
+    """``model.layer_class`` GCPInteractions2 on LBA (2 layers at full
+    width): the loss and every parameter's gradient on the card against
+    the CPU, through K1, K2 and the fp32 K3 once a layer."""
+    batch = port_predict.synthetic_batches(1, 2, 40, 28, seed=1)[0]
+    grads, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        trainer = train_cli.build_task_trainer("lba", 0, dev, num_encoder_layers=2, dropout=0.0, precision=32,
+                                               layer_class="GCPInteractions2")
+        model = trainer.model
+        assert type(model.encoder.interaction_0).__name__ == "GCPInteractions2"
+        launches = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+        b = batch.to(torch.device(dev))
+        loss, _ = graph_regression_loss(model(b), b)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            now = (segment_sum_sorted.launches, edge_map.launches, edge_map_backward.launches)
+            k1, k2, k3 = (a - b for a, b in zip(now, launches))
+            assert k1 > 0 and (k2, k3) == (2, 2), (k1, k2, k3)
+        losses[dev] = loss.item()
+        grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+GLOO_LAUNCHES = 20
+
+
+def test_gloo_launches_do_not_hang(cuda):
+    """chip_smoke's gloo world of two on the card (``parallel.launch`` of
+    its ``_gloo_worker``: each rank tests its shard of the full-width LBA
+    batch, then takes DDP_GLOO_STEPS eager bf16 steps), GLOO_LAUNCHES times
+    in a row in one process that holds a CUDA context and, before every
+    other launch, makes and tears down a NCCL group of one, as the ddp
+    phase does just before its gloo launch: every launch ends within the
+    phase's DDP_TIMEOUT (a process still running at 0.9 of it prints its
+    stacks) with the same evaluation and losses."""
+    import os
+    import signal
+    import tempfile
+    import time
+
+    from chip_smoke import DDP_GLOO_STEPS, DDP_SHARDS, DDP_TIMEOUT, _gloo_worker
+    from gcpnet_torch import parallel
+
+    torch.ones(1, device=cuda)
+    seconds, results, sigchld = [], [], {str(signal.getsignal(signal.SIGCHLD))}
+    for i in range(GLOO_LAUNCHES):
+        if i % 2:
+            env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                   parallel.group.INIT_METHOD_ENV: "file://" + os.path.join(tempfile.mkdtemp(), "store")}
+            os.environ.update(env)
+            try:
+                group = parallel.init_from_env("cuda")
+                parallel.mean_(torch.ones(8, device=cuda), group)
+                torch.cuda.synchronize()
+            finally:
+                torch.distributed.destroy_process_group()
+                for key in env:
+                    os.environ.pop(key)
+            sigchld.add(str(signal.getsignal(signal.SIGCHLD)))  # what reaps this process's ended children
+        t0 = time.perf_counter()
+        out = parallel.launch(_gloo_worker, DDP_SHARDS, DDP_GLOO_STEPS, timeout=DDP_TIMEOUT)
+        seconds.append(time.perf_counter() - t0)
+        results.append((out["evaluation"]["test/loss"], *out["losses"]))
+    print(f"gloo launches: {GLOO_LAUNCHES}, seconds each {[round(s, 1) for s in seconds]}, SIGCHLD {sigchld}")
+    for r in results:
+        assert np.isfinite(r).all()
+        np.testing.assert_allclose(r, results[0], rtol=1e-3)  # bf16 steps: the same within their rounding

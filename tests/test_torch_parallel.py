@@ -15,13 +15,18 @@ JAX trainer over the conftest's virtual CPU devices.
   the JAX mesh and each other at rtol 2e-5; AR's dp loss is the mean of
   the per-shard losses (not the global batch's), as in the JAX package;
 - evaluation on 2 ranks gives the metrics of one rank over the same
-  global batches; a captured step on a gloo group raises; the config
+  global batches; ``python -m gcpnet_torch.eval trainer.devices=2`` gives
+  the JAX trainer's test metrics on a 2-device mesh with the same weights;
+  a captured step on a gloo group raises; the config
   entry point with ``trainer.devices=2`` trains two processes to the
   one-process result, and devices beyond the machine's raise; a rank
   that raises ends the launch with its traceback.
 """
 
 import dataclasses
+import os
+import signal
+import time
 
 import _torch_threads  # noqa: F401  (torch's threads: this worker's share of the cores)
 import _torch_dp as dp
@@ -40,6 +45,7 @@ from gcpnet_tpu.config.schema import MPCfg as JMPCfg
 from gcpnet_tpu.data.batching import Bucket as JBucket
 from gcpnet_tpu.data.batching import batches_from_dataset as jbatches_from_dataset
 from gcpnet_tpu.data.nms import NMSDataModule as JNMSDataModule
+from gcpnet_tpu.data.registry import build_datamodule as jbuild_datamodule
 from gcpnet_tpu.graph import GraphData as JGraphData
 from gcpnet_tpu.models import GCPNetNMS as JGCPNetNMS
 from gcpnet_tpu.models import ar_loss as jar_loss
@@ -47,11 +53,15 @@ from gcpnet_tpu.models import eq_loss as jeq_loss
 from gcpnet_tpu.models import nms_loss as jnms_loss
 from gcpnet_tpu.parallel import make_mesh
 from gcpnet_tpu.train import Trainer as JTrainer
-from gcpnet_torch import parallel
+from gcpnet_torch import eval as eval_entry
+from gcpnet_torch import parallel, tasks
+from gcpnet_torch.config.loader import CONFIG_DIR, compose
 from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, collate_shards, sort_edges_by_receiver
 from gcpnet_torch.graph import GraphBatch, GraphData
 from gcpnet_torch.models.ar import ar_loss
 from gcpnet_torch.train import entry
+from gcpnet_torch.train.checkpoints import CheckpointManager
+from gcpnet_torch.weights import from_jax_params
 
 RTOL = 2e-5
 FIT_ATOL = 1e-4  # tests/test_torch_trainer.py's port-vs-JAX bound on a fit's metrics
@@ -206,6 +216,41 @@ def test_eval_on_two_ranks_equals_one_rank(nms_runs, nms_root):
         np.testing.assert_allclose(got["val_before"][name], value, rtol=1e-6, err_msg=name)
 
 
+def test_eval_entry_point_on_two_ranks_matches_jax_mesh(nms_root, tmp_path):
+    """``gcpnet_torch.eval`` with ``trainer.devices=2``: two gloo processes,
+    each testing its shard of every global batch of a checkpoint, report
+    the JAX trainer's test metrics on a 2-device mesh with the same weights
+    (the fit tests' bound), and one process's over the whole batches."""
+    overrides = [
+        "experiment=gcpnet_nms_small", "trainer.accelerator=cpu", f"datamodule.data_dir={nms_root}",
+        "datamodule.num_train=32", "datamodule.num_valid=16", "datamodule.num_test=16", "datamodule.batch_size=16",
+        "model.model_cfg.h_hidden_dim=16", "model.model_cfg.chi_hidden_dim=4", "model.model_cfg.e_hidden_dim=8",
+        "model.model_cfg.num_encoder_layers=1", "model.layer_cfg.mp_cfg.num_message_layers=2",
+        "extras.print_config=false", f"paths.output_dir={tmp_path}",
+    ]
+    cfg = compose(CONFIG_DIR, "eval.yaml", overrides)
+    jmodel, jname = jtasks.build_model(cfg["model"])
+    jdm = jbuild_datamodule(cfg["datamodule"], num_shards=2)
+    jdm.setup()
+    jtr = JTrainer(jmodel, jtasks.build_loss(jname), optimizer_cfg=dp.OPTIMIZER, mesh=make_mesh(jax.devices()[:2]),
+                   early_stopping_patience=None, seed=3, collect_fn=jtasks.build_collect(jname),
+                   metric_fns=jtasks.build_metric_fns(jname))
+    jtr.init_state(jtr._put(next(iter(jdm.val_batches()))))
+    want = jtr.test(jdm)
+    # the JAX weights as a checkpoint of the port's
+    model, name = tasks.build_model(cfg["model"], device="cpu")
+    model.load_state_dict(from_jax_params(jax.device_get(jtr.state.params)))
+    state = entry.build_trainer(cfg, model, tasks.build_loss(name), name, checkpoints=False).checkpoint_state()
+    ckpt = str(tmp_path / "ckpt")
+    CheckpointManager(ckpt).save(0, state, {"val/loss": 1.0})
+    two = eval_entry.main(overrides + ["trainer.devices=2", f"ckpt_path={ckpt}"])
+    one = eval_entry.main(overrides + [f"ckpt_path={ckpt}"])
+    assert set(two) == set(want) == set(one) and "test/RMSE" in two
+    for key, value in want.items():
+        np.testing.assert_allclose(two[key], value, atol=FIT_ATOL, err_msg=key)
+        np.testing.assert_allclose(two[key], one[key], rtol=1e-5, err_msg=key)
+
+
 def test_captured_step_on_gloo_raises(nms_runs):
     assert "gloo" in nms_runs[3]["capture"] and "NCCL" in nms_runs[3]["capture"]
 
@@ -278,6 +323,30 @@ def test_a_failing_rank_ends_the_launch():
     timeout."""
     with pytest.raises(RuntimeError, match="rank 1 gives up"):
         parallel.launch(dp.failing_worker, 2, timeout=TIMEOUT)
+
+
+def test_launch_ends_when_its_processes_are_reaped_elsewhere():
+    """Another part of the program reaps the launched processes (here a
+    SIGCHLD handler, so waitpid reports their ends to it and not to
+    multiprocessing, whose ``is_alive`` then stays true): the launch still
+    sees each end through its sentinel and returns rank 0's result, where
+    waiting on ``is_alive`` would wait out its timeout."""
+    def reap(signum, frame):
+        while True:
+            try:
+                pid, _ = os.waitpid(-1, os.WNOHANG)
+            except ChildProcessError:
+                return
+            if pid == 0:
+                return
+
+    old = signal.signal(signal.SIGCHLD, reap)
+    try:
+        t0 = time.monotonic()
+        assert parallel.launch(dp.rank_worker, 2, timeout=TIMEOUT) == 0
+        assert time.monotonic() - t0 < TIMEOUT / 2
+    finally:
+        signal.signal(signal.SIGCHLD, old)
 
 
 def test_too_many_devices_raise():

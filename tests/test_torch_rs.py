@@ -44,7 +44,9 @@ from gcpnet_tpu.config.schema import LayerCfg as JLayerCfg
 from gcpnet_tpu.config.schema import ModelCfg as JModelCfg
 from gcpnet_tpu.config.schema import ModuleCfg as JModuleCfg
 from gcpnet_tpu.config.schema import MPCfg as JMPCfg
+from gcpnet_tpu.config.loader import compose as jcompose
 from gcpnet_tpu.data import rs as jrs
+from gcpnet_tpu.data.registry import build_datamodule as jbuild_datamodule
 from gcpnet_tpu.data.batching import sort_edges_by_receiver as jsort_edges
 from gcpnet_tpu.models import GCPNetRS as JGCPNetRS
 from gcpnet_tpu.models import rs_loss as jrs_loss
@@ -53,8 +55,10 @@ from gcpnet_tpu.nn.primitives import ScalarVector as JScalarVector
 from gcpnet_tpu.parallel import make_mesh
 from gcpnet_tpu.train import Trainer as JTrainer
 from gcpnet_torch import tasks
+from gcpnet_torch.config.loader import CONFIG_DIR, compose
 from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg, MPCfg
 from gcpnet_torch.data import rs
+from gcpnet_torch.data.registry import build_datamodule
 from gcpnet_torch.models.rs import GCPNetRS, rs_loss
 from gcpnet_torch.nn import primitives
 from gcpnet_torch.nn.message_passing import GCPMessagePassing
@@ -236,6 +240,26 @@ def test_datamodule_batches_match_jax(iteration_mode):
     b = next(dm.train_batches(0))
     assert dm.bucket() == rs.Bucket(num_nodes=512, num_edges=1024, num_graphs=8)
     assert b.graph_pad_mask.all()  # a paired batch: 4 anchors and their enantiomers
+
+
+@pytest.mark.parametrize("stratified", [True, False])
+def test_stratified_takes_no_effect_as_in_jax(stratified):
+    """``datamodule.stratified`` (``configs/datamodule/rs.yaml:13`` says
+    false) reaches neither package's sampler: at either value the RS
+    datamodules that both registries build from the composed config draw
+    the same epochs, and they are the port's default (stratified) draws."""
+    overrides = ["experiment=gcpnet_rs", f"datamodule.stratified={str(stratified).lower()}",
+                 "datamodule.batch_size=4", "+datamodule.synthetic_sizes={train: 32, valid: 16, test: 16}"]
+    cfg = compose(CONFIG_DIR, "train.yaml", overrides)
+    assert cfg == jcompose(CONFIG_DIR, "train.yaml", overrides)
+    dm, jdm = build_datamodule(cfg["datamodule"], device="cpu"), jbuild_datamodule(cfg["datamodule"])
+    dm.setup()
+    jdm.setup()
+    plain = rs.RSDataModule(**DATA, seed=dm.seed)
+    plain.setup()
+    for seed in (0, 1):
+        _assert_batches_hold_the_same_graphs(jdm.train_batches(seed), dm.train_batches(seed), f"train {seed}")
+        assert list(dm.sampler("train", seed)) == list(plain.sampler("train", seed))
 
 
 def test_pickle_split_loads_and_unreadable_file_raises(tmp_path):
