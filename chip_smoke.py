@@ -109,8 +109,11 @@ Phases, one line each:
  22. rs-profile: one warm eager RS training step and one replay of a train
      and an eval chunk under torch.profiler; the rs-fit's checks;
  23. psr-check: one fp32 PSR training step on the card against the CPU (2
-     interaction layers, 2 decoys, no dropout), and the bf16 step's
-     gradients against the fp32 step's on the card;
+     interaction layers, 2 decoys, no dropout; the updated parameters at
+     1e-4 but for those Adam's first step moves by about lr times opposite
+     signs, whose two gradients both lie within the gradient bound of 0:
+     counted and printed), and the bf16 step's gradients against the fp32
+     step's on the card;
  24. psr-fit: the PSR path, the full-width PSR model (2 of its 5 interaction layers)
      fitted by the Trainer in bf16 over float32 masters (the experiment's
      defaults) with scan_chunk_size 4 for 1 epoch with checkpoints, a
@@ -255,6 +258,23 @@ Phases, one line each:
      arithmetic, and each rank's evaluation of its shard (the Trainer's
      eager eval over the group) against one process evaluating both; NCCL
      world 2 where the machine has two GPUs (reported, not run on one).
+ 48. remat: the full-width LBA main path (dropout 0.1) with remat False,
+     True and "dots", captured in fp32 and bf16 and eagerly in fp32: with
+     remat the fp32 losses, gradients and parameters equal those without
+     (1e-6); each run's launches (the recompute runs K1 and K2 again) and
+     peak memory; GCP v1 with the sigma frame gate at gcp-family's depth
+     with and without remat: peaks (remat must lower it) and busy ms;
+ 49. dense: the LBA main path's graphs in the dense slot-major layout
+     (degree 32: 229,376 rows; sender budget 64): its fp32 forward and step
+     against the receiver-sorted ones (FORWARD_ATOL, TRAIN_CHECK_ATOL), a
+     captured bf16 step profiled (K2/K3 on the slot rows, K1 on the sender
+     side only, no scatter); an EQ step under GCPNET_EQ_DENSE=1 and an AR
+     step under GCPNET_AR_DENSE=1 against their default layouts;
+ 50. scorers: EQ's labels through lddt_exec_path (a stand-in lddt
+     executable printing the native per-residue lDDT) against the native
+     labels, the graph cache keyed on the scorer; AMBER's find_violations
+     of ar-predict's refined decoy, its clash check on the card in blocks,
+     against the same check in numpy on the host.
 Every profiled training step lists the scatter kernels it ran (none
 allowed; a replay's read from its graph's kernel nodes).  Each phase prints
 its seconds and the run's as it ends (``chip_smoke: phase <name> <s> s,
@@ -293,7 +313,7 @@ import torch
 from gcpnet_torch.data.ar import ARDataModule
 from gcpnet_torch.data.ar_synthetic import write_ar_pairs, write_pair
 from gcpnet_torch.data.atom3d import ATOM3DDataModule
-from gcpnet_torch.data.batching import Bucket, batches_from_dataset, make_bucket
+from gcpnet_torch.data.batching import Bucket, batches_from_dataset, collate_shards, make_bucket
 from gcpnet_torch.data.cath import CATHDataModule
 from gcpnet_torch.data.cath_synthetic import write_cath_chains
 from gcpnet_torch.data import esm as data_esm
@@ -333,7 +353,12 @@ from gcpnet_torch.data.pdb import parse_pdb
 from gcpnet_torch.data import registry as datamodule_registry
 from gcpnet_torch.data.registry import build_datamodule
 from gcpnet_torch.models.lba import GCPNetLBA
-from gcpnet_torch.predict import DTYPES, Predictor, build_model, lba_configs, predict, serve, synthetic_batches
+from gcpnet_torch.predict import (
+    DTYPES, EDGE_SLACK, Predictor, build_model, lba_configs, predict, random_lba_graph, serve, synthetic_batches,
+)
+from gcpnet_torch.models.common import check_remat
+from gcpnet_torch.utils.amber import violations as amber_violations
+from gcpnet_torch.utils.structure_metrics import matched_lddt
 from gcpnet_torch.train import entry as train_entry
 from gcpnet_torch.train.checkpoints import CheckpointManager
 from gcpnet_torch.train.cli import build_lba_training, build_task_trainer, task_configs
@@ -1452,9 +1477,17 @@ def _step_diffs(a: dict, b: dict) -> dict:
     }
 
 
+def adam_sign_flips(grads_a: torch.Tensor, grads_b: torch.Tensor, bound: float) -> torch.Tensor:
+    """The entries whose two gradients have opposite signs while both lie
+    within ``bound`` of 0.  Adam's first step moves an entry by lr * g /
+    (|g| + eps), about lr * sign(g), so two gradients that agree within
+    their bound can still move such an entry up to 2 lr apart."""
+    return (torch.sign(grads_a) != torch.sign(grads_b)) & (grads_a.abs() <= bound) & (grads_b.abs() <= bound)
+
+
 def card_vs_cpu_step(
     name: str, build, batch, loss_fn, layers: int, rounding_draws: int = 0, params_by_share: bool = False,
-    fp32_k3: Optional[int] = None,
+    fp32_k3: Optional[int] = None, sign_flips: bool = False,
 ) -> dict:
     """One float32 training step on the card against the same step on the
     CPU (plain versions): ``build(device) -> (model, state)`` gives both the
@@ -1468,7 +1501,11 @@ def card_vs_cpu_step(
     updated parameters are held by the share of entries apart alone (the
     largest distance is printed, not held: see phase_cpd_check).  ``fp32_k3``
     is the fp32 K3 launches the step must make where not one a layer (a
-    model whose message stacks are plain: 0)."""
+    model whose message stacks are plain: 0).  With ``sign_flips`` the
+    updated parameters are held to TRAIN_CHECK_ATOL["params"] except the
+    entries of :func:`adam_sign_flips` at the gradient bound (the norm
+    check's bound times the CPU gradient's norm: no entry may part by
+    more); those are counted and printed."""
     want_k3 = layers if fp32_k3 is None else fp32_k3
     reset_counts()
     card = _step_outcome(build, "cuda", batch, loss_fn)
@@ -1488,6 +1525,16 @@ def card_vs_cpu_step(
         "launches": {"K3_fp32": card_k3},
     }
     bound = {k: TRAIN_CHECK_ATOL[k] for k in ("grads_norm_rel", "params", "params_share_above_1e-6")}
+    held = param_diff
+    if sign_flips:
+        grad_bound = TRAIN_CHECK_ATOL["grads_norm_rel"] * cpu["grads"].norm().item()
+        flips = adam_sign_flips(card["grads"], cpu["grads"], grad_bound)
+        held = param_diff[~flips]
+        results["sign_flips"] = {
+            "grad_bound": grad_bound, "count": int(flips.sum()),
+            "params_max_abs_diff_flipped": param_diff[flips].max().item() if flips.any() else 0.0,
+            "params_max_abs_diff_others": held.max().item() if held.numel() else 0.0,
+        }
     if rounding_draws:
         draws = [_step_diffs(cpu, _step_outcome(build, "cpu", batch, loss_fn, noise_seed=i))
                  for i in range(rounding_draws)]
@@ -1501,7 +1548,7 @@ def card_vs_cpu_step(
     check(results["grad_norm_abs_diff"] <= TRAIN_CHECK_ATOL["grad_norm"], f"{name}: grad norm differs")
     check(results["grads_norm_rel_err"] <= bound["grads_norm_rel"], f"{name}: gradients differ")
     if not params_by_share:
-        check(results["params_max_abs_diff"] <= bound["params"], f"{name}: parameters differ")
+        check((held.max().item() if held.numel() else 0.0) <= bound["params"], f"{name}: parameters differ")
     check(results["params_share_above_1e-6"] <= bound["params_share_above_1e-6"],
           f"{name}: too many parameters differ")
     print(f"phase {name}: ok")
@@ -1663,6 +1710,12 @@ def profile_eager(fn) -> dict:
     return prof
 
 
+def launches_by_name(names: dict) -> dict:
+    """K1-K3 launches (KERNEL_COUNTS) among kernels counted by name."""
+    return {label: sum(n for name, n in names.items() if any(key in name for key in keys))
+            for label, keys in KERNEL_NAMES.items()}
+
+
 def profile_replay(fn, call, batches) -> dict:
     """device_profile of ``fn``, one replay of ``call``'s graph for
     ``batches`` (a CapturedCall captured with ``keep_graphs``), with what
@@ -1671,10 +1724,7 @@ def profile_replay(fn, call, batches) -> dict:
     trace's, ``traced_scatters``)."""
     prof = device_profile(fn)
     names = call.kernel_names(batches)
-    prof["launches"] = {
-        label: sum(n for name, n in names.items() if any(key in name for key in keys))
-        for label, keys in KERNEL_NAMES.items()
-    }
+    prof["launches"] = launches_by_name(names)
     prof["traced_scatters"], prof["scatters"] = prof["scatters"], _scatters(names)
     prof["graph_kernel_nodes"] = sum(names.values())
     return prof
@@ -2222,6 +2272,36 @@ def gdt_ts(decoy: np.ndarray, native: np.ndarray) -> float:
     return float(np.mean([(dist <= t).mean() for t in (1.0, 2.0, 4.0, 8.0)]))
 
 
+LDDT_STUB = """#!{python}
+# A stand-in for the lddt binary: prints its per-residue table (a header,
+# then one line a residue after the first line that starts with "Chain",
+# the score in the fifth column) of the scores {scores!r} holds for the
+# decoy's file name.
+import json, os, sys
+scores = json.load(open({scores!r}))[os.path.basename(sys.argv[1])]
+print("lddt (stand-in)")
+print("Global LDDT score: %.6f" % (sum(scores) / max(len(scores), 1)))
+print("Chain\tResName\tResNum\tAsses.\tScore\t(Conserved/Total, over 4 thresholds)")
+for i, score in enumerate(scores):
+    print("A\tUNK\t%d\tYes\t%.6f\t(0/0)" % (i + 1, score))
+{log}"""
+
+
+def write_lddt_stub(path: str, scores: dict, log: Optional[str] = None) -> str:
+    """An executable at ``path`` that prints the lddt binary's per-residue
+    table for a decoy (its first argument) from ``scores`` (file name ->
+    per-residue scores, printed with six decimals, kept in
+    ``<path>.json``); with ``log`` it appends the decoy's path to that
+    file a call."""
+    with open(path + ".json", "w") as f:
+        json.dump({k: [float(v) for v in vs] for k, vs in scores.items()}, f)
+    log_line = f"open({log!r}, 'a').write(sys.argv[1] + '\\n')\n" if log else ""
+    with open(path, "w") as f:
+        f.write(LDDT_STUB.format(python=sys.executable, scores=path + ".json", log=log_line))
+    os.chmod(path, 0o755)
+    return path
+
+
 def write_psr_records(root: str, seed: int = SEED, targets=None, decoys: int = PSR_DECOYS, atoms=PSR_ATOMS) -> dict:
     """Synthetic PSR records in the npz format of
     scripts/convert_atom3d_to_npz.py under ``root`` (``targets``: per split,
@@ -2358,7 +2438,7 @@ def phase_psr_check(root: str) -> dict:
     dm = psr_datamodule(root, PSR_CHECK_GRAPHS, PSR_CHECK_NODES)
     batch = next(dm.val_batches())
     results = {"fp32": card_vs_cpu_step("psr-check", lambda dev: _psr_model(dev, PSR_CHECK_LAYERS), batch,
-                                        graph_regression_loss, PSR_CHECK_LAYERS)}
+                                        graph_regression_loss, PSR_CHECK_LAYERS, sign_flips=True)}
     dev_batch = batch.to(torch.device("cuda"))
     steps = {}
     reset_counts()
@@ -4140,6 +4220,407 @@ def phase_ddp(work: str) -> dict:
     return results
 
 
+# --- remat, the dense layouts and the external scorers --------------------------
+
+REMAT_MODES = (False, True, "dots")
+# fp32 loss, gradients and parameters with remat against without: the
+# recompute replays the forward's dropout masks and weights, so equal bit
+# for bit is expected (REMAT_ATOL is what is held)
+REMAT_ATOL = 1e-6
+# the gcp-family stack of the remat phase: GCP v1 with the sigma frame gate,
+# the gcp-family setting of the largest peak memory
+REMAT_FAMILY = "gcp1_sigma_frame_gate"
+# the dense layout of the LBA cell: the JAX ATOM3D budgets (the radius
+# graph's neighbour cap and twice it); 7,168 nodes x 32 = 229,376 slot rows
+DENSE_DEGREE, DENSE_OUT_DEGREE = 32, 64
+
+
+def k1_steps_dense(task: str, layers: int, by_sender: bool = False) -> tuple:
+    """k1_steps in the dense layout: the receiver-side sums are slot sums
+    and the receiver gathers broadcasts, so K1 runs on the sender side
+    alone: each layer's feed-forward node frames (and, ``by_sender``, its
+    message sum), and its sender gather's backward."""
+    forward = K1_FIXED[task] + (2 if by_sender else 1) * layers
+    return forward + layers, forward
+
+
+def remat_launches(dtype: torch.dtype, remat) -> tuple:
+    """An LBA training step's K1, K2, K3 launches (KERNEL_COUNTS' order):
+    with remat each layer's recompute runs its two sums (K1) and its stack
+    (K2) again."""
+    k1 = k1_steps("lba", 8)[0] + (2 * 8 if remat else 0)
+    k2 = 8 * (2 if remat else 1)
+    return (k1, k2, 8, 0) if dtype == torch.bfloat16 else (k1, k2, 0, 8)
+
+
+def _remat_lba(batch, dtype: torch.dtype, remat, eager: bool) -> dict:
+    """The full-width LBA (dropout 0.1 from a generator seeded SEED) with
+    ``remat``: with ``eager`` one eager step (train_step), then on a fresh
+    model two captured steps (TrainSteps: the first runs eagerly and
+    captures, the second replays); each step's loss, the gradients and
+    parameters after the eager step and after the replay, the launches of
+    the eager step and of a replay (from its graph), the captured run's
+    peak memory."""
+    out = {}
+    if eager:
+        model, state = build_lba_training(SEED, "cuda", dtype, lr=TRAIN_LR, dropout=0.1, remat=remat)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        reset_counts()
+        step = train_step(model, state, batch.to(torch.device("cuda")), graph_regression_loss, gen)
+        out = {"eager_loss": step.loss.item(), "eager_launches": dict(zip(KERNEL_COUNTS, launch_counts())),
+               "eager_grads": torch.cat([p.grad.reshape(-1) for p in model.parameters()]),
+               "eager_params": flat_params(model)}
+        del model, state
+    model, state = build_lba_training(SEED, "cuda", dtype, lr=TRAIN_LR, dropout=0.1, remat=remat)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    steps = TrainSteps(model, state, graph_regression_loss, gen)
+    pinned = [batch.pinned()]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = steps(pinned)
+    replay = steps(pinned)
+    torch.cuda.synchronize()
+    out.update(
+        losses=[first.loss.item(), replay.loss.item()], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        grads=torch.cat([p.grad.reshape(-1) for p in model.parameters()]), params=flat_params(model),
+        replay_launches=launches_by_name(steps.call.kernel_names(pinned)),
+    )
+    return out
+
+
+def _family_remat(cfg: dict, train: list, remat) -> dict:
+    """Two captured training steps of the gcp-family model ``cfg``
+    composes, with ``remat``, on ``train`` (pinned batches): the peak
+    memory, and one replay's busy time and launches under the profiler."""
+    model, name = tasks.build_model(cfg["model"], seed=SEED, device="cuda")
+    model.encoder.remat = check_remat(remat)
+    trainer = train_entry.build_trainer(cfg, model, tasks.build_loss(name), name, checkpoints=False)
+    steps = TrainSteps(model, trainer.state, tasks.build_loss(name), torch.Generator(device="cuda").manual_seed(SEED))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result = steps(train)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_replay(lambda: steps(train), steps.call, train)
+    return {"remat": remat, "peak_mem_gb": peak, "loss": result.loss.tolist(), "step_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"], "launches": prof["launches"],
+            "graph_kernel_nodes": prof["graph_kernel_nodes"], "scatters": prof["scatters"]}
+
+
+def phase_remat(batch, data_root: str) -> dict:
+    """Per-layer rematerialization on the card.  The full-width LBA (16 x
+    448 atoms, 208,896 edge rows, 8 x 8 layers, dropout 0.1 from one
+    seeded generator) with remat False, True and "dots", captured in fp32
+    and bf16, and in fp32 also eagerly (_remat_lba): the eager step's loss,
+    gradients and parameters and the captured run's losses, the replay's
+    gradients and the parameters after it, with remat against without,
+    fp32 held to REMAT_ATOL, bf16 printed; each run's launches
+    (remat_launches: the recompute runs each layer's K1 sums and K2 again)
+    and peak memory.  Then the gcp-family stack REMAT_FAMILY at its
+    chip_smoke depth (GCP_FAMILY_LAYERS x 8) on cfg-train's records, with
+    and without remat (_family_remat): both peaks and replays' busy times;
+    remat must lower the peak."""
+    results = {"lba": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "fp32" if dtype == torch.float32 else "bf16"
+        eager = dtype == torch.float32
+        runs = {str(mode): _remat_lba(batch, dtype, mode, eager) for mode in REMAT_MODES}
+        ref = runs["False"]
+        table = {}
+        for mode, run in runs.items():
+            want = dict(zip(KERNEL_COUNTS, remat_launches(dtype, mode != "False")))
+            apart = {
+                "losses": max(abs(a - b) for a, b in zip(run["losses"], ref["losses"])),
+                "replay_grads": (run["grads"] - ref["grads"]).abs().max().item(),
+                "params": (run["params"] - ref["params"]).abs().max().item(),
+            }
+            if eager:
+                apart.update(
+                    eager_loss=abs(run["eager_loss"] - ref["eager_loss"]),
+                    eager_grads=(run["eager_grads"] - ref["eager_grads"]).abs().max().item(),
+                    eager_params=(run["eager_params"] - ref["eager_params"]).abs().max().item(),
+                )
+            table[mode] = {
+                "losses": run["losses"], "eager_loss": run.get("eager_loss"), "peak_mem_gb": run["peak_mem_gb"],
+                "eager_launches": run.get("eager_launches"), "replay_launches": run["replay_launches"],
+                "want": want, "vs_no_remat_max_abs": apart,
+            }
+        results["lba"][dname] = table
+        del runs, ref
+        print(f"phase remat lba {dname}: " + json.dumps(table), flush=True)
+        for mode, row in table.items():
+            check(row["eager_launches"] in (None, row["want"]) and row["replay_launches"] == row["want"],
+                  f"remat {dname} {mode}: launches {row['eager_launches']} / {row['replay_launches']}, "
+                  f"want {row['want']}")
+            check(all(math.isfinite(v) for v in row["losses"]), f"remat {dname} {mode}: losses {row['losses']}")
+            if dname == "fp32":
+                worst = max(row["vs_no_remat_max_abs"].values())
+                check(worst <= REMAT_ATOL, f"remat fp32 {mode}: apart from the step without remat by "
+                      f"{row['vs_no_remat_max_abs']}")
+    base = ["experiment=gcpnet_lba_ablations", f"paths.data_dir={data_root}/", "trainer.max_epochs=1", "test=false",
+            f"model.model_cfg.num_encoder_layers={GCP_FAMILY_LAYERS}", *GCP_FAMILY_RUNS[REMAT_FAMILY]]
+    cfg = compose(CONFIG_DIR, "train.yaml", base)
+    dm = build_datamodule(cfg["datamodule"], device="cuda")
+    dm.setup()
+    train = [b.pinned() for b in itertools.islice(dm.train_batches(seed=0), 1)]
+    del dm
+    results["family"] = {str(mode): _family_remat(cfg, train, mode) for mode in (False, True)}
+    plain, remat = results["family"]["False"], results["family"]["True"]
+    print("phase remat family: " + json.dumps(results["family"]), flush=True)
+    for row in (plain, remat):
+        check(not row["scatters"] and row["launches"]["K2"] == 0, f"remat family: {row}")
+    check(remat["launches"]["K1"] > plain["launches"]["K1"], "remat family: the recompute ran no K1")
+    check(remat["peak_mem_gb"] < plain["peak_mem_gb"],
+          f"remat family: peak {remat['peak_mem_gb']:.2f} GB with remat, {plain['peak_mem_gb']:.2f} without")
+    print("phase remat: ok")
+    return results
+
+
+def dense_lba_batches(seed: int = SEED) -> tuple:
+    """The first LBA batch of synthetic_batches(seed) (16 x 448 atoms,
+    in-degrees 24-32) twice: receiver-sorted with CSR splits, and in the
+    dense layout (DENSE_DEGREE, DENSE_OUT_DEGREE)."""
+    rng = np.random.default_rng(seed)
+    graphs = [random_lba_graph(rng, NODES, EDGES_PER_NODE) for _ in range(GRAPHS)]
+    bucket = Bucket(NODES * GRAPHS, NODES * EDGES_PER_NODE * GRAPHS + EDGE_SLACK, GRAPHS)
+    sorted_batch = collate_shards([graphs], bucket, ("label",), sort_edges=True, sort_tile=1)
+    dense = collate_shards([graphs], bucket, ("label",), dense_degree=DENSE_DEGREE, dense_out_degree=DENSE_OUT_DEGREE)
+    return sorted_batch, dense
+
+
+def steps_apart(name: str, got: dict, want: dict, params_by_share: bool = False) -> dict:
+    """Two fp32 step outcomes (_step_outcome) held to TRAIN_CHECK_ATOL as
+    card_vs_cpu_step holds them, the updated parameters outside
+    adam_sign_flips (or, ``params_by_share``, by the share apart)."""
+    param_diff = (got["params"] - want["params"]).abs()
+    flips = adam_sign_flips(got["grads"], want["grads"],
+                            TRAIN_CHECK_ATOL["grads_norm_rel"] * want["grads"].norm().item())
+    held = param_diff[~flips]
+    r = {
+        "loss_abs_diff": abs(got["loss"] - want["loss"]),
+        "grad_norm_abs_diff": abs(got["grad_norm"] - want["grad_norm"]),
+        "grads_norm_rel_err": norm_rel_err(got["grads"], want["grads"]),
+        "params_max_abs_diff": param_diff.max().item(),
+        "params_max_abs_diff_outside_sign_flips": held.max().item() if held.numel() else 0.0,
+        "sign_flips": int(flips.sum()),
+        "params_share_above_1e-6": (param_diff > 1e-6).float().mean().item(),
+    }
+    check(r["loss_abs_diff"] <= TRAIN_CHECK_ATOL["loss"], f"{name}: loss differs {r}")
+    check(r["grad_norm_abs_diff"] <= TRAIN_CHECK_ATOL["grad_norm"], f"{name}: grad norm differs {r}")
+    check(r["grads_norm_rel_err"] <= TRAIN_CHECK_ATOL["grads_norm_rel"], f"{name}: gradients differ {r}")
+    if not params_by_share:
+        check(r["params_max_abs_diff_outside_sign_flips"] <= TRAIN_CHECK_ATOL["params"], f"{name}: parameters {r}")
+    check(r["params_share_above_1e-6"] <= TRAIN_CHECK_ATOL["params_share_above_1e-6"], f"{name}: parameters {r}")
+    return r
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """``os.environ`` with ``values`` set inside the block."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _layout_step(name: str, build, batches: dict, loss_fn, want: dict, params_by_share: bool = False) -> dict:
+    """One fp32 step (no dropout) of ``build`` on each of ``batches``
+    (``{"default": ..., "dense": ...}``) from the same weights; the dense
+    step's launches must be ``want``; the two held by steps_apart."""
+    outcome = {}
+    for layout, batch in batches.items():
+        reset_counts()
+        outcome[layout] = _step_outcome(build, "cuda", batch, loss_fn)
+        outcome[layout]["launches"] = dict(zip(KERNEL_COUNTS, launch_counts()))
+    r = {"launches": {k: v["launches"] for k, v in outcome.items()}, "want": want,
+         "loss": outcome["dense"]["loss"], "step_seconds": {k: v["seconds"] for k, v in outcome.items()}}
+    r["apart"] = steps_apart(name, outcome["dense"], outcome["default"], params_by_share)
+    print(f"phase {name}: " + json.dumps(r), flush=True)
+    check(r["launches"]["dense"] == want, f"{name}: launches {r['launches']['dense']}, want {want}")
+    return r
+
+
+def phase_dense(eq_root: str, ar_root: str) -> dict:
+    """The dense and sender-dense layouts on the card.  The full-width LBA
+    on the dense layout (dense_lba_batches: 229,376 slot rows, sender
+    budget 64): an fp32 forward against the sorted one's (FORWARD_ATOL);
+    an fp32 step against the receiver-sorted step on the same graphs and
+    weights (steps_apart at TRAIN_CHECK_ATOL); a captured bf16 step
+    (dropout 0.1), one replay profiled.  K2/K3 run, K1 on the sender side
+    only (k1_steps_dense), no scatter.  Then one fp32 EQ step under
+    GCPNET_EQ_DENSE=1 and one AR step under GCPNET_AR_DENSE=1 on eq-data's
+    and ar-data's records (each split's first validation decoy, the
+    graphs read from their caches) against the default layouts' (AR's
+    switch only checks the sender budget, so its batch is the default
+    one)."""
+    sorted_batch, dense = dense_lba_batches()
+    check(dense.num_edges == NODES * GRAPHS * DENSE_DEGREE and dense.edge_dense_degree == DENSE_DEGREE,
+          f"dense: {dense.num_edges} rows")
+    results = {"rows": {"dense": dense.num_edges, "sorted": sorted_batch.num_edges,
+                        "real": int(np.asarray(dense.edge_pad_mask).sum())}}
+    model = build_model(SEED, "cuda", torch.float32)
+    with torch.inference_mode():
+        want_out = predict(model, sorted_batch).float().cpu()
+        reset_counts()
+        got_out = predict(model, dense).float().cpu()
+    forward = {"launches": dict(zip(KERNEL_COUNTS, launch_counts())),
+               "max_abs_vs_sorted": (got_out - want_out).abs().max().item()}
+    results["forward"] = forward
+    del model
+    k1_train, k1_eval = k1_steps_dense("lba", 8)
+    check(forward["launches"] == {"K1": k1_eval, "K2": 8, "K3_bf16": 0, "K3_fp32": 0},
+          f"dense forward: launches {forward['launches']}")
+    check(forward["max_abs_vs_sorted"] <= FORWARD_ATOL, f"dense forward: {forward}")
+    build = lambda dev: build_lba_training(SEED, dev, torch.float32, lr=TRAIN_LR, dropout=0.0)  # noqa: E731
+    results["lba_fp32"] = _layout_step("dense lba fp32", build, {"default": sorted_batch, "dense": dense},
+                                       graph_regression_loss, {"K1": k1_train, "K2": 8, "K3_bf16": 0, "K3_fp32": 8})
+    model, state, gen = _lba_training(torch.bfloat16)
+    steps = TrainSteps(model, state, graph_regression_loss, gen)
+    pinned = [dense.pinned()]
+    first = steps(pinned)
+    prof = profile_replay(lambda: steps(pinned), steps.call, pinned)
+    want = {"K1": k1_train, "K2": 8, "K3_bf16": 8, "K3_fp32": 0}
+    results["lba_bf16_captured"] = {
+        "loss": first.loss.item(), "step_busy_ms": prof["device_busy_ms"], "device_idle_share": prof["device_idle_share"],
+        "launches": prof["launches"], "graph_kernel_nodes": prof["graph_kernel_nodes"], "scatters": prof["scatters"],
+        "wall_ms": prof["wall_ms"],
+    }
+    del model, state, steps
+    print("phase dense lba bf16: " + json.dumps(results["lba_bf16_captured"]), flush=True)
+    check(prof["launches"] == want, f"dense lba bf16: a replay's launches {prof['launches']}, want {want}")
+    check(not prof["scatters"], f"dense lba bf16: scatters {prof['scatters']}")
+    layers = FIT_LAYERS["eq"]
+    batches = {"default": next(eq_datamodule(eq_root).val_batches())}
+    with environ(GCPNET_EQ_DENSE="1"):
+        batches["dense"] = next(eq_datamodule(eq_root).val_batches())
+    check(batches["dense"].edge_dense_degree == 32, "dense eq: the switch took no effect")
+    k1 = k1_steps_dense("eq", layers, by_sender=True)[0]
+    results["eq"] = _layout_step("dense eq", lambda dev: _eq_model(dev, layers), batches, eq_loss,
+                                 {"K1": k1, "K2": layers, "K3_bf16": 0, "K3_fp32": layers}, params_by_share=True)
+    layers = FIT_LAYERS["ar"]
+    batches = {"default": next(ar_datamodule(ar_root).val_batches())}
+    with environ(GCPNET_AR_DENSE="1"):
+        dm = ar_datamodule(ar_root)
+        batches["dense"] = next(dm.val_batches())
+    check(batches["dense"].sender_out_degree == dm.k_max + 2 * dm.k_min, "dense ar: the switch took no effect")
+    results["ar"] = _layout_step("dense ar", lambda dev: _ar_model(dev, layers), batches, ar_loss,
+                                 {"K1": k1_steps("ar", layers)[0], "K2": layers, "K3_bf16": 0, "K3_fp32": layers},
+                                 params_by_share=True)
+    print("phase dense: ok")
+    return results
+
+
+def clash_mask_numpy(s) -> np.ndarray:
+    """The JAX ``between_residue_clashes`` in numpy on the host, its
+    per-atom operands made here from the structure as the JAX function
+    makes them (not the port's ``clash_operands``), over the pairs a k-d
+    tree finds within reach of a clash (the largest bound, 2 x the largest
+    radius - 1.5 A, plus 0.5): every other pair is farther apart than any
+    bound.  Each pair's test is symmetric, so it marks both atoms."""
+    from scipy.spatial import cKDTree
+
+    x = s.coords.astype(np.float64)
+    out = np.zeros(x.shape[0], dtype=bool)
+    if x.shape[0] < 2:
+        return out
+    radii = np.asarray([amber_violations.VDW_RADII.get(e, 1.7) for e in s.elements])
+    res_idx = s.residue_index()
+    names = [a.name for a in s.atoms]
+    is_c = np.asarray([n == "C" for n in names])
+    is_n = np.asarray([n == "N" for n in names])
+    resseq = np.asarray([a.resseq for a in s.atoms], dtype=np.int64)
+    chain_ids = {c: k for k, c in enumerate({a.chain for a in s.atoms})}
+    chain = np.asarray([chain_ids[a.chain] for a in s.atoms], dtype=np.int64)
+    is_sg = np.asarray([a.name == "SG" and a.resname == "CYS" for a in s.atoms])
+    reach = 2 * float(radii.max()) - amber_violations.CLASH_OVERLAP_TOL + 0.5
+    pairs = cKDTree(x).query_pairs(reach, output_type="ndarray")
+    i, j = pairs[:, 0], pairs[:, 1]
+    diff = x[i] - x[j]
+    dist = np.sqrt(np.sum(diff * diff, axis=-1) + 1e-12)
+    lower = radii[i] + radii[j] - amber_violations.CLASH_OVERLAP_TOL
+    same_chain = chain[i] == chain[j]
+    bonded = is_c[i] & is_n[j] & (resseq[j] == resseq[i] + 1)
+    bonded_t = is_n[i] & is_c[j] & (resseq[i] == resseq[j] + 1)
+    clash = ((dist < lower) & (res_idx[i] != res_idx[j])
+             & ~((bonded | bonded_t) & same_chain) & ~(is_sg[i] & is_sg[j]))
+    out[i[clash]] = True
+    out[j[clash]] = True
+    return out
+
+
+def phase_scorers(eq_root: str, work: str, refined_pdb: str) -> dict:
+    """The external scorers and AMBER's violations.  EQ's labels through
+    ``lddt_exec_path``: a stand-in lddt executable (write_lddt_stub) that
+    prints the native per-residue lDDT of eq-data's validation decoys,
+    against the native labels eq-data cached (atol 1e-6: six printed
+    decimals); the graph cache keyed on the scorer (both kinds of file
+    beside each other).  Then find_violations of ar-predict's refined
+    decoy (its clash check on the card, in blocks) against the same with
+    the clash check in numpy on the host (clash_mask_numpy): equal masks
+    and counts."""
+    native_dm = eq_datamodule(eq_root)
+    names = native_dm.splits["valid"]
+    scores, native = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        decoy = native_dm._decoy_path(name)
+        scores[os.path.basename(decoy)] = matched_lddt(decoy, native_dm._native_path(name), per_residue=True)
+        native[name] = native_dm.featurize(name).extras["label"]
+    calls = os.path.join(work, "lddt_calls")
+    stub = write_lddt_stub(os.path.join(work, "lddt"), scores, log=calls)
+    t1 = time.perf_counter()
+    dm = EQDataModule.from_data_dir(eq_root, batch_size=1, max_nodes_per_batch=EQ_BUCKET[0],
+                                    max_residues_per_batch=EQ_MAX_RESIDUES, lddt_exec_path=stub)
+    dm.setup()
+    labels = {name: dm.featurize(name).extras["label"] for name in names}
+    t2 = time.perf_counter()
+    with open(calls) as f:
+        called = f.read().split()
+    cached = os.listdir(os.path.join(eq_root, "model_data_cache"))
+    lddt = {
+        "decoys": len(names), "binary_calls": len(called), "native_seconds": t1 - t0, "binary_seconds": t2 - t1,
+        "max_abs_vs_native": max(float(np.abs(labels[n] - native[n]).max()) for n in names),
+        "cached_native": sum(f"{n}.graph.npz" in cached for n in names),
+        "cached_binary": sum(any(c.startswith(f"{n}_lddt-") for c in cached) for n in names),
+    }
+    print("phase scorers lddt: " + json.dumps(lddt), flush=True)
+    check(lddt["binary_calls"] == len(names) > 0, f"scorers: the binary ran {lddt['binary_calls']} times")
+    check(lddt["max_abs_vs_native"] <= 1e-6, f"scorers: binary labels apart from native {lddt}")
+    check(lddt["cached_native"] == lddt["cached_binary"] == len(names), f"scorers: the graph cache {lddt}")
+    s = parse_pdb(refined_pdb, heavy_only=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = amber_violations.find_violations(s, "cuda")
+    t1 = time.perf_counter()
+    host_mask = clash_mask_numpy(s)
+    t2 = time.perf_counter()
+    res_idx = s.residue_index()
+    host_res = np.zeros(card["per_residue_violation_mask"].shape[0], dtype=bool)
+    host_res[res_idx[host_mask]] = True
+    bond = amber_violations.between_residue_bond_violations(s)["per_residue_violation_mask"]
+    viol = {
+        "atoms": len(s.atoms), "residues": int(host_res.shape[0]), "card_seconds": t1 - t0, "host_seconds": t2 - t1,
+        "clashing_atoms": int(card["per_atom_clash_mask"].sum()), "host_clashing_atoms": int(host_mask.sum()),
+        "num_residue_violations": card["num_residue_violations"],
+        "host_num_residue_violations": float((bond | host_res).sum()),
+        **{k: v for k, v in card.items() if k.startswith("violations_")},
+    }
+    print("phase scorers violations: " + json.dumps(viol), flush=True)
+    check(np.array_equal(card["per_atom_clash_mask"], host_mask), "scorers: clash masks differ")
+    check(np.array_equal(card["per_residue_violation_mask"], bond | host_res), "scorers: residue masks differ")
+    check(viol["num_residue_violations"] == viol["host_num_residue_violations"], f"scorers: counts {viol}")
+    print("phase scorers: ok")
+    return {"lddt": lddt, "violations": viol}
+
+
 def datum_samples(model, graph, copies: int) -> np.ndarray:
     """The argmax samples (temperature 1e-6) of ``copies`` copies of
     ``graph`` on the model's device, ``[copies, n]``."""
@@ -4409,6 +4890,9 @@ def main() -> int:
         del rs_dm
         gc.collect()
         report["ddp"] = phase_ddp(work)
+        report["remat"] = phase_remat(batches[0], os.path.join(work, "cfg_data"))
+        report["dense"] = phase_dense(eq_root, ar_root)
+        report["scorers"] = phase_scorers(eq_root, work, report["ar_predict"]["rows"][0]["refined_pdb"])
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

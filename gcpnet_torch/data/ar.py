@@ -26,7 +26,14 @@ shuffled epoch draws over those in the order of the JAX
 receiver-sorted with CSR row splits and carry the sorted forms of the
 senders and of the graph ids, so that on the card every sum of AR runs
 through K1; the residues' Ca table ``ca_x`` is batch-global
-(:func:`globalize_ar_residues`).
+(:func:`globalize_ar_residues`).  ``GCPNET_AR_DENSE=1`` checks the
+sender-dense budget ``k_max + 2 k_min`` (``data.batching.
+check_sender_budget``: a node of more outgoing edges raises), as the JAX
+module's ``attach_sender_perm`` does; the senders' sorted form is that
+permutation's CSR form, so the batches are otherwise the same, and the
+receiver side stays sorted, as the graph's in-degree has no bound.
+Refined decoys are scored through ``utils.external_tools``, with no
+executable path, as the JAX writer calls it.
 
 The JAX package reads ``cpp/libgraphkernels.so`` for the hybrid kNN graph
 when it loads; the port keeps its own copy (a ``scipy.spatial.cKDTree``
@@ -43,14 +50,14 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from gcpnet_torch.data import esm
-from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, shuffled_order
+from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, layout_switch, made_ahead, shuffled_order
 from gcpnet_torch.data.eq import EQ_ATOM_TYPES, _load_graph, _save_graph, structure_sequence
 from gcpnet_torch.data.esm import embed_sequence
 from gcpnet_torch.device import DeviceLike
 from gcpnet_torch.data.features import normalize, orientations, rbf
 from gcpnet_torch.data.pdb import Structure, parse_pdb, write_structure
 from gcpnet_torch.graph import GraphBatch, GraphData
-from gcpnet_torch.utils.structure_metrics import matched_lddt, matched_structure_scores
+from gcpnet_torch.utils.external_tools import calculate_tmscore_metrics, generate_lddt_score
 
 log = logging.getLogger(__name__)
 
@@ -506,6 +513,14 @@ class ARDataModule:
         n = self.max_nodes_per_batch
         return Bucket(num_nodes=n, num_edges=n * (self.k_max + 2 * self.k_min), num_graphs=self.batch_size)
 
+    def sender_budget(self) -> Optional[int]:
+        """The sender-dense budget ``k_max + 2 k_min`` (a bound on the hybrid
+        kNN graph's out-degree) where ``GCPNET_AR_DENSE`` is ``1`` or
+        ``true``, else ``None`` (the JAX ``_sender_budget``)."""
+        if not layout_switch("GCPNET_AR_DENSE"):
+            return None
+        return self.k_max + 2 * self.k_min
+
     def batches(self, split: str, shuffle: bool = False, seed: int = 0) -> Iterator[GraphBatch]:
         """The split's batches (this process's shard of each); the training
         split cropped, with ``seed`` (see :meth:`_graphs`); shuffled, in the
@@ -521,7 +536,8 @@ class ARDataModule:
             kept = np.asarray(self._featurized[split], dtype=np.int64)
             index = kept[shuffled_order(len(kept), seed)].tolist()
         for batch in batches_from_dataset(
-            self._graphs(split, crop, seed, index), self.bucket(), shards=self.shards, drop_last=shuffle
+            self._graphs(split, crop, seed, index), self.bucket(), shards=self.shards, drop_last=shuffle,
+            dense_out_degree=self.sender_budget(),
         ):
             yield globalize_ar_residues(batch, self.max_residues_per_batch)
 
@@ -572,7 +588,7 @@ class ARDataModule:
                         f"edges, more than the bucket's {bucket.num_nodes} nodes and {bucket.num_edges} edge rows "
                         "(raise max_nodes_per_batch)"
                     )
-                (batch,) = batches_from_dataset([g], bucket)
+                (batch,) = batches_from_dataset([g], bucket, dense_out_degree=self.sender_budget())
                 self._predict_meta.append({"decoy": decoy, "last_window": wi == len(windows) - 1})
                 yield globalize_ar_residues(batch, self.max_residues_per_batch)
 
@@ -600,8 +616,8 @@ class ARDataModule:
         native = os.path.join(self.predict_true_dir, os.path.basename(decoy)) if self.predict_true_dir else None
         if native and os.path.exists(native):
             try:
-                row.update(matched_structure_scores(out_path, native))
-                row["lDDT"] = float(matched_lddt(out_path, native, per_residue=False))
+                row.update(calculate_tmscore_metrics(out_path, native))
+                row["lDDT"] = float(generate_lddt_score(out_path, native, per_residue=False))
             except Exception as exc:  # the JAX module logs and keeps the row
                 log.warning(f"scoring failed for {decoy}: {exc}")
         return [row]

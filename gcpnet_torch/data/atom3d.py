@@ -16,7 +16,8 @@ downloads nothing.
 
 Batches are receiver-sorted with CSR row splits (``tile=1``), so on the
 card every step runs K1, K2 and K3; the JAX module's default is the dense
-slot-major layout, which the port does not have yet (the math is the same).
+slot-major layout (``data.batching.densify_edges_by_receiver`` in the
+port), which no switch of the port selects here (the math is the same).
 With ``max_units > 0`` the bucket comes from that edge or node budget, as
 the JAX module's does (:meth:`ATOM3DDataModule.bucket`).
 """

@@ -1,10 +1,21 @@
 """Padded shape buckets (also from a unit budget), collation, the
-receiver-sorted edge layout, and packing a dataset into batches.
+receiver-sorted and dense edge layouts, and packing a dataset into batches.
 
-Port of the edge-list parts of ``gcpnet_tpu/data/batching.py``.  Host-side
-numpy; the result goes to the card through ``GraphBatch.to``.  Under data
-parallelism (``Shards``) each process packs the same groups of shards and
-keeps its own.
+Port of ``gcpnet_tpu/data/batching.py``.  Host-side numpy; the result goes
+to the card through ``GraphBatch.to``.  Under data parallelism (``Shards``)
+each process packs the same groups of shards and keeps its own.
+
+The dense fixed-degree layout (:func:`densify_edges_by_receiver`, the JAX
+package's default, variant ``"dense"``) is SLOT-MAJOR: edge row ``k*N+n``
+holds receiver ``n``'s k-th incoming edge.  The JAX sender-dense
+permutation (``build_sender_perm``, also slot-major) is not built: its CSR
+form, node by node, is the senders' sorted form every batch carries
+(:func:`sorted_index`), through which every sender-side sum and gather's
+backward runs K1 on the card; only its budget is checked
+(:func:`check_sender_budget`).  The port's batches stay receiver-sorted
+unless a datamodule asks for the dense budgets (EQ under
+``GCPNET_EQ_DENSE``; AR's sender budget under ``GCPNET_AR_DENSE``, both
+read by :func:`layout_switch`).
 """
 
 from __future__ import annotations
@@ -205,6 +216,82 @@ def sort_edges_by_receiver(batch: GraphBatch, tile: int = 128) -> GraphBatch:
     ))
 
 
+def layout_switch(name: str) -> bool:
+    """Whether the environment switch ``name`` (``GCPNET_EQ_DENSE``,
+    ``GCPNET_AR_DENSE``: the JAX package's) is ``1`` or ``true``."""
+    return os.environ.get(name, "") in ("1", "true")
+
+
+def check_sender_budget(senders: np.ndarray, real_mask: np.ndarray, num_nodes: int, out_degree: int) -> None:
+    """Raise if a node sends more real edges than ``out_degree``, the
+    budget of the JAX ``build_sender_perm``."""
+    counts = np.bincount(np.asarray(senders)[np.asarray(real_mask, dtype=bool)], minlength=num_nodes)
+    max_out = int(counts.max()) if counts.size else 0
+    if max_out > out_degree:
+        raise ValueError(f"check_sender_budget: max out-degree {max_out} exceeds the sender-dense budget {out_degree}")
+
+
+def densify_edges_by_receiver(batch: GraphBatch, degree: int, out_degree: Optional[int] = None) -> GraphBatch:
+    """Re-lay one shard's edges into the dense fixed-degree receiver layout,
+    SLOT-MAJOR: edge row ``k*num_nodes + n`` holds receiver ``n``'s k-th
+    incoming edge (real edges in low slots, in their row order; then
+    padding slots with ``senders = receivers = n`` and zeroed features and
+    mask): the JAX function.  The edge budget becomes ``num_nodes *
+    degree``.  Raises if a node's real in-degree exceeds ``degree``, or,
+    with ``out_degree``, its out-degree exceeds that
+    (:func:`check_sender_budget`).  The senders keep their sorted form
+    (:func:`with_sorted_indices`)."""
+    receivers = np.asarray(batch.receivers)
+    num_nodes = batch.num_nodes
+    pad = ~np.asarray(batch.edge_pad_mask)
+    real_idx = np.flatnonzero(~pad)
+    r = receivers[real_idx]
+    counts = np.bincount(r, minlength=num_nodes)
+    if counts.size > num_nodes:
+        raise ValueError("receiver index out of range")
+    max_deg = int(counts.max()) if counts.size else 0
+    if max_deg > degree:
+        raise ValueError(f"densify_edges_by_receiver: max in-degree {max_deg} exceeds dense degree {degree}")
+    # stable sort by receiver keeps each node's edges in original order
+    order = np.argsort(r, kind="stable")
+    r_sorted = r[order]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(r_sorted.shape[0]) - starts[r_sorted]
+    dest = slot * num_nodes + r_sorted  # slot-major
+    src = real_idx[order]
+    num_edges = num_nodes * degree
+
+    def place(arr, fill=0):
+        if arr is None:
+            return None
+        arr = np.asarray(arr)
+        out = np.full((num_edges,) + arr.shape[1:], fill, dtype=arr.dtype)
+        out[dest] = arr[src]
+        return out
+
+    # padding slots: a self-loop on the slot's own node (in range, masked out)
+    slot_node = np.tile(np.arange(num_nodes, dtype=np.int32), degree)
+    senders = place(batch.senders)
+    receivers_new = place(batch.receivers)
+    filled = np.zeros(num_edges, dtype=bool)
+    filled[dest] = True
+    senders[~filled] = slot_node[~filled]
+    receivers_new[~filled] = slot_node[~filled]
+    edge_pad_mask = np.zeros(num_edges, dtype=bool)
+    edge_pad_mask[dest] = np.asarray(batch.edge_pad_mask)[src]
+    extras = {
+        k: (place(v) if np.asarray(v).shape[:1] == (batch.num_edges,) and batch.num_edges != num_nodes else v)
+        for k, v in batch.extras.items()
+    }
+    if out_degree is not None:
+        check_sender_budget(senders, edge_pad_mask, num_nodes, out_degree)
+    return with_sorted_indices(batch.replace(
+        e=place(batch.e), xi=place(batch.xi), senders=senders, receivers=receivers_new, edge_pad_mask=edge_pad_mask,
+        edge_row_splits=None, extras=extras, edge_dense_degree=int(degree),
+        sender_out_degree=int(out_degree) if out_degree is not None else None,
+    ))
+
+
 def collate_shards(
     shard_graphs: Sequence[Sequence[GraphData]],
     bucket: Bucket,
@@ -213,10 +300,19 @@ def collate_shards(
     sort_edges: bool = False,
     sort_tile: int = 128,
     index: int = 0,
+    dense_degree: Optional[int] = None,
+    dense_out_degree: Optional[int] = None,
 ) -> GraphBatch:
     """Shard ``index`` of a group of shards, padded into ``bucket`` with
     shard-local indices, and its edges optionally sorted by receiver
-    (``sort_tile`` is :func:`sort_edges_by_receiver`'s ``tile``).
+    (``sort_tile`` is :func:`sort_edges_by_receiver`'s ``tile``).  With
+    ``dense_degree`` the edges are laid out dense instead
+    (:func:`densify_edges_by_receiver`, ``dense_out_degree`` its sender
+    budget); with ``dense_out_degree`` alone the sender budget is checked
+    (:func:`check_sender_budget`) and recorded in ``sender_out_degree``,
+    where the JAX function attaches its permutation to the edge list's
+    order (``attach_sender_perm``; the port's receivers keep their sorted
+    form for K1).
 
     The JAX function (``gcpnet_tpu/data/batching.py:349-405``) concatenates
     every shard's sub-batch for its data-parallel mesh, which hands device
@@ -235,8 +331,13 @@ def collate_shards(
         extra_graph_keys=extra_graph_keys,
         like=like,
     )
+    if dense_degree is not None:
+        return densify_edges_by_receiver(batch, dense_degree, dense_out_degree)
     if sort_edges:
         batch = sort_edges_by_receiver(batch, tile=sort_tile)
+    if dense_out_degree is not None:
+        check_sender_budget(batch.senders, batch.edge_pad_mask, batch.num_nodes, dense_out_degree)
+        batch = batch.replace(sender_out_degree=int(dense_out_degree))
     return batch
 
 
@@ -285,10 +386,13 @@ def batches_from_dataset(
     extra_graph_keys: Sequence[str] = (),
     shards: Shards = Shards(),
     drop_last: bool = False,
+    dense_degree: Optional[int] = None,
+    dense_out_degree: Optional[int] = None,
 ) -> Iterator[GraphBatch]:
     """Pack host graphs into padded batches of ``bucket``, in order, each
     batch receiver-sorted with plain CSR row splits (``tile=1``), so that on the
-    card K1 sums every batch.
+    card K1 sums every batch; or, with ``dense_degree`` and
+    ``dense_out_degree``, in the dense layouts (:func:`collate_shards`).
 
     Port of ``gcpnet_tpu/data/batching.py:407-475``: graphs are added to a
     shard until one more would overflow the bucket's nodes, edges or
@@ -310,7 +414,8 @@ def batches_from_dataset(
     def emit():
         return collate_shards(
             group + [[]] * (shards.count - len(group)), bucket, extra_graph_keys,
-            sort_edges=True, sort_tile=1, index=shards.index,
+            sort_edges=True, sort_tile=1, index=shards.index, dense_degree=dense_degree,
+            dense_out_degree=dense_out_degree,
         )
 
     for g in graphs:

@@ -15,8 +15,9 @@ Two differences from the JAX module.  ``prepare_data`` downloads nothing:
 the files must be in ``data_dir``, and it raises naming those that are
 missing.  Batches are receiver-sorted with CSR row splits (``tile=1``,
 ``data.batching.batches_from_dataset``), so on the card the encoder runs
-K1, K2 and K3; the JAX module's default is the dense slot-major layout,
-which the port does not have yet (the math is the same).
+K1, K2 and K3; the JAX module's default is the dense slot-major layout
+(``data.batching.densify_edges_by_receiver`` in the port), which no
+switch of the port selects here (the math is the same).
 """
 
 from __future__ import annotations

@@ -9,10 +9,16 @@ Port of ``gcpnet_tpu/data/eq.py``:
   unknown) that the model embeds; chain orientations as node vectors;
 - edge scalars ``[same chain, same residue, RBF16]`` and unit edge
   vectors;
-- per-residue lDDT labels against the native (``utils.structure_metrics``),
+- per-residue lDDT labels against the native, native
+  (``utils.structure_metrics``) or from the lddt binary at
+  ``lddt_exec_path`` (``utils.external_tools.generate_lddt_score``),
   computed once a decoy: featurized graphs are cached in
   ``model_data_cache_dir``, as the JAX module caches its graphs (an
-  ``.npz`` a decoy here, where it pickles them).
+  ``.npz`` a decoy here, where it pickles them).  The port's cache name
+  also says which scorer labelled the graph (``_lddt-<digest of the
+  binary's path>`` after the name; the JAX cache keeps one name for
+  both), so that native labels are never read back as a binary's, nor
+  the other way round.
 
 As in ``data.atom3d`` and ``data.cath``, graphs are featurized on threads
 a few ahead of the packing, a split's first pass learns which decoys
@@ -25,11 +31,15 @@ The prediction path (``predict_batches``, ``record_predictions``) gives
 one batch a decoy of ``predict_input_dir`` and writes its b-factor-annotated
 PDB and its CSV row.  ``subset_to_ca_atoms_only`` builds CA-only graphs
 (one node a residue, radius 8 A, at most 128 neighbours), cached apart
-(``<name>_ca.graph.npz``).  The ``lddt`` binary is not ported yet.
+(``<name>_ca.graph.npz``).  ``GCPNET_EQ_DENSE=1`` lays the batches out
+dense (``data.batching.densify_edges_by_receiver``: receiver budget
+``max_neighbors``, sender budget twice that), off for CA-only graphs, as
+the JAX module does.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 from typing import Dict, Iterator, List, Optional, Sequence
@@ -38,13 +48,15 @@ import numpy as np
 
 from gcpnet_torch.data.atom3d import radius_graph
 from gcpnet_torch.data import esm
-from gcpnet_torch.data.batching import Bucket, Shards, batches_from_dataset, made_ahead, shuffled_order, sorted_index
+from gcpnet_torch.data.batching import (
+    Bucket, Shards, batches_from_dataset, layout_switch, made_ahead, shuffled_order, sorted_index,
+)
 from gcpnet_torch.data.esm import embed_sequence
 from gcpnet_torch.device import DeviceLike
 from gcpnet_torch.data.features import edge_geometric_features, orientations
 from gcpnet_torch.data.pdb import Structure, annotate_pdb_bfactor_column, parse_pdb
 from gcpnet_torch.graph import GraphBatch, GraphData
-from gcpnet_torch.utils.structure_metrics import matched_lddt
+from gcpnet_torch.utils.external_tools import configured_executable, generate_lddt_score
 
 log = logging.getLogger(__name__)
 
@@ -90,12 +102,15 @@ def featurize_decoy(
     num_rbf: int = 16,
     esm_device: DeviceLike = None,
     subset_to_ca_atoms_only: bool = False,
+    lddt_exec_path: Optional[str] = None,
 ) -> GraphData:
     """One decoy (and its native, for the labels) as a graph; the labels are
     zeros without a native.  An ESM-2 checkpoint runs on ``esm_device``
     (``data.esm``).  ``subset_to_ca_atoms_only`` keeps the CA atoms alone,
     each its own residue, over a radius graph of 8 A and at most 128
-    neighbours whatever the arguments say (``gcpnet_tpu/data/eq.py:103-112``)."""
+    neighbours whatever the arguments say (``gcpnet_tpu/data/eq.py:103-112``).
+    The labels come from the lddt binary at ``lddt_exec_path`` where one is
+    configured (a missing binary, or one that prints no score, raises)."""
     s = parse_pdb(decoy_path, heavy_only=True)
     if not s.atoms:
         raise ValueError(f"no atoms parsed from {decoy_path}")
@@ -129,7 +144,7 @@ def featurize_decoy(
     same_res = (res_idx[senders] == res_idx[receivers]).astype(np.float32)[:, None]
     label = np.zeros(num_res, dtype=np.float32)
     if native_path is not None and os.path.exists(native_path):
-        scores = _per_residue_lddt(decoy_path, native_path, num_res)
+        scores = _per_residue_lddt(decoy_path, native_path, num_res, lddt_exec_path)
         if scores is not None:
             label = scores
     return GraphData(
@@ -151,14 +166,21 @@ def featurize_decoy(
     )
 
 
-def _per_residue_lddt(decoy_path: str, native_path: str, num_res: int) -> Optional[np.ndarray]:
+def _per_residue_lddt(
+    decoy_path: str, native_path: str, num_res: int, lddt_exec_path: Optional[str] = None
+) -> Optional[np.ndarray]:
     """The decoy's per-residue lDDT, cut or zero-padded to ``num_res``;
-    ``None`` (logged) where it cannot be computed."""
-    try:
-        scores = np.asarray(matched_lddt(decoy_path, native_path, per_residue=True), dtype=np.float32)
-    except Exception as exc:  # the JAX module labels such a decoy with zeros
-        log.warning(f"lDDT labeling failed for {decoy_path}: {exc}")
-        return None
+    natively ``None`` (logged) where it cannot be computed.  A configured
+    binary's failure raises (the JAX module labels such a decoy with zeros
+    or native scores)."""
+    if lddt_exec_path:
+        scores = np.asarray(generate_lddt_score(decoy_path, native_path, lddt_exec_path), dtype=np.float32)
+    else:
+        try:
+            scores = np.asarray(generate_lddt_score(decoy_path, native_path), dtype=np.float32)
+        except Exception as exc:  # the JAX module labels such a decoy with zeros
+            log.warning(f"lDDT labeling failed for {decoy_path}: {exc}")
+            return None
     if scores.shape[0] == num_res:
         return scores
     out = np.zeros(num_res, dtype=np.float32)
@@ -191,9 +213,10 @@ class EQDataModule:
     rows, ``batch_size`` decoys and ``max_residues_per_batch`` residues.
     An ESM-2 checkpoint (``data.esm``) runs on ``esm_device``, over each
     split's sequences before its first pass (:meth:`prepare_embeddings`);
-    ``subset_to_ca_atoms_only`` featurizes CA-only graphs (the JAX module
-    also turns its dense layout off for them; the port has none);
-    ``shards`` is this process's share of each global batch."""
+    ``subset_to_ca_atoms_only`` featurizes CA-only graphs (and turns the
+    dense layout off for them, as the JAX module does); ``lddt_exec_path``
+    labels with the lddt binary; ``shards`` is this process's share of
+    each global batch."""
 
     def __init__(
         self,
@@ -213,6 +236,7 @@ class EQDataModule:
         predict_true_dir: Optional[str] = None,
         esm_device: DeviceLike = None,
         subset_to_ca_atoms_only: bool = False,
+        lddt_exec_path: Optional[str] = None,
         shards: Shards = Shards(),
     ):
         self.splits_dir = splits_dir
@@ -233,6 +257,8 @@ class EQDataModule:
         self.predict_true_dir = predict_true_dir
         self.esm_device = esm_device
         self.subset_to_ca = subset_to_ca_atoms_only
+        self.lddt_exec_path = lddt_exec_path
+        configured_executable(lddt_exec_path, "lddt_exec_path")
         self.shards = shards
         self.splits: Dict[str, List[str]] = {}
         self._featurized: Dict[str, List[int]] = {}
@@ -280,8 +306,23 @@ class EQDataModule:
         return None
 
     def _graph_cache(self, name: str) -> Optional[str]:
+        """``<name>[_ca][_lddt-<digest>].graph.npz``: the digest is of the
+        lddt binary's absolute path, where one labels the graphs."""
         suffix = "_ca" if self.subset_to_ca else ""
+        if self.lddt_exec_path:
+            full = os.path.abspath(os.path.expanduser(self.lddt_exec_path))
+            suffix += "_lddt-" + hashlib.sha1(full.encode()).hexdigest()[:12]
         return os.path.join(self.cache_dir, f"{name}{suffix}.graph.npz") if self.cache_dir else None
+
+    def dense_budgets(self):
+        """``(dense_degree, dense_out_degree)`` of the batches: ``(None,
+        None)`` (the receiver-sorted layout) unless ``GCPNET_EQ_DENSE`` is
+        ``1`` or ``true`` and the graphs are not CA-only, then the
+        featurizer's in-degree cap and twice it (the JAX
+        ``_dense_budgets``)."""
+        if self.subset_to_ca or not layout_switch("GCPNET_EQ_DENSE"):
+            return None, None
+        return self.max_neighbors, 2 * self.max_neighbors
 
     def prepare_embeddings(self, paths: Sequence[str]) -> int:
         """Embed, here and now, the sequences of the decoys ``paths`` that
@@ -319,7 +360,7 @@ class EQDataModule:
             self._decoy_path(name), self._native_path(name), esm_cache_dir=self.esm_cache_dir,
             edge_cutoff=self.edge_cutoff, max_neighbors=self.max_neighbors,
             rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf, esm_device=self.esm_device,
-            subset_to_ca_atoms_only=self.subset_to_ca,
+            subset_to_ca_atoms_only=self.subset_to_ca, lddt_exec_path=self.lddt_exec_path,
         )
         if cache_path:
             _save_graph(cache_path, g)
@@ -362,8 +403,10 @@ class EQDataModule:
                     pass
             kept = np.asarray(self._featurized[split], dtype=np.int64)
             index = kept[shuffled_order(len(kept), seed)].tolist()
+        degree, out_degree = self.dense_budgets()
         for batch in batches_from_dataset(
-            self._graphs(split, index), self.bucket(), shards=self.shards, drop_last=shuffle
+            self._graphs(split, index), self.bucket(), shards=self.shards, drop_last=shuffle,
+            dense_degree=degree, dense_out_degree=out_degree,
         ):
             yield globalize_residues(batch, self.max_residues_per_batch)
 
@@ -402,9 +445,10 @@ class EQDataModule:
                 decoy, native if native and os.path.exists(native) else None, esm_cache_dir=self.esm_cache_dir,
                 edge_cutoff=self.edge_cutoff, max_neighbors=self.max_neighbors,
                 rbf_edge_dist_cutoff=self.rbf_edge_dist_cutoff, num_rbf=self.num_rbf, esm_device=self.esm_device,
-                subset_to_ca_atoms_only=self.subset_to_ca,
+                subset_to_ca_atoms_only=self.subset_to_ca, lddt_exec_path=self.lddt_exec_path,
             )
-            (batch,) = batches_from_dataset([g], self.bucket())
+            degree, out_degree = self.dense_budgets()
+            (batch,) = batches_from_dataset([g], self.bucket(), dense_degree=degree, dense_out_degree=out_degree)
             self.predict_paths.append(decoy)
             yield globalize_residues(batch, self.max_residues_per_batch)
 

@@ -12,9 +12,10 @@ positions for frame 30's.
 
 One difference from the JAX module: the edge layout.  The JAX module emits
 the SLOT-MAJOR dense layout (``edge_dense_degree``), which runs no kernel
-and which the port does not have.  Here every batch is sorted by receiver
-with plain CSR row splits (node ``i`` owns rows ``[i (n-1), (i+1) (n-1))``):
-the fully connected template leaves no spare edge row for the 128-row
+(``data.batching.densify_edges_by_receiver`` of a sorted batch gives
+it).  Here every batch is sorted by receiver with plain CSR row splits
+(node ``i`` owns rows ``[i (n-1), (i+1) (n-1))``): the fully connected
+template leaves no spare edge row for the 128-row
 alignment of the tiled layout, and CSR needs none.  The features equal the
 JAX module's up to that permutation of the edge rows, and every aggregation
 runs through K1 and every message stack through K2/K3 on the card.

@@ -40,7 +40,7 @@ RENAMES = {"NMSDataModule": {"data_dir": "data_root", "frame_O": "frame_0"}, "RS
 DROPPED = {"num_workers", "pin_memory", "predict_batch_size", "predict_pin_memory", "predict_output_dir"}
 # keys of the JAX datamodules, at the value that leaves their feature off
 INERT = {
-    "python_exec_path": None, "pdbtools_dir": None, "lddt_exec_path": None, "force_process_data": False,
+    "python_exec_path": None, "pdbtools_dir": None, "force_process_data": False,
     "load_only_unprocessed_examples": False, "select_N_enantiomers": None,
 }
 # keys that neither package reads, taken at any value: AR's

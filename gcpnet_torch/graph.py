@@ -11,17 +11,22 @@ A :class:`GraphBatch` holds numpy arrays while the host builds it
 (:func:`batch_graphs`, ``gcpnet_torch.data.batching``) and torch tensors
 after :meth:`GraphBatch.to`.
 
-Only the edge-list and receiver-sorted layouts are ported so far.  A
-receiver-sorted batch also carries the sorted forms of its indices
-(:meth:`GraphBatch.receiver_index`, :meth:`GraphBatch.sender_index`,
-:meth:`GraphBatch.graph_index`), so that
+Three edge layouts: the edge list, the receiver-sorted layout and the
+dense fixed-degree layout.  A receiver-sorted batch also carries the
+sorted forms of its indices (:meth:`GraphBatch.receiver_index`,
+:meth:`GraphBatch.sender_index`, :meth:`GraphBatch.graph_index`), so that
 on the card every sum and every gather's backward runs through K1
-(``ops.segment``).  Note for
-whoever ports the dense fixed-degree layout: the JAX package's comment on
-``GraphBatch.edge_dense_degree`` (``gcpnet_tpu/graph.py:69-70``) calls that
-layout node-major (row ``n*K+j``), but the code is SLOT-MAJOR: row
-``k*N+n`` belongs to node ``n`` (``gcpnet_tpu/data/batching.py:256, 292``;
-``gcpnet_tpu/ops/segment.py:100-103``).  Follow the code.
+(``ops.segment``).  A dense batch (``edge_dense_degree`` K,
+``data.batching.densify_edges_by_receiver``) is SLOT-MAJOR: edge row
+``k*N+n`` holds node ``n``'s k-th incoming edge, so its receiver index is
+an ``ops.segment.DenseIndex`` (sums over the slot axis, gathers as
+broadcasts), while its senders keep their sorted form.  The JAX package's
+comment on ``GraphBatch.edge_dense_degree`` (``gcpnet_tpu/graph.py:69-70``)
+calls that layout node-major (row ``n*K+j``), but its code is slot-major
+(``gcpnet_tpu/data/batching.py:256, 292``; ``gcpnet_tpu/ops/segment.py:
+100-103``), as the port is.  ``edge_dense_degree`` and
+``sender_out_degree`` are Python ints (``STATIC_FIELDS``), kept as they
+are by :meth:`GraphBatch.to` and named in a captured step's batch key.
 """
 
 from __future__ import annotations
@@ -32,9 +37,12 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from gcpnet_torch.ops.segment import SortedIndex
+from gcpnet_torch.ops.segment import DenseIndex, SortedIndex
 
 Array = Any  # np.ndarray on the host, torch.Tensor after GraphBatch.to
+
+# the batch's layout as Python ints, not arrays
+STATIC_FIELDS = ("edge_dense_degree", "sender_out_degree")
 
 
 @dataclasses.dataclass
@@ -64,6 +72,10 @@ class GraphBatch:
       graph_splits: optional [G+1] each graph's range of nodes (the real
         nodes are in graph order, the padding nodes after them).
       extras: task-specific arrays keyed by name (labels, ...).
+      edge_dense_degree: optional int K of the dense slot-major layout
+        (``E = K * N``; row ``k*N+n`` belongs to receiver ``n``).
+      sender_out_degree: optional int, the sender-dense budget the batch
+        was checked against (no node sends more edges).
     """
 
     h: Array
@@ -84,6 +96,8 @@ class GraphBatch:
     sender_splits: Optional[Array] = None
     graph_splits: Optional[Array] = None
     extras: Dict[str, Array] = dataclasses.field(default_factory=dict)
+    edge_dense_degree: Optional[int] = None
+    sender_out_degree: Optional[int] = None
 
     @property
     def num_nodes(self) -> int:
@@ -111,8 +125,11 @@ class GraphBatch:
         return self.edge_pad_mask & nm[self.senders] & nm[self.receivers]
 
     def receiver_index(self):
-        """The receivers, in their sorted form (the row splits of a
-        receiver-sorted batch) where the batch has one."""
+        """The receivers: a :class:`DenseIndex` in the dense layout, in
+        their sorted form (the row splits of a receiver-sorted batch) where
+        the batch has one, else the plain index."""
+        if self.edge_dense_degree is not None:
+            return DenseIndex(self.receivers, self.edge_dense_degree)
         if self.edge_row_splits is None:
             return self.receivers
         return SortedIndex(self.receivers, self.edge_row_splits)
@@ -170,15 +187,23 @@ class GraphBatch:
         fields = {
             f.name: conv(f.name, getattr(self, f.name))
             for f in dataclasses.fields(self)
-            if f.name != "extras"
+            if f.name != "extras" and f.name not in STATIC_FIELDS
         }
         fields["extras"] = {k: conv(k, v) for k, v in self.extras.items()}
-        return GraphBatch(**fields)
+        return GraphBatch(**fields, **self.static())
+
+    def static(self) -> Dict[str, Optional[int]]:
+        """The layout's ints (``STATIC_FIELDS``) by name."""
+        return {name: getattr(self, name) for name in STATIC_FIELDS}
 
     def tensors(self) -> Dict[str, Any]:
         """Every array by name, ``extras`` as ``extras.<key>`` in sorted
-        order (``None`` for an absent optional array)."""
-        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self) if f.name != "extras"}
+        order (``None`` for an absent optional array); not the layout's
+        ints (:meth:`static`)."""
+        out = {
+            f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+            if f.name != "extras" and f.name not in STATIC_FIELDS
+        }
         out.update({f"extras.{k}": self.extras[k] for k in sorted(self.extras)})
         return out
 

@@ -15,7 +15,7 @@ stacks' node rows) goes through ``ops.segment.SortedIndex``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import Tensor, nn
@@ -32,7 +32,8 @@ class GCPNetAR(nn.Module):
     """``device=None`` builds the model on the card (and raises without
     one); weights are drawn from ``generator`` on the CPU and moved.  The
     parameters keep the flax module's names.  ``layer_class`` names the
-    trunk's interaction layer."""
+    trunk's interaction layer; ``remat`` rematerializes each of its layers
+    (``models.common.remat_call``)."""
 
     def __init__(
         self,
@@ -40,6 +41,7 @@ class GCPNetAR(nn.Module):
         module_cfg: ModuleCfg,
         layer_cfg: LayerCfg,
         layer_class: str = "GCPInteractions2",
+        remat: Union[bool, str] = False,
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -52,6 +54,7 @@ class GCPNetAR(nn.Module):
             mc, module_cfg, layer_cfg, num_atom_types=0, node_input_dims=(mc.h_input_dim, mc.chi_input_dim),
             updating_node_positions=True, layer_class=layer_class,
             embedding_nonlinearities=module_cfg.nonlinearities, generator=generator, device=device,
+            remat=remat,
         )
 
     def forward(

@@ -3,15 +3,17 @@ invariant head and the encoder trunk.
 
 Port of ``gcpnet_tpu/models/common.py``.  The encoder is a plain loop over
 its interaction layers (the JAX package may scan them; the math is the
-same).
+same), each optionally rematerialized in the backward pass (``remat``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import Tensor, nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from gcpnet_torch.config.schema import LayerCfg, ModelCfg, ModuleCfg
 from gcpnet_torch.graph import GraphBatch
@@ -19,7 +21,7 @@ from gcpnet_torch.nn.embedding import GCPEmbedding
 from gcpnet_torch.nn.frames import NodeFrames, centralize, localize
 from gcpnet_torch.nn.gcp import Dense, make_gcp
 from gcpnet_torch.nn.interactions import LAYER_CLASSES
-from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, ScalarVector, get_nonlinearity
+from gcpnet_torch.nn.primitives import GCPDropout, GCPLayerNorm, MaskTape, ScalarVector, get_nonlinearity
 from gcpnet_torch.ops.segment import segment_mean
 
 
@@ -93,12 +95,71 @@ class InvariantPooledHead(nn.Module):
         return y[..., 0] if self.output_dim == 1 else y
 
 
+# the matrix products whose outputs the "dots" policy saves: the aten ops
+# that ``jax.checkpoint_policies.dots_saveable``'s dot_general becomes
+DOT_OPS = frozenset(
+    getattr(torch.ops.aten, name).default
+    for name in ("mm", "addmm", "bmm", "baddbmm", "dot", "vdot", "mv", "addmv")
+)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat(remat: Union[bool, str]) -> Union[bool, str]:
+    """``remat`` if it is ``False``, ``True`` or ``"dots"`` (the JAX
+    ``_remat_policy``'s values); any other string raises."""
+    if isinstance(remat, str) and remat != "dots":
+        raise ValueError(f"unknown remat policy {remat!r}; use False, True, or 'dots'")
+    return remat if isinstance(remat, str) else bool(remat)
+
+
+def remat_call(layer: nn.Module, remat: Union[bool, str], *args, **kwargs):
+    """``layer(*args, **kwargs)`` rematerialized in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant): ``True`` keeps only the
+    layer's inputs and recomputes the rest, ``"dots"`` also keeps the
+    outputs of its matrix products (``DOT_OPS``, a selective-checkpoint
+    policy: the counterpart of ``dots_saveable``) and recomputes the
+    elementwise chains.  Dropout masks are recorded in the first run and
+    replayed in the recompute (``nn.primitives.MaskTape``, handed to the
+    layer as its ``generator``), so the gradients equal those without
+    remat; the generator's state is not touched
+    (``preserve_rng_state=False``), which keeps the call inside a captured
+    CUDA graph.  The recompute runs on the tensors the layer held
+    in the first run (under ``torch.func.functional_call``, as a bf16 step
+    calls the model, its parameters' bf16 copies, which are gone from the
+    module by the time the backward runs).  The recompute launches the
+    layer's kernels again (K1's sums, K2's stack)."""
+    if kwargs.get("generator") is not None:
+        kwargs["generator"] = tape = MaskTape(kwargs["generator"])
+    else:
+        tape = None
+    held = {}
+
+    def run(*a, **kw):
+        if held:
+            if tape is not None:
+                tape.replay = 0
+            return torch.func.functional_call(layer, held, a, kw)
+        held.update(layer.named_parameters())
+        held.update(layer.named_buffers())
+        return layer(*a, **kw)
+
+    context = (functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+               if remat == "dots" else None)
+    extra = {} if context is None else {"context_fn": context}
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **extra, **kwargs)
+
+
 class GCPNetEncoder(nn.Module):
     """Embedding + a stack of interaction layers (the shared trunk):
     ``layer_class`` ``"GCPInteractions"`` or ``"GCPInteractions2"`` (EQ),
     ``embedding_nonlinearities`` the embedding's edge GCP's.  With
     ``updating_node_positions`` every layer also moves the node positions
-    it is given, and the encoder returns them."""
+    it is given, and the encoder returns them.  ``remat`` (``False``,
+    ``True`` or ``"dots"``) rematerializes each interaction layer in the
+    backward pass (:func:`remat_call`), where gradients are taken."""
 
     def __init__(
         self,
@@ -110,12 +171,14 @@ class GCPNetEncoder(nn.Module):
         updating_node_positions: bool = False,
         layer_class: str = "GCPInteractions",
         embedding_nonlinearities: Optional[Tuple[Optional[str], Optional[str]]] = None,
+        remat: Union[bool, str] = False,
         *,
         generator: torch.Generator,
         device,
     ):
         super().__init__()
         kw = dict(generator=generator, device=device)
+        self.remat = check_remat(remat)
         mc = model_cfg
         node_dims = (mc.h_hidden_dim, mc.chi_hidden_dim)
         edge_dims = (mc.e_hidden_dim, mc.xi_hidden_dim)
@@ -152,12 +215,13 @@ class GCPNetEncoder(nn.Module):
         ``(node_rep, edge_rep, node_pos)`` after every layer's update."""
         edge_mask, count_mask = batch_masks(batch)
         node_rep, edge_rep = self.gcp_embedding(batch, frames, edge_mask, count_mask)
+        remat = self.remat if torch.is_grad_enabled() else False
         for i in range(self.num_layers):
-            out = getattr(self, f"interaction_{i}")(
-                node_rep, edge_rep, batch.sender_index(), batch.receiver_index(), frames,
-                node_mask=batch.node_mask, edge_mask=edge_mask, count_mask=count_mask,
-                deterministic=deterministic, generator=generator, node_pos=node_pos,
-            )
+            layer = getattr(self, f"interaction_{i}")
+            args = (node_rep, edge_rep, batch.sender_index(), batch.receiver_index(), frames)
+            kwargs = dict(node_mask=batch.node_mask, edge_mask=edge_mask, count_mask=count_mask,
+                          deterministic=deterministic, generator=generator, node_pos=node_pos)
+            out = remat_call(layer, remat, *args, **kwargs) if remat else layer(*args, **kwargs)
             if self.updating_node_positions:
                 node_rep, node_pos = out
             else:

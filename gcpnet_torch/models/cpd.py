@@ -62,11 +62,13 @@ class GCPNetCPD(nn.Module):
         node_input_dims: Tuple[int, int] = (6, 3),
         edge_input_dims: Tuple[int, int] = (32, 1),
         autoregressive_decoder: bool = False,
+        remat: bool = False,
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
     ):
         super().__init__()
+        self.remat = remat  # declared and not read, as in the JAX CPD
         device = resolve_device(device)
         kw = dict(generator=generator, device=device)
         mc = model_cfg

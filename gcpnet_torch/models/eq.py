@@ -11,7 +11,7 @@ through K1 over the residue index's sorted form (``residue_splits``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import Tensor, nn
@@ -42,7 +42,8 @@ class GCPNetEQ(nn.Module):
     """``device=None`` builds the model on the card (and raises without
     one); weights are drawn from ``generator`` on the CPU and moved.  The
     parameters keep the flax module's names.  ``layer_class`` names the
-    trunk's interaction layer."""
+    trunk's interaction layer; ``remat`` rematerializes each of its layers
+    (``models.common.remat_call``)."""
 
     def __init__(
         self,
@@ -50,6 +51,7 @@ class GCPNetEQ(nn.Module):
         module_cfg: ModuleCfg,
         layer_cfg: LayerCfg,
         layer_class: str = "GCPInteractions2",
+        remat: Union[bool, str] = False,
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -65,6 +67,7 @@ class GCPNetEQ(nn.Module):
             mc, module_cfg, layer_cfg, num_atom_types=0,
             node_input_dims=(mc.h_input_dim + NUM_EQ_ATOM_TYPES, mc.chi_input_dim),
             layer_class=layer_class, embedding_nonlinearities=module_cfg.nonlinearities, **kw,
+            remat=remat,
         )
         self.projection_norm = GCPLayerNorm(node_dims[0], device=device)
         self.invariant_node_projection = make_gcp(

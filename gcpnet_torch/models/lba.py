@@ -8,7 +8,7 @@ model and loss (``GCPNetPSR``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import Tensor, nn
@@ -28,7 +28,8 @@ from gcpnet_torch.ops.segment import masked_mean
 class GCPNetLBA(nn.Module):
     """``device=None`` builds the model on the card (and raises without
     one); weights are drawn from ``generator`` on the CPU and moved.
-    ``layer_class`` names the trunk's interaction layer."""
+    ``layer_class`` names the trunk's interaction layer; ``remat``
+    rematerializes each of its layers (``models.common.remat_call``)."""
 
     def __init__(
         self,
@@ -37,6 +38,7 @@ class GCPNetLBA(nn.Module):
         layer_cfg: LayerCfg,
         num_atom_types: int = 9,
         layer_class: str = "GCPInteractions",
+        remat: Union[bool, str] = False,
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -52,6 +54,7 @@ class GCPNetLBA(nn.Module):
             node_input_dims=(num_atom_types, mc.chi_input_dim),
             layer_class=layer_class,
             **kw,
+            remat=remat,
         )
         self.head = InvariantPooledHead(
             (mc.h_hidden_dim, mc.chi_hidden_dim), module_cfg,

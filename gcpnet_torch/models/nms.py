@@ -11,7 +11,7 @@ the edge map's backward (K3) needs no frame cotangent.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import Tensor, nn
@@ -27,7 +27,8 @@ from gcpnet_torch.ops.segment import masked_mean
 class GCPNetNMS(nn.Module):
     """``device=None`` builds the model on the card (and raises without
     one); weights are drawn from ``generator`` on the CPU and moved.
-    ``layer_class`` names the trunk's interaction layer."""
+    ``layer_class`` names the trunk's interaction layer; ``remat``
+    rematerializes each of its layers (``models.common.remat_call``)."""
 
     def __init__(
         self,
@@ -35,6 +36,7 @@ class GCPNetNMS(nn.Module):
         module_cfg: ModuleCfg,
         layer_cfg: LayerCfg,
         layer_class: str = "GCPInteractions",
+        remat: Union[bool, str] = False,
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -50,6 +52,7 @@ class GCPNetNMS(nn.Module):
             layer_class=layer_class,
             generator=generator,
             device=device,
+            remat=remat,
         )
 
     def forward(

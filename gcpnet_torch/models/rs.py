@@ -10,7 +10,7 @@ their leaky-relu layers.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import Tensor, nn
@@ -30,7 +30,8 @@ from gcpnet_torch.ops.segment import masked_mean
 class GCPNetRS(nn.Module):
     """``device=None`` builds the model on the card (and raises without
     one); weights are drawn from ``generator`` on the CPU and moved.
-    ``layer_class`` names the trunk's interaction layer."""
+    ``layer_class`` names the trunk's interaction layer; ``remat``
+    rematerializes each of its layers (``models.common.remat_call``)."""
 
     def __init__(
         self,
@@ -38,6 +39,7 @@ class GCPNetRS(nn.Module):
         module_cfg: ModuleCfg,
         layer_cfg: LayerCfg,
         layer_class: str = "GCPInteractions",
+        remat: Union[bool, str] = False,
         *,
         generator: torch.Generator,
         device: DeviceLike = None,
@@ -50,6 +52,7 @@ class GCPNetRS(nn.Module):
         self.encoder = GCPNetEncoder(
             mc, module_cfg, layer_cfg, num_atom_types=0,
             node_input_dims=(mc.h_input_dim, mc.chi_input_dim), layer_class=layer_class, **kw,
+            remat=remat,
         )
         self.head = InvariantPooledHead(
             (mc.h_hidden_dim, mc.chi_hidden_dim), module_cfg,

@@ -21,7 +21,12 @@ the scalar, vector and frame ablations) runs module by module on the card
 too, its sums and gathers' backward still through K1, as the JAX package
 runs such stacks outside its Pallas kernels.  The JAX EQ passes no
 row splits with ``aggregate_with_row`` and so reaches no Pallas kernel;
-running K1-K3 there is the port's choice, with the same math.
+running K1-K3 there is the port's choice, with the same math.  In the
+dense slot-major layout the receivers come as an ``ops.segment.
+DenseIndex``: the receiver gather of the message is a broadcast of the
+node rows over the slots, the receiver-side sum the slot sum, and K2/K3
+run the stack over the slot rows as over any others (the rows are
+independent).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from gcpnet_torch.config.schema import LayerCfg, ModuleCfg
 from gcpnet_torch.nn.gcp import GCP2, Dense, make_gcp
 from gcpnet_torch.nn.primitives import ScalarVector
 from gcpnet_torch.ops.edge_map import PackedStack, StackLayer, edge_map, pack_stack
-from gcpnet_torch.ops.segment import Index, SortedIndex, gather_rows, segment_mean, segment_sum
+from gcpnet_torch.ops.segment import DenseIndex, Index, SortedIndex, gather_rows, segment_mean, segment_sum
 
 
 # the GCP settings outside K2/K3's layer table: stacks with any of them run
@@ -205,9 +210,10 @@ class GCPMessagePassing(nn.Module):
         when given, is the stack's input in place of :meth:`messages` of
         ``node_rep``."""
         num_nodes = node_rep.scalar.shape[0]
-        sorted_receivers = isinstance(receivers, SortedIndex)
+        sorted_receivers = isinstance(receivers, (SortedIndex, DenseIndex))
         if sorted_receivers and edge_mask is None:
-            raise ValueError("GCPMessagePassing: sorted receivers (the sorted layout) need edge_mask to zero its padding rows")
+            raise ValueError(
+                "GCPMessagePassing: sorted or dense receivers (those layouts) need edge_mask to zero their padding rows")
         fm = frame_mask if frame_mask is not None else edge_mask
         if message is None:
             message = self.messages(node_rep, edge_rep, senders, receivers)

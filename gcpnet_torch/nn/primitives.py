@@ -9,7 +9,7 @@ the public ``[..., c, 3]`` layout of ``GraphBatch.chi`` / ``xi``.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Callable, List, NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -162,11 +162,44 @@ class GCPLayerNorm(nn.Module):
         return self.scalar_norm(x)
 
 
+class MaskTape:
+    """The dropout generator of one rematerialized layer, handed to the
+    layer in the generator's place: its first run draws the masks from
+    ``generator`` and records them, in order; each recompute (``replay``
+    set to 0 before it) reads them back in that order instead of drawing
+    again.  So the recompute applies the masks the forward applied, and
+    the generator advances once, as without remat, whatever its state (a
+    CUDA graph's registered generator included): the JAX package gets the
+    same from its explicit dropout keys."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.masks: List[Tensor] = []
+        self.replay: Optional[int] = None  # the next mask to read while replaying
+
+    def keep_mask(self, shape, keep: float, device) -> Tensor:
+        if self.replay is not None:
+            mask = self.masks[self.replay]
+            self.replay += 1
+            return mask
+        mask = torch.rand(shape, generator=self.generator, device=device) < keep
+        self.masks.append(mask)
+        return mask
+
+
+def keep_mask(shape, keep: float, generator: Union[torch.Generator, MaskTape], device) -> Tensor:
+    """``rand(shape) < keep`` from ``generator``, or from its tape where
+    it is a :class:`MaskTape`."""
+    if isinstance(generator, MaskTape):
+        return generator.keep_mask(shape, keep, device)
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
 def dropout(x: Tensor, rate: float, generator: torch.Generator) -> Tensor:
     """Elementwise dropout: keep each value with probability ``1 - rate``
     and scale the kept ones by ``1 / (1 - rate)`` (flax ``nn.Dropout``)."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = keep_mask(x.shape, keep, generator, x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -190,6 +223,6 @@ class GCPDropout(nn.Module):
         keep = 1.0 - self.rate
         v = x.vector
         c = v.shape[-1] // 3
-        mask = torch.rand(v.shape[:-1] + (c,), generator=generator, device=v.device) < keep
+        mask = keep_mask(v.shape[:-1] + (c,), keep, generator, v.device)
         mask = mask.to(v.dtype).repeat(*([1] * (v.dim() - 1)), 3)
         return ScalarVector(dropout(x.scalar, self.rate, generator), v * mask / keep)

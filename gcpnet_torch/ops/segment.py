@@ -1,7 +1,7 @@
 """Masked segment reductions over statically padded index arrays.
 
-Port of ``gcpnet_tpu/ops/segment.py`` (edge-list and receiver-sorted
-layouts).  Semantics follow ``torch_scatter.scatter``:
+Port of ``gcpnet_tpu/ops/segment.py`` (the edge-list, receiver-sorted and
+dense layouts).  Semantics follow ``torch_scatter.scatter``:
 
 - ``sum``: masked entries contribute zero.
 - ``mean``: sum divided by a per-segment count clamped to >= 1, so empty
@@ -27,6 +27,19 @@ before it reduces them (the JAX ``gather_by_senders`` contract,
 Without a sorted form a sum, a count and a gather's backward are an
 ``index_add_``, on the CPU only: on the card each needs the index's sorted
 form and raises without it.
+
+The dense fixed-degree layout's receivers come as a :class:`DenseIndex`:
+rows ``[K*N, ...]`` are slot-major (row ``k*N+n`` belongs to node ``n``),
+so a sum is the ``[K, N, ...]`` slot sum (:func:`dense_slot_reduce`, the
+JAX ``_dense_slot_reduce``: a plain torch reduction, accumulated in
+float32 as K1 accumulates, which needs the mask that zeroes the padding
+slots) and a gather is a broadcast (its backward the same slot sum).  The
+JAX package reaches its sender-side sums and gathers' backward in that
+layout through the slot-major sender permutation
+(``gather_by_senders``, ``sender_sum``, ``sender_mean``); the port keeps
+the senders' sorted form, that permutation's CSR form, so that they are
+:func:`gather_rows`, :func:`segment_sum` and :func:`sender_mean` over a
+:class:`SortedIndex` and run through K1 as in the sorted layout.
 """
 
 from __future__ import annotations
@@ -61,12 +74,36 @@ class SortedIndex(NamedTuple):
         return data if self.inv is None else data[self.inv]
 
 
-Index = Union[Tensor, SortedIndex]
+class DenseIndex(NamedTuple):
+    """The receivers of the dense slot-major layout: ``index[k*N+n] = n``
+    for real and padding slots alike, ``degree`` the slots K a node."""
+
+    index: Tensor
+    degree: int
+
+
+Index = Union[Tensor, SortedIndex, DenseIndex]
 
 
 def index_of(ids: Index) -> Tensor:
-    """The row index of ``ids``, sorted form or not."""
-    return ids.index if isinstance(ids, SortedIndex) else ids
+    """The row index of ``ids``, in whatever form it comes."""
+    return ids.index if isinstance(ids, (SortedIndex, DenseIndex)) else ids
+
+
+def dense_slot_reduce(data: Tensor, degree: int, num_rows: int) -> Tensor:
+    """Sum ``[degree*num_rows, ...]`` slot-major rows over the slot axis,
+    accumulated in float32 and returned in ``data``'s dtype."""
+    if data.shape[0] != degree * num_rows:
+        raise ValueError(f"dense layout expects {degree} x {num_rows} rows, got {data.shape[0]}")
+    slots = data.reshape((degree, num_rows) + tuple(data.shape[1:]))
+    return slots.sum(dim=0, dtype=torch.float32).to(data.dtype)
+
+
+def dense_broadcast(data: Tensor, degree: int) -> Tensor:
+    """``data [N, ...]`` repeated for each of ``degree`` slots: the rows
+    ``[degree*N, ...]`` a slot-major gather by receiver gives."""
+    return data.unsqueeze(0).expand((degree,) + tuple(data.shape)).reshape(
+        (degree * data.shape[0],) + tuple(data.shape[1:]))
 
 
 def _plain_on_cpu(t: Tensor, what: str) -> None:
@@ -104,9 +141,12 @@ class _GatherRows(torch.autograd.Function):
 
 def gather_rows(data: Tensor, index: Index) -> Tensor:
     """``data[index]`` for an int64 row index.  With the index's sorted form
-    the gradient is K1 over the cotangent rows in segment order; without it
-    (on the CPU only) an ``index_add_`` accumulated in float32 and rounded
-    once."""
+    the gradient is K1 over the cotangent rows in segment order; with a
+    :class:`DenseIndex` the gather is a broadcast (the gradient its slot
+    sum); without either (on the CPU only) an ``index_add_`` accumulated in
+    float32 and rounded once."""
+    if isinstance(index, DenseIndex):
+        return dense_broadcast(data, index.degree)
     if isinstance(index, SortedIndex):
         return _GatherRows.apply(data, index.index, index)
     return _GatherRows.apply(data, index, None)
@@ -140,7 +180,13 @@ def segment_sum(
     the rows in segment order where ``segment_ids`` is a
     :class:`SortedIndex` (a receiver-sorted layout's alignment-hole rows
     fall inside the range of the last node of each tile, so ``mask`` must
-    zero them there), otherwise (on the CPU only) an ``index_add_``."""
+    zero them there), the slot sum where it is a :class:`DenseIndex`
+    (``mask`` required: the padding slots' rows need not be zero),
+    otherwise (on the CPU only) an ``index_add_``."""
+    if isinstance(segment_ids, DenseIndex):
+        if mask is None:
+            raise ValueError("segment_sum: the dense layout needs a mask zeroing the padding slots")
+        return dense_slot_reduce(_apply_mask(data, mask), segment_ids.degree, num_segments)
     data = _apply_mask(data, mask)
     if isinstance(segment_ids, SortedIndex):
         rows = data if segment_ids.perm is None else _PermuteRows.apply(data, segment_ids)
@@ -158,7 +204,11 @@ def segment_count(
 ) -> Tensor:
     """Masked float32 count of rows per segment: with a sorted index the
     difference of the sorted mask's prefix sums at the splits (integers,
-    exact), otherwise (on the CPU only) an ``index_add_`` of ones."""
+    exact), in the dense layout the slot sum of the mask, otherwise (on the
+    CPU only) an ``index_add_`` of ones."""
+    if isinstance(segment_ids, DenseIndex):
+        ones = torch.ones(segment_ids.index.shape, device=segment_ids.index.device)
+        return dense_slot_reduce(_apply_mask(ones, mask), segment_ids.degree, num_segments)
     if isinstance(segment_ids, SortedIndex):
         ids = segment_ids.index
         ones = torch.ones(ids.shape, dtype=torch.int32, device=ids.device) if mask is None else mask.to(torch.int32)

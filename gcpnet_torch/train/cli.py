@@ -39,7 +39,7 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -141,17 +141,19 @@ def build_lba_training(
     dropout: float = 0.1,
     adaptive_clip: bool = False,
     num_encoder_layers: Optional[int] = None,
+    remat: Union[bool, str] = False,
 ) -> Tuple[GCPNetLBA, TrainState]:
     """The benchmark's LBA model with float32 weights drawn from ``seed``
     on ``device`` (``None``: the card), and a train state with Adam at
-    ``lr``.  ``dropout`` sets the interaction and head dropout rates."""
+    ``lr``.  ``dropout`` sets the interaction and head dropout rates,
+    ``remat`` the encoder's rematerialization (``models.common.remat_call``)."""
     device = resolve_device(device)
     model_cfg, module_cfg, layer_cfg = lba_configs()
     model_cfg = model_cfg.replace(dropout=dropout, dense_dropout=dropout)
     if num_encoder_layers is not None:
         model_cfg = model_cfg.replace(num_encoder_layers=num_encoder_layers)
     model = GCPNetLBA(
-        model_cfg, module_cfg, layer_cfg, num_atom_types=9,
+        model_cfg, module_cfg, layer_cfg, num_atom_types=9, remat=remat,
         generator=torch.Generator().manual_seed(seed), device=device,
     ).train()
     optimizer = build_optimizer(model.parameters(), {"_target_": "Adam", "lr": lr})

@@ -43,7 +43,6 @@ graph each.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -55,10 +54,11 @@ from gcpnet_torch.train.state import TrainState
 from gcpnet_torch.train.step import LossFn, StepResult, apply_step, eval_step
 
 def batch_key(batch: GraphBatch) -> tuple:
-    """Every array's name, shape and dtype (``None`` where absent)."""
+    """Every array's name, shape and dtype (``None`` where absent), and the
+    layout's ints."""
     return tuple(
         (name, None if t is None else (tuple(t.shape), t.dtype)) for name, t in batch.tensors().items()
-    )
+    ) + tuple(batch.static().items())
 
 
 class BatchSlots:
@@ -68,9 +68,9 @@ class BatchSlots:
         def empty(t):
             return None if t is None else torch.empty(t.shape, dtype=t.dtype, device=device)
 
-        fields = {f.name: empty(getattr(like, f.name)) for f in dataclasses.fields(like) if f.name != "extras"}
+        fields = {name: empty(t) for name, t in like.tensors().items() if not name.startswith("extras.")}
         fields["extras"] = {k: empty(v) for k, v in like.extras.items()}
-        self.batch = GraphBatch(**fields)
+        self.batch = GraphBatch(**fields, **like.static())
 
     def fill(self, src: GraphBatch) -> None:
         """Copy ``src`` (pinned host tensors of the slots' shapes) in on the

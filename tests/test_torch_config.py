@@ -123,7 +123,9 @@ def test_every_experiments_datamodule_builds(experiment):
 def test_datamodule_refuses_what_the_port_lacks(override, match):
     experiment = "gcpnet_eq" if "exec_path" in override else "gcpnet_lba"
     cfg = loader.compose(CONFIG_DIR, "train.yaml", [f"experiment={experiment}", override])
-    with pytest.raises(ValueError, match=match):
+    # the port reads lddt_exec_path, and refuses a configured binary that is not there
+    error = FileNotFoundError if "lddt_exec_path" in override else ValueError
+    with pytest.raises(error, match=match):
         build_datamodule(cfg["datamodule"])
 
 

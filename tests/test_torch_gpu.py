@@ -1719,3 +1719,75 @@ def test_gloo_launches_do_not_hang(cuda):
     for r in results:
         assert np.isfinite(r).all()
         np.testing.assert_allclose(r, results[0], rtol=1e-3)  # bf16 steps: the same within their rounding
+
+
+# --- remat and the dense layout -----------------------------------------------
+
+
+@pytest.mark.parametrize("remat", [True, "dots"])
+def test_captured_remat_steps_equal_eager_ones_and_steps_without_remat(cuda, monkeypatch, remat):
+    """Three fp32 steps of the 2-layer full-width LBA with dropout 0.1 and
+    ``remat``: replayed (the first runs eagerly and is captured) against
+    eager, and eager against eager without remat (the recompute replays
+    the forward's dropout masks: equal at 1e-6).  A replay's graph holds
+    each layer's recompute: 2 K1 and 1 K2 a layer more."""
+    monkeypatch.setattr(CapturedCall, "keep_graphs", True)
+    batches = _lba_batches(3)
+    runs = {}
+    for mode, rm in (("plain", False), ("eager", remat), ("replay", remat)):
+        model, state = train_cli.build_lba_training(
+            0, cuda, torch.float32, lr=REPLAY_LR, dropout=0.1, adaptive_clip=True, num_encoder_layers=2, remat=rm)
+        state.scheduler = build_schedule(state.optimizer, {"_target_": "StepLR", "step_size": 2, "gamma": 0.5})
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        if mode == "replay":
+            steps = TrainSteps(model, state, graph_regression_loss, gen)
+            results = [steps([b.pinned()]) for b in batches]
+            assert _replayed_launches(steps.call, [batches[-1].pinned()]) == (K1_POOLED_STEP + 2 * 2, 2 * 2, 2)
+        else:
+            results = [train_step(model, state, b.to(cuda), graph_regression_loss, gen) for b in batches]
+        torch.cuda.synchronize()
+        runs[mode] = dict(losses=[r.loss.item() for r in results], state=_train_state(model, state),
+                          generator=gen.get_state())
+    plain, eager, replay = runs["plain"], runs["eager"], runs["replay"]
+    np.testing.assert_allclose(eager["losses"], plain["losses"], atol=1e-6)
+    for key, value in plain["state"].items():
+        np.testing.assert_allclose(eager["state"][key].cpu().numpy(), value.cpu().numpy(), atol=1e-6, err_msg=key)
+    np.testing.assert_allclose(replay["losses"], eager["losses"], rtol=REPLAY_LOSS_RTOL)
+    _assert_states_close(replay["state"], eager["state"], 3)
+    assert torch.equal(replay["generator"], eager["generator"]) and torch.equal(eager["generator"],
+                                                                               plain["generator"])
+
+
+def test_dense_slot_sum_and_broadcast_use_no_scatter_or_k1(cuda):
+    """In the dense layout a receiver-side sum, mean and count are slot
+    sums and a receiver gather a broadcast, forward and backward: no
+    scatter op, no K1 launch, and the values of the plain sums."""
+    from gcpnet_torch.ops.segment import DenseIndex, segment_mean
+
+    gen = torch.Generator().manual_seed(0)
+    n, k, c = 500, 32, 20
+    data = torch.randn(n * k, c, generator=gen)
+    mask = torch.rand(n * k, generator=gen) < 0.8
+    nodes = torch.randn(n, c, generator=gen)
+    ids = torch.arange(n).repeat(k)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = data.to(cuda, dtype).requires_grad_()
+        v = nodes.to(cuda, dtype).requires_grad_()
+        index = DenseIndex(ids.to(cuda), k)
+        before = segment_sum_sorted.launches
+        with _OpsOn(x) as on_x, _OpsOn(v) as on_v:
+            total = segment_sum(x, index, n, mask=mask.to(cuda))
+            mean = segment_mean(x, index, n, mask=mask.to(cuda))
+            rows = gather_rows(v, index)
+            (total.float().sum() + mean.float().sum() + rows.float().pow(2).sum()).backward()
+        count = segment_count(index, n, mask=mask.to(cuda))
+        assert segment_sum_sorted.launches == before
+        ops = on_x.ops + on_v.ops
+        assert not [op for op in ops if "index_add" in op or "scatter" in op or "index_put" in op], ops
+        want = torch.zeros(n, c).index_add_(0, ids[mask], data[mask].to(dtype).float())
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        np.testing.assert_allclose(total.detach().float().cpu().numpy(), want.to(dtype).float().numpy(), atol=tol, rtol=tol)
+        np.testing.assert_array_equal(count.cpu().numpy(), torch.bincount(ids[mask], minlength=n).float().numpy())
+        np.testing.assert_allclose(v.grad.float().cpu().numpy(), (2 * k * nodes.to(dtype).float()).numpy(),
+                                   atol=tol * k, rtol=tol)
+        assert torch.equal(rows.reshape(k, n, c)[3], v.detach())

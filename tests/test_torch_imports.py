@@ -3,6 +3,7 @@ every module of the package, the chip scripts (``chip_smoke.py``,
 ``k1_versions.py``, ``k2_versions.py``, ``k3_breakdown.py``), the card's
 tests (``test_torch_gpu.py``, which run where JAX is absent), a CPU
 prediction, a CPU LBA training run, a CPU NMS fit with its simulated data,
+the external scorers and the AMBER modules,
 a CPU RS fit on synthetic enantiomers (and one of E(3) RS on GCP v1 with
 the sigma frame gate, composed from ``experiment=gcpnet_rs_ablations``), a
 CPU PSR fit on synthetic ATOM3D
@@ -157,7 +158,9 @@ for name in ("gcpnet_torch.data.atom3d", "gcpnet_torch.data.cath", "gcpnet_torch
              "gcpnet_torch.predict_ar", "gcpnet_torch.config.loader", "gcpnet_torch.config.instantiate",
              "gcpnet_torch.data.registry", "gcpnet_torch.utils.pylogger", "gcpnet_torch.utils.utils",
              "gcpnet_torch.utils.loggers", "gcpnet_torch.utils.sweeps", "gcpnet_torch.train.entry",
-             "gcpnet_torch.eval", "gcpnet_torch.utils.torch_compat"):
+             "gcpnet_torch.eval", "gcpnet_torch.utils.torch_compat", "gcpnet_torch.utils.external_tools",
+             "gcpnet_torch.utils.amber", "gcpnet_torch.utils.amber.cleanup", "gcpnet_torch.utils.amber.violations",
+             "gcpnet_torch.utils.amber.relax"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
