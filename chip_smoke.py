@@ -865,6 +865,13 @@ def phase_device() -> dict:
     return info
 
 
+# The layer body each dtype's K2 and K3 run.
+BODY = {
+    torch.bfloat16: "mma.sync m16n8k16, ldmatrix, cp.async (csrc/edge_stack_mma.cuh)",
+    torch.float32: "mma.sync m16n8k8, split TF32 (csrc/edge_stack_mma.cuh)",
+}
+
+
 def phase_build(out_dir: str) -> dict:
     t0 = time.perf_counter()
     outputs = kernel_build.build(ptxas_verbose=True)
@@ -993,7 +1000,11 @@ def phase_k2(batch, mp: GCPMessagePassing, name: str = "K2") -> dict:
         with torch.no_grad():
             ms = cuda_ms(lambda: edge_map(message, frames, stack), iters=10)
             plain_ms = cuda_ms(lambda: edge_map_plain(message, frames, stack), iters=5)
+        rows, _, smem = k2_layout(stack, dtype)
         results[dname] = {
+            "body": BODY[dtype],
+            "tile_rows": rows,
+            "smem_bytes": smem,
             "max_abs_err": err,
             "rel_err": rel,
             "ms": ms,
@@ -1105,7 +1116,11 @@ def phase_k3(batch, mp: GCPMessagePassing, name: str = "K3", full_bound: bool = 
         flops = 3 * e * stack_flops(stack)
         b_ms, b_by, bound_rate = route_bound_ms(nbytes, flops, dtype)
         checked = res if full else res["kink_free"]
+        rows, smem = k3_tile(stack, dtype)
         results[dname] = {
+            "body": BODY[dtype],
+            "tile_rows": rows,
+            "smem_bytes": smem,
             **res,
             "max_abs_err": max(checked["d_message"]["max_abs_err"], checked["d_weights"]["max_abs_err"]),
             "ms": cuda_ms(lambda: edge_map_backward(message, frames, stack, grad_out), iters=5, warmup=1),
@@ -4658,6 +4673,11 @@ def kernel_line(report) -> dict:
     nk, rk, pk = report["nms_kernels"], report["rs_kernels"], report["psr_kernels"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     replaces_k3 = "gcpnet_tpu/ops/pallas_fused.py:175"
+    # the layer body, tile rows and shared memory of K2 and K3
+    body_keys = ("body", "tile_rows", "smem_bytes")
+
+    def body(res, prefix=""):
+        return {f"{prefix}{k}": res[k] for k in body_keys if k in res}
 
     def per_step(profiles):
         replayed = profiles["profile_captured"]["launches"]
@@ -4695,7 +4715,8 @@ def kernel_line(report) -> dict:
         return {
             "shape": next(iter(results.values()))["shape"], "launches_per_step": launches_per_step,
             **{k: v for k, v in next(iter(results.values())).items() if k == "rows_summed"},
-            **{d: {k: results[key][k] for k in (*keys, "share_of_bound")} for d, key in by_dtype.items()},
+            **{d: {k: results[key][k] for k in (*keys, "share_of_bound", *body_keys) if k in results[key]}
+               for d, key in by_dtype.items()},
         }
 
     return {
@@ -4713,7 +4734,7 @@ def kernel_line(report) -> dict:
                 ar=nms(ak["K1"], ar_steps["K1"], fp32="tile1_fp32", bf16="tile1_bf16"), cfg=cfg("K1")),
             row("edge_map", "edge_map_tc.cu", "gcpnet_tpu/ops/pallas_fused.py:117", train, "K2",
                 k2["bf16"], "bf16", forward_launches=forward["launches"]["K2"],
-                bound_rate=k2["bf16"]["bound_rate"],
+                bound_rate=k2["bf16"]["bound_rate"], **body(k2["bf16"]), **body(k2["fp32"], "fp32_"),
                 **{f"fp32_{k}": k2["fp32"][k] for k in (*keys, "bound_rate")},
                 nms=nms(nk["K2"], nms_steps["K2"], fp32="fp32", bf16="bf16"),
                 rs=nms(rk["K2"], rs_steps["K2"], fp32="fp32", bf16="bf16"),
@@ -4723,14 +4744,15 @@ def kernel_line(report) -> dict:
                 ar=nms(ak["K2"], ar_steps["K2"], fp32="fp32", bf16="bf16"), cfg=cfg("K2")),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train, "K3_bf16",
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3_bf16"],
-                bound_rate=k3["bf16"]["bound_rate"], nms=nms(nk["K3"], nms_steps["K3_bf16"], bf16="bf16"),
+                bound_rate=k3["bf16"]["bound_rate"], **body(k3["bf16"]),
+                nms=nms(nk["K3"], nms_steps["K3_bf16"], bf16="bf16"),
                 rs=nms(rk["K3"], rs_steps["K3_bf16"], bf16="bf16"),
                 psr=nms(pk["K3"], psr_steps["K3_bf16"], bf16="bf16"),
                 cpd=nms(ck["K3"], cpd_steps["K3_bf16"], bf16="bf16"),
                 eq=nms(ek["K3"], eq_steps["K3_bf16"], bf16="bf16"),
                 ar=nms(ak["K3"], ar_steps["K3_bf16"], bf16="bf16"), cfg=cfg("K3_bf16")),
             row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32, "K3_fp32",
-                k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"],
+                k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"], **body(k3["fp32"]),
                 bound_ms_cuda_cores=k3["fp32"]["bound_ms_cuda_cores"],
                 nms=nms(nk["K3"], nms_steps["K3_fp32"], fp32="fp32"),
                 rs=nms(rk["K3"], rs_steps["K3_fp32"], fp32="fp32"),

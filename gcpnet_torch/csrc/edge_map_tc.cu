@@ -52,6 +52,10 @@
 //   (two for layer 0), the next layer's first chunk is copied once this
 //   layer's Wso is read, and its smaller weights once the layer's output is
 //   written.
+//
+// k2_breakdown.py builds this file with K2_CUT set to one of edge_stack.cuh's
+// K2Cut values, each removing one part of the work (the results are then
+// wrong), and times the variants.
 
 #include "edge_stack_mma.cuh"
 
@@ -113,11 +117,11 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
   auto image = [&](int l) { return images + static_cast<long long>(l) * g.img_bytes; };
   char* buf = s.wbase;                  // this layer's weights
   char* other = s.wbase + g.w_bytes;    // the next layer's, with two buffers
-  copy_async(buf, image(0), layer_bytes<T>(g, first));
+  if constexpr (gcp::kK2Staging) copy_async(buf, image(0), layer_bytes<T>(g, first));
   for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const long long e0 = tile * R;
     const int rows = static_cast<int>(min(static_cast<long long>(R), num_edges - e0));
-    load_input<T, R>(s, g, first, msg + e0 * in_dim, frames + e0 * 9, rows);
+    if constexpr (gcp::kK2InputOutput) load_input<T, R>(s, g, first, msg + e0 * in_dim, frames + e0 * 9, rows);
     for (int l = 0; l < nl; ++l) {
       const Layer L = st.l[l];
       // the next layer of this tile, or the first of the block's next tile
@@ -127,20 +131,21 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
       cp_async_wait();
       __syncthreads();  // this layer's weights are in; the previous layer is done with the other buffer
       carve_weights(buf, g, &s);
-      if (nbuf == 2 && more) copy_async(other, image(ln), layer_bytes<T>(g, N));
+      if (gcp::kK2Staging && nbuf == 2 && more) copy_async(other, image(ln), layer_bytes<T>(g, N));
       layer_forward<T, R, kSilu>(s, g, L, image(l), [&] {
-        if (nbuf == 1 && more) copy_async(buf + g.w_off_wso, image(ln) + g.w_off_wso, wso_first_bytes<T>(g, N));
+        if (gcp::kK2Staging && nbuf == 1 && more)
+          copy_async(buf + g.w_off_wso, image(ln) + g.w_off_wso, wso_first_bytes<T>(g, N));
       });
       layer_output<T, R, kSilu>(s, g, L, st.residual && l > 0, nullptr);
       if (nbuf == 2) {
         char* t = buf;
         buf = other;
         other = t;
-      } else if (more) {
+      } else if (gcp::kK2Staging && more) {
         copy_async(buf, image(ln), g.w_off_wso);
       }
     }
-    store_output<T, R>(s, g, last, out + e0 * out_dim, rows);
+    if constexpr (gcp::kK2InputOutput) store_output<T, R>(s, g, last, out + e0 * out_dim, rows);
     __syncthreads();  // the state is stored before the next tile's input lands
   }
   cp_async_wait();

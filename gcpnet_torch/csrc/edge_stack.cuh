@@ -33,6 +33,27 @@ struct Stack {
 
 constexpr int kActCodes = 4;  // 0 identity, 1 relu, 2 leaky relu, 3 silu
 
+// k2_breakdown.py builds K2 (edge_map_tc.cu) with K2_CUT set to one of the
+// K2Cut values below, each removing one part of the forward's work (the
+// results are then wrong); K3 never sets it.
+#ifndef K2_CUT
+#define K2_CUT 0
+#endif
+
+enum K2Cut {
+  kK2Whole = 0,
+  kK2NoProducts = 1,       // no X Wd, vh Wup, M Wso, act(S) Wg
+  kK2NoElementwise = 2,    // no vnorm / scal9 pass and no layer output pass
+  kK2NoWeightStaging = 3,  // no copy of the layers' weights into shared memory
+  kK2BarriersOnly = 4,     // none of the three: the tile's input, output and barriers
+  kK2NoInputOutput = 5     // no tile input loaded, no output stored
+};
+constexpr int kK2Cut = K2_CUT;
+constexpr bool kK2Products = kK2Cut != kK2NoProducts && kK2Cut != kK2BarriersOnly;
+constexpr bool kK2Elementwise = kK2Cut != kK2NoElementwise && kK2Cut != kK2BarriersOnly;
+constexpr bool kK2Staging = kK2Cut != kK2NoWeightStaging && kK2Cut != kK2BarriersOnly;
+constexpr bool kK2InputOutput = kK2Cut != kK2NoInputOutput;
+
 // max(x, 0), and a NaN for a NaN x (fmaxf would give 0), as torch.relu and
 // jax.nn.relu do
 __device__ __forceinline__ float relu(float x) {

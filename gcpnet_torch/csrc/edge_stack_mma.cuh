@@ -682,11 +682,12 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   constexpr bool kWT = kWeightsT<T>;
   const int h = L.h, hk = h + 9;
   // D = X @ [Wd | Wdf]
-  gemm<T, false, kWT>(s.X, g.ldx, s.wd, g.ld_wd, 3 * R, pad8(h + 3), padk<T>(L.v_in), Act{}, ZeroInit{},
+  if constexpr (kK2Products)
+    gemm<T, false, kWT>(s.X, g.ldx, s.wd, g.ld_wd, 3 * R, pad8(h + 3), padk<T>(L.v_in), Act{}, ZeroInit{},
                       [&](int m, int n, float v0, float v1) { put2(s.D + m * g.ldd + n, n, h + 3, v0, v1); });
   __syncthreads();
   // vnorm and scal9
-  for (int i = threadIdx.x; i < R * hk; i += kThreads) {
+  for (int i = threadIdx.x; kK2Elementwise && i < R * hk; i += kThreads) {
     const int r = i / hk, j = i - r * hk;
     const T* d = s.D + r * 3 * g.ldd;
     float val;
@@ -702,7 +703,8 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   }
   __syncthreads();
   // U = vh @ Wup
-  gemm<T, false, kWT>(s.D, g.ldd, s.wup, g.ld_wup, 3 * R, pad8(L.v_out), padk<T>(h), Act{}, ZeroInit{},
+  if constexpr (kK2Products)
+    gemm<T, false, kWT>(s.D, g.ldd, s.wup, g.ld_wup, 3 * R, pad8(L.v_out), padk<T>(h), Act{}, ZeroInit{},
                       [&](int m, int n, float v0, float v1) { put2(s.U + m * g.ldv + n, n, L.v_out, v0, v1); });
   // S = [s | vnorm | scal9] @ Wso + bso, over Wso's chunks (a float32
   // partial sum is kept in S between them, exactly)
@@ -710,13 +712,15 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   for (int c = 0; c < chunks; ++c) {
     if (c > 0) {
       __syncthreads();
-      copy_async(reinterpret_cast<char*>(s.wso), image + g.w_off_wso + c * g.wso_bytes, g.wso_bytes);
+      if constexpr (kK2Staging)
+        copy_async(reinterpret_cast<char*>(s.wso), image + g.w_off_wso + c * g.wso_bytes, g.wso_bytes);
       cp_async_wait();
       __syncthreads();
     }
     const int k0 = c * g.wso_k;
     const bool last = c == chunks - 1;
-    gemm<T, false, kWT>(
+    if constexpr (kK2Products)
+      gemm<T, false, kWT>(
         s.M + k0, g.ldm, s.wso, g.ld_wso, R, pad8(L.s_out), min(g.wso_k, kp - k0), Act{},
         [&](int m, int n, float& v0, float& v1) {
           v0 = c > 0 ? f(s.S[m * g.lds + n]) : 0.f;
@@ -729,7 +733,7 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   }
   __syncthreads();
   wso_free();
-  if (L.vgate) {
+  if (L.vgate && kK2Products) {
     // G = act_v(S) @ Wg + bg
     if (L.act_v) {
       gate_logits<kSilu ? 2 : 1, T, R>(s, g, L);
@@ -762,6 +766,10 @@ __device__ __forceinline__ void scalar_output(const Smem<T>& s, const Geom& g, c
 // scalars, then [3R][v_out] vectors).  kSilu as layer_forward's.
 template <typename T, int R, bool kSilu>
 __device__ inline void layer_output(const Smem<T>& s, const Geom& g, const Layer& L, bool add, T* slot) {
+  if constexpr (!kK2Elementwise) {
+    __syncthreads();
+    return;
+  }
   T* slot_v = slot ? slot + R * L.s_out : nullptr;
   for (int i = threadIdx.x; i < R * L.v_out; i += kThreads) {
     const int r = i / L.v_out, o = i - r * L.v_out;

@@ -1285,6 +1285,29 @@ def test_k2_k3_silu_match_plain_at_ar_widths(rng, cuda, dtype):
     _k3_check_with_kink_rule(msg, frames, stack, grad_out)
 
 
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("gate", ["vector", "norm"])
+@pytest.mark.parametrize("act", ["relu", "leakyrelu", "silu"])
+def test_k2_k3_bf16_every_act_and_gate(rng, cuda, act, gate, residual):
+    """bf16 K2 and K3 with each act code on the scalars and the vectors (the
+    stacks' last layers take the identity), in the vector gate (the gate
+    product applies act_v to its A operand) and in the norm gate, with and
+    without ResGCP's residual: K2 against its plain version, K3 leaf by leaf
+    (K3_BF16_LEAF_TOL), on 1,000 rows."""
+    cfg = ModuleCfg(scalar_nonlinearity=act, vector_nonlinearity=act, vector_gate=gate == "vector")
+    with torch.no_grad():
+        stack = _message_passing(cfg, residual=residual).to(cuda, torch.bfloat16).packed_stack()
+    assert {layer.act_s for layer in stack.layers} == {act, None}
+    e = 1000
+    msg, frames = _stack_inputs(rng, stack, e, torch.bfloat16, cuda)
+    with torch.no_grad():
+        got = edge_map(msg, frames, stack)
+        want = edge_map_plain(msg, frames, stack)
+    assert bool(torch.isfinite(got).all()) and _max_rel_err(got, want) <= K2_BF16_TOL
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, torch.bfloat16)
+    _k3_check_with_kink_rule(msg, frames, stack, grad_out)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_k3_silu_norm_gate_match_plain(rng, cuda, dtype):
     """silu in the norm gate (no vector gate) and on the scalars, at the

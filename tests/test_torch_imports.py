@@ -1,6 +1,7 @@
 """gcpnet_torch and chip_smoke.py import nothing of JAX, flax or gcpnet_tpu:
 every module of the package, the chip scripts (``chip_smoke.py``,
-``k1_versions.py``, ``k2_versions.py``, ``k3_breakdown.py``), the card's
+``k1_versions.py``, ``k2_versions.py``, ``k2_breakdown.py``, ``k3_breakdown.py``,
+``hopper_turns.py``), the card's
 tests (``test_torch_gpu.py``, which run where JAX is absent), a CPU
 prediction, a CPU LBA training run, a CPU NMS fit with its simulated data,
 the external scorers and the AMBER modules,
@@ -53,7 +54,8 @@ for name in names:
     importlib.import_module(name)
 for name, path in (("chip_smoke", "chip_smoke.py"), ("test_torch_gpu", "tests/test_torch_gpu.py"),
                    ("k1_versions", "k1_versions.py"), ("k2_versions", "k2_versions.py"),
-                   ("k3_breakdown", "k3_breakdown.py")):
+                   ("k2_breakdown", "k2_breakdown.py"), ("k3_breakdown", "k3_breakdown.py"),
+                   ("hopper_turns", "hopper_turns.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
