@@ -243,6 +243,24 @@ Phases, one line each:
      cfg-train's records and EQ on GCPInteractions (model.layer_class),
      each through K1-K3; the last two beside one fp32 step at 2 layers on
      the card against the CPU;
+ 45b. acts: every transcendental activation of K2/K3's layer table but
+     AR's silu (selu, gelu, sigmoid, tanh), each as the scalar and as the
+     vector activation, under both gates: K2 and K3 against their plain
+     versions at the main path's shape (208,896 rows, LBA's 8-layer stack
+     at 100/16/32/4) on four stacks, (gelu, sigmoid) and (selu, tanh) with
+     the vector gate, (sigmoid, gelu) and (tanh, selu) with the norm gate,
+     fp32 and bf16, at phase K2's and K3's bounds (bf16 K2 against the
+     plain version in float32 on the same inputs, as K3's upcast check;
+     float32 K3 under the kink rule: selu's derivative steps at 0), with
+     their times, bounds and
+     shares of them beside the card's name and power limit; then short fits
+     through gcpnet_torch.train's main (experiment=gcpnet_lba with
+     model.module_cfg.scalar_nonlinearity and vector_nonlinearity set to
+     gelu / sigmoid and to selu / tanh, the experiment's widths and depth,
+     bf16 over float32 masters, the JAX bucket) on cfg-train's records: 2
+     training batches (the first captured, one replay) and the validation,
+     a replay's K1 / K2 / K3 (36 / 8 / 8 a step), no scatter, its busy ms;
+     each beside one fp32 step at 2 layers on the card against the CPU;
  46. rs-e3: the full-width RS model with enable_e3_equivariance in fp32:
      every mirrored pair of a synthetic test batch gets the same logit
      (the SE(3) model with the same weights tells pairs apart); a captured
@@ -1023,8 +1041,8 @@ def phase_k2(batch, mp: GCPMessagePassing, name: str = "K2") -> dict:
 
 def kink_rows(name, message, frames, stack, grad_out):
     """The rows where float32 K3's d message differs from the plain
-    version's by more than 1e-4 of scale, checked to be kinks (relu or
-    leaky relu): each with a kink margin under KINK_MARGIN in the float64
+    version's by more than 1e-4 of scale, checked to be kinks (relu, leaky
+    relu or selu): each with a kink margin under KINK_MARGIN in the float64
     recompute, and no more than max_kink_rows of them.  Recorded beside
     them: their margins, the share of all rows with such a margin (the
     chance that a row a fault hit would pass as a kink), the largest
@@ -3618,7 +3636,7 @@ def _ablated_channel(name: str, model, batch) -> dict:
     return result
 
 
-def _plain_fit(name: str, overrides: list, ckpt_dir: str, train: list) -> dict:
+def _captured_fit(name: str, overrides: list, ckpt_dir: str, train: list) -> dict:
     """One captured fit through ``gcpnet_torch.train``'s main with
     ``overrides`` and FAMILY_CHUNK batches a replay (the first runs eagerly
     and captures, the rest replay), every count set to 0 just before and
@@ -3626,8 +3644,9 @@ def _plain_fit(name: str, overrides: list, ckpt_dir: str, train: list) -> dict:
     host batches of the fit's shapes; captured first
     where the test's checkpoint restore dropped the graphs) under
     torch.profiler: busy ms, idle share, and the K1-K3 launches and scatters
-    read from its graph's kernel nodes.  The run's message stacks are plain
-    (outside K2/K3's layer table), so K2 and K3 must never run."""
+    read from its graph's kernel nodes.  Held: the losses finite, no
+    scatter kernel in the replay, a replayed chunk in the fit and none
+    captured anew for the profile."""
     overrides = [*overrides, f"paths.output_dir={ckpt_dir}", f"callbacks.model_checkpoint.dirpath={ckpt_dir}",
                  "extras.print_config=false"]
     trainers = []
@@ -3663,13 +3682,21 @@ def _plain_fit(name: str, overrides: list, ckpt_dir: str, train: list) -> dict:
     # a correlation can be NaN: the scalar ablation's prediction is constant
     losses = {k: v for k, v in metrics.items() if k.endswith("/loss")}
     check(len(losses) >= 2 and all(math.isfinite(v) for v in losses.values()), f"{name}: losses {metrics}")
+    check(not profile["scatters"], f"{name}: scatter kernels in a replay: {profile['scatters']}")
+    check(replays >= 1 and call.captures == captures,
+          f"{name}: {replays} replayed training chunks in the fit, or the profiled chunk captured anew")
+    return results
+
+
+def _plain_fit(name: str, overrides: list, ckpt_dir: str, train: list) -> dict:
+    """_captured_fit of a run whose message stacks are plain (outside
+    K2/K3's layer table): K1 runs, K2 and K3 never."""
+    results = _captured_fit(name, overrides, ckpt_dir, train)
+    launches, steps = results["launches"], results["launches_per_step"]
     check(launches["K1"] > 0 and launches["K2"] == launches["K3_bf16"] == launches["K3_fp32"] == 0,
           f"{name}: the run's launches {launches}: K1 runs, K2 and K3 never")
     check(steps["K1"] > 0 and steps["K2"] == steps["K3_bf16"] == steps["K3_fp32"] == 0,
           f"{name}: a replay's launches {steps}")
-    check(not profile["scatters"], f"{name}: scatter kernels in a replay: {profile['scatters']}")
-    check(replays >= 1 and call.captures == captures,
-          f"{name}: {replays} replayed training chunks in the fit, or the profiled chunk captured anew")
     return results
 
 
@@ -3862,6 +3889,189 @@ def phase_overrides(psr_root: str, eq_root: str, eq_check_root: str, cfg_root: s
                                     OVERRIDE_CHECK_LAYERS, params_by_share=True)
     results["eq_interactions"] = run
     print("phase overrides: ok")
+    return results
+
+
+# --- every activation of the layer table through K2/K3 -------------------------
+
+# The acts phase's message stacks: LBA's 8 layers at 100/16/32/4 with the
+# transcendental codes, each as the scalar and as the vector activation,
+# under both gates: name -> (scalar activation, vector activation, vector
+# gate).  The first two are also fitted through the entry point.
+ACT_STACKS = {
+    "gelu_sigmoid": ("gelu", "sigmoid", True),  # the LBA default gate
+    "selu_tanh": ("selu", "tanh", True),
+    "sigmoid_gelu_norm": ("sigmoid", "gelu", False),
+    "tanh_selu_norm": ("tanh", "selu", False),
+}
+ACT_FITS = ("gelu_sigmoid", "selu_tanh")
+ACTS_CHECK_LAYERS = 2
+
+
+def act_message_passing(scalar: str, vector: str, gate: bool) -> GCPMessagePassing:
+    """bench_message_passing's layer (8 GCP2 layers, hidden 100/16, edges
+    32/4) with these activations and gate."""
+    model_cfg, module_cfg, layer_cfg = lba_configs()
+    cfg = module_cfg.replace(scalar_nonlinearity=scalar, vector_nonlinearity=vector, vector_gate=gate)
+    node_dims = (model_cfg.h_hidden_dim, model_cfg.chi_hidden_dim)
+    edge_dims = (model_cfg.e_hidden_dim, model_cfg.xi_hidden_dim)
+    return GCPMessagePassing(
+        node_dims, node_dims, edge_dims, cfg, layer_cfg, generator=torch.Generator().manual_seed(SEED), device="cuda",
+    )
+
+
+def act_kernels(name: str, batch, mp: GCPMessagePassing) -> dict:
+    """K2 and K3 with ``mp``'s stack at the main path's rows, fp32 and bf16,
+    against their plain versions at phase K2's and K3's bounds: K2 to TOL,
+    bf16 K2 against the plain version in float32 on the same bf16 inputs
+    (as K3's upcast check), its distance from the plain bf16 version beside
+    it: the plain bf16 version rounds each elementwise step to bf16, and at
+    these rows its own distance from float32 reaches the bound (on the
+    H100, at the sigmoid / gelu norm-gate stack's worst element plain bf16
+    reads -12.0, float32 -12.235, the kernel -12.25; over all elements the
+    plain bf16 version parts from float32 by 0.0190 of scale, the kernel by
+    0.0151, and the two from each other by 0.0202); bf16 K3 leaf by leaf to
+    TOL and to K3_UPCAST_TOL against the float32 plain version; float32 K3
+    under the kink rule (the rows that part from
+    the plain version by more than 1e-4 of scale each hold a kink margin
+    under KINK_MARGIN, at most max_kink_rows of them; with their cotangents
+    set to 0 every leaf within K3_KINK_FREE_TOL) and, beside it, each leaf
+    to TOL.  Each kernel's ms a call (CUDA events), its bound and its
+    share of the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    e = batch.num_edges
+    results = {}
+    for dname, dtype in DTYPES.items():
+        with torch.no_grad():
+            stack = mp.to(dtype).packed_stack()
+            message, frames = stack_inputs(batch, stack, dtype, gen)
+            got = edge_map(message, frames, stack)
+            plain = edge_map_plain(message, frames, stack)
+            k2_err, k2_rel = rel_err(got, plain)
+            # the bf16 stack's weights are float32 copies of bf16 values
+            plain_f32 = edge_map_plain(message.float(), frames.float(), stack)
+            _, k2_rel_f32 = rel_err(got, plain_f32)
+            # the element where kernel and plain version part most: both, and float32's value
+            at = int((got.float() - plain.float()).abs().argmax())
+            k2_worst = [float(t.flatten()[at]) for t in (got, plain, plain_f32)]
+            finite = bool(torch.isfinite(got).all())
+            del got, plain, plain_f32
+        held = k2_rel if dtype == torch.float32 else k2_rel_f32
+        check(finite and held <= TOL[("K2", dname)],
+              f"acts {name} K2 {dname}: rel err {k2_rel:.3g} vs plain, {k2_rel_f32:.3g} vs float32 plain, finite {finite}")
+        grad_out = torch.randn((e, stack.out_dim), generator=gen, device="cuda").to(dtype)
+        k3 = k3_leaves(message, frames, stack, grad_out, upcast=dtype == torch.bfloat16)
+        bad = {leaf: errs for leaf, errs in k3["leaves"].items()
+               if errs["vs_plain"] > TOL[("K3", dname)] or errs.get("vs_upcast", 0.0) > K3_UPCAST_TOL}
+        check(not bad, f"acts {name} K3 {dname}: leaves past their bounds {bad}")
+        if dtype == torch.float32:
+            d_msg, _ = edge_map_backward(message, frames, stack, grad_out)
+            ref_msg, _ = edge_map_backward_plain(message, frames, stack, grad_out)
+            scale = max(1.0, ref_msg.abs().max().item())
+            kinks = ((d_msg - ref_msg).abs().amax(dim=1) > 1e-4 * scale).nonzero().flatten()
+            del d_msg, ref_msg
+            margins = kink_margins(message[kinks], frames[kinks], stack).tolist() if kinks.numel() else []
+            k3["kinks"] = {"kink_rows": kinks.tolist(), "kink_row_margins": margins,
+                           "max_kink_rows": max_kink_rows(e)}
+            check(kinks.numel() <= max_kink_rows(e) and all(m <= KINK_MARGIN for m in margins),
+                  f"acts {name} K3 {dname}: rows {kinks.tolist()} part from plain, kink margins {margins}")
+            kink_free = grad_out.clone()
+            kink_free[kinks] = 0.0
+            k3["kink_free"] = k3_leaves(message, frames, stack, kink_free, upcast=False)
+            del kink_free
+            worst = max(errs["vs_plain"] for errs in k3["kink_free"]["leaves"].values())
+            check(worst <= K3_KINK_FREE_TOL, f"acts {name} K3 {dname}: kink-free leaf norm rel err {worst:.3g}")
+        for key in ("d_message", "d_weights"):
+            check(k3[key]["finite"], f"acts {name} K3 {dname}: non-finite {key}")
+        es = message.element_size()
+        w = stack.weights.numel() * 4
+        flops = e * stack_flops(stack)
+        k2_bound, k2_by, _ = route_bound_ms(e * (stack.in_dim + 9 + stack.out_dim) * es + w, flops, dtype)
+        k3_bound, k3_by, _ = route_bound_ms(e * (2 * stack.in_dim + 9 + stack.out_dim) * es + 2 * w, 3 * flops,
+                                            dtype)
+        with torch.no_grad():
+            k2_ms = cuda_ms(lambda: edge_map(message, frames, stack), iters=10)
+        k3_ms = cuda_ms(lambda: edge_map_backward(message, frames, stack, grad_out), iters=5, warmup=1)
+        results[dname] = {
+            "K2": {"max_abs_err": k2_err, "rel_err": k2_rel, "rel_err_vs_float32_plain": k2_rel_f32,
+                   "worst_element_kernel_plain_float32": k2_worst, "ms": k2_ms,
+                   "bound_ms": k2_bound, "bound_by": k2_by, "share_of_bound": k2_bound / k2_ms},
+            "K3": {"max_abs_err": max(k3["d_message"]["max_abs_err"], k3["d_weights"]["max_abs_err"]),
+                   "worst_leaf_vs_plain": max(errs["vs_plain"] for errs in k3["leaves"].values()),
+                   **({"worst_leaf_vs_upcast": max(errs["vs_upcast"] for errs in k3["leaves"].values())}
+                      if dtype == torch.bfloat16 else {"kinks": k3["kinks"]}),
+                   "ms": k3_ms, "bound_ms": k3_bound, "bound_by": k3_by, "share_of_bound": k3_bound / k3_ms},
+        }
+        del message, frames, grad_out, k3
+    return results
+
+
+def phase_acts(batch, cfg_root: str, run_dir: str, smi: str) -> dict:
+    """Every transcendental activation of the layer table (selu, gelu,
+    sigmoid, tanh; silu is AR's) through K2 and K3 on the main path:
+
+    - act_kernels for each of ACT_STACKS at the main path's 208,896 rows;
+    - for each of ACT_FITS, a short fit through ``gcpnet_torch.train``'s
+      main at the experiment's width and depth (experiment=gcpnet_lba with
+      model.module_cfg.scalar_nonlinearity and vector_nonlinearity set:
+      8 x 8 layers, 100/16/32/4, bf16 over float32 masters, the JAX
+      bucket) on cfg-train's records, as the overrides phase runs its fits:
+      OVERRIDE_STEPS training batches (the first eager and captured, the
+      second replayed) and the validation (_captured_fit); a replay's
+      kernel nodes hold K1, K2 and K3 as cfg-train's (36 / 8 / 8 a step),
+      no scatter; the trained model's stacks carry the activations; then
+      one fp32 step at ACTS_CHECK_LAYERS layers on the card against the
+      CPU (card_vs_cpu_step).
+
+    ``smi`` is the card's name and power limit, printed beside the times."""
+    results = {"card": smi, "kernels": {}}
+    for name, (scalar, vector, gate) in ACT_STACKS.items():
+        results["kernels"][name] = act_kernels(name, batch, act_message_passing(scalar, vector, gate))
+        print(f"phase acts {name}: " + json.dumps({"card": smi, **results["kernels"][name]}), flush=True)
+        torch.cuda.empty_cache()
+    base = ["experiment=gcpnet_lba", f"paths.data_dir={cfg_root}/", "trainer.max_epochs=1", "trainer.min_epochs=0",
+            "test=false", f"+trainer.limit_train_batches={OVERRIDE_STEPS}", f"+trainer.scan_chunk_size={FAMILY_CHUNK}"]
+    dm = build_datamodule(compose(CONFIG_DIR, "train.yaml", base)["datamodule"], device="cuda")
+    dm.setup()
+    train = [b.pinned() for b in itertools.islice(dm.train_batches(seed=0), FAMILY_CHUNK)]
+    del dm
+    k1 = k1_steps("lba", 8)[0]
+    want = {"K1": k1, "K2": 8, "K3_bf16": 8, "K3_fp32": 0}
+    check_batch = synthetic_batches(1, TRAIN_CHECK_GRAPHS, NODES, EDGES_PER_NODE, SEED + 5)[0]
+    for name in ACT_FITS:
+        scalar, vector, gate = ACT_STACKS[name]
+        acts = [f"model.module_cfg.scalar_nonlinearity={scalar}", f"model.module_cfg.vector_nonlinearity={vector}"]
+        run = _captured_fit(f"acts {name}", [*base, *acts], os.path.join(run_dir, name), train)
+        model = run.pop("model")
+        run["layers"] = model_layers(model)
+        run["stack_activations"] = sorted({(m.settings.scalar_nonlinearity, m.settings.vector_nonlinearity)
+                                           for mp in model.modules() if isinstance(mp, GCPMessagePassing)
+                                           for m in mp.stack}, key=str)
+        del model
+        print(f"phase acts {name} fit: " + json.dumps(run), flush=True)
+        launches = run["launches"]
+        check(run["steps"] == OVERRIDE_STEPS and run["layers"] == 8,
+              f"acts {name}: {run['steps']} steps at {run['layers']} layers")
+        check((scalar, vector) in [tuple(a) for a in run["stack_activations"]],
+              f"acts {name}: the model's stacks take {run['stack_activations']}")
+        check(launches["K1"] > 0 and launches["K2"] > 0 and launches["K3_bf16"] > 0 and launches["K3_fp32"] == 0,
+              f"acts {name}: the run's launches {launches}")
+        check(run["launches_per_step"] == want, f"acts {name}: a replay's launches {run['launches_per_step']}, "
+              f"want {want}")
+
+        def build(dev, scalar=scalar, vector=vector, gate=gate):
+            model_cfg, module_cfg, layer_cfg = lba_configs()
+            model = GCPNetLBA(
+                model_cfg.replace(dropout=0.0, dense_dropout=0.0, num_encoder_layers=ACTS_CHECK_LAYERS),
+                module_cfg.replace(scalar_nonlinearity=scalar, vector_nonlinearity=vector, vector_gate=gate),
+                layer_cfg, num_atom_types=9, generator=torch.Generator().manual_seed(SEED), device=dev,
+            ).train()
+            return model, TrainState(build_optimizer(model.parameters(), {"_target_": "Adam", "lr": 1e-4}))
+
+        run["check"] = card_vs_cpu_step(f"acts {name}-check", build, check_batch, graph_regression_loss,
+                                        ACTS_CHECK_LAYERS)
+        results[name] = run
+    print("phase acts: ok")
     return results
 
 
@@ -4667,7 +4877,8 @@ def kernel_line(report) -> dict:
     (the silu stack) and the AR fit (bf16); under "cfg" the launches of the
     config-driven LBA fit (cfg-train, bf16), whose shape is psr's; under
     "gcp_family" a step's launches in each gcp-family run and the rs-e3
-    fit."""
+    fit; under "acts" K2 and K3 at the main path's shape on the stacks with
+    selu, gelu, sigmoid and tanh, and a step's launches in their fits."""
     k1, k2, k3 = report["K1"], report["K2"], report["K3"]
     forward, train, train_fp32 = report["forward"], report["train"], report["train_fp32"]
     nk, rk, pk = report["nms_kernels"], report["rs_kernels"], report["psr_kernels"]
@@ -4702,6 +4913,21 @@ def kernel_line(report) -> dict:
         launch K1 alone."""
         runs = {**report["gcp_family"], "rs_e3": report["rs_e3"]["fit"]}
         return {name: run["launches_per_step"][count] for name, run in runs.items() if name != "check"}
+
+    def acts(kernel, count, *dnames):
+        """The acts phase's figures of a kernel (K2, or K3 in ``dnames``'
+        precision): at each of ACT_STACKS' stacks its error, ms, bound and
+        share by precision, and a step's ``count`` launches in each fit
+        (bf16: the fp32 K3's count is 0)."""
+        res = report["acts"]
+        keys = ("max_abs_err", "ms", "bound_ms", "bound_by", "share_of_bound")
+        return {
+            "card": res["card"],
+            # K3 runs these stacks in the build for every code
+            **({"source": "gcpnet_torch/csrc/edge_map_bwd_tc_all.cu"} if kernel == "K3" else {}),
+            **{name: {d: {k: res["kernels"][name][d][kernel][k] for k in keys} for d in dnames} for name in ACT_STACKS},
+            "fit_launches_per_step": {name: res[name]["launches_per_step"][count] for name in ACT_FITS},
+        }
 
     def row(name, source, replaces, run, count, main, dtype, **extra):
         return {
@@ -4741,7 +4967,8 @@ def kernel_line(report) -> dict:
                 psr=nms(pk["K2"], psr_steps["K2"], fp32="fp32", bf16="bf16"),
                 cpd=nms(ck["K2"], cpd_steps["K2"], fp32="fp32", bf16="bf16"),
                 eq=nms(ek["K2"], eq_steps["K2"], fp32="fp32", bf16="bf16"),
-                ar=nms(ak["K2"], ar_steps["K2"], fp32="fp32", bf16="bf16"), cfg=cfg("K2")),
+                ar=nms(ak["K2"], ar_steps["K2"], fp32="fp32", bf16="bf16"), cfg=cfg("K2"),
+                acts=acts("K2", "K2", "bf16", "fp32")),
             row("edge_map_backward_tc", "edge_map_bwd_tc.cu", replaces_k3, train, "K3_bf16",
                 k3["bf16"], "bf16", forward_launches=forward["launches"]["K3_bf16"],
                 bound_rate=k3["bf16"]["bound_rate"], **body(k3["bf16"]),
@@ -4750,7 +4977,8 @@ def kernel_line(report) -> dict:
                 psr=nms(pk["K3"], psr_steps["K3_bf16"], bf16="bf16"),
                 cpd=nms(ck["K3"], cpd_steps["K3_bf16"], bf16="bf16"),
                 eq=nms(ek["K3"], eq_steps["K3_bf16"], bf16="bf16"),
-                ar=nms(ak["K3"], ar_steps["K3_bf16"], bf16="bf16"), cfg=cfg("K3_bf16")),
+                ar=nms(ak["K3"], ar_steps["K3_bf16"], bf16="bf16"), cfg=cfg("K3_bf16"),
+                acts=acts("K3", "K3_bf16", "bf16")),
             row("edge_map_backward_tc_fp32", "edge_map_bwd_tc.cu", replaces_k3, train_fp32, "K3_fp32",
                 k3["fp32"], "fp32", bound_rate=k3["fp32"]["bound_rate"], **body(k3["fp32"]),
                 bound_ms_cuda_cores=k3["fp32"]["bound_ms_cuda_cores"],
@@ -4759,7 +4987,8 @@ def kernel_line(report) -> dict:
                 psr=nms(pk["K3"], psr_steps["K3_fp32"], fp32="fp32"),
                 cpd=nms(ck["K3"], cpd_steps["K3_fp32"], fp32="fp32"),
                 eq=nms(ek["K3"], eq_steps["K3_fp32"], fp32="fp32"),
-                ar=nms(ak["K3"], ar_steps["K3_fp32"], fp32="fp32"), cfg=cfg("K3_fp32")),
+                ar=nms(ak["K3"], ar_steps["K3_fp32"], fp32="fp32"), cfg=cfg("K3_fp32"),
+                acts=acts("K3", "K3_fp32", "fp32")),
         ]
     }
 
@@ -4822,9 +5051,9 @@ def main() -> int:
     ar_root, ar_ckpt_dir = os.path.join(work, "ar"), os.path.join(args.out_dir, "ar_checkpoints")
     cfg_run_dir = os.path.join(args.out_dir, "cfg_run")
     family_dir, rs_e3_dir = os.path.join(args.out_dir, "gcp_family"), os.path.join(args.out_dir, "rs_e3_checkpoints")
-    overrides_dir = os.path.join(args.out_dir, "overrides")
+    overrides_dir, acts_dir = os.path.join(args.out_dir, "overrides"), os.path.join(args.out_dir, "acts")
     run_dirs = (ckpt_dir, rs_ckpt_dir, psr_ckpt_dir, cpd_ckpt_dir, eq_ckpt_dir, ar_ckpt_dir, cfg_run_dir, family_dir,
-                rs_e3_dir, overrides_dir)
+                rs_e3_dir, overrides_dir, acts_dir)
     for path in run_dirs:
         shutil.rmtree(path, ignore_errors=True)
     report = TimedReport(t_start)
@@ -4908,6 +5137,8 @@ def main() -> int:
         report["gcp_family"] = phase_gcp_family(os.path.join(work, "cfg_data"), family_dir)
         report["overrides"] = phase_overrides(psr_root, eq_root, os.path.join(work, "eq_check"),
                                               os.path.join(work, "cfg_data"), overrides_dir)
+        report["acts"] = phase_acts(batches[0], os.path.join(work, "cfg_data"), acts_dir,
+                                    report["device"]["nvidia_smi"])
         report["rs_e3"] = phase_rs_e3(rs_dm, rs_e3_dir)
         del rs_dm
         gc.collect()

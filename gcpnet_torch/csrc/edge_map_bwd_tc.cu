@@ -15,7 +15,7 @@
 //
 // Per layer (K2's math, edge_map_tc.cu), with cotangents dY of the scalars
 // and dV of the vectors after it:
-// (act_s, act_v: the identity, relu, leaky relu or silu, act' their derivatives)
+// (act_s, act_v: any code of the layer table, edge_stack.cuh ActCode; act' their derivatives)
 //   vector gate: dG = sigmoid'(G) (dV . vu) (G the gate logits), dvu = dV g
 //   norm gate:   dvu = dV g + act_v'(n) (dV . vu) vu / sqrt(|vu|^2 + eps)
 //   dS = dY act_s'(S) (+ (dG Wg^T) act_v'(S)),  dWg = act_v(S)^T dG
@@ -61,6 +61,14 @@
 //   partials in block order.
 // - The cotangent of layer 0's input goes from the products' epilogues
 //   straight to d msg.
+// - Built for the bound of the stack's activation codes (edge_stack.cuh
+//   ActCode, launch_codes): codes 0-2 and 0-3 here, as before selu, gelu,
+//   sigmoid and tanh joined the layer table (the same code, at the same
+//   registers); every code in edge_map_bwd_tc_all.cu's library, which
+//   resolves each of selu, gelu, sigmoid and tanh once a layer into a copy
+//   of the code of its own (values and derivatives), and whose vector gate
+//   takes its two derivatives in two elementwise passes after the dG Wg^T
+//   product.
 //
 // k3_breakdown.py builds this file with K3_CUT set to one of the Cut values
 // below, each removing one part of the work (the results are then wrong),
@@ -76,7 +84,6 @@
 
 namespace {
 
-using gcp::act;
 using gcp::sigmoid;
 using gcp::with_act_grad;
 using gcp::kEps;
@@ -160,17 +167,18 @@ __device__ __forceinline__ void bias_grad(const T* G, int ldg, int N, float* P) 
 // cotangent of its input: into dY and dV (added to the output's, when
 // pass_through: ResGCP), or, for layer 0 (dmsg != nullptr), into d msg's
 // rows.  s.wso holds Wso's last chunk; the others (float32) are copied
-// from image.
-template <typename T, int R, bool kSilu>
+// from image.  The layer's activation codes are below kCodes
+// (edge_stack.cuh with_act_grad).
+template <typename T, int R, int kCodes>
 __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, const char* image, float* P,
                                bool pass_through, T* dmsg, int rows) {
   constexpr bool kWT = kWeightsT<T>;
   const int tid = threadIdx.x;
   const int h = L.h, hk = h + 9, K = L.s_in + hk;
   const int in_dim = L.s_in + 3 * L.v_in;
-  // the gates, elementwise: dG over G, dU over U (a copy for silu's
-  // derivative in the norm gate)
-  with_act_grad<kSilu>(L.vgate ? 0 : L.act_v, L.slope, [&](auto act_v_grad) {
+  // the gates, elementwise: dG over G, dU over U (a copy for each
+  // transcendental derivative in the norm gate)
+  with_act_grad<kCodes>(L.vgate ? 0 : L.act_v, L.slope, [&](auto act_v_grad) {
     for (int i = tid; i < R * L.v_out; i += kThreads) {
       const int r = i / L.v_out, o = i - r * L.v_out;
       float u[3], dv[3];
@@ -189,7 +197,12 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
       } else if (L.act_v) {
         const float rt = sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps);
         const float n = rt + kEps;
-        const float gt = act<kSilu>(n, L.act_v, L.slope);
+        float gt;
+        if constexpr (kCodes > gcp::kActSelu) {
+          gt = gcp::act_of<decltype(act_v_grad)::kCode>(n, L.act_v, L.slope);
+        } else {
+          gt = gcp::act_of_code<kCodes>(n, L.act_v, L.slope);
+        }
         const float dn = dg * act_v_grad(n) / rt;
 #pragma unroll
         for (int c = 0; c < 3; ++c) du[c] = dv[c] * gt + dn * u[c];
@@ -202,7 +215,7 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
     }
   });
   if (!L.vgate) {
-    with_act_grad<kSilu>(L.act_s, L.slope, [&](auto act_s_grad) {
+    with_act_grad<kCodes>(L.act_s, L.slope, [&](auto act_s_grad) {
       for (int i = tid; i < R * L.s_out; i += kThreads) {
         const int r = i / L.s_out, o = i - r * L.s_out;
         store_f(s.dS + r * g.lds + o, s.dY[r * g.ldy + o] * act_s_grad(f(s.S[r * g.lds + o])));
@@ -215,25 +228,54 @@ __device__ void layer_backward(const Smem<T>& s, const Geom& g, const Layer& L, 
   if (L.vgate) {
     // dS = dY act_s'(S) + (dG Wg^T) act_v'(S);  dWg += act_v(S)^T dG;  dbg
     if constexpr (kCut != kNoBackwardProducts) {
-      // one copy of the product a pair of derivatives (ActGrad or SiluGrad)
-      with_act_grad<kSilu>(L.act_s, L.slope, [&](auto act_s_grad) {
-        with_act_grad<kSilu>(L.act_v, L.slope, [&](auto act_v_grad) {
-          gemm<T, false, !kWT>(dG, g.ldv, s.wg, g.ld_wg, R, pad8(L.s_out), padk<T>(L.v_out), Act{}, ZeroInit{},
-                               [&](int m, int n, float v0, float v1) {
-                                 const float v[2] = {v0, v1};
-#pragma unroll
-                                 for (int j = 0; j < 2; ++j) {
-                                   if (n + j >= L.s_out) break;
-                                   const float sv = f(s.S[m * g.lds + n + j]);
-                                   store_f(s.dS + m * g.lds + n + j,
-                                           s.dY[m * g.ldy + n + j] * act_s_grad(sv) + v[j] * act_v_grad(sv));
-                                 }
-                               });
+      if constexpr (kCodes > gcp::kActSelu) {
+        // selu, gelu, sigmoid or tanh: dG Wg^T into dS (rounded to T, as the
+        // plain version rounds it), then one elementwise pass a derivative,
+        // each resolved once (one copy of the product, not one a pair of
+        // derivatives); each thread takes the same elements in both passes
+        gemm<T, false, !kWT>(dG, g.ldv, s.wg, g.ld_wg, R, pad8(L.s_out), padk<T>(L.v_out), Act{}, ZeroInit{},
+                             [&](int m, int n, float v0, float v1) {
+                               put2(s.dS + m * g.lds + n, n, L.s_out, v0, v1);
+                             });
+        __syncthreads();
+        with_act_grad<kCodes>(L.act_v, L.slope, [&](auto act_v_grad) {
+          for (int i = tid; i < R * L.s_out; i += kThreads) {
+            const int r = i / L.s_out, o = i - r * L.s_out;
+            T* ds = s.dS + r * g.lds + o;
+            store_f(ds, f(*ds) * act_v_grad(f(s.S[r * g.lds + o])));
+          }
         });
-      });
+        with_act_grad<kCodes>(L.act_s, L.slope, [&](auto act_s_grad) {
+          for (int i = tid; i < R * L.s_out; i += kThreads) {
+            const int r = i / L.s_out, o = i - r * L.s_out;
+            T* ds = s.dS + r * g.lds + o;
+            store_f(ds, f(*ds) + s.dY[r * g.ldy + o] * act_s_grad(f(s.S[r * g.lds + o])));
+          }
+        });
+      } else {
+        // one copy of the product a pair of derivatives (ActGrad or SiluGrad)
+        with_act_grad<kCodes>(L.act_s, L.slope, [&](auto act_s_grad) {
+          with_act_grad<kCodes>(L.act_v, L.slope, [&](auto act_v_grad) {
+            gemm<T, false, !kWT>(dG, g.ldv, s.wg, g.ld_wg, R, pad8(L.s_out), padk<T>(L.v_out), Act{}, ZeroInit{},
+                                 [&](int m, int n, float v0, float v1) {
+                                   const float v[2] = {v0, v1};
+#pragma unroll
+                                   for (int j = 0; j < 2; ++j) {
+                                     if (n + j >= L.s_out) break;
+                                     const float sv = f(s.S[m * g.lds + n + j]);
+                                     store_f(s.dS + m * g.lds + n + j,
+                                             s.dY[m * g.ldy + n + j] * act_s_grad(sv) + v[j] * act_v_grad(sv));
+                                   }
+                                 });
+          });
+        });
+      }
     }
     if (L.act_v) {
-      wgrad<kSilu ? 2 : 1>(s.S, g.lds, L.s_out, Act{L.act_v, L.slope}, dG, g.ldv, L.v_out, R, P + L.off_wg);
+      gcp::with_act_code<kCodes>(L.act_v, [&](auto code) {
+        wgrad<kActAOf<kCodes, decltype(code)::value>>(s.S, g.lds, L.s_out, Act{L.act_v, L.slope}, dG, g.ldv, L.v_out,
+                                                      R, P + L.off_wg);
+      });
     } else {
       wgrad(s.S, g.lds, L.s_out, Act{}, dG, g.ldv, L.v_out, R, P + L.off_wg);
     }
@@ -355,7 +397,7 @@ __host__ __device__ inline long long slot_offset(const Stack& st, int l) {
   return off;
 }
 
-template <typename T, int R, bool kSilu>
+template <typename T, int R, int kCodes>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_map_bwd_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, const T* __restrict__ gout,
                        const char* __restrict__ images, const Stack st, const Geom g, T* __restrict__ dmsg,
@@ -400,9 +442,9 @@ edge_map_bwd_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, 
       const char* image = images + l * g.img_bytes;
       load_weights(s, g, L, image);
       __syncthreads();
-      layer_forward<T, R, kSilu>(s, g, L, image, NoHook{});
+      layer_forward<T, R, kCodes>(s, g, L, image, NoHook{});
       if (l < nl - 1)
-        layer_output<T, R, kSilu>(s, g, L, st.residual && l > 0,
+        layer_output<T, R, kCodes>(s, g, L, st.residual && l > 0,
                            kCut == kNoScratch ? nullptr : stash + slot_offset<R>(st, l + 1));
     }
     // the reverse sweep
@@ -417,10 +459,10 @@ edge_map_bwd_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, 
         }
         load_weights(s, g, L, image);
         __syncthreads();
-        if (kCut != kNoRecompute) layer_forward<T, R, kSilu>(s, g, L, image, NoHook{});
+        if (kCut != kNoRecompute) layer_forward<T, R, kCodes>(s, g, L, image, NoHook{});
       }
-      layer_backward<T, R, kSilu>(s, g, L, kWeightsT<T> ? images + l * g.img_bytes : nullptr, P, st.residual && l > 0,
-                           l == 0 ? dmsg + e0 * in_dim : nullptr, rows);
+      layer_backward<T, R, kCodes>(s, g, L, kWeightsT<T> ? images + l * g.img_bytes : nullptr, P, st.residual && l > 0,
+                                   l == 0 ? dmsg + e0 * in_dim : nullptr, rows);
     }
   }
 }
@@ -432,7 +474,7 @@ edge_map_bwd_tc_images(const float* __restrict__ W, const Stack st, const Geom g
   build_image<T>(W, st.l[blockIdx.x], g, images + static_cast<size_t>(blockIdx.x) * g.img_bytes);
 }
 
-template <typename T, int R, bool kSilu>
+template <typename T, int R, int kCodes>
 int launch_rows(const void* msg, const void* frames, const void* grad_out, const float* weights, const Stack& st,
                 const Geom& g, size_t smem, void* d_msg, float* d_weights, void* images, float* partials,
                 void* scratch, long long weights_len, long long stash_len, long long num_edges, int grid,
@@ -443,15 +485,33 @@ int launch_rows(const void* msg, const void* frames, const void* grad_out, const
   edge_map_bwd_tc_images<T><<<st.n_layers, kThreads, 0, s>>>(weights, st, g, img);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(edge_map_bwd_tc_kernel<T, R, kSilu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(edge_map_bwd_tc_kernel<T, R, kCodes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  edge_map_bwd_tc_kernel<T, R, kSilu><<<grid, kThreads, smem, s>>>(
+  edge_map_bwd_tc_kernel<T, R, kCodes><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(msg), static_cast<const T*>(frames), static_cast<const T*>(grad_out), img, st, g,
       static_cast<T*>(d_msg), partials, static_cast<T*>(scratch), weights_len, stash_len, num_edges);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return gcp::launch_sum_partials(partials, grid, weights_len, d_weights, s);
+}
+
+// launch_rows for the bound of the stack's activation codes (edge_stack.cuh
+// stack_codes).  This source builds the kernels for codes 0-2 and 0-3 (the
+// code they ran before selu, gelu, sigmoid and tanh joined the layer
+// table); edge_map_bwd_tc_all.cu, which includes it with
+// GCP_K3_EVERY_CODE, builds those for every code: a library of its own,
+// compiled beside this one, so that the build takes no longer than before.
+// Each returns cudaErrorInvalidValue for the other's stacks.
+template <typename T, int R, typename... Args>
+int launch_codes(int codes, Args... args) {
+#ifdef GCP_K3_EVERY_CODE
+  if (codes == gcp::kActCodes) return launch_rows<T, R, gcp::kActCodes>(args...);
+#else
+  if (codes == gcp::kActSilu) return launch_rows<T, R, gcp::kActSilu>(args...);
+  if (codes == gcp::kActSelu) return launch_rows<T, R, gcp::kActSelu>(args...);
+#endif
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -461,19 +521,13 @@ int launch(const void* msg, const void* frames, const void* grad_out, const floa
   const Geom g = geometry<T>(st);
   size_t smem;
   const int rows = tile_rows<T>(g, &smem);
-  const bool silu = gcp::uses_silu(st);
-  if (rows == kRows<T> && silu)
-    return launch_rows<T, kRows<T>, true>(msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights, images,
-                                          partials, scratch, weights_len, stash_len, num_edges, grid, s);
+  const int codes = gcp::stack_codes(st);
   if (rows == kRows<T>)
-    return launch_rows<T, kRows<T>, false>(msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights, images,
-                                           partials, scratch, weights_len, stash_len, num_edges, grid, s);
-  if (rows == kRows<T> / 2 && silu)
-    return launch_rows<T, kRows<T> / 2, true>(msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights, images,
-                                              partials, scratch, weights_len, stash_len, num_edges, grid, s);
+    return launch_codes<T, kRows<T>>(codes, msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights, images,
+                                     partials, scratch, weights_len, stash_len, num_edges, grid, s);
   if (rows == kRows<T> / 2)
-    return launch_rows<T, kRows<T> / 2, false>(msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights, images,
-                                               partials, scratch, weights_len, stash_len, num_edges, grid, s);
+    return launch_codes<T, kRows<T> / 2>(codes, msg, frames, grad_out, weights, st, g, smem, d_msg, d_weights,
+                                         images, partials, scratch, weights_len, stash_len, num_edges, grid, s);
   return static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
@@ -514,6 +568,7 @@ extern "C" int gcp_edge_map_bwd_tc_tile(const int* meta, int meta_len, int dtype
 // stash_len at least gcp_edge_map_bwd_tc_tile * sum over layers l >= 1 of
 // (s_in + 3 v_in).  grid is the number of persistent blocks (one per SM).
 // Returns cudaErrorInvalidValue for a malformed table, dtype or workspace,
+// or a stack whose codes this build does not carry (launch_codes),
 // cudaErrorInvalidConfiguration when the widths need more shared memory
 // than a block has, else cudaGetLastError() after the three launches (0 on
 // success).

@@ -18,9 +18,12 @@
 //   vu_c *= sigmoid(act_v(s_new) @ Wg + bg)              (vector gate), or
 //   vu_c *= act_v(sqrt(sum_c vu_c^2 + 1e-8) + 1e-8)      (norm gate)
 //   (s, v) = (act_s(s_new), vu), summed over layers for ResGCP.
-// act_s and act_v are the identity, relu, leaky relu (x >= 0 ? x : slope x,
-// the slope per layer) or silu (x sigmoid(x)) here; the wrapper raises for
-// any other setting.
+// act_s and act_v are any activation of the JAX package's get_nonlinearity:
+// the identity, relu, leaky relu (x >= 0 ? x : slope x, the slope per
+// layer), and, in the kernels built for stacks that use them (kCodes), silu,
+// selu, gelu (its tanh form), sigmoid and tanh in float32 (edge_stack.cuh's
+// layer table), each resolved once a layer; the wrapper raises for any
+// other setting.
 //
 // Bound on the H100: operations.  About 245 kFLOP per edge row against
 // about 1 KB of traffic: ~51 GFLOP and ~208 MB (bf16) per call at the main
@@ -98,7 +101,7 @@ __device__ inline void store_output(const Smem<T>& s, const Geom& g, const Layer
   }
 }
 
-template <typename T, int R, bool kSilu>
+template <typename T, int R, int kCodes>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, const char* __restrict__ images,
                    const Stack st, const Geom g, int nbuf, T* __restrict__ out, long long num_edges) {
@@ -132,11 +135,11 @@ edge_map_tc_kernel(const T* __restrict__ msg, const T* __restrict__ frames, cons
       __syncthreads();  // this layer's weights are in; the previous layer is done with the other buffer
       carve_weights(buf, g, &s);
       if (gcp::kK2Staging && nbuf == 2 && more) copy_async(other, image(ln), layer_bytes<T>(g, N));
-      layer_forward<T, R, kSilu>(s, g, L, image(l), [&] {
+      layer_forward<T, R, kCodes>(s, g, L, image(l), [&] {
         if (gcp::kK2Staging && nbuf == 1 && more)
           copy_async(buf + g.w_off_wso, image(ln) + g.w_off_wso, wso_first_bytes<T>(g, N));
       });
-      layer_output<T, R, kSilu>(s, g, L, st.residual && l > 0, nullptr);
+      layer_output<T, R, kCodes>(s, g, L, st.residual && l > 0, nullptr);
       if (nbuf == 2) {
         char* t = buf;
         buf = other;
@@ -187,22 +190,32 @@ Layout layout(const Geom& g) {
   return out;
 }
 
-template <typename T, int R, bool kSilu>
+template <typename T, int R, int kCodes>
 int launch_rows(const void* msg, const void* frames, const void* images, const Stack& st, const Geom& g,
                 const Layout& lay, void* out, long long num_edges, cudaStream_t stream) {
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(edge_map_tc_kernel<T, R, kSilu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(edge_map_tc_kernel<T, R, kCodes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(lay.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (num_edges + R - 1) / R;
   const unsigned grid = static_cast<unsigned>(std::min<long long>(tiles, sms));
-  edge_map_tc_kernel<T, R, kSilu><<<grid, kThreads, lay.smem, stream>>>(
+  edge_map_tc_kernel<T, R, kCodes><<<grid, kThreads, lay.smem, stream>>>(
       static_cast<const T*>(msg), static_cast<const T*>(frames), static_cast<const char*>(images), st, g, lay.nbuf,
       static_cast<T*>(out), num_edges);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_rows for the bound of the stack's activation codes (edge_stack.cuh
+// stack_codes): three builds, codes 0-2 and 0-3 (the code they ran before
+// selu, gelu, sigmoid and tanh joined the layer table) and every code
+template <typename T, int R, typename... Args>
+int launch_codes(int codes, Args... args) {
+  if (codes == gcp::kActSilu) return launch_rows<T, R, gcp::kActSilu>(args...);
+  if (codes == gcp::kActSelu) return launch_rows<T, R, gcp::kActSelu>(args...);
+  return launch_rows<T, R, gcp::kActCodes>(args...);
 }
 
 template <typename T>
@@ -212,12 +225,9 @@ int launch(const void* msg, const void* frames, const void* images, const Stack&
   const Layout lay = layout<T>(g);
   if (lay.rows == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (num_edges <= 0) return 0;
-  const bool silu = gcp::uses_silu(st);
-  if (lay.rows == kTile)
-    return silu ? launch_rows<T, kTile, true>(msg, frames, images, st, g, lay, out, num_edges, stream)
-                : launch_rows<T, kTile, false>(msg, frames, images, st, g, lay, out, num_edges, stream);
-  return silu ? launch_rows<T, kTile / 2, true>(msg, frames, images, st, g, lay, out, num_edges, stream)
-              : launch_rows<T, kTile / 2, false>(msg, frames, images, st, g, lay, out, num_edges, stream);
+  const int codes = gcp::stack_codes(st);
+  if (lay.rows == kTile) return launch_codes<T, kTile>(codes, msg, frames, images, st, g, lay, out, num_edges, stream);
+  return launch_codes<T, kTile / 2>(codes, msg, frames, images, st, g, lay, out, num_edges, stream);
 }
 
 }  // namespace

@@ -7,12 +7,13 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace gcp {
 
-constexpr int kMaxLayers = 16;
+constexpr int kMaxLayers = 32;  // 8 + 32 x 64 bytes of Stack: under a launch's 4 KB of parameters
 constexpr int kMetaHeader = 2;   // n_layers, residual
 constexpr int kMetaPerLayer = 15;
 constexpr int kSlopesPerLayer = 1;  // after every layer's words: its leaky slope, float32 bits
@@ -21,7 +22,7 @@ constexpr float kEps = 1e-8f;
 
 struct Layer {
   int s_in, v_in, h, s_out, v_out;
-  int act_s, act_v, vres, vgate;       // act: 0 identity, 1 relu, 2 leaky relu, 3 silu
+  int act_s, act_v, vres, vgate;       // act: an ActCode
   int off_wd, off_wso, off_bso, off_wup, off_wg, off_bg;  // float offsets
   float slope;                         // leaky relu's slope below 0
 };
@@ -31,7 +32,26 @@ struct Stack {
   Layer l[kMaxLayers];
 };
 
-constexpr int kActCodes = 4;  // 0 identity, 1 relu, 2 leaky relu, 3 silu
+// The layer table's activation codes.  The kernels are built for the codes
+// below a bound kCodes, each a template argument: kActSilu (identity, relu
+// and leaky relu, the code they ran before the transcendental codes joined
+// the table), kActSelu (silu too: AR's, as before selu, gelu, sigmoid and
+// tanh joined) and kActCodes (every code: stacks with one of those four).
+// stack_codes gives a stack's bound.  The kActCodes builds resolve each of
+// those four codes once a layer, each into a copy of the code of its own
+// (with_act_code, with_act_grad), and run codes 0-3 as the kActSelu builds
+// do.
+enum ActCode : int {
+  kActIdentity = 0,
+  kActRelu = 1,
+  kActLeaky = 2,
+  kActSilu = 3,
+  kActSelu = 4,
+  kActGelu = 5,
+  kActSigmoid = 6,
+  kActTanh = 7
+};
+constexpr int kActCodes = 8;
 
 // k2_breakdown.py builds K2 (edge_map_tc.cu) with K2_CUT set to one of the
 // K2Cut values below, each removing one part of the forward's work (the
@@ -68,23 +88,72 @@ __device__ __forceinline__ float leaky_relu(float x, float slope) { return x >= 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 // x sigmoid(x), as jax.nn.silu computes it: -0 far below 0, a NaN for a NaN
 __device__ __forceinline__ float silu(float x) { return x * sigmoid(x); }
-// the activation of code kAct (0 identity, 1 relu, 2 leaky relu, 3 silu)
-// for a code known at compile time (the hot loops take one copy per code)
+// jax.nn.selu's constants, and selu as it computes it: scale x above 0,
+// else scale alpha expm1(x) (a NaN for a NaN)
+constexpr float kSeluAlpha = 1.6732632423543772848170429916717f;
+constexpr float kSeluScale = 1.0507009873554804934193349852946f;
+__device__ __forceinline__ float selu(float x) { return kSeluScale * (x > 0.f ? x : kSeluAlpha * expm1f(x)); }
+// jax.nn.gelu's default tanh form: x 0.5 (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3)))
+constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
+constexpr float kGeluK = 0.044715f;
+__device__ __forceinline__ float gelu(float x) {
+  return x * (0.5f * (1.f + tanhf(kGeluC * (x + kGeluK * (x * x * x)))));
+}
+// the activation of code kAct, known at compile time (the hot loops take
+// one copy per code)
 template <int kAct>
 __device__ __forceinline__ float act(float x, float slope) {
-  if constexpr (kAct == 1) return relu(x);
-  if constexpr (kAct == 2) return leaky_relu(x, slope);
-  if constexpr (kAct == 3) return silu(x);
+  if constexpr (kAct == kActRelu) return relu(x);
+  if constexpr (kAct == kActLeaky) return leaky_relu(x, slope);
+  if constexpr (kAct == kActSilu) return silu(x);
+  if constexpr (kAct == kActSelu) return selu(x);
+  if constexpr (kAct == kActGelu) return gelu(x);
+  if constexpr (kAct == kActSigmoid) return sigmoid(x);
+  if constexpr (kAct == kActTanh) return tanhf(x);
   return x;
 }
-// the activation of a code known at run time; silu only in a kernel built
-// for stacks that use it (kSilu), so that the others compile as before
-template <bool kSilu>
-__device__ __forceinline__ float act(float x, int code, float slope) {
-  if constexpr (kSilu) {
-    if (code == 3) return act<3>(x, slope);
+// the activation of a code 0-3 known at run time, below kCodes (kActSilu:
+// relu and leaky relu; kActSelu: silu too), so that a kernel carries only
+// the codes it is built for
+template <int kCodes>
+__device__ __forceinline__ float act_of_code(float x, int code, float slope) {
+  if constexpr (kCodes > kActSilu) {
+    if (code == kActSilu) return act<kActSilu>(x, slope);
   }
-  return code == 1 ? act<1>(x, slope) : code == 2 ? act<2>(x, slope) : x;
+  return code == kActRelu ? act<kActRelu>(x, slope) : code == kActLeaky ? act<kActLeaky>(x, slope) : x;
+}
+
+// A code read at run time, 0-3 (with_act_code).
+constexpr int kActAtRunTime = -1;
+
+// act<kAct>, or for kAct = kActAtRunTime the activation of code, 0-3, as
+// the kActSelu builds take it
+template <int kAct>
+__device__ __forceinline__ float act_of(float x, int code, float slope) {
+  if constexpr (kAct == kActAtRunTime) {
+    return act_of_code<kActSelu>(x, code, slope);
+  } else {
+    return act<kAct>(x, slope);
+  }
+}
+
+// fn(std::integral_constant<int, code>) for code selu, gelu, sigmoid or
+// tanh in a build for every code (kCodes = kActCodes), else
+// fn(std::integral_constant<int, kActAtRunTime>): codes 0-3, read at run
+// time as before those four joined the table.  Resolved once a layer, so
+// that the products and loops inside fn test no code per element for them.
+template <int kCodes, typename Fn>
+__device__ __forceinline__ void with_act_code(int code, Fn&& fn) {
+  if constexpr (kCodes > kActSelu) {
+    switch (code) {
+      case kActSelu: fn(std::integral_constant<int, kActSelu>{}); return;
+      case kActGelu: fn(std::integral_constant<int, kActGelu>{}); return;
+      case kActSigmoid: fn(std::integral_constant<int, kActSigmoid>{}); return;
+      case kActTanh: fn(std::integral_constant<int, kActTanh>{}); return;
+      default: break;
+    }
+  }
+  fn(std::integral_constant<int, kActAtRunTime>{});
 }
 
 // The derivative of an activation of code 0-2 as its values below 0 and at
@@ -93,28 +162,76 @@ __device__ __forceinline__ float act(float x, int code, float slope) {
 // the loops that apply it test no code; a NaN takes the value below 0, as
 // JAX's where(x > 0, ...) and where(x >= 0, ...) do.
 struct ActGrad {
+  static constexpr int kCode = kActAtRunTime;  // its activation (act_of)
   float below, at;
   __device__ __forceinline__ ActGrad(int code, float slope)
-      : below(code == 1 ? 0.f : code == 2 ? slope : 1.f), at(code == 1 ? 0.f : 1.f) {}
+      : below(code == kActRelu ? 0.f : code == kActLeaky ? slope : 1.f), at(code == kActRelu ? 0.f : 1.f) {}
   __device__ __forceinline__ float operator()(float x) const { return x > 0.f ? 1.f : x >= 0.f ? at : below; }
 };
 
-// silu's derivative s + x s (1 - s), s = sigmoid(x), as jax.grad of
-// x sigmoid(x) gives it (a NaN for a NaN).
+// The transcendental activations' derivatives, in float32, as jax.grad
+// gives them; each is a NaN for a NaN.
+// silu: s + x s (1 - s), s = sigmoid(x)
 struct SiluGrad {
+  static constexpr int kCode = kActSilu;
   __device__ __forceinline__ float operator()(float x) const {
     const float s = sigmoid(x);
     return s + x * s * (1.f - s);
   }
 };
+// selu: scale above 0, scale alpha exp(x) at and below it (1.7581 at 0:
+// JAX's where(x > 0, ...) takes 0 below)
+struct SeluGrad {
+  static constexpr int kCode = kActSelu;
+  __device__ __forceinline__ float operator()(float x) const {
+    return x > 0.f ? kSeluScale : kSeluScale * kSeluAlpha * expf(x);
+  }
+};
+// gelu's tanh form: 0.5 (1 + t) + 0.5 x (1 - t^2) sqrt(2 / pi) (1 + 3 k x^2),
+// t = tanh(sqrt(2 / pi) (x + k x^3))
+struct GeluGrad {
+  static constexpr int kCode = kActGelu;
+  __device__ __forceinline__ float operator()(float x) const {
+    const float x2 = x * x;
+    const float t = tanhf(kGeluC * (x + kGeluK * (x2 * x)));
+    return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * kGeluC * (1.f + 3.f * kGeluK * x2);
+  }
+};
+// sigmoid: s (1 - s)
+struct SigmoidGrad {
+  static constexpr int kCode = kActSigmoid;
+  __device__ __forceinline__ float operator()(float x) const {
+    const float s = sigmoid(x);
+    return s * (1.f - s);
+  }
+};
+// tanh: 1 - t^2
+struct TanhGrad {
+  static constexpr int kCode = kActTanh;
+  __device__ __forceinline__ float operator()(float x) const {
+    const float t = tanhf(x);
+    return 1.f - t * t;
+  }
+};
 
-// fn(the derivative of the activation of code): SiluGrad for silu (3) in a
-// kernel built for stacks that use it (kSilu), else ActGrad.  The loops
-// inside fn apply it with no test of the code per element.
-template <bool kSilu, typename Fn>
+// fn(the derivative of the activation of code), for a code below kCodes
+// (kActSilu: 0-2, relu and leaky relu; kActSelu: 0-3, silu too; kActCodes:
+// every code): ActGrad for 0-2, else the code's functor.  Made once a layer,
+// so that the loops inside fn apply it with no test of the code per element;
+// the code carries one copy of fn for each functor below kCodes.
+template <int kCodes, typename Fn>
 __device__ __forceinline__ void with_act_grad(int code, float slope, Fn&& fn) {
-  if constexpr (kSilu) {
-    if (code == 3) {
+  if constexpr (kCodes > kActSelu) {
+    switch (code) {
+      case kActSelu: fn(SeluGrad{}); return;
+      case kActGelu: fn(GeluGrad{}); return;
+      case kActSigmoid: fn(SigmoidGrad{}); return;
+      case kActTanh: fn(TanhGrad{}); return;
+      default: break;
+    }
+  }
+  if constexpr (kCodes > kActSilu) {
+    if (code == kActSilu) {
       fn(SiluGrad{});
       return;
     }
@@ -122,13 +239,13 @@ __device__ __forceinline__ void with_act_grad(int code, float slope, Fn&& fn) {
   fn(ActGrad(code, slope));
 }
 
-// Whether any layer of st applies silu: its kernels are the kSilu
-// instantiations, which alone carry silu's code (a stack without silu runs
-// the same code as before silu joined the table, at its register use).
-inline bool uses_silu(const Stack& st) {
-  for (int l = 0; l < st.n_layers; ++l)
-    if (st.l[l].act_s == 3 || st.l[l].act_v == 3) return true;
-  return false;
+// The bound of st's activation codes (see ActCode): kActSilu where every
+// layer applies the identity, relu or leaky relu, kActSelu where silu is
+// the largest code, else kActCodes.
+inline int stack_codes(const Stack& st) {
+  int top = kActIdentity;
+  for (int l = 0; l < st.n_layers; ++l) top = std::max({top, st.l[l].act_s, st.l[l].act_v});
+  return top < kActSilu ? kActSilu : top == kActSilu ? kActSelu : kActCodes;
 }
 
 // meta: {n_layers, residual}, then per layer {s_in, v_in, h, s_out, v_out,

@@ -310,8 +310,9 @@ __device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[
 }
 
 // An activation a product applies to its A operand (gemm's kActA): a layer
-// table code (1 relu, 2 leaky relu, 3 silu) and leaky relu's slope.  kActA
-// is 0 (none), 1 (relu or leaky relu) or 2 (silu too).
+// table code (ActCode) and leaky relu's slope.  kActA is 0 (none), 1 (relu
+// or leaky relu, the code read at run time), 2 (silu too) or one of codes
+// 4-7 (selu, gelu, sigmoid, tanh, known at compile time).
 struct Act {
   int code;
   float slope;
@@ -319,24 +320,33 @@ struct Act {
 
 // The activation a of one A-operand word: a bf16 pair, or a float32 value
 // (its bits).  A NaN stays a NaN.  relu of a bf16 pair is exact in bf16;
-// leaky relu and silu (kSilu) are taken in float32 and rounded to bf16, as
-// the plain version computes them (a bf16 multiply by a bf16 slope would
-// round twice differently).
-template <typename T, bool kSilu>
+// the others are taken in float32 and rounded to bf16, as the plain version
+// computes them (a bf16 multiply by a bf16 slope would round twice
+// differently).
+template <typename T, int kActA>
 __device__ __forceinline__ uint32_t act_word(uint32_t x, Act a) {
+  constexpr bool kSilu = kActA == 2;
+  constexpr bool kKnown = kActA >= kActSelu;  // a code known at compile time
   if constexpr (sizeof(T) == 4) {
     const float v = __uint_as_float(x);
-    if constexpr (kSilu) {
-      if (a.code == 3) return __float_as_uint(silu(v));
+    if constexpr (kKnown) {
+      return __float_as_uint(act<kActA>(v, a.slope));
+    } else {
+      if constexpr (kSilu) {
+        if (a.code == kActSilu) return __float_as_uint(silu(v));
+      }
+      return __float_as_uint(a.code == kActRelu ? relu(v) : leaky_relu(v, a.slope));
     }
-    return __float_as_uint(a.code == 1 ? relu(v) : leaky_relu(v, a.slope));
   } else {
     __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
-    if (a.code == 1) {
+    if constexpr (kKnown) {
+      const float2 p = __bfloat1622float2(v);
+      v = __floats2bfloat162_rn(act<kActA>(p.x, a.slope), act<kActA>(p.y, a.slope));
+    } else if (a.code == kActRelu) {
       v = __hmax2_nan(v, __float2bfloat162_rn(0.f));
     } else {
       const float2 p = __bfloat1622float2(v);
-      if (kSilu && a.code == 3) {
+      if (kSilu && a.code == kActSilu) {
         v = __floats2bfloat162_rn(silu(p.x), silu(p.y));
       } else {
         v = __floats2bfloat162_rn(leaky_relu(p.x, a.slope), leaky_relu(p.y, a.slope));
@@ -345,6 +355,12 @@ __device__ __forceinline__ uint32_t act_word(uint32_t x, Act a) {
     return *reinterpret_cast<uint32_t*>(&v);
   }
 }
+
+// gemm's kActA for an activation (not the identity) on the A operand in a
+// build for the codes below kCodes, given with_act_code's kCode: the code
+// for selu, gelu, sigmoid or tanh, else 1 (relu, leaky relu) or 2 (silu too)
+template <int kCodes, int kCode>
+constexpr int kActAOf = kCode != kActAtRunTime ? kCode : kCodes > kActSilu ? 2 : 1;
 
 // x (float32 bits) rounded to TF32 (10 mantissa bits, the low 13 bits
 // zero), to nearest with ties away from zero: cvt.rna.tf32.f32's result for
@@ -496,7 +512,7 @@ __device__ __forceinline__ void gemm(const T* A, int lda, const T* B, int ldb, i
       }
       if constexpr (kActA != 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = act_word<T, kActA == 2>(a[i], act_a);
+        for (int i = 0; i < 4; ++i) a[i] = act_word<T, kActA>(a[i], act_a);
       }
       const AFrag<T> af(a);
       if (two) {
@@ -674,9 +690,9 @@ __device__ __forceinline__ void gate_logits(const Smem<T>& s, const Geom& g, con
 // s.wso (the first Wso chunk; the further ones, for float32 layers with
 // K > kChunkK, are copied here from the layer's image, and the last stays
 // in s.wso).  wso_free() runs once Wso's buffer is no longer read (it may
-// start copying the next layer's Wso there).  kSilu: the stack uses silu
-// (edge_stack.cuh uses_silu).
-template <typename T, int R, bool kSilu, typename Hook>
+// start copying the next layer's Wso there).  The layer's activation codes
+// are below kCodes (edge_stack.cuh ActCode).
+template <typename T, int R, int kCodes, typename Hook>
 __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Layer& L, const char* image,
                                      Hook wso_free) {
   constexpr bool kWT = kWeightsT<T>;
@@ -736,7 +752,9 @@ __device__ inline void layer_forward(const Smem<T>& s, const Geom& g, const Laye
   if (L.vgate && kK2Products) {
     // G = act_v(S) @ Wg + bg
     if (L.act_v) {
-      gate_logits<kSilu ? 2 : 1, T, R>(s, g, L);
+      with_act_code<kCodes>(L.act_v, [&](auto code) {
+        gate_logits<kActAOf<kCodes, decltype(code)::value>, T, R>(s, g, L);
+      });
     } else {
       gate_logits<0, T, R>(s, g, L);
     }
@@ -763,42 +781,56 @@ __device__ __forceinline__ void scalar_output(const Smem<T>& s, const Geom& g, c
 
 // Layer L's output written over (ResGCP: added to) the state in M and X
 // (rounded to T), and, unless slot is null, copied to slot ([R][s_out]
-// scalars, then [3R][v_out] vectors).  kSilu as layer_forward's.
-template <typename T, int R, bool kSilu>
+// scalars, then [3R][v_out] vectors).  kCodes as layer_forward's.
+template <typename T, int R, int kCodes>
 __device__ inline void layer_output(const Smem<T>& s, const Geom& g, const Layer& L, bool add, T* slot) {
   if constexpr (!kK2Elementwise) {
     __syncthreads();
     return;
   }
   T* slot_v = slot ? slot + R * L.s_out : nullptr;
-  for (int i = threadIdx.x; i < R * L.v_out; i += kThreads) {
-    const int r = i / L.v_out, o = i - r * L.v_out;
-    float u[3];
+  // the vector loop, with the norm gate's act_v resolved once (codes 4-7
+  // in a build for every code; the others read at run time)
+  with_act_code<kCodes>(L.vgate ? kActIdentity : L.act_v, [&](auto code) {
+    for (int i = threadIdx.x; i < R * L.v_out; i += kThreads) {
+      const int r = i / L.v_out, o = i - r * L.v_out;
+      float u[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      u[c] = f(s.U[(r * 3 + c) * g.ldv + o]) + (L.vres ? f(s.X[(r * 3 + c) * g.ldx + o]) : 0.f);
-    float gt = 1.f;
-    if (L.vgate) {
-      gt = sigmoid(f(s.G[r * g.ldv + o]));
-    } else if (L.act_v) {
-      gt = act<kSilu>(sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps) + kEps, L.act_v, L.slope);
-    }
+      for (int c = 0; c < 3; ++c)
+        u[c] = f(s.U[(r * 3 + c) * g.ldv + o]) + (L.vres ? f(s.X[(r * 3 + c) * g.ldx + o]) : 0.f);
+      float gt = 1.f;
+      if (L.vgate) {
+        gt = sigmoid(f(s.G[r * g.ldv + o]));
+      } else if (L.act_v) {
+        const float n = sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + kEps) + kEps;
+        if constexpr (decltype(code)::value == kActAtRunTime) {
+          gt = act_of_code<(kCodes < kActSelu ? kCodes : kActSelu)>(n, L.act_v, L.slope);
+        } else {
+          gt = act<decltype(code)::value>(n, L.slope);
+        }
+      }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      T* x = s.X + (r * 3 + c) * g.ldx + o;
-      store_f(x, (add ? f(*x) : 0.f) + u[c] * gt);
-      if (slot) slot_v[(r * 3 + c) * L.v_out + o] = *x;
+      for (int c = 0; c < 3; ++c) {
+        T* x = s.X + (r * 3 + c) * g.ldx + o;
+        store_f(x, (add ? f(*x) : 0.f) + u[c] * gt);
+        if (slot) slot_v[(r * 3 + c) * L.v_out + o] = *x;
+      }
     }
-  }
-  if (L.act_s == 1) {
-    scalar_output<1, T, R>(s, g, L, add, slot);
-  } else if (L.act_s == 2) {
-    scalar_output<2, T, R>(s, g, L, add, slot);
-  } else if (kSilu && L.act_s == 3) {
-    scalar_output<3, T, R>(s, g, L, add, slot);
-  } else {
-    scalar_output<0, T, R>(s, g, L, add, slot);
-  }
+  });
+  with_act_code<kCodes>(L.act_s, [&](auto code) {
+    constexpr int kCode = decltype(code)::value;
+    if constexpr (kCode != kActAtRunTime) {
+      scalar_output<kCode, T, R>(s, g, L, add, slot);
+    } else if (L.act_s == kActRelu) {
+      scalar_output<kActRelu, T, R>(s, g, L, add, slot);
+    } else if (L.act_s == kActLeaky) {
+      scalar_output<kActLeaky, T, R>(s, g, L, add, slot);
+    } else if (kCodes > kActSilu && L.act_s == kActSilu) {
+      scalar_output<kActSilu, T, R>(s, g, L, add, slot);
+    } else {
+      scalar_output<kActIdentity, T, R>(s, g, L, add, slot);
+    }
+  });
   __syncthreads();
 }
 

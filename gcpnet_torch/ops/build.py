@@ -45,6 +45,9 @@ SIGNATURES = {
         "gcp_edge_map_bwd_tc_tile": [_P, _I, _I, _P],
     },
 }
+# K3's kernels for stacks with selu, gelu, sigmoid or tanh: the same source
+# and entry points, built apart (csrc/edge_map_bwd_tc_all.cu)
+SIGNATURES["edge_map_bwd_tc_all"] = SIGNATURES["edge_map_bwd_tc"]
 RESTYPES = {"gcp_edge_map_bwd_tc_image_bytes": _LL, "gcp_edge_map_tc_image_bytes": _LL}
 
 

@@ -12,7 +12,8 @@ depend on no parameter), and it raises if they require one.
 It replaces the two kernels of ``gcpnet_tpu/ops/pallas_fused.py``: the
 forward (``_map_impl``) on CUDA tensors launches ``csrc/edge_map_tc.cu``
 (K2: every product on the tensor cores, bf16 operands with float32
-accumulators as the JAX kernel computes, or float32 as split TF32), the
+accumulators as the JAX kernel computes, or float32 as split TF32; every
+activation ``get_nonlinearity`` names, in float32), the
 backward (``_map_bwd``) launches ``csrc/edge_map_bwd_tc.cu`` (K3, both
 dtypes), which recomputes the stack per tile of rows on the same
 tensor-core layer body as K2, so it rebuilds K2's state exactly.  On CPU
@@ -43,13 +44,21 @@ from gcpnet_torch.ops.build import library
 from gcpnet_torch.ops.segment_sorted import DTYPE_CODES
 
 EPS = 1e-8
-MAX_LAYERS = 16  # csrc/edge_stack.cuh kMaxLayers
+MAX_LAYERS = 32  # csrc/edge_stack.cuh kMaxLayers
 CUDA_ERROR_INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
 # the activations the kernels implement, by their code in the layer table
-# (csrc/edge_stack.cuh act and act_grad); silu is x sigmoid(x), as
-# jax.nn.silu, and "swish" its other name
-KERNEL_ACTIVATIONS = {None: 0, "relu": 1, "leakyrelu": 2, "silu": 3, "swish": 3}
-KINKED_ACTIVATIONS = ("relu", "leakyrelu")  # a kink at 0: the gradient steps there
+# (csrc/edge_stack.cuh ActCode): every name of nn.primitives.get_nonlinearity,
+# as the JAX package defines it ("swish" is silu's other name, gelu its tanh
+# form); codes 3-7 are the transcendental ones
+KERNEL_ACTIVATIONS = {
+    None: 0, "relu": 1, "leakyrelu": 2, "silu": 3, "swish": 3, "selu": 4, "gelu": 5, "sigmoid": 6, "tanh": 7,
+}
+# K3's kernels for stacks with a code from selu's on (csrc/edge_stack.cuh
+# kActSelu) are a library of their own, built beside the others
+K3_EVERY_CODE_FROM = 4
+# a kink at 0, where the gradient steps: relu 0 -> 1, leaky relu slope -> 1,
+# selu 1.7581 (at and below 0) -> 1.0507
+KINKED_ACTIVATIONS = ("relu", "leakyrelu", "selu")
 WEIGHT_NAMES = ("w_down", "w_so", "b_so", "w_up", "w_gate", "b_gate")
 
 
@@ -247,9 +256,10 @@ def edge_map_backward_plain(
     return d_message, d_weights
 
 
-# Kinks at 0 (relu, and leaky relu, whose gradient steps by 1 - slope
-# there).  K3 in float32 and its plain version compute each pre-activation
-# in a different order (split TF32 against float32 FMAs), so one within
+# Kinks at 0 (relu, leaky relu, whose gradient steps by 1 - slope there,
+# and selu, whose gradient steps from scale alpha to scale).  K3 in float32
+# and its plain version compute each pre-activation in a different order
+# (split TF32 against float32 FMAs), so one within
 # their rounding of 0 can fall on different sides of the kink in the two,
 # and the row's gradient then differs by O(1).  Their rounding leaves
 # the other rows ~1e-6 of scale apart, so a pre-activation whose kink margin
@@ -269,8 +279,8 @@ def max_kink_rows(rows: int) -> int:
 
 
 def kink_margins(message: Tensor, frames: Tensor, stack: PackedStack) -> Tensor:
-    """Each row's kink margin ``[E]``: the least, over every relu or leaky
-    relu of the stack, of ``|pre-activation| / (the sum of its terms'
+    """Each row's kink margin ``[E]``: the least, over every relu, leaky
+    relu or selu of the stack (KINKED_ACTIVATIONS), of ``|pre-activation| / (the sum of its terms'
     magnitudes)``, from the plain version recomputed in float64 (its
     activations, square roots and sigmoids in float32).  How near the row
     lies to a kink (``inf`` where the stack has no kinked activation)."""
@@ -391,11 +401,19 @@ def k2_layout(stack: PackedStack, dtype: torch.dtype, lib=None) -> Tuple[int, in
     return out[0], out[1], out[2]
 
 
+def k3_library(stack: PackedStack) -> str:
+    """The kernel library K3 runs ``stack`` in: ``edge_map_bwd_tc``, or for
+    a stack with selu, gelu, sigmoid or tanh ``edge_map_bwd_tc_all`` (the
+    same source built for every code, csrc/edge_map_bwd_tc_all.cu)."""
+    codes = [KERNEL_ACTIVATIONS.get(_act_name(name), -1) for layer in stack.layers for name in (layer.act_s, layer.act_v)]
+    return "edge_map_bwd_tc_all" if max(codes) >= K3_EVERY_CODE_FROM else "edge_map_bwd_tc"
+
+
 def k3_tile(stack: PackedStack, dtype: torch.dtype, lib=None) -> Tuple[int, int]:
     """K3's ``(tile rows, shared-memory bytes)`` for ``stack`` in ``dtype``:
     64 bf16 or 32 float32 rows, half as many for a stack too wide for them
     (AR's); raises for a stack too wide for either."""
-    lib = lib or library("edge_map_bwd_tc")
+    lib = lib or library(k3_library(stack))
     smem = ctypes.c_longlong(0)
     rows = lib.gcp_edge_map_bwd_tc_tile(stack.meta.ctypes.data, stack.meta.size, DTYPE_CODES[dtype], ctypes.byref(smem))
     if rows < 0:
@@ -408,8 +426,9 @@ def k3_tile(stack: PackedStack, dtype: torch.dtype, lib=None) -> Tuple[int, int]
 
 
 def launch_backward(message: Tensor, frames: Tensor, stack: PackedStack, grad_out: Tensor, lib=None):
-    """Launch K3 (``csrc/edge_map_bwd_tc.cu``, or the build ``lib`` of it)
-    on checked CUDA tensors: ``(d message, d weights)``.  Each persistent
+    """Launch K3 (``csrc/edge_map_bwd_tc.cu``, its build for ``stack``'s
+    codes, :func:`k3_library`, or the build ``lib``) on checked CUDA
+    tensors: ``(d message, d weights)``.  Each persistent
     block has its own float32 weight-gradient partial and a scratch, in the
     input dtype, for each layer's input state; the weights go to the kernel
     once per call as per-layer images (bf16, or float32 transposed); the tile
@@ -419,7 +438,7 @@ height is :func:`k3_tile`'s."""
     d_message = torch.empty_like(message)
     if e == 0:
         return d_message, torch.zeros_like(stack.weights)
-    lib = lib or library("edge_map_bwd_tc")
+    lib = lib or library(k3_library(stack))
     d_weights = torch.empty(stack.weights.shape, dtype=torch.float32, device=dev)
     code = DTYPE_CODES[message.dtype]
     tile, _ = k3_tile(stack, message.dtype, lib)

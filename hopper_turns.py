@@ -9,9 +9,10 @@ forward with each.
 Needs the card.  Builds this tree's edge_map_tc.cu and edge_map_bwd_tc.cu
 and the parent's (nvcc -Xptxas -v, all four at once), then:
 
-- K2 and K3 bf16 at each cell's rows and message stack (LBA 208,896 rows and
-  PSR 524,288 on LBA's stack, CPD 61,440 on CPD's, EQ 262,144 on EQ's, AR
-  622,592 on AR's), random inputs from the seed: parent, this, this, parent
+- K2 and K3 bf16 (or the --dtype types) at each cell's rows and message
+  stack (LBA 208,896 rows and PSR 524,288 on LBA's stack, CPD 61,440 on
+  CPD's, EQ 262,144 on EQ's, AR 622,592 on AR's), random inputs from the
+  seed: parent, this, this, parent
   by CUDA events; each kernel's bound (chip_smoke.route_bound_ms) and its
   share; the tile rows and shared memory of each; this tree's K2 held to
   chip_smoke.TOL against the plain version;
@@ -22,7 +23,8 @@ and the parent's (nvcc -Xptxas -v, all four at once), then:
   its device busy ms (chip_smoke.device_profile).
 
 Prints one JSON line of the builds' ptxas registers and spills, one per
-cell, one for the step and forward, then the card's name and power limit.
+cell, one for the step and forward, then the card's name and power limit;
+each build's whole ptxas report goes to logs/hopper_turns/ptxas_<source>_<version>.txt.
 """
 
 from __future__ import annotations
@@ -70,6 +72,8 @@ def build_all(parent: str) -> tuple:
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {version} {name}:\n{text}")
+        with open(os.path.join(OUT_DIR, f"ptxas_{name}_{version}.txt"), "w") as f:
+            f.write(text)
         usage[f"{version}/{name}"] = sorted(
             {ln.strip() for ln in text.splitlines()
              if "registers" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln)})
@@ -85,10 +89,11 @@ def turns(calls: dict, iters: int) -> dict:
     return {name: {"ms": sum(t) / len(t), "ms_turns": t} for name, t in times.items()}
 
 
-def cell(name: str, rows, make, libs: dict) -> dict:
+def cell(name: str, rows, make, libs: dict, dname: str = "bf16") -> dict:
     batch = synthetic_batches(1, chip_smoke.GRAPHS, chip_smoke.NODES, chip_smoke.EDGES_PER_NODE, chip_smoke.SEED)[0]
     e = rows or batch.num_edges
-    dtype = torch.bfloat16
+    dtype = chip_smoke.DTYPES[dname]
+    es = torch.finfo(dtype).bits // 8
     mp = make()
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 5)
     with torch.no_grad():
@@ -98,21 +103,21 @@ def cell(name: str, rows, make, libs: dict) -> dict:
     message[: e // 8, stack.layers[0].dims[0]:] = 0.0
     frames = (torch.rand((e, 9), generator=gen, device="cuda") * 2 - 1).to(dtype)
     grad_out = torch.randn((e, stack.out_dim), generator=gen, device="cuda").to(dtype)
-    out = {"rows": e, "shape": [e, stack.in_dim, stack.out_dim]}
+    out = {"rows": e, "dtype": dname, "shape": [e, stack.in_dim, stack.out_dim]}
     flops = e * chip_smoke.stack_flops(stack)
     w = stack.weights.numel()
     with torch.no_grad():
         got = em.launch_forward(message, frames, stack, lib=libs["this"]["edge_map_tc"])
         err, rel = chip_smoke.rel_err(got, em.edge_map_plain(message, frames, stack))
-        chip_smoke.check(rel <= chip_smoke.TOL[("K2", "bf16")], f"{name} K2: rel err {rel:.3g}")
+        chip_smoke.check(rel <= chip_smoke.TOL[("K2", dname)], f"{name} K2: rel err {rel:.3g}")
         del got
         k2 = turns({v: (lambda v=v: em.launch_forward(message, frames, stacks[v], lib=libs[v]["edge_map_tc"]))
                     for v in libs}, iters=10)
     k3 = turns({v: (lambda v=v: em.launch_backward(message, frames, stacks[v], grad_out,
                                                    lib=libs[v]["edge_map_bwd_tc"])) for v in libs}, iters=5)
     for kernel, res, nbytes, ops in (
-        ("K2", k2, e * (stack.in_dim + 9 + stack.out_dim) * 2 + w * 4, flops),
-        ("K3", k3, e * (2 * stack.in_dim + 9 + stack.out_dim) * 2 + 2 * w * 4, 3 * flops),
+        ("K2", k2, e * (stack.in_dim + 9 + stack.out_dim) * es + w * 4, flops),
+        ("K3", k3, e * (2 * stack.in_dim + 9 + stack.out_dim) * es + 2 * w * 4, 3 * flops),
     ):
         b_ms, b_by, _ = chip_smoke.route_bound_ms(nbytes, ops, dtype)
         for v, r in res.items():
@@ -155,6 +160,8 @@ def main() -> int:
     parser.add_argument("parent", help="a parent commit's gcpnet_torch/csrc directory")
     parser.add_argument("--cells", default=",".join(CELLS), help="comma-separated cells (default: all five)")
     parser.add_argument("--no-step", action="store_true", help="skip the captured LBA step and forward")
+    parser.add_argument("--dtype", default="bf16",
+                        help="comma-separated input types of the kernels, bf16 and fp32 (split TF32); default bf16")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("hopper_turns: needs a CUDA device", file=sys.stderr)
@@ -163,10 +170,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     libs, usage = build_all(args.parent)
     print(json.dumps({"ptxas": usage}), flush=True)
-    for name in args.cells.split(","):
-        rows, make = CELLS[name]
-        print(json.dumps({"cell": name, **cell(name, rows, make, libs)}), flush=True)
-        torch.cuda.empty_cache()
+    for dname in args.dtype.split(","):
+        for name in args.cells.split(","):
+            rows, make = CELLS[name]
+            print(json.dumps({"cell": name, **cell(name, rows, make, libs, dname)}), flush=True)
+            torch.cuda.empty_cache()
     if not args.no_step:
         runs = {}
         for version in ("this", "parent", "parent", "this"):

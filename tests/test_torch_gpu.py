@@ -11,6 +11,7 @@ Without a CUDA device every test skips.
 
 import dataclasses
 import itertools
+import math
 
 import numpy as np
 import pytest
@@ -157,6 +158,19 @@ SILU_SETTINGS = {
     "silu_gate": ModuleCfg(selected_gcp="GCP3", scalar_nonlinearity="silu", vector_nonlinearity="silu"),
     "silu_norm": ModuleCfg(scalar_nonlinearity="silu", vector_nonlinearity="silu", vector_gate=False),
 }
+
+
+# the transcendental codes the layer table took last (selu, gelu, sigmoid, tanh), each as
+# the scalar activation and as the vector one, under both gates:
+# chip_smoke.py's acts phase's four stacks
+TRANSCENDENTAL_SETTINGS = {
+    "gelu_sigmoid_gate": ModuleCfg(scalar_nonlinearity="gelu", vector_nonlinearity="sigmoid"),
+    "selu_tanh_gate": ModuleCfg(scalar_nonlinearity="selu", vector_nonlinearity="tanh"),
+    "sigmoid_gelu_norm": ModuleCfg(scalar_nonlinearity="sigmoid", vector_nonlinearity="gelu", vector_gate=False),
+    "tanh_selu_norm": ModuleCfg(scalar_nonlinearity="tanh", vector_nonlinearity="selu", vector_gate=False),
+}
+# every name of nn.primitives.get_nonlinearity (the JAX package's table)
+EVERY_ACTIVATION = ["relu", "leakyrelu", "selu", "silu", "swish", "gelu", "sigmoid", "tanh"]
 
 
 def _message_passing(
@@ -406,8 +420,8 @@ def test_k2_k3_match_plain_at_nms_widths(rng, cuda, dtype):
 def _k3_check_with_kink_rule(msg, frames, stack, grad_out):
     """K3 against its plain version.  float32: at 8 layers a row may hold a
     pre-activation within float32 rounding of 0, where the kernel and the
-    plain version take different sides of a kink (relu, or leaky relu,
-    whose derivative steps by 1 - slope) and the row's d message differs
+    plain version take different sides of a kink (relu, leaky relu, whose
+    derivative steps by 1 - slope, or selu) and the row's d message differs
     by O(1).  Each row that parts from the plain version must be such a
     kink (a kink margin under KINK_MARGIN in float64), and no more than
     max_kink_rows of them (ops/edge_map.py gives the reasons, as in
@@ -495,16 +509,19 @@ def test_k3_is_deterministic(rng, cuda, settings, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("where", ["message", "weight"])
-@pytest.mark.parametrize("settings", ["production", "leaky_gate"])
+@pytest.mark.parametrize("settings", ["production", "leaky_gate", *sorted(TRANSCENDENTAL_SETTINGS)])
 def test_k2_k3_keep_nans(rng, cuda, settings, where, dtype):
     """A NaN of the card's own form (every mantissa bit set) in one message
     row or in one weight: K2's output is a NaN exactly where the plain
     version's is, and K3's results wherever the plain backward's are (K3
     takes relu's derivative at a NaN as 0, as JAX does, where torch passes
     the cotangent on, so its NaNs may spread further; leaky relu's is the
-    slope in both)."""
+    slope in both; selu's is a NaN, as JAX's, where torch's is the scale;
+    the other transcendental codes' a NaN in both).  Each transcendental
+    code as the scalar and as the vector activation, under both gates."""
     with torch.no_grad():
-        stack = _message_passing(ACTIVATION_SETTINGS[settings]).to(cuda, dtype).packed_stack()
+        cfg = {**ACTIVATION_SETTINGS, **TRANSCENDENTAL_SETTINGS}[settings]
+        stack = _message_passing(cfg).to(cuda, dtype).packed_stack()
         e = 300
         msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
         if where == "message":  # the last vector column of row 5
@@ -822,12 +839,42 @@ def test_k1_k2_k3_match_plain_at_a_psr_batch(rng, cuda, tmp_path, dtype):
     _k3_check_with_kink_rule(msg, frames, stack, grad_out)
 
 
-def test_k2_cuda_rejects_unsupported_activation(cuda):
-    """gelu is outside the kernels' table (silu joined it with AR)."""
-    stack = _message_passing(ModuleCfg(scalar_nonlinearity="gelu")).to(cuda).packed_stack()
+def test_k2_k3_run_a_gelu_stack(rng, cuda):
+    """A stack with gelu on the scalars (sigmoid in the vector gate) goes
+    through K2 and K3, as the JAX package's Pallas edge map takes it: the
+    wrappers count one launch each, and the result and the gradients match
+    the plain version (fp32, K3 leaf by leaf at K3_FP32_LEAF_TOL)."""
+    stack = _message_passing(TRANSCENDENTAL_SETTINGS["gelu_sigmoid_gate"]).to(cuda).packed_stack()
+    assert {layer.act_s for layer in stack.layers} == {"gelu", None}
+    e = 1000
+    msg, frames = _stack_inputs(rng, stack, e, torch.float32, cuda)
+    msg.requires_grad_()
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda)
+    before = (edge_map.launches, edge_map_backward.launches)
+    out = edge_map(msg, frames, stack)
+    d_msg, d_w = torch.autograd.grad(out, (msg, stack.weights), grad_out)
+    assert (edge_map.launches, edge_map_backward.launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        want = edge_map_plain(msg, frames, stack)
+    want_msg, want_w = edge_map_backward_plain(msg.detach(), frames, stack, grad_out)
+    assert _max_rel_err(out.detach(), want) <= 1e-4
+    assert _max_rel_err(d_msg, want_msg) <= 1e-4 and _max_rel_err(d_w, want_w) <= 1e-4
+    leaves = _k3_leaf_errs(d_msg, d_w, want_msg, want_w, stack)
+    assert max(leaves.values()) <= K3_FP32_LEAF_TOL, leaves
+
+
+def test_edge_map_refuses_an_activation_outside_the_table(rng, cuda):
+    """A name outside get_nonlinearity's table (and so outside the kernels'
+    layer table) raises on the card, naming it, in K2 and in K3."""
+    stack = _message_passing(ModuleCfg()).to(cuda).packed_stack()
+    layers = (dataclasses.replace(stack.layers[0], act_s="mish"), *stack.layers[1:])
+    stack = pack_stack(layers, stack.residual)
     msg = torch.zeros((8, stack.in_dim), device=cuda)
-    with pytest.raises(NotImplementedError, match="gelu.*silu"):
-        edge_map(msg, torch.zeros((8, 9), device=cuda), stack)
+    frames = torch.zeros((8, 9), device=cuda)
+    with pytest.raises(NotImplementedError, match="'mish'.*tanh"):
+        edge_map(msg, frames, stack)
+    with pytest.raises(NotImplementedError, match="'mish'"):
+        edge_map_backward(msg, frames, stack, torch.zeros((8, stack.out_dim), device=cuda))
 
 
 def test_predict_on_card_matches_cpu(cuda):
@@ -1285,27 +1332,45 @@ def test_k2_k3_silu_match_plain_at_ar_widths(rng, cuda, dtype):
     _k3_check_with_kink_rule(msg, frames, stack, grad_out)
 
 
-@pytest.mark.parametrize("residual", [True, False])
-@pytest.mark.parametrize("gate", ["vector", "norm"])
-@pytest.mark.parametrize("act", ["relu", "leakyrelu", "silu"])
-def test_k2_k3_bf16_every_act_and_gate(rng, cuda, act, gate, residual):
-    """bf16 K2 and K3 with each act code on the scalars and the vectors (the
-    stacks' last layers take the identity), in the vector gate (the gate
-    product applies act_v to its A operand) and in the norm gate, with and
-    without ResGCP's residual: K2 against its plain version, K3 leaf by leaf
-    (K3_BF16_LEAF_TOL), on 1,000 rows."""
+def _check_act_and_gate(rng, cuda, act, gate, residual, dtype):
+    """K2 against its plain version and K3 under the kink rule, with act on
+    the scalars and the vectors (the stacks' last layers take the
+    identity), in the vector gate (the gate product applies act_v to its A
+    operand) or in the norm gate, on 1,000 rows."""
     cfg = ModuleCfg(scalar_nonlinearity=act, vector_nonlinearity=act, vector_gate=gate == "vector")
     with torch.no_grad():
-        stack = _message_passing(cfg, residual=residual).to(cuda, torch.bfloat16).packed_stack()
+        stack = _message_passing(cfg, residual=residual).to(cuda, dtype).packed_stack()
     assert {layer.act_s for layer in stack.layers} == {act, None}
     e = 1000
-    msg, frames = _stack_inputs(rng, stack, e, torch.bfloat16, cuda)
+    msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
     with torch.no_grad():
         got = edge_map(msg, frames, stack)
         want = edge_map_plain(msg, frames, stack)
-    assert bool(torch.isfinite(got).all()) and _max_rel_err(got, want) <= K2_BF16_TOL
-    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, torch.bfloat16)
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel_err(got, want) <= (K2_FP32_ATOL if dtype == torch.float32 else K2_BF16_TOL)
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
     _k3_check_with_kink_rule(msg, frames, stack, grad_out)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("gate", ["vector", "norm"])
+@pytest.mark.parametrize("act", EVERY_ACTIVATION)
+def test_k2_k3_bf16_every_act_and_gate(rng, cuda, act, gate, residual):
+    """bf16 K2 and K3 with every activation name, under both gates, with
+    and without ResGCP's residual (_check_act_and_gate: K3 leaf by leaf,
+    K3_BF16_LEAF_TOL)."""
+    _check_act_and_gate(rng, cuda, act, gate, residual, torch.bfloat16)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("gate", ["vector", "norm"])
+@pytest.mark.parametrize("act", EVERY_ACTIVATION)
+def test_k2_k3_fp32_every_act_and_gate(rng, cuda, act, gate, residual):
+    """float32 K2 (max abs 1e-4 of max(1, max |plain|)) and K3 under the
+    kink rule (relu, leaky relu and selu's kinks; every other row and leaf
+    at 1e-4) with every activation name, under both gates, with and
+    without ResGCP's residual."""
+    _check_act_and_gate(rng, cuda, act, gate, residual, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1321,6 +1386,31 @@ def test_k2_k3_silu_norm_gate_match_plain(rng, cuda, dtype):
         got = edge_map(msg, frames, stack)
         want = edge_map_plain(msg, frames, stack)
     assert _max_rel_err(got, want) <= (1e-4 if dtype == torch.float32 else K2_BF16_TOL)
+    grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
+    _k3_check_with_kink_rule(msg, frames, stack, grad_out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("settings", ["production", "gelu_sigmoid_gate"])
+def test_k2_k3_match_plain_at_20_layers(rng, cuda, settings, dtype):
+    """A 20-layer ResGCP2 stack at the small widths (the layer table takes
+    up to 32; it took 16 before): K2 against its plain version, K3 under
+    the kink rule, on 1,000 rows; K3's scratch holds 19 layers' input
+    state a tile.  bf16 K2 parts from its plain version by a few bf16
+    roundings a layer, which add up like a random walk: K2_BF16_TOL, set
+    at 8 layers, times sqrt(20 / 8) (on the H100 the gelu stack read
+    0.0214, the relu one less)."""
+    cfg = {**ACTIVATION_SETTINGS, **TRANSCENDENTAL_SETTINGS}[settings]
+    with torch.no_grad():
+        stack = _message_passing(cfg, num_message_layers=20).to(cuda, dtype).packed_stack()
+    assert len(stack.layers) == 20
+    e = 1000
+    msg, frames = _stack_inputs(rng, stack, e, dtype, cuda)
+    with torch.no_grad():
+        got = edge_map(msg, frames, stack)
+        want = edge_map_plain(msg, frames, stack)
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel_err(got, want) <= (K2_FP32_ATOL if dtype == torch.float32 else K2_BF16_TOL * math.sqrt(20 / 8))
     grad_out = torch.from_numpy(rng.normal(size=(e, stack.out_dim)).astype(np.float32)).to(cuda, dtype)
     _k3_check_with_kink_rule(msg, frames, stack, grad_out)
 
